@@ -1,0 +1,22 @@
+"""fl_tpu_torch — the PyTorch/CUDA port of fl_tpu for NVIDIA Hopper.
+
+``fl_tpu`` (JAX, Pallas on a TPU) stays the reference; this package
+mirrors its subpackage and module names so each counterpart is easy to
+find, and imports torch and never JAX:
+
+- ``fl_tpu_torch.core``          PrivacyConfig, random streams, tree helpers
+- ``fl_tpu_torch.data``          datasets and device-resident client shards
+- ``fl_tpu_torch.models``        SimpleCNN over stacked clients + factory
+- ``fl_tpu_torch.ops``           hand-written Hopper kernels with their
+                                 plain PyTorch versions: the fused conv
+                                 segment (CUDA C++, ``csrc/``) and the DP
+                                 clip+noise (Triton)
+- ``fl_tpu_torch.fl``            local training, delta DP, FedAvg,
+                                 convergence, partitioning
+- ``fl_tpu_torch.orchestration`` the round engine
+
+Parameters keep the JAX layouts and flax names; client state is stacked
+``(C, ...)`` tensors with the client axis written out.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,14 @@
+"""Datasets and device-resident federated shards (port of fl_tpu.data)."""
+
+from fl_tpu_torch.data.datasets import (  # noqa: F401
+    DatasetSplits,
+    load_dataset,
+    MNIST_MEAN,
+    MNIST_STD,
+    CIFAR10_MEAN,
+    CIFAR10_STD,
+)
+from fl_tpu_torch.data.federated import (  # noqa: F401
+    FederatedArrays,
+    make_federated_arrays,
+)

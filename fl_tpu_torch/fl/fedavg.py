@@ -1,0 +1,35 @@
+"""Sample-weighted FedAvg over the stacked client axis (port of the device
+path of ``fl_tpu.fl.fedavg`` and the non-FedNova combine of the round
+engine)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def normalized_client_weights(num_samples: torch.Tensor,
+                              mask: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """wₖ = maskₖ·nₖ / Σ maskⱼ·nⱼ (ref: _calculate_sample_weights,
+    src/aggregation/fedavg.py:247-256), uniform over the mask when every
+    weighted count is zero."""
+    n = num_samples.float()
+    m = torch.ones_like(n) if mask is None else mask.float()
+    weighted = n * m
+    total = weighted.sum()
+    uniform = m / torch.clamp(m.sum(), min=1.0)
+    return torch.where(total > 0, weighted / torch.clamp(total, min=1e-12),
+                       uniform)
+
+
+def fedavg_delta(global_tree, stacked_tree, weights: torch.Tensor):
+    """global + Σₖ wₖ·(θₖ − global), leaf by leaf: non-participants
+    (weight 0) leave the global model where it was."""
+    return {
+        l: {k: (g + torch.tensordot(weights, (stacked_tree[l][k] - g[None])
+                                    .float(), dims=1)).to(g.dtype)
+            for k, g in leaves.items()}
+        for l, leaves in global_tree.items()
+    }

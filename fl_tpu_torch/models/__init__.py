@@ -1,0 +1,9 @@
+"""Models over stacked clients (port of fl_tpu.models)."""
+
+from fl_tpu_torch.models.factory import AVAILABLE_MODELS, create_model  # noqa: F401
+from fl_tpu_torch.models.simple_cnn import (  # noqa: F401
+    SimpleCNN,
+    count_params,
+    params_from_flax,
+    params_to_flax,
+)

@@ -1,0 +1,19 @@
+"""Hand-written Hopper kernels, each beside its plain PyTorch version.
+
+A CUDA tensor launches the kernel (or the launcher raises); a CPU tensor
+takes the plain version. Each launcher adds one to its count in
+:func:`launch_counts` where it launches, and nowhere else.
+"""
+
+from fl_tpu_torch.ops import conv_block, dp
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last :func:`reset_launch_counts`."""
+    return {**conv_block.LAUNCHES, **dp.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    for counts in (conv_block.LAUNCHES, dp.LAUNCHES):
+        for k in counts:
+            counts[k] = 0

@@ -1,0 +1,242 @@
+"""One round of the port's engine vs fl_tpu's FederatedRoundEngine, and the
+port's round loop, data copies and import boundary.
+
+Engine parity takes the random draws out of the comparison: dropout 0;
+``samples_per_client == batch_size == 16``, so each epoch is one
+full-batch step and the shuffle cannot change it; ε = 1e9, so the clip is
+exercised and the noise is negligible. The port starts from the JAX
+engine's initial parameters. Tolerances: in bf16 the reference's own
+one-round tolerances for two formulations of the segment (params rtol
+2e-2 / atol 1e-3, train_loss rtol 5e-2, tests/test_conv_block_engine.py);
+in f32 at least 99.9% of parameter elements within 1e-5 and all within
+lr (f32 sums in another order can move an Adam step on a few elements).
+"""
+
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fl_tpu.core.types import PrivacyConfig as JaxPrivacyConfig
+from fl_tpu.data import load_dataset as jax_load_dataset
+from fl_tpu.data import make_federated_arrays as jax_make_arrays
+from fl_tpu.fl.local_training import \
+    FederatedTrainingConfig as JaxTrainingConfig
+from fl_tpu.fl.partition import partition_indices as jax_partition
+from fl_tpu.models import create_model as jax_create_model
+from fl_tpu.orchestration import FederatedRoundEngine as JaxEngine
+from fl_tpu.orchestration import RoundEngineConfig as JaxConfig
+from fl_tpu_torch.core.types import PrivacyConfig
+from fl_tpu_torch.data import load_dataset, make_federated_arrays
+from fl_tpu_torch.fl.local_training import FederatedTrainingConfig
+from fl_tpu_torch.fl.partition import partition_indices
+from fl_tpu_torch.fl.privacy import PrivacyError
+from fl_tpu_torch.models import create_model, params_from_flax, params_to_flax
+from fl_tpu_torch.orchestration import FederatedRoundEngine, RoundEngineConfig
+
+LR = 1e-3
+
+
+def _engines(dtype_name, participation_rate=1.0, num_clients=4):
+    jdt, tdt = {"bf16": (jnp.bfloat16, torch.bfloat16),
+                "f32": (jnp.float32, torch.float32)}[dtype_name]
+    state = "bfloat16" if dtype_name == "bf16" else None
+    common = dict(dp_mode="delta", min_clients=2, seed=0,
+                  participation_rate=participation_rate)
+    jarr = jax_make_arrays(jax_load_dataset("mnist", n_train_synth=256,
+                                            n_test_synth=64),
+                           num_clients=num_clients, strategy="iid",
+                           samples_per_client=16, seed=0)
+    tarr = make_federated_arrays(load_dataset("mnist", n_train_synth=256,
+                                              n_test_synth=64),
+                                 num_clients=num_clients, strategy="iid",
+                                 samples_per_client=16, seed=0)
+    jeng = JaxEngine(
+        jax_create_model("simple_cnn", dtype=jdt, fused_conv_block="residual",
+                         dropout_rate=0.0), jarr,
+        JaxConfig(training=JaxTrainingConfig(
+            local_epochs=2, batch_size=16, learning_rate=LR,
+            optimizer_type="adam", optimizer_state_dtype=state),
+            privacy=JaxPrivacyConfig(epsilon=1e9, delta=1e-5,
+                                     max_grad_norm=1.0), **common))
+    teng = FederatedRoundEngine(
+        create_model("simple_cnn", dtype=tdt, dropout_rate=0.0), tarr,
+        RoundEngineConfig(training=FederatedTrainingConfig(
+            local_epochs=2, batch_size=16, learning_rate=LR,
+            optimizer_state_dtype=state),
+            privacy=PrivacyConfig(epsilon=1e9, delta=1e-5,
+                                  max_grad_norm=1.0), **common))
+    teng.global_variables = {"params": params_from_flax(
+        jax.device_get(jeng.global_variables["params"]))}
+    return jeng, teng
+
+
+def _flat(jeng, teng):
+    jp = jax.device_get(jeng.global_variables["params"])
+    tp = params_to_flax(teng.global_variables["params"])
+    return ({f"{l}/{k}": np.asarray(jp[l][k], np.float32) for l in jp
+             for k in jp[l]},
+            {f"{l}/{k}": tp[l][k] for l in tp for k in tp[l]})
+
+
+def test_round_matches_jax_bf16():
+    jeng, teng = _engines("bf16")
+    jr = jeng.run_round(evaluate=False)
+    tr = teng.run_round(evaluate=False)
+    assert tr.participating_clients == jr.participating_clients == 4
+    np.testing.assert_allclose(tr.train_loss, jr.train_loss, rtol=5e-2)
+    ja, ta = _flat(jeng, teng)
+    assert sorted(ja) == sorted(ta)
+    for k in ja:
+        np.testing.assert_allclose(ta[k], ja[k], rtol=2e-2, atol=1e-3,
+                                   err_msg=k)
+
+
+def test_round_matches_jax_f32():
+    jeng, teng = _engines("f32")
+    jr = jeng.run_round(evaluate=False)
+    tr = teng.run_round(evaluate=False)
+    np.testing.assert_allclose(tr.train_loss, jr.train_loss, rtol=1e-5)
+    np.testing.assert_allclose(tr.epsilon_spent, jr.epsilon_spent)
+    ja, ta = _flat(jeng, teng)
+    diff = np.concatenate([np.abs(ta[k] - ja[k]).ravel() for k in ja])
+    assert (diff <= 1e-5).mean() >= 0.999
+    assert diff.max() <= LR
+
+
+def test_participation_masks_match_jax():
+    jeng, teng = _engines("f32", participation_rate=0.5, num_clients=16)
+    for _ in range(4):
+        np.testing.assert_array_equal(teng.sample_participation(),
+                                      jeng.sample_participation())
+    np.testing.assert_array_equal(teng.sample_participation(exclude=[0, 1]),
+                                  jeng.sample_participation(exclude=[0, 1]))
+
+
+# ---------------------------------------------------------------------------
+# the port's round loop on its own
+# ---------------------------------------------------------------------------
+
+def _port_engine(epsilon=1e9, eps_r=1.0, num_clients=4):
+    arr = make_federated_arrays(load_dataset("mnist", n_train_synth=256,
+                                             n_test_synth=64),
+                                num_clients=num_clients, strategy="iid",
+                                samples_per_client=16, seed=0)
+    return FederatedRoundEngine(
+        create_model("simple_cnn", dropout_rate=0.25), arr,
+        RoundEngineConfig(
+            training=FederatedTrainingConfig(local_epochs=1, batch_size=8),
+            dp_mode="delta", epsilon_per_round=eps_r, delta_per_round=1e-7,
+            privacy=PrivacyConfig(epsilon=epsilon, delta=1e-5)))
+
+
+def test_pipelined_rounds_equal_a_run_round_loop():
+    a, b = _port_engine(), _port_engine()
+    ra = a.run_rounds_pipelined(3)
+    rb = [b.run_round(evaluate=False) for _ in range(3)]
+    assert [r.round_number for r in ra] == [0, 1, 2]
+    assert [r.train_loss for r in ra] == [r.train_loss for r in rb]
+    for l, leaves in a.global_variables["params"].items():
+        for k, v in leaves.items():
+            assert torch.equal(v, b.global_variables["params"][l][k])
+
+
+def test_pipelined_zero_rounds_is_empty():
+    eng = _port_engine()
+    assert eng.run_rounds_pipelined(0) == []
+    assert eng.round_number == 0 and eng.history == []
+
+
+def test_budget_exhaustion_finalizes_every_dispatched_round():
+    """ε = 1 at 0.4 a round admits two rounds; the third dispatch raises,
+    and the round already in flight is finalized exactly once."""
+    eng = _port_engine(epsilon=1.0, eps_r=0.4)
+    with pytest.raises(PrivacyError):
+        eng.run_rounds_pipelined(3)
+    assert [r.round_number for r in eng.history] == [0, 1]
+    assert len(eng.accountant.get_privacy_ledger()) == 2
+    assert eng.budget_tracker.consumed_epsilon == pytest.approx(0.8)
+
+
+def test_evaluate_and_run():
+    splits = load_dataset("mnist", n_train_synth=256, n_test_synth=64)
+    arr = make_federated_arrays(splits, 4, "iid", samples_per_client=16)
+    eng = FederatedRoundEngine(
+        create_model("simple_cnn"), arr, RoundEngineConfig(
+            training=FederatedTrainingConfig(local_epochs=1, batch_size=8)),
+        test_images=splits.normalized(splits.test_images),
+        test_labels=splits.test_labels)
+    hist = eng.run(num_rounds=2)
+    assert len(hist) == 2 and all(r.test_accuracy is not None for r in hist)
+    ev = eng.evaluate()
+    assert 0.0 <= ev["accuracy"] <= 1.0 and np.isfinite(ev["loss"])
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"dp_mode": "dp_sgd"}, {"scaffold": True}, {"fednova": True},
+    {"server_optimizer": "fedadam"}, {"uplink_compression": "int8"},
+    {"secure_aggregation": True}, {"aggregation": "median"},
+], ids=lambda kw: next(iter(kw)))
+def test_unported_features_are_refused(kwargs):
+    name = next(iter(kwargs))
+    with pytest.raises(ValueError, match=name):
+        RoundEngineConfig(**kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"optimizer_type": "sgd"}, {"proximal_mu": 0.01},
+    {"param_storage_dtype": "bfloat16"},
+], ids=lambda kw: next(iter(kw)))
+def test_unported_training_features_are_refused(kwargs):
+    with pytest.raises(ValueError, match=next(iter(kwargs))):
+        FederatedTrainingConfig(**kwargs)
+
+
+def test_delta_dp_needs_a_privacy_config():
+    arr = make_federated_arrays(load_dataset("mnist", n_train_synth=64,
+                                             n_test_synth=8), 2, "iid")
+    with pytest.raises(ValueError, match="PrivacyConfig"):
+        FederatedRoundEngine(create_model("simple_cnn"), arr,
+                             RoundEngineConfig(dp_mode="delta"))
+
+
+# ---------------------------------------------------------------------------
+# the copied numpy modules and the import boundary
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("strategy", ["iid", "non_iid", "pathological"])
+def test_data_copies_are_byte_identical(strategy):
+    js = jax_load_dataset("mnist", n_train_synth=512, n_test_synth=64,
+                          seed=3)
+    ts = load_dataset("mnist", n_train_synth=512, n_test_synth=64, seed=3)
+    for f in ("train_images", "train_labels", "test_images", "test_labels"):
+        assert np.array_equal(getattr(js, f), getattr(ts, f))
+    jp = jax_partition(js.train_labels, 8, strategy, seed=1)
+    tp = partition_indices(ts.train_labels, 8, strategy, seed=1)
+    assert all(np.array_equal(a, b) for a, b in zip(jp, tp))
+    ja = jax_make_arrays(js, 8, strategy, seed=1)
+    ta = make_federated_arrays(ts, 8, strategy, seed=1)
+    for f in ("images", "labels", "num_samples", "mean", "std"):
+        a, b = getattr(ja, f), getattr(ta, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, importlib, pkgutil, fl_tpu_torch\n"
+        "for m in pkgutil.walk_packages(fl_tpu_torch.__path__, "
+        "'fl_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'fl_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len([k for k in sys.modules if k.startswith('fl_tpu_torch')]))"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
