@@ -6,16 +6,44 @@ line each; any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi), TF32 off;
 2. build: the CUDA kernels from ``fl_tpu_torch/csrc`` (nvcc, sm_90a);
-3. kernels vs their plain PyTorch versions on the card, at the bench
-   shapes (512 clients x 32 images, C1=32, C2=64; the DP groups of
-   SimpleCNN) and on small all-tie and statistical cases, each with its
-   tolerance, plus both versions' times;
+3. kernels vs their plain PyTorch versions on the card, each with its
+   tolerance, on small cases (f32 and bf16, random and all-tie images) and
+   at the bench shapes (512 clients x 32 images, C1=32, C2=64; the DP groups
+   of SimpleCNN; one round's client deltas for the int8 quantizer), with
+   the kernel's, the plain version's and a library yardstick's time:
+   K1/K2 (``conv_stack_res``), K4 forward and backward (``conv_stack``,
+   also held to K1/K2 on the same inputs), K5 (``conv_stack_packed``,
+   bit-equal to ``conv_stack`` per client for P = 1, 2, 4, 3), K3 (DP
+   clip + noise) and K6 (int8 block quantizer: deterministic mode exact,
+   stochastic mode by its distribution);
 4. the delta-DP FedAvg round of the 512-client bench configuration
-   (bench.py's workload): one warm-up round, then 3 pipelined rounds with
-   the kernel launch counts checked;
-5. learning check: 10 non-IID clients, 3 rounds, test accuracy > 0.5;
-6. the kernel table as one JSON line, the card line, and the final
+   (bench.py's workload) with ``fused_conv_block="residual"``: one warm-up
+   round, then 3 pipelined rounds with the kernel launch counts checked;
+5. the same configuration with ``fused_conv_block=True`` (K4), 3 pipelined
+   rounds, and with ``fused_conv_block=False`` (cuDNN convolutions through
+   autograd, no hand-written conv kernel), 2 pipelined rounds, launch
+   counts checked; ``F.max_pool2d``'s backward is checked to route ties to
+   the first window member; then the entry points ``conv_stack_packed`` and
+   ``quantize_int8`` driven once at full width with their counts read;
+6. learning check: 10 non-IID clients, 3 rounds, test accuracy > 0.5, with
+   ``fused_conv_block="residual"`` and with ``True``;
+7. the kernel table as one JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
+
+In the kernel table ``bound_ms`` is the larger of the bytes the function
+must move over 3.35 TB/s and its floating-point operations over the peak
+for its input type (989 TFLOP/s for bf16, the tensor cores), counting for
+the sparse products what this run's data needs: the conv2 weight and input
+gradients over the non-zeros of dz2 (one routed member per pooled position).
+The backward kernels run those two products densely over the 14x14 plane,
+so their bound reads "bytes" although they are bound by operations as
+written; the dense count is printed beside it on the ``times`` line.
+``library_ms`` is, for the conv kernels, the unfused cuDNN formulation of
+the same segment (forward, or backward through autograd) on the same
+inputs, itself held to the plain version here: no single library call
+computes the fused function; it is null where there is no counterpart.
+``conv_stack_packed`` has no kernel of its own: its ``launches`` are those
+of ``conv_stack_fwd`` plus ``conv_stack_bwd`` during its own call.
 
 Needs one CUDA device; imports nothing of JAX.
 """
@@ -35,9 +63,18 @@ NUM_CLIENTS = 512
 SAMPLES_PER_CLIENT = 64
 LOCAL_EPOCHS = 5
 BATCH_SIZE = 32
-PIPELINED_ROUNDS = 3
 EPS_R = 1.0 / 28   # bench.py: epsilon / (rounds + 8) at its 20 rounds
 DELTA_R = 1e-5 / 28
+N_PARAMS = 421642  # SimpleCNN
+
+# published peaks of one H100 SXM (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+
+# relative Frobenius tolerances of the unfused bf16 chain's gradients: see
+# check_unfused
+UNFUSED_GRAD_TOL = 1e-2
+FORMULATION_GRAD_TOL = 0.2
 
 
 class SmokeFailure(Exception):
@@ -74,6 +111,18 @@ def time_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
+def bound(n_bytes, flops):
+    """(bound_ms, bound_by) of a function that must move n_bytes and do
+    flops bf16-input operations."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return (1e3 * max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def bf16_ulp(t):
     """One bf16 ulp at each element's magnitude (8 significant bits)."""
     import torch
@@ -94,42 +143,75 @@ def conv_inputs(gen, C, B, dtype, H=28, C1=32, C2=64, constant=False):
     b1 = torch.randn((C, C1), generator=gen, device=dev) * 0.1
     w2 = torch.randn((C, 3, 3, C1, C2), generator=gen, device=dev) * 0.1
     b2 = torch.randn((C, C2), generator=gen, device=dev) * 0.1
-    # the entry casts of conv_stack_res: weights to the compute dtype,
+    # the entry casts of the fused ops: weights to the compute dtype,
     # biases rounded to it and then added in f32
     return (x.to(dtype), w1.to(dtype), b1.to(dtype).float(), w2.to(dtype),
             b2.to(dtype).float())
 
 
-def check_conv(cb, gen, C, B, dtype, constant=False):
-    """K1 and K2 against the plain version on the same inputs. Returns
-    (max |pooled| error, max |grad| error, K1 inputs, K2's g and idx)."""
+def check_pooled(name, tag, pooled, p_ref, dtype, ulps=1, at_least=0.0):
+    """bf16: within `ulps` bf16 ulps of the larger of the two values, or of
+    `at_least` where both are smaller; f32: 1e-5."""
     import torch
 
-    x, w1, b1, w2, b2 = conv_inputs(gen, C, B, dtype, constant=constant)
-    pooled, idx = cb.conv_block_fwd_cuda(x, w1, b1, w2, b2)
-    p_ref, i_ref = cb.conv_stack_res_fwd_plain(x, w1, b1, w2, b2)
-    torch.cuda.synchronize()
     pk, pr = pooled.float(), p_ref.float()
-    fwd_err = float((pk - pr).abs().max())
-    tag = f"{str(dtype)[6:]} C={C} B={B}{' all-ties' if constant else ''}"
+    err = float((pk - pr).abs().max())
     if dtype == torch.float32:
         require(torch.allclose(pk, pr, rtol=1e-5, atol=1e-5),
-                f"K1 {tag}: pooled off by {fwd_err} (tol 1e-5)")
+                f"{name} {tag}: pooled off by {err} (tol 1e-5)")
     else:
         # one ulp at the larger of the two values; the 1e-5 floor covers
         # sums that straddle zero before relu, where the two f32
         # accumulation orders may round to 0 on one side only
-        tol = bf16_ulp(torch.maximum(pk.abs(), pr.abs())) + 1e-5
+        tol = ulps * bf16_ulp(torch.maximum(pk.abs(), pr.abs()).clamp(
+            min=at_least)) + 1e-5
         over = (pk - pr).abs() > tol
         require(not bool(over.any()),
-                f"K1 {tag}: {int(over.sum())} pooled values off by more "
-                f"than 1 bf16 ulp, e.g. {pk[over][:4].tolist()} vs "
+                f"{name} {tag}: {int(over.sum())} pooled values off by more "
+                f"than {ulps} bf16 ulp, e.g. {pk[over][:4].tolist()} vs "
                 f"{pr[over][:4].tolist()}")
+    return err
+
+
+def check_grads(name, tag, got, want, dtype):
+    import torch
+
+    worst = 0.0
+    for leaf, a, b in zip(("dw1", "db1", "dw2", "db2"), got, want):
+        worst = max(worst, float((a - b).abs().max()))
+        if dtype == torch.float32:
+            require(torch.allclose(a, b, rtol=2e-4, atol=2e-4),
+                    f"{name} {tag} {leaf}: off by "
+                    f"{float((a - b).abs().max())} (tol 2e-4)")
+        else:
+            rel = float((a - b).norm() / b.norm().clamp(min=1e-30))
+            require(rel <= 1e-2, f"{name} {tag} {leaf}: relative Frobenius "
+                                 f"error {rel} (tol 1e-2)")
+    return worst
+
+
+def check_conv(cb, gen, C, B, dtype, constant=False):
+    """K1, K2 and K4 against their plain versions, and K4 against K1/K2,
+    on the same inputs. Returns the errors and the tensors for timing."""
+    import torch
+
+    args = conv_inputs(gen, C, B, dtype, constant=constant)
+    x, w1, b1, w2, b2 = args
+    tag = f"{str(dtype)[6:]} C={C} B={B}{' all-ties' if constant else ''}"
+    pooled, idx = cb.conv_block_fwd_cuda(*args)
+    pooled4 = cb.conv_stack_fwd_cuda(*args)
+    p_ref, i_ref = cb.conv_stack_res_fwd_plain(*args)
+    torch.cuda.synchronize()
+    err = {"conv_block_fwd": check_pooled("K1", tag, pooled, p_ref, dtype),
+           "conv_stack_fwd": check_pooled(
+               "K4 fwd", tag, pooled4, cb.conv_stack_fwd_plain(*args), dtype)}
+    fwd_equal = torch.equal(pooled, pooled4)
     # idx may differ only where the plain window holds a near-tie: the
     # kernel's chosen member within one ulp of the window max
+    pr = p_ref.float()
     bad = idx != i_ref
     if bool(bad.any()):
-        win = cb.pool2_windows_plain(x, w1, b1, w2, b2)
+        win = cb.pool2_windows_plain(*args)
         chosen = win.gather(-1, idx.long()[..., None])[..., 0]
         near = (chosen - pr).abs() <= (
             bf16_ulp(pr) + 1e-5 if dtype != torch.float32
@@ -138,58 +220,297 @@ def check_conv(cb, gen, C, B, dtype, constant=False):
                 f"K1 {tag}: {int(bad.sum())} window indices differ beyond "
                 "near-ties")
     # K2 on identical routing: the plain version's idx for both
-    g = torch.randn(pooled.shape, generator=gen, device="cuda")
-    g = (g * (p_ref > 0)).to(dtype).contiguous()
+    g_raw = torch.randn(pooled.shape, generator=gen, device="cuda").to(dtype)
+    g = (g_raw * (p_ref > 0)).to(dtype).contiguous()
     got = cb.conv_block_bwd_cuda(g, i_ref, x, w1, b1, w2)
     want = cb.conv_stack_res_bwd_plain(g, i_ref, x, w1, b1, w2)
     torch.cuda.synchronize()
-    bwd_err = 0.0
-    for name, a, b in zip(("dw1", "db1", "dw2", "db2"), got, want):
-        bwd_err = max(bwd_err, float((a - b).abs().max()))
-        if dtype == torch.float32:
+    err["conv_block_bwd"] = check_grads("K2", tag, got, want, dtype)
+    # K4's backward finds its own routing and relu2'. Where they are the
+    # plain version's, it is held to conv_stack_bwd_plain; where a near-tie
+    # (checked above) sent the kernel elsewhere, to the plain backward on
+    # the kernel's routing.
+    same_route = not bool(bad.any()) and torch.equal(pooled > 0, p_ref > 0)
+    got4 = cb.conv_stack_bwd_cuda(g_raw, *args)
+    g_k = (g_raw * (pooled > 0)).to(dtype).contiguous()
+    want4 = (cb.conv_stack_bwd_plain(g_raw, *args) if same_route else
+             cb.conv_stack_res_bwd_plain(g_k, idx, x, w1, b1, w2))
+    # K4 against K2 fed K1's own residuals: the same function
+    got2 = cb.conv_block_bwd_cuda(g_k, idx, x, w1, b1, w2)
+    torch.cuda.synchronize()
+    err["conv_stack_bwd"] = check_grads("K4 bwd", tag, got4, want4, dtype)
+    bwd_equal = all(torch.equal(a, b) for a, b in zip(got4, got2))
+    check_grads("K4 bwd vs K2", tag, got4, got2, dtype)
+    return dict(err=err, args=args, g=g, idx=i_ref, g_raw=g_raw,
+                fwd_equal=fwd_equal, bwd_equal=bwd_equal,
+                same_route=same_route)
+
+
+def unfused_reference(x, w1, b1, w2, b2):
+    """The unfused chain in f32 with the compute dtype's roundings placed by
+    hand where flax places them (each conv's output, then the bias sum),
+    differentiable through the roundings as the identity. Same shapes as
+    ``conv_segment_unfused``; the oracle for its bf16 run on the card."""
+    import torch
+    import torch.nn.functional as F
+
+    cdt = x.dtype
+    C, B, H, W, _ = x.shape
+
+    def rnd(t):
+        return t + (t.to(cdt).float() - t).detach()
+
+    h = x.float().reshape(C, B, H, W).permute(1, 0, 2, 3)
+    for w, b in ((w1, b1), (w2, b2)):
+        wg = w.float().permute(0, 4, 3, 1, 2).reshape(-1, w.shape[3], 3, 3)
+        h = rnd(F.conv2d(h, wg, padding=1, groups=C))
+        h = F.max_pool2d(torch.relu(rnd(h + b.float().reshape(1, -1, 1, 1))),
+                         2)
+    return h.reshape(B, C, w2.shape[-1], H // 4, W // 4).permute(
+        1, 0, 3, 4, 2)
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm()
+                 / b.float().norm().clamp(min=1e-30))
+
+
+def check_unfused(cb, segment, case):
+    """Hold the unfused chain (library convolutions through autograd) to
+    plain PyTorch on one case's inputs, values and gradients.
+
+    f32: the plain version of the fused segment is the same arithmetic
+    (pooled 1e-5, gradients 2e-4, relative and absolute).
+
+    bf16, against :func:`unfused_reference` (the same cast points in f32):
+    pooled within 2 bf16 ulps of the larger value, or of 1.0 where both are
+    smaller (two roundings a layer; and a pool1 value that lands an ulp
+    apart moves conv2's sum by w2 times that ulp, whatever the size of the
+    sum itself), gradients UNFUSED_GRAD_TOL in relative Frobenius norm
+    (autograd rounds every intermediate gradient to bf16, the reference
+    none).
+
+    bf16, against the plain fused segment: the chain rounds each conv's
+    output before the bias is added and again after, the fused segment
+    once, so values differ by an ulp in places and a pool window that is a
+    near-tie sends its gradient to another member. Pooled 1e-2 in relative
+    Frobenius norm; the gradients' distance is reported and held under
+    FORMULATION_GRAD_TOL (a wrong gradient is at 1 or more)."""
+    import torch
+
+    args, g_raw = case["args"], case["g_raw"]
+    x = args[0]
+    tag = f"unfused {str(x.dtype)[6:]} C={x.shape[0]}"
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in args[1:]]
+        out = fn(x, *leaves)
+        return out.detach(), torch.autograd.grad(out, leaves, g_raw.to(
+            out.dtype))
+
+    out, grads = run(segment)
+    # the oracles in true f32, whatever the switch says during this call
+    tf32, torch.backends.cudnn.allow_tf32 = (
+        torch.backends.cudnn.allow_tf32, False)
+    try:
+        p_fused = cb.conv_stack_fwd_plain(*args)
+        g_fused = cb.conv_stack_bwd_plain(g_raw, *args)
+        if x.dtype != torch.float32:
+            p_ref, g_ref = run(unfused_reference)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.synchronize()
+    if x.dtype == torch.float32:
+        require(torch.allclose(out, p_fused, rtol=1e-5, atol=1e-5),
+                f"{tag}: pooled off by "
+                f"{float((out - p_fused).abs().max())} (tol 1e-5)")
+        for a, b in zip(grads, g_fused):
             require(torch.allclose(a, b, rtol=2e-4, atol=2e-4),
-                    f"K2 {tag} {name}: off by {float((a - b).abs().max())} "
+                    f"{tag}: a gradient off by {float((a - b).abs().max())} "
                     "(tol 2e-4)")
-        else:
-            rel = float((a - b).norm() / b.norm().clamp(min=1e-30))
-            require(rel <= 1e-2, f"K2 {tag} {name}: relative Frobenius "
-                                 f"error {rel} (tol 1e-2)")
-    return fwd_err, bwd_err, (x, w1, b1, w2, b2), g, i_ref
+        return None
+    check_pooled(tag, "vs its f32 reference", out, p_ref, x.dtype, ulps=2,
+                 at_least=1.0)
+    m = dict(ref_grad=max(_rel(a, b) for a, b in zip(grads, g_ref)),
+             fused_pooled=_rel(out, p_fused),
+             fused_grad=max(_rel(a, b) for a, b in zip(grads, g_fused)))
+    require(m["ref_grad"] <= UNFUSED_GRAD_TOL,
+            f"{tag}: gradients {m['ref_grad']} from the f32 reference in "
+            f"relative Frobenius norm (tol {UNFUSED_GRAD_TOL})")
+    require(m["fused_pooled"] <= 1e-2
+            and m["fused_grad"] <= FORMULATION_GRAD_TOL,
+            f"{tag}: against the fused segment pooled {m['fused_pooled']} "
+            f"(tol 1e-2), gradients {m['fused_grad']} (tol "
+            f"{FORMULATION_GRAD_TOL})")
+    return m
 
 
-def phase_kernels(report):
+def conv_work(args, g_masked):
+    """Bytes and bf16-input operations of the conv kernels at these inputs:
+    per image conv1 (H*W*9*C1 FMA) and conv2 (H1*W1*9*C1*C2) forward; in
+    the backward the stem again, the conv2 weight and input gradients over
+    the non-zeros of dz2 (one routed member per pooled position, fewer
+    after relu2'), and the stem weight gradient."""
+    x, w1, b1, w2, b2 = args
+    C, B, H, W, _ = x.shape
+    C1, C2 = w1.shape[-1], w2.shape[-1]
+    n_img = C * B
+    stem = H * W * 9 * C1
+    conv2 = (H // 2) * (W // 2) * 9 * C1 * C2
+    nnz = int((g_masked != 0).sum())
+    stem_wgrad = (H // 2) * (W // 2) * C1 * 9
+    fwd_flops = 2 * n_img * (stem + conv2)
+    bwd_flops = 2 * (n_img * (stem + stem_wgrad) + 2 * nnz * 9 * C1)
+    pooled = n_img * (H // 4) * (W // 4) * C2 * x.element_size()
+    grads = 4 * C * (9 * C1 + C1 + 9 * C1 * C2 + C2)
+    io = {
+        "conv_block_fwd": nbytes(*args) + pooled + pooled // x.element_size(),
+        "conv_block_bwd": nbytes(x, w1, b1, w2) + pooled
+        + pooled // x.element_size() + grads,
+        "conv_stack_fwd": nbytes(*args) + pooled,
+        "conv_stack_bwd": nbytes(*args) + pooled + grads,
+    }
+    flops = {"conv_block_fwd": fwd_flops, "conv_block_bwd": bwd_flops,
+             "conv_stack_fwd": fwd_flops,
+             "conv_stack_bwd": bwd_flops + 2 * n_img * conv2}
+    # the two conv2 gradient products as the kernels run them: dense
+    dense = 2 * n_img * (stem + stem_wgrad + 2 * conv2)
+    dense_ms = {"conv_block_bwd": bound(io["conv_block_bwd"], dense)[0],
+                "conv_stack_bwd": bound(io["conv_stack_bwd"],
+                                        dense + 2 * n_img * conv2)[0]}
+    return {k: bound(io[k], flops[k]) for k in io}, dense_ms
+
+
+def phase_conv(report):
+    import torch
+
+    from fl_tpu_torch.models.simple_cnn import conv_segment_unfused
+    from fl_tpu_torch.ops import conv_block as cb
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    cases = []
+    # small cases: both dtypes, random and all-tie images
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append(check_conv(cb, gen, 4, BATCH_SIZE, dtype))
+        cases.append(check_conv(cb, gen, 2, BATCH_SIZE, dtype, constant=True))
+    # the bench shapes of the main path (bf16), with the times
+    big = check_conv(cb, gen, NUM_CLIENTS, BATCH_SIZE, torch.bfloat16)
+    cases.append(big)
+    args, g, idx, g_raw = big["args"], big["g"], big["idx"], big["g_raw"]
+    x, w1, b1, w2, b2 = args
+    bounds, dense_ms = conv_work(args, g)
+
+    # the library yardstick: the unfused cuDNN chain, held to the plain
+    # version and then timed on the same inputs
+    unfused_err = [check_unfused(cb, conv_segment_unfused, c)
+                   for c in cases]
+    # f32 stays f32 when the caller has left cuDNN's TF32 switch on
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        check_unfused(cb, conv_segment_unfused, cases[0])
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    leaves = [t.clone().requires_grad_(True) for t in (w1, b1, w2, b2)]
+    with torch.no_grad():
+        lib_fwd = time_ms(lambda: conv_segment_unfused(x, *leaves))
+    out = conv_segment_unfused(x, *leaves)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        out, leaves, g_raw, retain_graph=True))
+    del out
+
+    timed = {
+        "conv_block_fwd": (
+            lambda: cb.conv_block_fwd_cuda(*args),
+            lambda: cb.conv_stack_res_fwd_plain(*args), lib_fwd),
+        "conv_block_bwd": (
+            lambda: cb.conv_block_bwd_cuda(g, idx, x, w1, b1, w2),
+            lambda: cb.conv_stack_res_bwd_plain(g, idx, x, w1, b1, w2),
+            lib_bwd),
+        "conv_stack_fwd": (
+            lambda: cb.conv_stack_fwd_cuda(*args),
+            lambda: cb.conv_stack_fwd_plain(*args), lib_fwd),
+        "conv_stack_bwd": (
+            lambda: cb.conv_stack_bwd_cuda(g_raw, *args),
+            lambda: cb.conv_stack_bwd_plain(g_raw, *args), lib_bwd),
+    }
+    for name, (kernel, plain, lib_ms) in timed.items():
+        report[name].update(
+            max_abs_err=big["err"][name], ms=time_ms(kernel),
+            plain_ms=time_ms(plain), bound_ms=bounds[name][0],
+            bound_by=bounds[name][1], library_ms=lib_ms)
+
+    # K5: conv_stack_packed == conv_stack per client, bit for bit
+    worst = 0.0
+    for P in (1, 2, 4, 3):
+        xs, *ws = conv_inputs(gen, P, BATCH_SIZE, torch.bfloat16)
+        r = torch.randn((P, BATCH_SIZE, 7, 7, 64), generator=gen,
+                        device="cuda").bfloat16()
+        wp = [t.clone().requires_grad_(True) for t in ws]
+        out_p = cb.conv_stack_packed(xs, *wp)
+        grads_p = torch.autograd.grad(out_p, wp, r)
+        for c in range(P):
+            wc = [t[c:c + 1].clone().requires_grad_(True) for t in ws]
+            out_c = cb.conv_stack(xs[c:c + 1], *wc)
+            grads_c = torch.autograd.grad(out_c, wc, r[c:c + 1])
+            torch.cuda.synchronize()
+            require(torch.equal(out_p[c:c + 1], out_c),
+                    f"K5 P={P}: client {c}'s output differs from conv_stack")
+            for a, b in zip(grads_p, grads_c):
+                worst = max(worst, float((a[c:c + 1] - b).abs().max()))
+                require(torch.equal(a[c:c + 1], b),
+                        f"K5 P={P}: client {c}'s gradients differ from "
+                        "conv_stack")
+    # K5 at the bench shapes: forward + backward through the entry point
+    wp = [t.clone().requires_grad_(True) for t in (w1, b1, w2, b2)]
+
+    def packed_step():
+        return torch.autograd.grad(cb.conv_stack_packed(x, *wp), wp, g_raw)
+
+    def plain_step():
+        cb.conv_stack_fwd_plain(*args)
+        return cb.conv_stack_bwd_plain(g_raw, *args)
+
+    b_ms = bounds["conv_stack_fwd"][0] + bounds["conv_stack_bwd"][0]
+    report["conv_stack_packed"].update(
+        max_abs_err=worst, ms=time_ms(packed_step),
+        plain_ms=time_ms(plain_step), bound_ms=b_ms,
+        bound_by=bounds["conv_stack_bwd"][1], library_ms=lib_fwd + lib_bwd)
+
+    report["conv_block_bwd"]["dense_ms"] = dense_ms["conv_block_bwd"]
+    report["conv_stack_bwd"]["dense_ms"] = dense_ms["conv_stack_bwd"]
+    bf = [m for m in unfused_err if m is not None]
+    n_eq_f = sum(c["fwd_equal"] for c in cases)
+    n_eq_b = sum(c["bwd_equal"] for c in cases)
+    n_route = sum(c["same_route"] for c in cases)
+    print(f"kernels (conv): K1/K2/K4 f32+bf16 (random, all-ties) and bench "
+          f"shapes match plain; K4 == K1 bit for bit in {n_eq_f}/{len(cases)} "
+          f"cases, K4 bwd == K2 in {n_eq_b}/{len(cases)} (else within "
+          f"tolerance); routing equal to plain's in {n_route}/{len(cases)}; "
+          f"K5 == conv_stack bit for bit for P in (1, 2, 4, 3); unfused "
+          f"cuDNN segment matches plain in all {len(cases)}, f32 also "
+          f"with cudnn.allow_tf32 on (f32 1e-5 / 2e-4; bf16 against its f32 "
+          f"reference 2 ulps, gradients "
+          f"{max(m['ref_grad'] for m in bf):.2e} relative Frobenius; "
+          f"against the fused segment pooled "
+          f"{max(m['fused_pooled'] for m in bf):.2e}, gradients "
+          f"{max(m['fused_grad'] for m in bf):.2e}), fwd {lib_fwd:.3f} ms, "
+          f"bwd {lib_bwd:.3f} ms", flush=True)
+
+
+def phase_dp(report):
     import torch
 
     from fl_tpu_torch.core import prng
     from fl_tpu_torch.fl.privacy import STANDALONE_MIN
-    from fl_tpu_torch.ops import conv_block as cb
     from fl_tpu_torch.ops import dp as dpo
 
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    # small cases: both dtypes, random and all-tie images
-    for dtype in (torch.float32, torch.bfloat16):
-        check_conv(cb, gen, 4, BATCH_SIZE, dtype)
-        check_conv(cb, gen, 2, BATCH_SIZE, dtype, constant=True)
-    # the bench shapes of the main path (bf16), with both versions' times
-    fwd_err, bwd_err, (x, w1, b1, w2, b2), g, idx = check_conv(
-        cb, gen, NUM_CLIENTS, BATCH_SIZE, torch.bfloat16)
-    report["conv_block_fwd"].update(
-        max_abs_err=fwd_err,
-        ms=time_ms(lambda: cb.conv_block_fwd_cuda(x, w1, b1, w2, b2)),
-        plain_ms=time_ms(lambda: cb.conv_stack_res_fwd_plain(
-            x, w1, b1, w2, b2)))
-    report["conv_block_bwd"].update(
-        max_abs_err=bwd_err,
-        ms=time_ms(lambda: cb.conv_block_bwd_cuda(g, idx, x, w1, b1, w2)),
-        plain_ms=time_ms(lambda: cb.conv_stack_res_bwd_plain(
-            g, idx, x, w1, b1, w2)))
-    del x, w1, b1, w2, b2, idx, g
-
+    gen.manual_seed(1)
     # K3 at the two DP groups of SimpleCNN at the bench: fc1's kernel and
     # the concatenated small leaves
     C = NUM_CLIENTS
-    widths = (7 * 7 * 64 * 128, 421642 - 7 * 7 * 64 * 128)
+    widths = (7 * 7 * 64 * 128, N_PARAMS - 7 * 7 * 64 * 128)
     assert widths[0] >= STANDALONE_MIN > widths[1]
     rseed = prng.round_seed(prng.root_seed(0), 0)
     groups = []
@@ -209,12 +530,18 @@ def phase_kernels(report):
         require(torch.allclose(got, want, rtol=1e-6, atol=0.0),
                 "K3 sigma=0: output is not x*scale to 1e-6 relative")
     sig = torch.full((C,), 0.01, device="cuda")
+    # x read once, the output written once, three (C,) vectors; ~40 f32
+    # operations of Philox and Box-Muller per element, held to the same
+    # peak as the other kernels (it is never the bound)
+    n = sum(xg.numel() for xg, _, _ in groups)
+    b_ms, b_by = bound(8 * n + 2 * 16 * C, 40 * n)
     report["clip_noise"].update(
         max_abs_err=err,
         ms=time_ms(lambda: [dpo.clip_noise_cuda(xg, s, sig, sd)
                             for xg, s, sd in groups]),
         plain_ms=time_ms(lambda: [dpo.clip_noise_plain(xg, s, sig, sd)
-                                  for xg, s, sd in groups], reps=2))
+                                  for xg, s, sd in groups], reps=2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
     del groups
 
     # K3 noise statistics at sigma=1: 4 clients x 2^20 per group
@@ -237,19 +564,103 @@ def phase_kernels(report):
             f"K3 fraction beyond 3 sigma {tail} (0.27% +- 0.05%)")
     require(abs(corr_c) <= 5e-3 and abs(corr_g) <= 5e-3,
             f"K3 correlation client {corr_c} group {corr_g} (tol 5e-3)")
-    print(f"kernels: K1/K2 f32+bf16 (random, all-ties) and bench shapes "
-          f"match plain; K3 sigma=0 exact to 1e-6, noise mean={mean:.2e} "
+    print(f"kernels (K3): sigma=0 exact to 1e-6, noise mean={mean:.2e} "
           f"var={var:.5f} tail3={tail:.5f} corr_clients={corr_c:.1e} "
-          f"corr_groups={corr_g:.1e}; times (ms, kernel/plain): " + ", ".join(
-              f"{k} {v['ms']:.3f}/{v['plain_ms']:.3f}"
-              for k, v in report.items()), flush=True)
+          f"corr_groups={corr_g:.1e}", flush=True)
 
 
-def bench_engine(card):
-    import numpy as np
+def quantize_width():
+    """One round's client deltas, each padded to whole 2048-blocks."""
+    from fl_tpu_torch.ops.quantize import CHUNK
+
+    return NUM_CLIENTS * (-(-N_PARAMS // CHUNK) * CHUNK)
+
+
+def phase_quantize(report):
     import torch
 
-    from fl_tpu_torch import ops
+    from fl_tpu_torch.ops import quantize as qz
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    D = quantize_width()
+    x = torch.randn((D,), generator=gen, device="cuda") * 1e-3
+    # deterministic mode: the plain version exactly, q and scales
+    q, s = qz.quantize_int8_blocks_cuda(x, 5, stochastic=False)
+    q_ref, s_ref = qz.quantize_int8_blocks_plain(x, 5, stochastic=False)
+    torch.cuda.synchronize()
+    require(torch.equal(s, s_ref), "K6: block scales differ from the plain "
+            f"version's by up to {float((s - s_ref).abs().max())}")
+    diff = (q.int() - q_ref.int()).abs()
+    require(int(diff.max()) == 0,
+            f"K6 deterministic: {int((diff != 0).sum())} of {D} values "
+            "differ from the plain version")
+    b_ms, b_by = bound(5 * D + 4 * (D // qz.CHUNK), 30 * D)
+    report["quantize_int8_blocks"].update(
+        max_abs_err=float(diff.max()),
+        ms=time_ms(lambda: qz.quantize_int8_blocks_cuda(x, 5)),
+        plain_ms=time_ms(lambda: qz.quantize_int8_blocks_plain(x, 5), reps=2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del x, q, s, q_ref, s_ref, diff
+
+    # stochastic mode on 2^22 values, by its distribution
+    n = 1 << 22
+    x = torch.randn((n,), generator=gen, device="cuda")
+    q1, s1 = qz.quantize_int8_blocks_cuda(x, 11)
+    q1b, _ = qz.quantize_int8_blocks_cuda(x, 11)
+    q2, _ = qz.quantize_int8_blocks_cuda(x, 12)
+    torch.cuda.synchronize()
+    scaled = (x.reshape(-1, qz.CHUNK) * (1.0 / s1)[:, None]).reshape(-1)
+    lo = torch.floor(scaled)
+    qf = q1.float()
+    ok = (qf == lo.clamp(-128, 127)) | (qf == (lo + 1).clamp(-128, 127))
+    require(bool(ok.all()), f"K6 stochastic: {int((~ok).sum())} values are "
+            "neither floor nor ceil of x/scale")
+    bias = float((qf.double() - scaled.double()).mean())
+    require(abs(bias) <= 1e-3, f"K6 stochastic: mean(q - scaled) = {bias} "
+            "(tol 1e-3)")
+    frac, up = scaled - lo, qf > lo
+    worst = 0.0
+    for b in range(10):
+        sel = (frac >= b / 10) & (frac < (b + 1) / 10)
+        worst = max(worst, abs(float(up[sel].float().mean())
+                               - float(frac[sel].mean())))
+    require(worst <= 0.01, f"K6 stochastic: P(ceil) off the fractional part "
+            f"by {worst} in some decile (tol 0.01)")
+    require(torch.equal(q1, q1b), "K6 stochastic: same seed, different bits")
+    require(not torch.equal(q1, q2), "K6 stochastic: two seeds, same bits")
+    print(f"kernels (K6): deterministic mode equals plain exactly at "
+          f"D={D}; stochastic on 2^22: floor/ceil only, mean(q - scaled)="
+          f"{bias:.2e}, P(ceil) within {worst:.4f} of the fraction per "
+          f"decile, seeds differ and repeat", flush=True)
+
+
+def check_pool_first_match():
+    """F.max_pool2d's backward on the card sends a tied window's gradient
+    to its first member, as the fused kernels and XLA do."""
+    import torch
+    import torch.nn.functional as F
+
+    from fl_tpu_torch.ops.conv_block import _unpool
+
+    for dtype in (torch.float32, torch.bfloat16):
+        t = torch.ones((2, 8, 6, 6), device="cuda", dtype=dtype,
+                       requires_grad=True)
+        g = torch.arange(2 * 8 * 3 * 3, device="cuda").reshape(2, 8, 3, 3)
+        g = g.to(dtype) + 1
+        got, = torch.autograd.grad(F.max_pool2d(t, 2), t, g)
+        want = _unpool(g.float(), torch.zeros_like(g, dtype=torch.uint8),
+                       6, 6)
+        require(torch.equal(got.float(), want),
+                f"F.max_pool2d backward in {dtype} does not route ties to "
+                "the first window member")
+
+
+def make_bench_engine(fused):
+    """The engine of the 512-client bf16 delta-DP configuration (bench.py's
+    workload) with one conv formulation."""
+    import torch
+
     from fl_tpu_torch.core.types import PrivacyConfig
     from fl_tpu_torch.data import load_dataset, make_federated_arrays
     from fl_tpu_torch.fl.local_training import FederatedTrainingConfig
@@ -272,29 +683,42 @@ def bench_engine(card):
         privacy=PrivacyConfig(epsilon=1.0, delta=1e-5, max_grad_norm=1.0),
         epsilon_per_round=EPS_R, delta_per_round=DELTA_R,
         max_clients=NUM_CLIENTS, seed=0)
-    model = create_model("simple_cnn", dtype=torch.bfloat16)
-    engine = FederatedRoundEngine(model, arrays, cfg, device=DEVICE)
+    model = create_model("simple_cnn", dtype=torch.bfloat16,
+                         fused_conv_block=fused)
+    return FederatedRoundEngine(model, arrays, cfg, device=DEVICE)
+
+
+def bench_engine(card, fused, rounds, conv_counts):
+    """The 512-client bf16 delta-DP round with one conv formulation: a
+    warm-up round, then `rounds` pipelined rounds whose launch counts must
+    be `conv_counts` per local step plus K3's 2 a round, and 0 elsewhere."""
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch import ops
+
+    engine = make_bench_engine(fused)
     t0 = time.perf_counter()
     warm = engine.run_round(evaluate=False)
+    torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    if DEVICE == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_memory_stats()
 
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    results = engine.run_rounds_pipelined(PIPELINED_ROUNDS, evaluate=False)
+    results = engine.run_rounds_pipelined(rounds, evaluate=False)
     dt = time.perf_counter() - t0
     counts = ops.launch_counts()
 
     losses = [warm.train_loss] + [r.train_loss for r in results]
-    require(len(results) == PIPELINED_ROUNDS, "pipelined rounds missing")
+    require(len(results) == rounds, "pipelined rounds missing")
     require(all(math.isfinite(v) for v in losses), f"losses {losses}")
     steps = LOCAL_EPOCHS * (SAMPLES_PER_CLIENT // BATCH_SIZE)
-    want = {"conv_block_fwd": steps * PIPELINED_ROUNDS,
-            "conv_block_bwd": steps * PIPELINED_ROUNDS,
-            "clip_noise": 2 * PIPELINED_ROUNDS}
-    require(counts == want, f"launch counts {counts}, expected {want}")
+    want = dict.fromkeys(counts, 0)
+    want.update({k: steps * rounds for k in conv_counts},
+                clip_noise=2 * rounds)
+    require(counts == want, f"fused_conv_block={fused!r}: launch counts "
+                            f"{counts}, expected {want}")
     params = engine.global_variables["params"]
     require(all(bool(torch.isfinite(t).all())
                 for d in params.values() for t in d.values()),
@@ -302,17 +726,67 @@ def bench_engine(card):
     require(np.isfinite(engine.last_client_losses).all(),
             "non-finite client losses")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"slice: {NUM_CLIENTS} clients bf16 delta-DP, warm-up round "
-          f"{warm_s:.2f}s, {PIPELINED_ROUNDS} pipelined rounds in {dt:.3f}s "
-          f"-> {PIPELINED_ROUNDS / dt:.3f} rounds/s, peak memory "
+    used = {k: v for k, v in counts.items() if v}
+    print(f"slice fused_conv_block={fused!r}: {NUM_CLIENTS} clients bf16 "
+          f"delta-DP, warm-up round {warm_s:.2f}s, {rounds} pipelined rounds "
+          f"in {dt:.3f}s -> {rounds / dt:.3f} rounds/s, peak memory "
           f"{peak:.2f} GiB, losses {[round(v, 4) for v in losses]}, "
-          f"launches {counts}, eps spent "
+          f"launches {used} (0 elsewhere), eps spent "
           f"{engine.budget_tracker.consumed_epsilon:.4f} [{card}]",
           flush=True)
+    del engine
+    torch.cuda.empty_cache()
     return counts
 
 
-def learning_check():
+def entry_points(counts):
+    """K5 and K6 through the entry points a user calls, at full width, with
+    the counts set to 0 just before and read just after."""
+    import torch
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.ops.conv_block import conv_stack_packed
+    from fl_tpu_torch.ops.quantize import dequantize_int8_blocks, quantize_int8
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x, *ws = conv_inputs(gen, NUM_CLIENTS, BATCH_SIZE, torch.bfloat16)
+    ws = [t.requires_grad_(True) for t in ws]
+    ops.reset_launch_counts()
+    out = conv_stack_packed(x, *ws)
+    grads = torch.autograd.grad(out.float().square().sum(), ws)
+    torch.cuda.synchronize()
+    got = ops.launch_counts()
+    want = dict.fromkeys(got, 0)
+    want.update(conv_stack_fwd=1, conv_stack_bwd=1)
+    require(got == want, f"conv_stack_packed did not go through K4's two "
+                         f"kernels and nothing else: {got}")
+    require(tuple(out.shape) == (NUM_CLIENTS, BATCH_SIZE, 7, 7, 64)
+            and all(bool(torch.isfinite(t).all()) for t in (out, *grads)),
+            "conv_stack_packed: non-finite output or gradients")
+    counts["conv_stack_packed"] = (got["conv_stack_fwd"]
+                                   + got["conv_stack_bwd"])
+    del x, ws, out, grads
+
+    deltas = torch.randn((quantize_width(),), generator=gen,
+                         device="cuda") * 1e-3
+    ops.reset_launch_counts()
+    q, scales = quantize_int8(deltas, seed=9)
+    torch.cuda.synchronize()
+    got = ops.launch_counts()
+    require(got["quantize_int8_blocks"] == 1,
+            f"quantize_int8 did not launch K6: {got}")
+    err = (dequantize_int8_blocks(q, scales) - deltas).reshape(
+        scales.shape[0], -1).abs().amax(1)
+    require(q.dtype == torch.int8 and bool((err < scales).all()),
+            "quantize_int8: a value is a whole step or more off")
+    counts["quantize_int8_blocks"] = got["quantize_int8_blocks"]
+    print(f"entry points: conv_stack_packed at P={NUM_CLIENTS} x "
+          f"{BATCH_SIZE} bf16 through K4 (fwd 1, bwd 1); quantize_int8 at "
+          f"D={deltas.numel()} through K6, every error under one step",
+          flush=True)
+
+
+def learning_check(fused):
     import torch
 
     from fl_tpu_torch.data import load_dataset, make_federated_arrays
@@ -324,14 +798,35 @@ def learning_check():
     splits = load_dataset("mnist", n_train_synth=4096, n_test_synth=1024)
     arrays = make_federated_arrays(splits, 10, "non_iid", seed=0)
     engine = FederatedRoundEngine(
-        create_model("simple_cnn", dtype=torch.bfloat16), arrays,
+        create_model("simple_cnn", dtype=torch.bfloat16,
+                     fused_conv_block=fused), arrays,
         RoundEngineConfig(training=FederatedTrainingConfig(local_epochs=2)),
         device=DEVICE, test_images=splits.normalized(splits.test_images),
         test_labels=splits.test_labels)
     accs = [r.test_accuracy for r in engine.run(num_rounds=3)]
-    require(accs[-1] > 0.5, f"test accuracy after 3 rounds {accs}")
-    print(f"learning: 10 non-IID clients, test accuracy by round "
-          f"{[round(a, 4) for a in accs]}", flush=True)
+    require(accs[-1] > 0.5, f"fused_conv_block={fused!r}: test accuracy "
+                            f"after 3 rounds {accs}")
+    print(f"learning fused_conv_block={fused!r}: 10 non-IID clients, test "
+          f"accuracy by round {[round(a, 4) for a in accs]}", flush=True)
+
+
+def kernel_report():
+    src_cu = "fl_tpu_torch/csrc/conv_block.cu"
+    rows = (
+        ("conv_block_fwd", "cuda", src_cu, "fl_tpu/ops/conv_block.py:649"),
+        ("conv_block_bwd", "cuda", src_cu, "fl_tpu/ops/conv_block.py:689"),
+        ("clip_noise", "triton", "fl_tpu_torch/ops/dp.py",
+         "fl_tpu/ops/dp.py:51"),
+        ("conv_stack_fwd", "cuda", src_cu, "fl_tpu/ops/conv_block.py:316"),
+        ("conv_stack_bwd", "cuda", src_cu, "fl_tpu/ops/conv_block.py:357"),
+        ("conv_stack_packed", "cuda", src_cu,
+         "fl_tpu/ops/conv_block.py:1256"),
+        ("quantize_int8_blocks", "triton", "fl_tpu_torch/ops/quantize.py",
+         "fl_tpu/ops/quantize.py:72"),
+    )
+    return {name: {"name": name, "route": route, "source": source,
+                   "replaces": replaces}
+            for name, route, source, replaces in rows}
 
 
 def main() -> int:
@@ -346,6 +841,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    t_start = time.perf_counter()
 
     # 1. device
     card = card_line()
@@ -368,30 +864,42 @@ def main() -> int:
           + " | ".join(usage), flush=True)
 
     # 3. kernels vs plain versions
-    report = {
-        "conv_block_fwd": {"name": "conv_block_fwd", "route": "cuda",
-                           "source": "fl_tpu_torch/csrc/conv_block.cu",
-                           "replaces": "fl_tpu/ops/conv_block.py:649"},
-        "conv_block_bwd": {"name": "conv_block_bwd", "route": "cuda",
-                           "source": "fl_tpu_torch/csrc/conv_block.cu",
-                           "replaces": "fl_tpu/ops/conv_block.py:689"},
-        "clip_noise": {"name": "clip_noise", "route": "triton",
-                       "source": "fl_tpu_torch/ops/dp.py",
-                       "replaces": "fl_tpu/ops/dp.py:51"},
-    }
-    phase_kernels(report)
+    report = kernel_report()
+    phase_conv(report)
+    phase_dp(report)
+    phase_quantize(report)
+    print("times (ms, kernel/plain/bound): " + ", ".join(
+        f"{k} {v['ms']:.3f}/{v['plain_ms']:.3f}/{v['bound_ms']:.3f}"
+        for k, v in report.items()) + "; bound with the conv2 gradient "
+          "products counted dense: " + ", ".join(
+        f"{k} {v['dense_ms']:.3f}" for k, v in report.items()
+        if "dense_ms" in v), flush=True)
 
-    # 4. the slice at the bench configuration
-    counts = bench_engine(card)
+    # 4. the first slice's path; 5. this slice's paths
+    counts = {}
+    paths = (("residual", 3, ("conv_block_fwd", "conv_block_bwd")),
+             (True, 3, ("conv_stack_fwd", "conv_stack_bwd")),
+             (False, 2, ()))
+    check_pool_first_match()
+    for fused, rounds, conv_counts in paths:
+        got = bench_engine(card, fused, rounds, conv_counts)
+        counts.update({k: got[k] for k in conv_counts})
+        if fused == "residual":
+            counts["clip_noise"] = got["clip_noise"]
+    entry_points(counts)
 
-    # 5. learning check
-    learning_check()
+    # 6. learning checks
+    learning_check("residual")
+    learning_check(True)
 
-    # 6. result lines
+    # 7. result lines
+    order = ("name", "route", "source", "replaces", "launches",
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
     for k, entry in report.items():
         entry["launches"] = counts[k]
-    order = ("name", "route", "source", "replaces", "launches",
-             "max_abs_err", "ms", "plain_ms")
+        require(entry["launches"] > 0, f"{k} was never launched on its path")
+    print(f"smoke: {time.perf_counter() - t_start:.1f}s in all", flush=True)
     print(json.dumps({"kernels": [{k: e[k] for k in order}
                                   for e in report.values()]}))
     print(card_line())

@@ -1,14 +1,22 @@
-// Fused SimpleCNN conv segment for Hopper (sm_90a): forward (K1) and
-// backward (K2) of
+// Fused SimpleCNN conv segment for Hopper (sm_90a): forward and backward of
 //   pool2(relu(conv2(pool2(relu(conv1(x) + b1))) + b2))
-// over stacked clients, each with its own weights.
+// over stacked clients, each with its own weights, in two formulations.
 //
 // Replaces the TPU kernels of fl_tpu/ops/conv_block.py:
 //   K1  _fwd_kernel_res (launched by _fwd_call_impl_res), which writes the
 //       pooled output and the pool2 first-match window index;
 //   K2  _bwd_kernel_res (launched by _bwd_call_impl_res), which recomputes the
 //       stem, routes the cotangent through both pools and returns the four
-//       weight/bias gradients (the image gradient is never formed).
+//       weight/bias gradients (the image gradient is never formed);
+//   K4  _fwd_kernel / _bwd_kernel (launched by _fwd_call_impl and
+//       _bwd_call_impl, also on conv_stack_packed's weights): the same
+//       segment without residuals. conv_stack_fwd_kernel is K1 minus the
+//       index output. conv_stack_bwd_kernel takes only the cotangent, the
+//       image and the weights: it recomputes y1 -> x2 -> y2 -> a2 with the
+//       forward's arithmetic (same casts, same order of the f32 sums, so
+//       the relu and pool masks are the forward's bit for bit), finds the
+//       first-match pool2 member and relu2' = (a2 > 0) itself, and then
+//       runs K2's per-image body on what it found.
 //
 // The contract kept from the TPU kernels (not their block structure): f32
 // accumulation; biases added in f32 before relu; values rounded to the
@@ -18,7 +26,9 @@
 // dz1 are rounded to T before the weight-gradient and dgrad products and
 // kept in f32 for the bias sums. The s2d stem lift, the halo planes, the
 // client lane packing and the P=2 custom_vmap of the TPU design exist for
-// the TPU's (8, 128) tiles and are not carried over.
+// the TPU's (8, 128) tiles and are not carried over; nor are K4's halo
+// planes, its full-plane parity-mask algebra for the tie-break and its
+// multiplicative stand-ins for boolean masks, which exist for Mosaic.
 //
 // What bounds it on the H100: the per-image work is ~3.6 MFMA for conv2
 // (forward), the same for dgrad, and a quarter of that for the sparse
@@ -30,6 +40,16 @@
 // once per block of IMAGES images, and gives each thread four window
 // positions per weight load in the forward conv2. No tensor cores yet: that
 // is later work (wgmma over the K = 9*C1 patches).
+//
+// K4's backward pays one more conv2 forward per image than K2 and saves the
+// index and pooled residuals (2 + 1 bytes per pooled value), which K1 had
+// already made small. It routes pool2 window by window as the recomputed
+// conv2 outputs appear, so no a2 plane is held: only the masked cotangent
+// and the window index per pooled position. It keeps one copy of w2, in
+// the dgrad's [k][o][ci] order with rows padded to C1 + 1 so that both the
+// recomputed forward (threads along o) and the dgrad (threads along ci)
+// read it without bank conflicts; the f32 variant fits the 227 KB block
+// limit at the bench shapes that way.
 //
 // Block layout: grid (ceil(B / G), C), a launch-time thread count; one block = one client
 // and G consecutive images. K2 sums its images' weight gradients into a
@@ -76,10 +96,16 @@ size_t fwd_smem_bytes(const Geometry& g, int C1, int C2, size_t tsize) {
   return floats * 4 + ts * tsize;
 }
 
-size_t bwd_smem_bytes(const Geometry& g, int C1, int C2, size_t tsize) {
-  size_t floats = 9 * C1 + C1 + (size_t)g.HP * g.WP + (size_t)g.H1 * g.W1 * C1;
-  size_t ts = (size_t)9 * C1 * C2 + (size_t)g.H1P * g.W1P * (C1 + C2);
-  return floats * 4 + ts * tsize + (size_t)g.H1 * g.W1 * C1;
+// recompute = the residual-free backward (K4): b2, the padded w2 rows, and
+// the masked cotangent and window index per pooled position come on top
+size_t bwd_smem_bytes(const Geometry& g, int C1, int C2, size_t tsize, bool recompute) {
+  size_t n_out = (size_t)g.Ho * g.Wo * C2;
+  size_t floats = 9 * C1 + C1 + (size_t)g.HP * g.WP + (size_t)g.H1 * g.W1 * C1 +
+                  (recompute ? C2 : 0);
+  size_t ts = (size_t)9 * C2 * (C1 + (recompute ? 1 : 0)) +
+              (size_t)g.H1P * g.W1P * (C1 + C2) + (recompute ? n_out : 0);
+  size_t bytes = (size_t)g.H1 * g.W1 * C1 + (recompute ? n_out : 0);
+  return floats * 4 + ts * tsize + bytes;
 }
 
 // Load image b of client c into the zero-bordered (H+2, W+2) f32 plane.
@@ -120,13 +146,55 @@ __device__ void stem_pool1(const float* s_img, const float* s_w1, const float* s
   }
 }
 
+// conv2 (no bias) at the four members of pool2 window (ph, pw) for output
+// channel o: acc[a * 2 + b] is the f32 sum over taps k and channels ci, in
+// that order, at conv2 output (2ph + a, 2pw + b). Weight (k, ci, o) sits at
+// s_w[k * wk + ci * wci + o * wo].
 template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-conv_block_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-                      const float* __restrict__ b1, const T* __restrict__ w2,
-                      const float* __restrict__ b2, T* __restrict__ pooled,
-                      uint8_t* __restrict__ idx, int B, int H, int W, int C1, int C2,
-                      int G) {
+__device__ __forceinline__ void conv2_window(const T* s_x2, const T* s_w, int wk, int wci,
+                                             int wo, int ph, int pw, int o,
+                                             const Geometry& g, int C1, float acc[4]) {
+  acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
+  for (int k = 0; k < 9; ++k) {
+    const T* wv_k = s_w + k * wk + o * wo;
+    // tap k of output row 2ph + a reads pool1 row 2ph + a + dh - 1, which is
+    // s_x2 row 2ph + a + dh
+    const T* x00 = s_x2 + ((2 * ph + k / 3) * g.W1P + 2 * pw + k % 3) * C1;
+    const T* x10 = x00 + g.W1P * C1;
+    for (int ci = 0; ci < C1; ++ci) {
+      float wv = to_f<T>(wv_k[ci * wci]);
+      acc[0] = fmaf(to_f<T>(x00[ci]), wv, acc[0]);
+      acc[1] = fmaf(to_f<T>(x00[C1 + ci]), wv, acc[1]);
+      acc[2] = fmaf(to_f<T>(x10[ci]), wv, acc[2]);
+      acc[3] = fmaf(to_f<T>(x10[C1 + ci]), wv, acc[3]);
+    }
+  }
+}
+
+// +bias -> relu -> round to T -> first-match max over the window members
+template <typename T>
+__device__ __forceinline__ float pool2_first(const float acc[4], float bias, int* arg) {
+  float best = 0.f;
+  *arg = 0;
+#pragma unroll
+  for (int win = 0; win < 4; ++win) {
+    float v = round_to<T>(fmaxf(acc[win] + bias, 0.f));
+    if (win == 0 || v > best) {
+      best = v;
+      *arg = win;
+    }
+  }
+  return best;
+}
+
+// The forward of one block: kIdx also writes the pool2 window index (K1).
+template <typename T, bool kIdx>
+__device__ __forceinline__ void fwd_body(const T* __restrict__ x, const T* __restrict__ w1,
+                                         const float* __restrict__ b1,
+                                         const T* __restrict__ w2,
+                                         const float* __restrict__ b2, T* __restrict__ pooled,
+                                         uint8_t* __restrict__ idx, int B, int H, int W,
+                                         int C1, int C2, int G) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Geometry g(H, W);
   const int c = blockIdx.y;
@@ -157,65 +225,73 @@ conv_block_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1,
     stem_pool1<T>(s_img, s_w1, s_b1, s_x2, nullptr, g, C1);
     __syncthreads();
 
-    T* pooled_b = pooled + img * n_out;
-    uint8_t* idx_b = idx + img * n_out;
     for (int i = threadIdx.x; i < n_out; i += blockDim.x) {
       int o = i % C2, p = i / C2;
-      int ph = p / g.Wo, pw = p - ph * g.Wo;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int k = 0; k < 9; ++k) {
-        const T* wk = s_w2 + k * C1 * C2 + o;
-        // window position (a, b) of conv2 output (2ph + a, 2pw + b); tap k
-        // reads pool1 at (2ph + a + dh - 1, ...) = s_x2 row 2ph + a + dh
-        const T* x00 = s_x2 + ((2 * ph + k / 3) * g.W1P + 2 * pw + k % 3) * C1;
-        const T* x10 = x00 + g.W1P * C1;
-        for (int ci = 0; ci < C1; ++ci) {
-          float wv = to_f<T>(wk[ci * C2]);
-          acc[0] = fmaf(to_f<T>(x00[ci]), wv, acc[0]);
-          acc[1] = fmaf(to_f<T>(x00[C1 + ci]), wv, acc[1]);
-          acc[2] = fmaf(to_f<T>(x10[ci]), wv, acc[2]);
-          acc[3] = fmaf(to_f<T>(x10[C1 + ci]), wv, acc[3]);
-        }
-      }
-      float best = 0.f;
-      int arg = 0;
-#pragma unroll
-      for (int win = 0; win < 4; ++win) {
-        float v = round_to<T>(fmaxf(acc[win] + s_b2[o], 0.f));
-        if (win == 0 || v > best) {
-          best = v;
-          arg = win;
-        }
-      }
-      pooled_b[i] = from_f<T>(best);
-      idx_b[i] = (uint8_t)arg;
+      float acc[4];
+      conv2_window<T>(s_x2, s_w2, C1 * C2, C2, 1, p / g.Wo, p % g.Wo, o, g, C1, acc);
+      int arg;
+      float best = pool2_first<T>(acc, s_b2[o], &arg);
+      pooled[img * n_out + i] = from_f<T>(best);
+      if (kIdx) idx[img * n_out + i] = (uint8_t)arg;
     }
     __syncthreads();
   }
 }
 
-// Partial-gradient slot layout (P floats per block):
-//   dw1 [k][o] (9*C1) | db1 (C1) | dw2 [k][ci][o] (9*C1*C2) | db2 (C2)
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-conv_block_bwd_kernel(const T* __restrict__ gy, const uint8_t* __restrict__ idx,
-                      const T* __restrict__ x, const T* __restrict__ w1,
+conv_block_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                       const float* __restrict__ b1, const T* __restrict__ w2,
-                      float* __restrict__ partial, int B, int H, int W, int C1, int C2,
+                      const float* __restrict__ b2, T* __restrict__ pooled,
+                      uint8_t* __restrict__ idx, int B, int H, int W, int C1, int C2,
                       int G) {
+  fwd_body<T, true>(x, w1, b1, w2, b2, pooled, idx, B, H, W, C1, C2, G);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+conv_stack_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+                      const float* __restrict__ b1, const T* __restrict__ w2,
+                      const float* __restrict__ b2, T* __restrict__ pooled, int B, int H,
+                      int W, int C1, int C2, int G) {
+  fwd_body<T, false>(x, w1, b1, w2, b2, pooled, nullptr, B, H, W, C1, C2, G);
+}
+
+// Partial-gradient slot layout (P floats per block):
+//   dw1 [k][o] (9*C1) | db1 (C1) | dw2 [k][ci][o] (9*C1*C2) | db2 (C2)
+//
+// The backward of one block. Without kRecompute (K2) the cotangent arrives
+// already multiplied by relu2' and the pool2 window index comes from the
+// forward. With kRecompute (K4) neither exists: per image the block runs
+// conv2 again on the recomputed pool1 plane and keeps, per pooled position,
+// the first-match window member and the cotangent masked by a2 > 0 in shared
+// memory, where the rest of the body reads them as K2 reads its inputs.
+template <typename T, bool kRecompute>
+__device__ __forceinline__ void bwd_body(const T* __restrict__ gy,
+                                         const uint8_t* __restrict__ idx,
+                                         const T* __restrict__ x, const T* __restrict__ w1,
+                                         const float* __restrict__ b1,
+                                         const T* __restrict__ w2,
+                                         const float* __restrict__ b2,
+                                         float* __restrict__ partial, int B, int H, int W,
+                                         int C1, int C2, int G) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Geometry g(H, W);
   const int c = blockIdx.y;
   const int n_pool = g.Ho * g.Wo;
   const int n_x2 = g.H1 * g.W1;
+  const int ldw = kRecompute ? C1 + 1 : C1;  // row stride of s_w2t
   float* s_w1 = reinterpret_cast<float*>(smem);
   float* s_b1 = s_w1 + 9 * C1;
   float* s_img = s_b1 + C1;
-  float* s_dx2 = s_img + g.HP * g.WP;                  // [h][w][ci], f32
-  T* s_w2t = reinterpret_cast<T*>(s_dx2 + n_x2 * C1);  // [k][o][ci]
-  T* s_x2 = s_w2t + 9 * C1 * C2;                       // [(h+1)][(w+1)][ci]
-  T* s_dz2 = s_x2 + g.H1P * g.W1P * C1;                // [(h+1)][(w+1)][o]
-  uint8_t* s_arg = reinterpret_cast<uint8_t*>(s_dz2 + g.H1P * g.W1P * C2);
+  float* s_dx2 = s_img + g.HP * g.WP;  // [h][w][ci], f32
+  float* s_b2 = s_dx2 + n_x2 * C1;     // K4 only
+  T* s_w2t = reinterpret_cast<T*>(s_b2 + (kRecompute ? C2 : 0));  // [k][o][ci]
+  T* s_x2 = s_w2t + 9 * C2 * ldw;                                 // [(h+1)][(w+1)][ci]
+  T* s_dz2 = s_x2 + g.H1P * g.W1P * C1;                           // [(h+1)][(w+1)][o]
+  T* s_g = s_dz2 + g.H1P * g.W1P * C2;                            // K4 only: [p][o]
+  uint8_t* s_arg = reinterpret_cast<uint8_t*>(s_g + (kRecompute ? n_pool * C2 : 0));
+  uint8_t* s_win = s_arg + n_x2 * C1;  // K4 only: [p][o]
 
   const size_t P = (size_t)9 * C1 + C1 + (size_t)9 * C1 * C2 + C2;
   float* part = partial + ((size_t)c * gridDim.x + blockIdx.x) * P;
@@ -228,10 +304,12 @@ conv_block_bwd_kernel(const T* __restrict__ gy, const uint8_t* __restrict__ idx,
   const T* w2c = w2 + (size_t)c * 9 * C1 * C2;
   for (int i = threadIdx.x; i < 9 * C1; i += blockDim.x) s_w1[i] = to_f<T>(w1c[i]);
   for (int i = threadIdx.x; i < C1; i += blockDim.x) s_b1[i] = b1[(size_t)c * C1 + i];
+  if (kRecompute)
+    for (int i = threadIdx.x; i < C2; i += blockDim.x) s_b2[i] = b2[(size_t)c * C2 + i];
   for (int i = threadIdx.x; i < 9 * C1 * C2; i += blockDim.x) {
     int k = i / (C1 * C2), rem = i - k * C1 * C2;
     int ci = rem / C2, o = rem - ci * C2;
-    s_w2t[(k * C2 + o) * C1 + ci] = w2c[i];
+    s_w2t[(k * C2 + o) * ldw + ci] = w2c[i];
   }
   for (int i = threadIdx.x; i < g.HP * g.WP; i += blockDim.x) s_img[i] = 0.f;
   for (int i = threadIdx.x; i < g.H1P * g.W1P * C1; i += blockDim.x) s_x2[i] = from_f<T>(0.f);
@@ -244,13 +322,29 @@ conv_block_bwd_kernel(const T* __restrict__ gy, const uint8_t* __restrict__ idx,
     const bool first = (j == 0);
     const size_t img = (size_t)c * B + b;
     const T* g_b = gy + img * n_pool * C2;
-    const uint8_t* idx_b = idx + img * n_pool * C2;
+    const uint8_t* idx_b = kRecompute ? s_win : idx + img * n_pool * C2;
 
     load_image<T>(s_img, x + img * H * W, g);
     __syncthreads();
     // stem recompute: pool1 plane and its first-match routing
     stem_pool1<T>(s_img, s_w1, s_b1, s_x2, s_arg, g, C1);
-    // pool2 backward: the cotangent lands on the stored window position
+    if (kRecompute) {
+      __syncthreads();
+      // conv2 recompute with the forward's sums: pool2's first-match member
+      // and relu2' = (a2 > 0) at it, window by window
+      for (int i = threadIdx.x; i < n_pool * C2; i += blockDim.x) {
+        int o = i % C2, p = i / C2;
+        float acc[4];
+        conv2_window<T>(s_x2, s_w2t, C2 * ldw, 1, ldw, p / g.Wo, p % g.Wo, o, g, C1, acc);
+        int arg;
+        float best = pool2_first<T>(acc, s_b2[o], &arg);
+        s_g[i] = best > 0.f ? g_b[i] : from_f<T>(0.f);
+        s_win[i] = (uint8_t)arg;
+      }
+      __syncthreads();
+      g_b = s_g;
+    }
+    // pool2 backward: the cotangent lands on the indexed window position
     for (int i = threadIdx.x; i < n_pool * C2; i += blockDim.x) {
       int o = i % C2, p = i / C2;
       int ph = p / g.Wo, pw = p - ph * g.Wo;
@@ -300,8 +394,8 @@ conv_block_bwd_kernel(const T* __restrict__ gy, const uint8_t* __restrict__ idx,
       float acc = 0.f;
       for (int k = 0; k < 9; ++k) {
         const T* dz = s_dz2 + ((h - k / 3 + 2) * g.W1P + w - k % 3 + 2) * C2;
-        const T* wt = s_w2t + k * C2 * C1 + ci;
-        for (int o = 0; o < C2; ++o) acc = fmaf(to_f<T>(dz[o]), to_f<T>(wt[o * C1]), acc);
+        const T* wt = s_w2t + k * C2 * ldw + ci;
+        for (int o = 0; o < C2; ++o) acc = fmaf(to_f<T>(dz[o]), to_f<T>(wt[o * ldw]), acc);
       }
       float x2v = to_f<T>(s_x2[((h + 1) * g.W1P + w + 1) * C1 + ci]);
       s_dx2[i] = x2v > 0.f ? acc : 0.f;
@@ -332,6 +426,26 @@ conv_block_bwd_kernel(const T* __restrict__ gy, const uint8_t* __restrict__ idx,
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+conv_block_bwd_kernel(const T* __restrict__ gy, const uint8_t* __restrict__ idx,
+                      const T* __restrict__ x, const T* __restrict__ w1,
+                      const float* __restrict__ b1, const T* __restrict__ w2,
+                      float* __restrict__ partial, int B, int H, int W, int C1, int C2,
+                      int G) {
+  bwd_body<T, false>(gy, idx, x, w1, b1, w2, nullptr, partial, B, H, W, C1, C2, G);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+conv_stack_bwd_kernel(const T* __restrict__ gy, const T* __restrict__ x,
+                      const T* __restrict__ w1, const float* __restrict__ b1,
+                      const T* __restrict__ w2, const float* __restrict__ b2,
+                      float* __restrict__ partial, int B, int H, int W, int C1, int C2,
+                      int G) {
+  bwd_body<T, true>(gy, nullptr, x, w1, b1, w2, b2, partial, B, H, W, C1, C2, G);
+}
+
 // out[c][p] = sum over the client's block slots, in slot order
 __global__ void reduce_partials_kernel(const float* __restrict__ partial,
                                        float* __restrict__ out, int C, int NG, int P) {
@@ -344,35 +458,54 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
   out[i] = s;
 }
 
+// idx == nullptr launches the residual-free forward (K4), else K1.
 template <typename T>
 int launch_fwd(const void* x, const void* w1, const float* b1, const void* w2,
                const float* b2, void* pooled, uint8_t* idx, int C, int B, int H, int W,
                int C1, int C2, int G, int threads, cudaStream_t stream) {
   const Geometry g(H, W);
   size_t smem = fwd_smem_bytes(g, C1, C2, sizeof(T));
-  cudaError_t e = cudaFuncSetAttribute(conv_block_fwd_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e =
+      idx ? cudaFuncSetAttribute(conv_block_fwd_kernel<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
+          : cudaFuncSetAttribute(conv_stack_fwd_kernel<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((B + G - 1) / G, C);
-  conv_block_fwd_kernel<T><<<grid, threads, smem, stream>>>(
-      (const T*)x, (const T*)w1, b1, (const T*)w2, b2, (T*)pooled, idx, B, H, W, C1, C2, G);
+  if (idx)
+    conv_block_fwd_kernel<T><<<grid, threads, smem, stream>>>(
+        (const T*)x, (const T*)w1, b1, (const T*)w2, b2, (T*)pooled, idx, B, H, W, C1, C2, G);
+  else
+    conv_stack_fwd_kernel<T><<<grid, threads, smem, stream>>>(
+        (const T*)x, (const T*)w1, b1, (const T*)w2, b2, (T*)pooled, B, H, W, C1, C2, G);
   return (int)cudaGetLastError();
 }
 
+// idx == nullptr launches the residual-free backward (K4, which needs b2),
+// else K2; both are followed by the fixed-order reduction of the slots.
 template <typename T>
 int launch_bwd(const void* gy, const uint8_t* idx, const void* x, const void* w1,
-               const float* b1, const void* w2, float* partial, float* out, int C, int B,
-               int H, int W, int C1, int C2, int G, int threads, cudaStream_t stream) {
+               const float* b1, const void* w2, const float* b2, float* partial, float* out,
+               int C, int B, int H, int W, int C1, int C2, int G, int threads,
+               cudaStream_t stream) {
   const Geometry g(H, W);
-  size_t smem = bwd_smem_bytes(g, C1, C2, sizeof(T));
-  cudaError_t e = cudaFuncSetAttribute(conv_block_bwd_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  size_t smem = bwd_smem_bytes(g, C1, C2, sizeof(T), idx == nullptr);
+  cudaError_t e =
+      idx ? cudaFuncSetAttribute(conv_block_bwd_kernel<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
+          : cudaFuncSetAttribute(conv_stack_bwd_kernel<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int NG = (B + G - 1) / G;
   dim3 grid(NG, C);
-  conv_block_bwd_kernel<T><<<grid, threads, smem, stream>>>(
-      (const T*)gy, idx, (const T*)x, (const T*)w1, b1, (const T*)w2, partial, B, H, W, C1,
-      C2, G);
+  if (idx)
+    conv_block_bwd_kernel<T><<<grid, threads, smem, stream>>>(
+        (const T*)gy, idx, (const T*)x, (const T*)w1, b1, (const T*)w2, partial, B, H, W, C1,
+        C2, G);
+  else
+    conv_stack_bwd_kernel<T><<<grid, threads, smem, stream>>>(
+        (const T*)gy, (const T*)x, (const T*)w1, b1, (const T*)w2, b2, partial, B, H, W, C1,
+        C2, G);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int P = 9 * C1 + C1 + 9 * C1 * C2 + C2;
@@ -380,6 +513,10 @@ int launch_bwd(const void* gy, const uint8_t* idx, const void* x, const void* w1
   reduce_partials_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(partial, out, C, NG,
                                                                          P);
   return (int)cudaGetLastError();
+}
+
+bool bad_threads(int threads) {
+  return threads < 32 || threads > kMaxThreads || threads % 32;
 }
 
 }  // namespace
@@ -391,7 +528,7 @@ extern "C" int fl_conv_block_fwd(int dtype, const void* x, const void* w1, const
                                  int C, int B, int H, int W, int C1, int C2, int G,
                                  int threads, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (threads < 32 || threads > kMaxThreads || threads % 32) return (int)cudaErrorInvalidValue;
+  if (bad_threads(threads) || idx == nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_fwd<float>(x, w1, b1, w2, b2, pooled, idx, C, B, H, W, C1, C2, G, threads,
                              s);
@@ -406,21 +543,54 @@ extern "C" int fl_conv_block_bwd(int dtype, const void* gy, const uint8_t* idx, 
                                  float* partial, float* out, int C, int B, int H, int W, int C1,
                                  int C2, int G, int threads, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (threads < 32 || threads > kMaxThreads || threads % 32) return (int)cudaErrorInvalidValue;
+  if (bad_threads(threads) || idx == nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_bwd<float>(gy, idx, x, w1, b1, w2, partial, out, C, B, H, W, C1, C2, G,
+    return launch_bwd<float>(gy, idx, x, w1, b1, w2, nullptr, partial, out, C, B, H, W, C1,
+                             C2, G, threads, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(gy, idx, x, w1, b1, w2, nullptr, partial, out, C, B, H,
+                                     W, C1, C2, G, threads, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K4: the forward writes no index, the backward takes none (and no pooled).
+extern "C" int fl_conv_stack_fwd(int dtype, const void* x, const void* w1, const float* b1,
+                                 const void* w2, const float* b2, void* pooled, int C, int B,
+                                 int H, int W, int C1, int C2, int G, int threads,
+                                 void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bad_threads(threads)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_fwd<float>(x, w1, b1, w2, b2, pooled, nullptr, C, B, H, W, C1, C2, G,
                              threads, s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(gy, idx, x, w1, b1, w2, partial, out, C, B, H, W, C1, C2,
+    return launch_fwd<__nv_bfloat16>(x, w1, b1, w2, b2, pooled, nullptr, C, B, H, W, C1, C2,
                                      G, threads, s);
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" size_t fl_conv_block_smem_bytes(int backward, int dtype, int H, int W, int C1,
+extern "C" int fl_conv_stack_bwd(int dtype, const void* gy, const void* x, const void* w1,
+                                 const float* b1, const void* w2, const float* b2,
+                                 float* partial, float* out, int C, int B, int H, int W, int C1,
+                                 int C2, int G, int threads, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bad_threads(threads)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_bwd<float>(gy, nullptr, x, w1, b1, w2, b2, partial, out, C, B, H, W, C1, C2,
+                             G, threads, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(gy, nullptr, x, w1, b1, w2, b2, partial, out, C, B, H, W,
+                                     C1, C2, G, threads, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// which: 0 = either forward, 1 = K2's backward, 2 = K4's backward
+extern "C" size_t fl_conv_block_smem_bytes(int which, int dtype, int H, int W, int C1,
                                            int C2) {
   const Geometry g(H, W);
   size_t tsize = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
-  return backward ? bwd_smem_bytes(g, C1, C2, tsize) : fwd_smem_bytes(g, C1, C2, tsize);
+  return which ? bwd_smem_bytes(g, C1, C2, tsize, which == 2)
+               : fwd_smem_bytes(g, C1, C2, tsize);
 }
 
 extern "C" const char* fl_cuda_error_string(int err) {

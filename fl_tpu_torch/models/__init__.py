@@ -1,6 +1,10 @@
 """Models over stacked clients (port of fl_tpu.models)."""
 
-from fl_tpu_torch.models.factory import AVAILABLE_MODELS, create_model  # noqa: F401
+from fl_tpu_torch.models.factory import (  # noqa: F401
+    AVAILABLE_MODELS,
+    create_model,
+    get_model_for_dataset,
+)
 from fl_tpu_torch.models.simple_cnn import (  # noqa: F401
     SimpleCNN,
     count_params,

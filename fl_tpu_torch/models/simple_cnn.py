@@ -2,7 +2,8 @@
 
 conv3x3(1→32) → relu → maxpool2 → conv3x3(32→64) → relu → maxpool2 →
 flatten(7·7·64) → dense(128) → relu → dropout → dense(num_classes), as
-``fl_tpu.models.simple_cnn.SimpleCNN(fused_conv_block="residual")``.
+``fl_tpu.models.simple_cnn.SimpleCNN`` with each of its three values of
+``fused_conv_block``.
 
 The module holds no weights: the parameters are a plain tree with the flax
 names and layouts (``conv1``/``conv2``/``fc1``/``fc2``, each with
@@ -13,22 +14,47 @@ HWC order exactly as flax flattens it.
 
 Precision follows flax at ``dtype``: parameters stay f32, the image, the
 weights and the biases are cast to the compute dtype; fc1 → relu → dropout
-→ fc2 run in it; logits come back as f32. The conv segment is
-``fl_tpu_torch.ops.conv_block.conv_stack_res`` (kernels K1/K2 on CUDA);
-the two dense layers are batched GEMMs over clients (``torch.bmm``), which
-the reference also leaves to the compiler.
+→ fc2 run in it; logits come back as f32. The two dense layers are batched
+GEMMs over clients (``torch.bmm``), which the reference also leaves to the
+compiler.
+
+``fused_conv_block`` chooses how the conv segment is computed; the
+parameter tree and the values (up to rounding) are the same for all three:
+
+- ``False`` (the default, as in the reference): the unfused chain through
+  autograd, as flax computes it — conv, bias added to the conv's rounded
+  output in the compute dtype, relu, 2×2 max pool, twice. The convolutions
+  are library calls (``F.conv2d`` with one group per client), as the
+  reference leaves them to XLA; no hand-written kernel runs. They never
+  take TF32, forward or backward: an f32 model computes in f32 on a CUDA
+  device too, whatever ``torch.backends.cudnn.allow_tf32`` says.
+- ``True``: ``fl_tpu_torch.ops.conv_block.conv_stack``, the fused segment
+  whose backward keeps no residual (the K4 kernels on CUDA).
+- ``"residual"``: ``conv_stack_res``, the fused segment whose forward keeps
+  the pool2 window index (kernels K1/K2 on CUDA).
+
+The fused ops add the biases in f32 before one rounding, the unfused chain
+after it: they agree to the compute dtype's rounding, not bit for bit.
+
+Not ported from the reference's model: ``fast_ops``, ``fast_pool_bwd``,
+``fast_conv2_bwd`` and ``fast_stem_wgrad`` select among XLA lowerings of
+the same values and mean nothing here (the factory refuses them by name);
+the ghost-DP taps ``dp_capture`` / ``dp_perturb`` come with DP-SGD.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from fl_tpu_torch.ops.conv_block import conv_stack_res
+import torch.nn.functional as F
+
+from fl_tpu_torch.ops.conv_block import conv_stack, conv_stack_res
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -37,6 +63,70 @@ _SHAPES = {
     "conv2": (3, 3, 32, 64),
     "fc1": (7 * 7 * 64, 128),
 }
+
+
+FUSED_CONV_BLOCK = (False, True, "residual")
+
+
+@contextlib.contextmanager
+def _cudnn_tf32_off():
+    """cuDNN's TF32 switch off inside the block and as it was after it.
+    (``torch.backends.cudnn.flags`` would also set cuDNN's other switches
+    to its own defaults, ``enabled=False`` among them.)"""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+class _Conv3x3(torch.autograd.Function):
+    """``F.conv2d(h, w, padding=1, groups=groups)`` with TF32 off in the
+    forward and in the backward (autograd runs the backward after the
+    caller's ``with`` block has ended, so a context manager around the
+    forward alone would not cover it)."""
+
+    @staticmethod
+    def forward(ctx, h, w, groups):
+        ctx.save_for_backward(h, w)
+        ctx.groups = groups
+        with _cudnn_tf32_off():
+            return F.conv2d(h, w, padding=1, groups=groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        with _cudnn_tf32_off():
+            dh, dw, _ = torch.ops.aten.convolution_backward(
+                g, h, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0],
+                ctx.groups, [ctx.needs_input_grad[0],
+                             ctx.needs_input_grad[1], False])
+        return dh, dw, None
+
+
+def conv_segment_unfused(x, w1, b1, w2, b2) -> torch.Tensor:
+    """The conv segment as the unfused flax chain, over stacked clients
+    through autograd: same shapes as ``conv_stack``. Clients become channel
+    groups of one grouped convolution; kernels and biases are cast to x's
+    dtype, and each bias is added to its conv's output after that output
+    was rounded to the compute dtype (a separate op, as flax's ``nn.Conv``
+    adds it, not ``F.conv2d``'s ``bias=``). ``F.max_pool2d`` sends the
+    gradient to the first maximal window member, like XLA's
+    select-and-scatter."""
+    cdt = x.dtype
+    C, B, H, W, _ = x.shape
+
+    def grouped(w):     # (C, 3, 3, I, O) -> (C*O, I, 3, 3)
+        return w.to(cdt).permute(0, 4, 3, 1, 2).reshape(-1, w.shape[3], 3, 3)
+
+    h = x.reshape(C, B, H, W).permute(1, 0, 2, 3)
+    for w, b in ((w1, b1), (w2, b2)):
+        h = _Conv3x3.apply(h, grouped(w), C)
+        h = torch.relu(h + b.to(cdt).reshape(1, -1, 1, 1))
+        h = F.max_pool2d(h, 2)
+    return h.reshape(B, C, w2.shape[-1], H // 4, W // 4).permute(
+        1, 0, 3, 4, 2)
 
 
 def _lecun_normal(shape, generator, device) -> torch.Tensor:
@@ -56,10 +146,17 @@ class SimpleCNN(nn.Module):
     input_shape = (28, 28, 1)
 
     def __init__(self, num_classes: int = 10, dropout_rate: float = 0.25,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 fused_conv_block: Union[bool, str] = False):
         super().__init__()
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        if not (isinstance(fused_conv_block, bool)
+                or fused_conv_block == "residual"):
+            raise ValueError(
+                f"fused_conv_block must be one of {FUSED_CONV_BLOCK}, got "
+                f"{fused_conv_block!r}")
+        self.fused_conv_block = fused_conv_block
         self.num_classes = num_classes
         self.dropout_rate = dropout_rate
         self.dtype = dtype
@@ -85,9 +182,11 @@ class SimpleCNN(nn.Module):
         whole (C, B, 128) dropout mask when training."""
         cdt = self.dtype
         C, B = x.shape[:2]
-        h = conv_stack_res(x.to(cdt), params["conv1"]["kernel"],
-                           params["conv1"]["bias"], params["conv2"]["kernel"],
-                           params["conv2"]["bias"])
+        segment = {False: conv_segment_unfused, True: conv_stack,
+                   "residual": conv_stack_res}[self.fused_conv_block]
+        h = segment(x.to(cdt), params["conv1"]["kernel"],
+                    params["conv1"]["bias"], params["conv2"]["kernel"],
+                    params["conv2"]["bias"])
         h = h.reshape(C, B, -1)
         h = torch.bmm(h, params["fc1"]["kernel"].to(cdt)) \
             + params["fc1"]["bias"].to(cdt)[:, None, :]

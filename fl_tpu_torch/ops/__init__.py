@@ -5,15 +5,17 @@ takes the plain version. Each launcher adds one to its count in
 :func:`launch_counts` where it launches, and nowhere else.
 """
 
-from fl_tpu_torch.ops import conv_block, dp
+from fl_tpu_torch.ops import conv_block, dp, quantize
+
+_COUNTS = (conv_block.LAUNCHES, dp.LAUNCHES, quantize.LAUNCHES)
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {**conv_block.LAUNCHES, **dp.LAUNCHES}
+    return {k: v for counts in _COUNTS for k, v in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (conv_block.LAUNCHES, dp.LAUNCHES):
+    for counts in _COUNTS:
         for k in counts:
             counts[k] = 0

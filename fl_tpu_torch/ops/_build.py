@@ -96,6 +96,10 @@ def load() -> ctypes.CDLL:
             lib.fl_conv_block_fwd.restype = i
             lib.fl_conv_block_bwd.argtypes = [i] + [p] * 8 + [i] * 8 + [p]
             lib.fl_conv_block_bwd.restype = i
+            lib.fl_conv_stack_fwd.argtypes = [i] + [p] * 6 + [i] * 8 + [p]
+            lib.fl_conv_stack_fwd.restype = i
+            lib.fl_conv_stack_bwd.argtypes = [i] + [p] * 8 + [i] * 8 + [p]
+            lib.fl_conv_stack_bwd.restype = i
             lib.fl_conv_block_smem_bytes.argtypes = [i] * 6
             lib.fl_conv_block_smem_bytes.restype = ctypes.c_size_t
             lib.fl_cuda_error_string.argtypes = [i]

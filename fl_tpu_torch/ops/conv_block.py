@@ -1,15 +1,28 @@
 """The fused SimpleCNN conv segment over stacked clients.
 
-``conv_stack_res(x, w1, b1, w2, b2)`` computes, for every client c with its
-own weights,
+``conv_stack_res(x, w1, b1, w2, b2)`` and ``conv_stack(x, w1, b1, w2, b2)``
+compute, for every client c with its own weights,
 
     pool2(relu(conv2(pool2(relu(conv1(x[c]) + b1[c]))) + b2[c]))
 
-with SAME 3x3 convolutions and 2x2 max pools, and is the counterpart of
-``fl_tpu.ops.conv_block.conv_stack_res`` under the engine's client vmap.
-Shapes: x (C, B, H, W, 1), w1 (C, 3, 3, 1, C1), b1 (C, C1),
-w2 (C, 3, 3, C1, C2), b2 (C, C2) -> (C, B, H/4, W/4, C2), NHWC and HWIO as
-in the reference.
+with SAME 3x3 convolutions and 2x2 max pools, and are the counterparts of
+``fl_tpu.ops.conv_block.conv_stack_res`` and ``conv_stack`` under the
+engine's client vmap. Shapes: x (C, B, H, W, 1), w1 (C, 3, 3, 1, C1),
+b1 (C, C1), w2 (C, 3, 3, C1, C2), b2 (C, C2) -> (C, B, H/4, W/4, C2), NHWC
+and HWIO as in the reference.
+
+The two differ in what the forward keeps for the backward.
+``conv_stack_res`` keeps the pooled output and the pool2 first-match window
+index; ``conv_stack`` is residual-free: it keeps the image and the weights
+only, and its backward recomputes the forward chain to find the pool2
+routing and relu2' = (a2 > 0) itself. ``conv_stack_packed`` is the
+reference's entry point for P clients at once; here the client dimension of
+the launch grid does what packing clients onto the TPU's lanes did, so it
+is ``conv_stack``'s kernels over the P axis behind the reference's
+signature. The reference's block-diagonal weight packers (``pack_stem``,
+``pack_conv2``, ``_eye_pack``, ``_pair_lifted``) and its space-to-depth stem
+lift (``lift_stem``, ``_s2d_lift_matrix``) are TPU layout and have no
+counterpart here.
 
 Numerics (the TPU kernels' contract): the compute dtype is x's dtype;
 weights and biases are rounded to it on entry and the biases are then
@@ -20,9 +33,10 @@ gradient is zero. Weight gradients come back in the weights' own dtype
 without a rounding to the compute dtype, as the reference's custom VJP
 returns f32 cotangents.
 
-On a CUDA tensor the forward launches kernel K1 and the backward kernel K2
-(``csrc/conv_block.cu``); on a CPU tensor both take the plain PyTorch
-version below, which is also the oracle the kernels are held to.
+On a CUDA tensor ``conv_stack_res`` launches kernels K1 and K2, and
+``conv_stack`` and ``conv_stack_packed`` the two K4 kernels
+(``csrc/conv_block.cu``); on a CPU tensor they take the plain PyTorch
+versions below, which are also the oracles the kernels are held to.
 """
 
 from __future__ import annotations
@@ -40,12 +54,18 @@ from fl_tpu_torch.ops import _build
 IMAGES_PER_BLOCK = 4
 # CUDA threads per block. One backward block fills most of an SM's shared
 # memory, so its thread count is its occupancy: at the bench shapes on an
-# H100 (700 W) the backward ran 42 ms at 256 threads and 27 ms at 1024;
-# the forward is flat from 256 to 1024 (PERF.md, Findings).
-THREADS = {"fwd": 512, "bwd": 1024}
+# H100 (700 W) K2 ran 42 ms at 256 threads and 27 ms at 1024, K4's
+# backward 54 ms and 37 ms; both forwards are flat from 256 to 1024, with
+# their best at 512 (PERF.md, Findings; tools/profile_round.py sweep). The
+# launchers take ``threads=`` to override an entry for one call.
+THREADS = {"conv_block_fwd": 512, "conv_block_bwd": 1024,
+           "conv_stack_fwd": 512, "conv_stack_bwd": 1024}
 SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 
-LAUNCHES = {"conv_block_fwd": 0, "conv_block_bwd": 0}
+# one count per kernel, raised where it is launched; conv_stack_packed has
+# no kernel of its own and shows in conv_stack_fwd / conv_stack_bwd
+LAUNCHES = {"conv_block_fwd": 0, "conv_block_bwd": 0,
+            "conv_stack_fwd": 0, "conv_stack_bwd": 0}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -186,8 +206,24 @@ def conv_stack_res_bwd_plain(g, idx, x, w1, b1, w2):
     return dw1.contiguous(), db1, dw2.contiguous(), db2
 
 
+def conv_stack_fwd_plain(x, w1, b1, w2, b2):
+    """Plain residual-free forward: pooled (C, B, H/4, W/4, C2) in x's
+    dtype. Weights in the compute dtype, biases f32."""
+    return conv_stack_res_fwd_plain(x, w1, b1, w2, b2)[0]
+
+
+def conv_stack_bwd_plain(g, x, w1, b1, w2, b2):
+    """Plain residual-free backward: g (C, B, H/4, W/4, C2) is the raw
+    cotangent in the compute dtype. The pool2 routing and relu2' are
+    recomputed from the image and the weights; the rest is
+    :func:`conv_stack_res_bwd_plain`. Returns the same f32 gradients."""
+    pooled, idx = conv_stack_res_fwd_plain(x, w1, b1, w2, b2)
+    g = (g * (pooled > 0)).to(x.dtype)
+    return conv_stack_res_bwd_plain(g, idx, x, w1, b1, w2)
+
+
 # ---------------------------------------------------------------------------
-# CUDA launchers (K1, K2)
+# CUDA launchers (K1, K2, K4)
 # ---------------------------------------------------------------------------
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -205,79 +241,127 @@ def _check_cuda(name, tensors, dtypes):
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
-def _check_smem(lib, backward, cdt, H, W, C1, C2):
-    need = lib.fl_conv_block_smem_bytes(int(backward), _DTYPE_CODE[cdt],
-                                        H, W, C1, C2)
+# the `which` argument of fl_conv_block_smem_bytes
+_SMEM_FWD, _SMEM_BWD, _SMEM_STACK_BWD = 0, 1, 2
+
+
+def _check_smem(lib, which, cdt, H, W, C1, C2):
+    need = lib.fl_conv_block_smem_bytes(which, _DTYPE_CODE[cdt], H, W, C1, C2)
     if need > SMEM_LIMIT:
         raise ValueError(f"conv_block: {H}x{W} images with C1={C1}, "
                          f"C2={C2} need {need} B of shared memory per block "
                          f"(limit {SMEM_LIMIT})")
 
 
-def conv_block_fwd_cuda(x, w1, b1, w2, b2):
-    """Launch K1. x, w1, w2 in the compute dtype; b1, b2 f32."""
+def _launch_fwd(name, x, w1, b1, w2, b2, with_idx, threads=None):
+    """K1 (``with_idx``) or K4's forward on checked CUDA tensors."""
     C, H, W, C1, C2 = _check_shapes(x, w1, b1, w2, b2)
     cdt = x.dtype
-    _check_cuda("conv_block_fwd", (x, w1, b1, w2, b2),
+    _check_cuda(name, (x, w1, b1, w2, b2),
                 (cdt, cdt, torch.float32, cdt, torch.float32))
     lib = _build.load()
-    _check_smem(lib, False, cdt, H, W, C1, C2)
+    _check_smem(lib, _SMEM_FWD, cdt, H, W, C1, C2)
     B = x.shape[1]
     shape = (C, B, H // 4, W // 4, C2)
     pooled = torch.empty(shape, dtype=cdt, device=x.device)
-    idx = torch.empty(shape, dtype=torch.uint8, device=x.device)
+    idx = (torch.empty(shape, dtype=torch.uint8, device=x.device)
+           if with_idx else None)
+    fn = lib.fl_conv_block_fwd if with_idx else lib.fl_conv_stack_fwd
+    outs = (pooled, idx) if with_idx else (pooled,)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.fl_conv_block_fwd(
-            _DTYPE_CODE[cdt], _ptr(x), _ptr(w1), _ptr(b1), _ptr(w2),
-            _ptr(b2), _ptr(pooled), _ptr(idx), C, B, H, W, C1, C2,
-            IMAGES_PER_BLOCK, THREADS["fwd"], ctypes.c_void_p(stream))
-    _build.check(lib, rc, "conv_block_fwd")
-    LAUNCHES["conv_block_fwd"] += 1
+        rc = fn(_DTYPE_CODE[cdt], _ptr(x), _ptr(w1), _ptr(b1), _ptr(w2),
+                _ptr(b2), *map(_ptr, outs), C, B, H, W, C1, C2,
+                IMAGES_PER_BLOCK, threads or THREADS[name],
+                ctypes.c_void_p(stream))
+    _build.check(lib, rc, name)
+    LAUNCHES[name] += 1
     return pooled, idx
 
 
-def conv_block_bwd_cuda(g, idx, x, w1, b1, w2):
-    """Launch K2 (the per-block pass and its fixed-order reduction).
-    g in the compute dtype, already multiplied by (pooled > 0)."""
-    C, H, W, C1, C2 = _check_shapes(x, w1, b1, w2)
+def _launch_bwd(name, g, idx, x, w1, b1, w2, b2, threads=None):
+    """K2 (given ``idx``) or K4's backward (given ``b2``): the per-block
+    pass and its fixed-order reduction."""
+    C, H, W, C1, C2 = _check_shapes(x, w1, b1, w2, b2)
     cdt = x.dtype
     B = x.shape[1]
-    if tuple(g.shape) != (C, B, H // 4, W // 4, C2) or g.shape != idx.shape:
-        raise ValueError(f"g and idx must be {(C, B, H // 4, W // 4, C2)}")
-    _check_cuda("conv_block_bwd", (g, idx, x, w1, b1, w2),
-                (cdt, torch.uint8, cdt, cdt, torch.float32, cdt))
+    if tuple(g.shape) != (C, B, H // 4, W // 4, C2):
+        raise ValueError(f"g must be {(C, B, H // 4, W // 4, C2)}, got "
+                         f"{tuple(g.shape)}")
+    if idx is not None:
+        if idx.shape != g.shape:
+            raise ValueError(f"idx must be {tuple(g.shape)}")
+        ins, dtypes = (g, idx, x, w1, b1, w2), (
+            cdt, torch.uint8, cdt, cdt, torch.float32, cdt)
+    else:
+        ins, dtypes = (g, x, w1, b1, w2, b2), (
+            cdt, cdt, cdt, torch.float32, cdt, torch.float32)
+    _check_cuda(name, ins, dtypes)
     lib = _build.load()
-    _check_smem(lib, True, cdt, H, W, C1, C2)
+    _check_smem(lib, _SMEM_BWD if idx is not None else _SMEM_STACK_BWD, cdt,
+                H, W, C1, C2)
     P = 9 * C1 + C1 + 9 * C1 * C2 + C2
     ng = -(-B // IMAGES_PER_BLOCK)
     partial = torch.empty((C, ng, P), dtype=torch.float32, device=x.device)
     out = torch.empty((C, P), dtype=torch.float32, device=x.device)
+    fn = lib.fl_conv_block_bwd if idx is not None else lib.fl_conv_stack_bwd
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.fl_conv_block_bwd(
-            _DTYPE_CODE[cdt], _ptr(g), _ptr(idx), _ptr(x), _ptr(w1),
-            _ptr(b1), _ptr(w2), _ptr(partial), _ptr(out), C, B, H, W, C1,
-            C2, IMAGES_PER_BLOCK, THREADS["bwd"], ctypes.c_void_p(stream))
-    _build.check(lib, rc, "conv_block_bwd")
-    LAUNCHES["conv_block_bwd"] += 1
+        rc = fn(_DTYPE_CODE[cdt], *map(_ptr, ins), _ptr(partial), _ptr(out),
+                C, B, H, W, C1, C2, IMAGES_PER_BLOCK,
+                threads or THREADS[name], ctypes.c_void_p(stream))
+    _build.check(lib, rc, name)
+    LAUNCHES[name] += 1
     dw1, db1, dw2, db2 = torch.split(out, [9 * C1, C1, 9 * C1 * C2, C2], 1)
     return (dw1.reshape(C, 3, 3, 1, C1), db1.contiguous(),
             dw2.reshape(C, 3, 3, C1, C2), db2.contiguous())
 
 
+def conv_block_fwd_cuda(x, w1, b1, w2, b2, threads=None):
+    """Launch K1. x, w1, w2 in the compute dtype; b1, b2 f32. Returns
+    (pooled, idx). ``threads`` overrides the block size of ``THREADS``."""
+    return _launch_fwd("conv_block_fwd", x, w1, b1, w2, b2, True, threads)
+
+
+def conv_block_bwd_cuda(g, idx, x, w1, b1, w2, threads=None):
+    """Launch K2. g in the compute dtype, already multiplied by
+    (pooled > 0)."""
+    return _launch_bwd("conv_block_bwd", g, idx, x, w1, b1, w2, None,
+                       threads)
+
+
+def conv_stack_fwd_cuda(x, w1, b1, w2, b2, threads=None):
+    """Launch K4's forward: K1 without the index output. Returns pooled."""
+    return _launch_fwd("conv_stack_fwd", x, w1, b1, w2, b2, False,
+                       threads)[0]
+
+
+def conv_stack_bwd_cuda(g, x, w1, b1, w2, b2, threads=None):
+    """Launch K4's backward on the raw cotangent g in the compute dtype,
+    the image and the weights: no index, no pooled output."""
+    return _launch_bwd("conv_stack_bwd", g, None, x, w1, b1, w2, b2, threads)
+
+
 # ---------------------------------------------------------------------------
-# the public op
+# the public ops
 # ---------------------------------------------------------------------------
+
+def _entry_casts(x, w1, b1, w2, b2):
+    """Weights to the compute dtype; biases rounded to it and kept f32."""
+    cdt = x.dtype
+    return (x.contiguous(), w1.to(cdt).contiguous(),
+            b1.to(cdt).float().contiguous(), w2.to(cdt).contiguous(),
+            b2.to(cdt).float().contiguous())
+
+
+def _weight_grads(grads, dtypes):
+    return (None,) + tuple(t.to(dt) for t, dt in zip(grads, dtypes))
+
 
 class _ConvStackRes(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2):
-        cdt = x.dtype
-        w1c, w2c = w1.to(cdt).contiguous(), w2.to(cdt).contiguous()
-        b1f = b1.to(cdt).float().contiguous()
-        b2f = b2.to(cdt).float().contiguous()
-        x = x.contiguous()
+        x, w1c, b1f, w2c, b2f = _entry_casts(x, w1, b1, w2, b2)
         if x.is_cuda:
             pooled, idx = conv_block_fwd_cuda(x, w1c, b1f, w2c, b2f)
         else:
@@ -295,22 +379,71 @@ class _ConvStackRes(torch.autograd.Function):
             grads = conv_block_bwd_cuda(g, idx, x, w1c, b1f, w2c)
         else:
             grads = conv_stack_res_bwd_plain(g, idx, x, w1c, b1f, w2c)
-        return (None,) + tuple(t.to(dt) for t, dt in zip(grads, ctx.dtypes))
+        return _weight_grads(grads, ctx.dtypes)
+
+
+class _ConvStack(torch.autograd.Function):
+    """Residual-free: the forward saves the image and the weights only."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        x, w1c, b1f, w2c, b2f = _entry_casts(x, w1, b1, w2, b2)
+        if x.is_cuda:
+            pooled = conv_stack_fwd_cuda(x, w1c, b1f, w2c, b2f)
+        else:
+            pooled = conv_stack_fwd_plain(x, w1c, b1f, w2c, b2f)
+        ctx.save_for_backward(x, w1c, b1f, w2c, b2f)
+        ctx.dtypes = (w1.dtype, b1.dtype, w2.dtype, b2.dtype)
+        return pooled
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1c, b1f, w2c, b2f = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        if x.is_cuda:
+            grads = conv_stack_bwd_cuda(g, x, w1c, b1f, w2c, b2f)
+        else:
+            grads = conv_stack_bwd_plain(g, x, w1c, b1f, w2c, b2f)
+        return _weight_grads(grads, ctx.dtypes)
 
 
 def conv_stack_res(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                    w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """The fused conv segment over stacked clients (see the module
-    docstring). Differentiable in the weights; the image gets no
-    gradient."""
+    """The fused conv segment over stacked clients, keeping the pool2
+    index for the backward (see the module docstring). Differentiable in
+    the weights; the image gets no gradient."""
     _check_shapes(x, w1, b1, w2, b2)
     return _ConvStackRes.apply(x, w1, b1, w2, b2)
+
+
+def conv_stack(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+               w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The fused conv segment over stacked clients, residual-free (see the
+    module docstring). Differentiable in the weights; the image gets no
+    gradient."""
+    _check_shapes(x, w1, b1, w2, b2)
+    return _ConvStack.apply(x, w1, b1, w2, b2)
+
+
+def conv_stack_packed(x_imgs: torch.Tensor, w1: torch.Tensor,
+                      b1: torch.Tensor, w2: torch.Tensor,
+                      b2: torch.Tensor) -> torch.Tensor:
+    """``conv_stack`` for P clients at once, with the reference's
+    signature: x_imgs (P, B, 2H, 2W, 1), w1 (P, 3, 3, 1, C1), b1 (P, C1),
+    w2 (P, 3, 3, C1, C2), b2 (P, C2) -> (P, B, H/2, W/2, C2). Equal to
+    ``conv_stack`` client by client bit for bit, values and gradients: the
+    same kernels run with P as the client dimension of the grid, and their
+    launches count as ``conv_stack_fwd`` / ``conv_stack_bwd``."""
+    if x_imgs.dim() != 5 or w1.dim() != 5 or w1.shape[0] != x_imgs.shape[0]:
+        raise ValueError(
+            "conv_stack_packed takes x_imgs (P, B, 2H, 2W, 1) and weights "
+            f"with the same leading P, got x_imgs {tuple(x_imgs.shape)} and "
+            f"w1 {tuple(w1.shape)}")
+    return conv_stack(x_imgs, w1, b1, w2, b2)
 
 
 def conv_stack_res_plain(x, w1, b1, w2, b2) -> Tuple[torch.Tensor,
                                                      torch.Tensor]:
     """The plain PyTorch forward on any device, with the same entry casts
     as :func:`conv_stack_res`: (pooled, idx)."""
-    cdt = x.dtype
-    return conv_stack_res_fwd_plain(
-        x, w1.to(cdt), b1.to(cdt).float(), w2.to(cdt), b2.to(cdt).float())
+    return conv_stack_res_fwd_plain(*_entry_casts(x, w1, b1, w2, b2))

@@ -1,4 +1,5 @@
-"""fl_tpu_torch.ops.conv_block vs fl_tpu.ops.conv_block.conv_stack_res.
+"""fl_tpu_torch.ops.conv_block vs fl_tpu.ops.conv_block: conv_stack_res,
+conv_stack and conv_stack_packed.
 
 The same numpy inputs go through the JAX op (its Pallas kernels run in
 interpret mode on the CPU) vmapped over clients, and through the port's
@@ -15,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from fl_tpu.ops.conv_block import conv_stack_res as jax_conv_stack_res
+from fl_tpu.ops import conv_block as jcb
 from fl_tpu_torch.ops import conv_block as cb
 from fl_tpu_torch.ops import launch_counts, reset_launch_counts
 
@@ -32,9 +33,12 @@ def _inputs(seed, C, B, H, C1, C2, ones=False):
     return x, (w1, b1, w2, b2), r
 
 
-def _jax_side(x, params, r):
+def _jax_side(x, params, r, op="conv_stack_res"):
+    fn = (jcb.conv_stack_packed if op == "conv_stack_packed"
+          else jax.vmap(getattr(jcb, op)))
+
     def loss(p):
-        out = jax.vmap(jax_conv_stack_res)(jnp.asarray(x), *p)
+        out = fn(jnp.asarray(x), *p)
         return jnp.sum(out * r), out
 
     (_, out), grads = jax.value_and_grad(loss, has_aux=True)(
@@ -42,9 +46,9 @@ def _jax_side(x, params, r):
     return np.asarray(out), [np.asarray(g) for g in grads]
 
 
-def _torch_side(x, params, r):
+def _torch_side(x, params, r, op="conv_stack_res"):
     tp = [torch.tensor(a, requires_grad=True) for a in params]
-    out = cb.conv_stack_res(torch.tensor(x), *tp)
+    out = getattr(cb, op)(torch.tensor(x), *tp)
     grads = torch.autograd.grad((out * torch.tensor(r)).sum(), tp)
     return out.detach().numpy(), [g.numpy() for g in grads]
 
@@ -56,11 +60,12 @@ def _torch_side(x, params, r):
     (1, 2, 2, 16, 8, 16, False),
     (2, 2, 2, 28, 32, 64, True),
 ], ids=["28x28_c32_c64", "16x16_c8_c16", "all_ties"])
-def test_matches_jax_f32(case):
+@pytest.mark.parametrize("op", ["conv_stack_res", "conv_stack"])
+def test_matches_jax_f32(op, case):
     seed, C, B, H, C1, C2, ones = case
     x, params, r = _inputs(seed, C, B, H, C1, C2, ones)
-    want_out, want_grads = _jax_side(x, params, r)
-    got_out, got_grads = _torch_side(x, params, r)
+    want_out, want_grads = _jax_side(x, params, r, op)
+    got_out, got_grads = _torch_side(x, params, r, op)
     assert got_out.shape == (C, B, H // 4, H // 4, C2)
     # forward to 1e-5 (f32 accumulation order differs)
     np.testing.assert_allclose(got_out, want_out, rtol=1e-5, atol=1e-5)
@@ -69,6 +74,76 @@ def test_matches_jax_f32(case):
         # gradients to 2e-4, as the reference's own fused-segment tests
         np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4,
                                    err_msg=name)
+
+
+def test_packed_matches_jax_f32():
+    """conv_stack_packed at P = 2 against the reference's packed op."""
+    x, params, r = _inputs(7, 2, 2, 28, 32, 64)
+    want_out, want_grads = _jax_side(x, params, r, "conv_stack_packed")
+    got_out, got_grads = _torch_side(x, params, r, "conv_stack_packed")
+    np.testing.assert_allclose(got_out, want_out, rtol=1e-5, atol=1e-5)
+    for name, got, want in zip(("dw1", "db1", "dw2", "db2"), got_grads,
+                               want_grads):
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("P", [1, 2, 3, 4])
+def test_packed_equals_conv_stack_bit_for_bit(P):
+    """The packed entry point is conv_stack over the P axis: bit-equal on
+    the stacked inputs, values and gradients, and per client bit-equal in
+    the forward. Per-client gradients here go through the plain version's
+    library convolutions, whose f32 sums depend on the group count, so they
+    are held to 1e-5; the kernels are held bit for bit per client on the
+    card (tests/test_torch_kernels.py)."""
+    x, params, r = _inputs(8 + P, P, 2, 16, 8, 16)
+    out_p, grads_p = _torch_side(x, params, r, "conv_stack_packed")
+    out_s, grads_s = _torch_side(x, params, r, "conv_stack")
+    assert np.array_equal(out_p, out_s)
+    assert all(np.array_equal(a, b) for a, b in zip(grads_p, grads_s))
+    for c in range(P):
+        out_c, grads_c = _torch_side(x[c:c + 1], [p[c:c + 1] for p in params],
+                                     r[c:c + 1], "conv_stack")
+        assert np.array_equal(out_p[c:c + 1], out_c)
+        for a, b in zip(grads_p, grads_c):
+            np.testing.assert_allclose(a[c:c + 1], b, rtol=1e-5, atol=1e-5)
+
+
+def test_conv_stack_saves_no_pooled_and_no_index():
+    """Residual-free: the backward gets the image and the four weights in
+    the compute dtype (biases f32), nothing shaped like the output."""
+    x, params, _ = _inputs(9, 2, 2, 16, 8, 16)
+    tp = [torch.tensor(a, requires_grad=True) for a in params]
+    xb = torch.tensor(x).bfloat16()
+    out = cb.conv_stack(xb, *tp)
+    saved = out.grad_fn.saved_tensors
+    assert [tuple(t.shape) for t in saved] == \
+        [tuple(xb.shape)] + [tuple(p.shape) for p in params]
+    assert [t.dtype for t in saved] == [
+        torch.bfloat16, torch.bfloat16, torch.float32, torch.bfloat16,
+        torch.float32]
+    assert all(t.shape != out.shape and t.dtype != torch.uint8
+               for t in saved)
+    res = cb.conv_stack_res(xb, *tp)
+    assert len(res.grad_fn.saved_tensors) == 6   # ... + pooled, idx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("ones", [False, True], ids=["random", "all_ties"])
+def test_conv_stack_equals_conv_stack_res(dtype, ones):
+    """Same values and the same first-match routing: with the plain
+    versions the two formulations agree bit for bit, ties included."""
+    x, params, r = _inputs(10, 2, 2, 16, 8, 16, ones)
+    outs = []
+    for op in (cb.conv_stack, cb.conv_stack_res):
+        tp = [torch.tensor(a, requires_grad=True) for a in params]
+        out = op(torch.tensor(x).to(dtype), *tp)
+        grads = torch.autograd.grad((out.float() * torch.tensor(r)).sum(),
+                                    tp)
+        outs.append((out, grads))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(outs[0][1], outs[1][1]))
 
 
 def test_clients_are_independent():
@@ -114,12 +189,15 @@ def test_cpu_tensors_take_the_plain_version():
     tp = [torch.tensor(a, requires_grad=True) for a in params]
     out = cb.conv_stack_res(torch.tensor(x), *tp)
     torch.autograd.grad((out * torch.tensor(r)).sum(), tp)
-    assert launch_counts()["conv_block_fwd"] == 0
-    assert launch_counts()["conv_block_bwd"] == 0
+    out = cb.conv_stack_packed(torch.tensor(x), *tp)
+    torch.autograd.grad((out * torch.tensor(r)).sum(), tp)
+    assert set(launch_counts().values()) == {0}
 
 
+@pytest.mark.parametrize("op", ["conv_stack_res", "conv_stack",
+                                "conv_stack_packed"])
 @pytest.mark.parametrize("bad", ["odd_side", "two_channels", "w2_width"])
-def test_rejects_bad_shapes(bad):
+def test_rejects_bad_shapes(bad, op):
     x, (w1, b1, w2, b2), _ = _inputs(6, 1, 1, 16, 8, 16)
     if bad == "odd_side":
         x = x[:, :, :15, :15]
@@ -128,4 +206,13 @@ def test_rejects_bad_shapes(bad):
     else:
         w2 = w2[..., :1, :]
     with pytest.raises(ValueError):
-        cb.conv_stack_res(*map(torch.tensor, (x, w1, b1, w2, b2)))
+        getattr(cb, op)(*map(torch.tensor, (x, w1, b1, w2, b2)))
+
+
+def test_packed_rejects_unstacked_and_mismatched_clients():
+    x, (w1, b1, w2, b2), _ = _inputs(6, 2, 1, 16, 8, 16)
+    t = torch.tensor
+    with pytest.raises(ValueError, match="conv_stack_packed"):
+        cb.conv_stack_packed(t(x[0]), t(w1[0]), t(b1[0]), t(w2[0]), t(b2[0]))
+    with pytest.raises(ValueError, match="conv_stack_packed"):
+        cb.conv_stack_packed(t(x), t(w1[:1]), t(b1), t(w2), t(b2))

@@ -5,7 +5,8 @@ Engine parity takes the random draws out of the comparison: dropout 0;
 ``samples_per_client == batch_size == 16``, so each epoch is one
 full-batch step and the shuffle cannot change it; ε = 1e9, so the clip is
 exercised and the noise is negligible. The port starts from the JAX
-engine's initial parameters. Tolerances: in bf16 the reference's own
+engine's initial parameters, and both engines build the model with the same
+``fused_conv_block`` (False, True or "residual"). Tolerances: in bf16 the reference's own
 one-round tolerances for two formulations of the segment (params rtol
 2e-2 / atol 1e-3, train_loss rtol 5e-2, tests/test_conv_block_engine.py);
 in f32 at least 99.9% of parameter elements within 1e-5 and all within
@@ -41,7 +42,11 @@ from fl_tpu_torch.orchestration import FederatedRoundEngine, RoundEngineConfig
 LR = 1e-3
 
 
-def _engines(dtype_name, participation_rate=1.0, num_clients=4):
+FORMULATIONS = [False, True, "residual"]
+
+
+def _engines(dtype_name, participation_rate=1.0, num_clients=4,
+             fused="residual"):
     jdt, tdt = {"bf16": (jnp.bfloat16, torch.bfloat16),
                 "f32": (jnp.float32, torch.float32)}[dtype_name]
     state = "bfloat16" if dtype_name == "bf16" else None
@@ -56,7 +61,7 @@ def _engines(dtype_name, participation_rate=1.0, num_clients=4):
                                  num_clients=num_clients, strategy="iid",
                                  samples_per_client=16, seed=0)
     jeng = JaxEngine(
-        jax_create_model("simple_cnn", dtype=jdt, fused_conv_block="residual",
+        jax_create_model("simple_cnn", dtype=jdt, fused_conv_block=fused,
                          dropout_rate=0.0), jarr,
         JaxConfig(training=JaxTrainingConfig(
             local_epochs=2, batch_size=16, learning_rate=LR,
@@ -64,7 +69,8 @@ def _engines(dtype_name, participation_rate=1.0, num_clients=4):
             privacy=JaxPrivacyConfig(epsilon=1e9, delta=1e-5,
                                      max_grad_norm=1.0), **common))
     teng = FederatedRoundEngine(
-        create_model("simple_cnn", dtype=tdt, dropout_rate=0.0), tarr,
+        create_model("simple_cnn", dtype=tdt, dropout_rate=0.0,
+                     fused_conv_block=fused), tarr,
         RoundEngineConfig(training=FederatedTrainingConfig(
             local_epochs=2, batch_size=16, learning_rate=LR,
             optimizer_state_dtype=state),
@@ -83,8 +89,9 @@ def _flat(jeng, teng):
             {f"{l}/{k}": tp[l][k] for l in tp for k in tp[l]})
 
 
-def test_round_matches_jax_bf16():
-    jeng, teng = _engines("bf16")
+@pytest.mark.parametrize("fused", FORMULATIONS, ids=str)
+def test_round_matches_jax_bf16(fused):
+    jeng, teng = _engines("bf16", fused=fused)
     jr = jeng.run_round(evaluate=False)
     tr = teng.run_round(evaluate=False)
     assert tr.participating_clients == jr.participating_clients == 4
@@ -120,6 +127,33 @@ def test_participation_masks_match_jax():
 # ---------------------------------------------------------------------------
 # the port's round loop on its own
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fused", FORMULATIONS, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_every_formulation_runs_every_round_path(fused, dtype):
+    """Nothing in the engine or the local trainer assumes one conv
+    formulation: dp_mode none through run() with evaluation, and delta
+    through run_round and run_rounds_pipelined."""
+    splits = load_dataset("mnist", n_train_synth=64, n_test_synth=32)
+    arr = make_federated_arrays(splits, 2, "iid", samples_per_client=16)
+    model = create_model("simple_cnn", dtype=dtype, fused_conv_block=fused)
+    training = FederatedTrainingConfig(local_epochs=1, batch_size=8)
+    plain = FederatedRoundEngine(
+        model, arr, RoundEngineConfig(training=training),
+        test_images=splits.normalized(splits.test_images),
+        test_labels=splits.test_labels)
+    hist = plain.run(num_rounds=1)
+    assert np.isfinite(hist[0].train_loss) and hist[0].test_accuracy is not None
+    assert np.isfinite(plain.evaluate()["loss"])
+    private = FederatedRoundEngine(model, arr, RoundEngineConfig(
+        training=training, dp_mode="delta", epsilon_per_round=1.0,
+        delta_per_round=1e-7, privacy=PrivacyConfig(epsilon=1e9, delta=1e-5)))
+    results = [private.run_round(evaluate=False)]
+    results += private.run_rounds_pipelined(2)
+    assert [r.round_number for r in results] == [0, 1, 2]
+    assert all(np.isfinite(r.train_loss) for r in results)
+
 
 def _port_engine(epsilon=1e9, eps_r=1.0, num_clients=4):
     arr = make_federated_arrays(load_dataset("mnist", n_train_synth=256,

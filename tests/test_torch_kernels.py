@@ -12,7 +12,11 @@ bf16 ulp (plus 1e-5 where a sum straddles zero before relu) in bf16; K2
 gradients 2e-4 in f32 and a relative Frobenius error of 1e-2 in bf16 (the
 kernel and the plain version round dz2/dz1 to bf16 at the same points but
 sum in different orders); K3 at σ=0 exactly x·scale to 1e-6 relative, and
-its noise by moments at about 6 standard errors.
+its noise by moments at about 6 standard errors; K4 the tolerances of K1/K2
+against its plain version and bit-equality against K1/K2 (the same device
+functions); K5 bit-equal to ``conv_stack`` per client; K6 equal to its
+plain version exactly in the deterministic mode (q and scales) and by
+floor/ceil, mean and P(ceil) in the stochastic mode.
 """
 
 import pytest
@@ -23,6 +27,7 @@ from fl_tpu_torch.core import prng
 from fl_tpu_torch.ops import _build
 from fl_tpu_torch.ops import conv_block as cb
 from fl_tpu_torch.ops import dp as dpo
+from fl_tpu_torch.ops import quantize as qz
 
 
 def _conv_inputs(gen, C, B, H, C1, C2, dtype, device, ones=False):
@@ -109,6 +114,111 @@ def test_conv_kernels_match_plain(cuda, dtype, ones):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ones", [False, True], ids=["random", "all_ties"])
+def test_residual_free_kernels_equal_k1_k2_and_match_plain(cuda, dtype, ones):
+    """K4 computes K1/K2's function with no residual: bit-equal to them on
+    the same inputs, and (on the same routing) within K2's tolerance of the
+    plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    args = _conv_inputs(gen, 4, 32, 28, 32, 64, dtype, cuda, ones)
+    x, w1, b1, w2, b2 = args
+    pooled, idx = cb.conv_block_fwd_cuda(*args)
+    assert torch.equal(cb.conv_stack_fwd_cuda(*args), pooled)
+    gy = torch.randn(pooled.shape, generator=gen, device=cuda).to(dtype)
+    got = cb.conv_stack_bwd_cuda(gy, *args)
+    masked = (gy * (pooled > 0)).to(dtype).contiguous()
+    for a, b in zip(got, cb.conv_block_bwd_cuda(masked, idx, x, w1, b1, w2)):
+        assert torch.equal(a, b)
+    refs = [cb.conv_stack_res_bwd_plain(masked, idx, x, w1, b1, w2)]
+    # the residual-free plain version finds its own routing: comparable
+    # where no near-tie sent it elsewhere than the kernel
+    p_ref, i_ref = cb.conv_stack_res_fwd_plain(*args)
+    if torch.equal(i_ref, idx) and torch.equal(p_ref > 0, pooled > 0):
+        refs.append(cb.conv_stack_bwd_plain(gy, *args))
+    for ref in refs:
+        for a, b in zip(got, ref):
+            if dtype == torch.float32:
+                torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+            else:
+                assert float((a - b).norm()
+                             / b.norm().clamp(min=1e-30)) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 2, 4, 3])
+def test_packed_equals_conv_stack_per_client(cuda, P):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x, *ws = _conv_inputs(gen, P, 8, 28, 32, 64, torch.bfloat16, cuda)
+    r = torch.randn((P, 8, 7, 7, 64), generator=gen, device=cuda).bfloat16()
+    wp = [t.clone().requires_grad_(True) for t in ws]
+    ops.reset_launch_counts()
+    out = cb.conv_stack_packed(x, *wp)
+    grads = torch.autograd.grad(out, wp, r)
+    counts = ops.launch_counts()
+    # the entry point has no kernel of its own: K4's two, once each
+    want = dict.fromkeys(counts, 0)
+    want.update(conv_stack_fwd=1, conv_stack_bwd=1)
+    assert counts == want
+    for c in range(P):
+        wc = [t[c:c + 1].clone().requires_grad_(True) for t in ws]
+        out_c = cb.conv_stack(x[c:c + 1], *wc)
+        assert torch.equal(out[c:c + 1], out_c)
+        for a, b in zip(grads, torch.autograd.grad(out_c, wc, r[c:c + 1])):
+            assert torch.equal(a[c:c + 1], b)
+
+
+@pytest.mark.cuda
+def test_conv_stack_refuses_cpu_weights_on_a_cuda_image(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x, w1, b1, w2, b2 = _conv_inputs(gen, 1, 2, 28, 32, 64, torch.float32,
+                                     cuda)
+    with pytest.raises(ValueError, match="conv_stack_fwd"):
+        cb.conv_stack_fwd_cuda(x, w1.cpu(), b1, w2, b2)
+
+
+@pytest.mark.cuda
+def test_quantize_kernel_deterministic_mode_is_exact(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((512 * qz.CHUNK,), generator=gen, device=cuda) * 1e-3
+    x[:qz.CHUNK] = 0.0                                   # an all-zero block
+    # a block of scale exactly 1 whose values are all the multiples of 0.5
+    # in [-127, 127]: every other one is an exact half (ties to even)
+    x[qz.CHUNK:2 * qz.CHUNK] = (torch.arange(qz.CHUNK, device=cuda) % 509
+                                - 254).float() * 0.5
+    q, s = qz.quantize_int8_blocks(x, 3, stochastic=False)
+    q_ref, s_ref = qz.quantize_int8_blocks_plain(x, 3, stochastic=False)
+    assert q.dtype == torch.int8 and torch.equal(s, s_ref)
+    assert torch.equal(q, q_ref)
+    err = (qz.dequantize_int8_blocks(q, s) - x).reshape(512, -1).abs().amax(1)
+    # half a step, with room for the rounding of x * (1 / scale)
+    assert bool((err <= s * 0.501).all())
+
+
+@pytest.mark.cuda
+def test_quantize_kernel_stochastic_mode(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((1 << 22,), generator=gen, device=cuda)
+    ops.reset_launch_counts()
+    q, s = qz.quantize_int8(x, seed=11)
+    assert ops.launch_counts()["quantize_int8_blocks"] == 1
+    scaled = (x.reshape(-1, qz.CHUNK) * (1.0 / s)[:, None]).reshape(-1)
+    lo, qf = torch.floor(scaled), q.float()
+    assert bool(((qf == lo.clamp(-128, 127))
+                 | (qf == (lo + 1).clamp(-128, 127))).all())
+    # 4M draws: the mean error is 0 to 4 standard errors (1e-3), and
+    # P(ceil) follows the fractional part in every decile to 0.01
+    assert abs(float((qf.double() - scaled.double()).mean())) <= 1e-3
+    frac, up = scaled - lo, qf > lo
+    for b in range(10):
+        sel = (frac >= b / 10) & (frac < (b + 1) / 10)
+        assert abs(float(up[sel].float().mean())
+                   - float(frac[sel].mean())) <= 0.01
+    assert torch.equal(q, qz.quantize_int8(x, seed=11)[0])
+    assert not torch.equal(q, qz.quantize_int8(x, seed=12)[0])
+
+
+@pytest.mark.cuda
 def test_clip_noise_kernel(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
     C, D = 4, 1 << 20
@@ -131,7 +241,12 @@ def test_clip_noise_kernel(cuda):
 
 
 @pytest.mark.cuda
-def test_engine_round_runs_through_the_kernels(cuda):
+@pytest.mark.parametrize("fused, conv_counts", [
+    ("residual", ("conv_block_fwd", "conv_block_bwd")),
+    (True, ("conv_stack_fwd", "conv_stack_bwd")),
+    (False, ()),
+], ids=["residual", "fused", "unfused"])
+def test_engine_round_runs_through_the_kernels(cuda, fused, conv_counts):
     from fl_tpu_torch.core.types import PrivacyConfig
     from fl_tpu_torch.data import load_dataset, make_federated_arrays
     from fl_tpu_torch.fl.local_training import FederatedTrainingConfig
@@ -143,13 +258,15 @@ def test_engine_round_runs_through_the_kernels(cuda):
                                              n_test_synth=64), 4, "iid",
                                 samples_per_client=32)
     eng = FederatedRoundEngine(
-        create_model("simple_cnn", dtype=torch.bfloat16), arr,
+        create_model("simple_cnn", dtype=torch.bfloat16,
+                     fused_conv_block=fused), arr,
         RoundEngineConfig(
             training=FederatedTrainingConfig(local_epochs=2, batch_size=16),
             dp_mode="delta", privacy=PrivacyConfig(epsilon=8.0, delta=1e-5),
             epsilon_per_round=1.0, delta_per_round=1e-7), device=cuda)
     ops.reset_launch_counts()
     res = eng.run_rounds_pipelined(2)
-    assert ops.launch_counts() == {"conv_block_fwd": 8, "conv_block_bwd": 8,
-                                   "clip_noise": 4}
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    want.update(dict.fromkeys(conv_counts, 8), clip_noise=4)
+    assert ops.launch_counts() == want
     assert all(torch.isfinite(torch.tensor(r.train_loss)) for r in res)

@@ -1,0 +1,180 @@
+"""Measurements of the port on one NVIDIA GPU that PERF.md quotes.
+
+    python3 tools/profile_round.py sweep
+    python3 tools/profile_round.py profile [--out DIR] [residual|true|false ...]
+
+``sweep`` times the four conv kernels at the bench shapes (512 clients x 32
+images, bf16, C1=32, C2=64) for each thread count per block, CUDA events
+over 5 launches after a warm one, in the order 1024 ... 128 ... 1024 so
+that drift shows.
+
+``profile`` runs the 512-client bf16 delta-DP round of ``bench.py``'s
+workload for each named value of ``fused_conv_block``: one warm-up round,
+then 3 pipelined rounds under ``torch.profiler``, and prints the device
+time per round grouped by kernel family, the launches per round, the busy
+share of the profiled window, rounds/s without the profiler (3 pipelined
+rounds before it) and the peak memory; with ``--out DIR`` the kernels by
+their own names go to ``DIR/profile_<value>.txt``.
+
+The bench configuration, the conv inputs and the timer are those of
+``chip_smoke.py`` at the root of the checkout, imported from there. Every
+line carries the card's name and power limit. Needs one CUDA device.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import chip_smoke  # noqa: E402
+
+ROUNDS = 3
+
+# kernel-name fragments -> family, first match wins
+FAMILIES = (
+    ("conv_block_bwd_kernel", "K2 conv_block_bwd_kernel"),
+    ("conv_block_fwd_kernel", "K1 conv_block_fwd_kernel"),
+    ("conv_stack_bwd_kernel", "K4 conv_stack_bwd_kernel"),
+    ("conv_stack_fwd_kernel", "K4 conv_stack_fwd_kernel"),
+    ("reduce_partials_kernel", "reduce_partials_kernel"),
+    ("clip_noise_kernel", "K3 clip_noise_kernel"),
+    ("max_pool", "library max pool fwd/bwd"),
+    ("conv_depthwise2d", "library conv1 (PyTorch's depthwise kernels)"),
+    ("nchwToNhwc", "cuDNN layout transforms (NCHW <-> NHWC)"),
+    ("nhwcToNchw", "cuDNN layout transforms (NCHW <-> NHWC)"),
+    ("tensorTransform", "cuDNN layout transforms (NCHW <-> NHWC)"),
+    ("cudnn", "library conv2 (cuDNN)"),
+    ("nvjet", "fc1/fc2 GEMMs (torch.bmm, cuBLAS)"),
+    ("gemm", "fc1/fc2 GEMMs (torch.bmm, cuBLAS)"),
+    ("cutlass", "fc1/fc2 GEMMs (torch.bmm, cuBLAS)"),
+    ("reduce_kernel", "PyTorch reductions"),
+    ("Memcpy", "copies and casts"),
+    ("copy_kernel", "copies and casts"),
+    ("elementwise", "PyTorch elementwise"),
+)
+
+
+def sweep(card: str) -> None:
+    from fl_tpu_torch.ops import conv_block as cb
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dt = torch.bfloat16
+    x, w1, b1, w2, b2 = chip_smoke.conv_inputs(
+        gen, chip_smoke.NUM_CLIENTS, chip_smoke.BATCH_SIZE, dt)
+    pooled, idx = cb.conv_block_fwd_cuda(x, w1, b1, w2, b2)
+    g_raw = torch.randn(pooled.shape, generator=gen, device="cuda").to(dt)
+    g = (g_raw * (pooled > 0)).to(dt).contiguous()
+    calls = {
+        "conv_block_fwd": lambda t: cb.conv_block_fwd_cuda(
+            x, w1, b1, w2, b2, threads=t),
+        "conv_block_bwd": lambda t: cb.conv_block_bwd_cuda(
+            g, idx, x, w1, b1, w2, threads=t),
+        "conv_stack_fwd": lambda t: cb.conv_stack_fwd_cuda(
+            x, w1, b1, w2, b2, threads=t),
+        "conv_stack_bwd": lambda t: cb.conv_stack_bwd_cuda(
+            g_raw, x, w1, b1, w2, b2, threads=t),
+    }
+    for threads in (1024, 768, 512, 256, 128, 256, 512, 768, 1024):
+        times = {key: chip_smoke.time_ms(lambda: fn(threads))
+                 for key, fn in calls.items()}
+        print(f"sweep threads={threads}: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in times.items()) + f" [{card}]",
+            flush=True)
+
+
+def _family(name: str) -> str:
+    for fragment, family in FAMILIES:
+        if fragment in name:
+            return family
+    return "everything else"
+
+
+def _device_us(ev) -> float:
+    """A kernel event's device time (the attribute was renamed)."""
+    if hasattr(ev, "self_device_time_total"):
+        return ev.self_device_time_total
+    return ev.self_cuda_time_total
+
+
+def profile(card: str, fused, out_dir: Optional[Path]) -> None:
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    engine = chip_smoke.make_bench_engine(fused)
+    engine.run_round(evaluate=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine.run_rounds_pipelined(ROUNDS, evaluate=False)
+    rate = ROUNDS / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run_rounds_pipelined(ROUNDS, evaluate=False)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    us, calls = defaultdict(float), defaultdict(int)
+    by_name = defaultdict(float)
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            fam = _family(ev.name)
+            us[fam] += _device_us(ev)
+            calls[fam] += 1
+            by_name[ev.name] += _device_us(ev)
+    if out_dir is not None:
+        # the kernels by their own names, for checking the grouping above
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / f"profile_{fused}.txt").write_text("".join(
+            f"{t / 1e3 / ROUNDS:10.2f} ms/round  {_family(n):44s} {n}\n"
+            for n, t in sorted(by_name.items(), key=lambda kv: -kv[1])))
+    total = sum(us.values())
+    if total == 0:
+        raise RuntimeError("the profiler recorded no device time")
+    print(f"profile fused_conv_block={fused!r}: {rate:.3f} rounds/s without "
+          f"the profiler, peak memory {peak:.2f} GiB; under it {ROUNDS} "
+          f"rounds in {window:.3f}s, device kernel time "
+          f"{total / 1e3 / ROUNDS:.1f} ms/round, busy share "
+          f"{total / 1e6 / window:.4f} [{card}]", flush=True)
+    for fam in sorted(us, key=us.get, reverse=True):
+        print(f"  {fam}: {us[fam] / 1e3 / ROUNDS:.1f} ms/round, "
+              f"{100 * us[fam] / total:.1f}%, "
+              f"{calls[fam] / ROUNDS:.0f} launches/round", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("no CUDA device: these measurements need one GPU",
+              file=sys.stderr)
+        return 1
+    modes = {"residual": "residual", "true": True, "false": False}
+    out_dir = None
+    if argv[1:2] == ["--out"] and len(argv) > 2:
+        out_dir, argv = Path(argv[2]), argv[:1] + argv[3:]
+    if not argv or argv[0] not in ("sweep", "profile") or any(
+            a not in modes for a in argv[1:]):
+        print(__doc__, file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = chip_smoke.card_line()
+    if argv[0] == "sweep":
+        sweep(card)
+    else:
+        for name in argv[1:] or list(modes):
+            profile(card, modes[name], out_dir)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
