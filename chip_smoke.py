@@ -15,7 +15,11 @@ line each; any failure exits non-zero:
    also held to K1/K2 on the same inputs), K5 (``conv_stack_packed``,
    bit-equal to ``conv_stack`` per client for P = 1, 2, 4, 3), K3 (DP
    clip + noise) and K6 (int8 block quantizer: deterministic mode exact,
-   stochastic mode by its distribution);
+   stochastic mode by its distribution); K7 (``conv3x3_patch``: patch GEMM
+   forward and input gradient, weight gradient) and K8 (``batched_gemm``,
+   ``taploop_conv``) in f32 and bf16 on small shapes, ragged ones among
+   them, and at the conv2 and stem shapes of the bench, with ``F.conv2d``
+   (groups = clients), its backward and ``torch.bmm`` as library yardsticks;
 4. the delta-DP FedAvg round of the 512-client bench configuration
    (bench.py's workload) with ``fused_conv_block="residual"``: one warm-up
    round, then 3 pipelined rounds with the kernel launch counts checked;
@@ -27,7 +31,16 @@ line each; any failure exits non-zero:
    ``quantize_int8`` driven once at full width with their counts read;
 6. learning check: 10 non-IID clients, 3 rounds, test accuracy > 0.5, with
    ``fused_conv_block="residual"`` and with ``True``;
-7. the kernel table as one JSON line, the card line, and the final
+7. the conv-formulations measurement at the bench shapes (512 clients x 32
+   images, bf16): conv2 14x14 32->64 as library convolution, shift-GEMM
+   (``conv3x3_same``) and patch GEMM (``conv3x3_patch``), forward and
+   forward + backward; the stem 28x28 1->32 + relu + pool as library chain
+   and as ``conv_stem_s2d``, forward and forward + (w, b) gradients; the
+   probes ``batched_gemm`` against ``torch.bmm`` and ``taploop_conv``
+   against the library convolution. Each formulation is first held to the
+   library result, then timed; the launch counts of K7 and K8 are checked
+   (the stem launches no input gradient);
+8. the kernel table as one JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
 
 In the kernel table ``bound_ms`` is the larger of the bytes the function
@@ -43,7 +56,13 @@ the same segment (forward, or backward through autograd) on the same
 inputs, itself held to the plain version here: no single library call
 computes the fused function; it is null where there is no counterpart.
 ``conv_stack_packed`` has no kernel of its own: its ``launches`` are those
-of ``conv_stack_fwd`` plus ``conv_stack_bwd`` during its own call.
+of ``conv_stack_fwd`` plus ``conv_stack_bwd`` during its own call. For K7
+and K8 one library call does compute the same function: ``library_ms`` is
+``F.conv2d`` with one group per client (or the weight-gradient half of its
+backward) on the same values already in its own (B, C*I, H, W) layout, and
+``torch.bmm``. ``conv3x3_patch_gemm`` is the forward; the input gradient is
+the same kernel on the cotangent and its numbers are on the
+``kernels (K7)`` line.
 
 Needs one CUDA device; imports nothing of JAX.
 """
@@ -75,6 +94,20 @@ BF16_FLOPS = 989e12
 # check_unfused
 UNFUSED_GRAD_TOL = 1e-2
 FORMULATION_GRAD_TOL = 0.2
+
+# conv2 of SimpleCNN and the stem after space-to-depth, (H, W, I, O)
+CONV2_SHAPE = (14, 14, 32, 64)
+S2D_STEM_SHAPE = (14, 14, 4, 128)
+# the probe's bare GEMM: conv2's patch matrix with the padded 16x16 grid's
+# rows, (M, K, N) per client
+PROBE_GEMM_SHAPE = (BATCH_SIZE * 16 * 16, 9 * 32, 64)
+# two formulations of one bf16 convolution round the same f32 sum, so they
+# differ by rare one-ulp flips; a library algorithm that transforms the
+# operands adds its own rounding. Relative Frobenius norm.
+FORMULATION_TOL = 1e-2
+# the kernels the conv-formulations path launches
+FORMULATION_KERNELS = ("conv3x3_patch_gemm", "conv3x3_patch_wgrad",
+                       "probe_batched_gemm", "probe_taploop_conv")
 
 
 class SmokeFailure(Exception):
@@ -635,6 +668,449 @@ def phase_quantize(report):
           f"decile, seeds differ and repeat", flush=True)
 
 
+def check_rounded(name, tag, got, want, dtype):
+    """A product summed in f32 and rounded once, against the same in another
+    order. f32: rtol 1e-4, atol 1e-4 (the reference's own, tests/
+    test_ops.py). bf16: one bf16 ulp of the larger value plus 1e-4 (two f32
+    sums that differ in their last bits round to neighbours at most).
+    Returns the largest absolute difference."""
+    import torch
+
+    a, b = got.float(), want.float()
+    err = float((a - b).abs().max())
+    if dtype == torch.float32:
+        require(torch.allclose(a, b, rtol=1e-4, atol=1e-4),
+                f"{name} {tag}: off by {err} (tol rtol 1e-4, atol 1e-4)")
+    else:
+        over = (a - b).abs() > bf16_ulp(torch.maximum(a.abs(), b.abs())) + 1e-4
+        require(not bool(over.any()),
+                f"{name} {tag}: {int(over.sum())} values off by more than one "
+                f"bf16 ulp, e.g. {a[over][:4].tolist()} vs "
+                f"{b[over][:4].tolist()}")
+    return err
+
+
+def check_wgrad(name, tag, got, want, rows):
+    """A weight gradient in f32: sums over `rows` output positions in
+    another order than the plain version's. rtol 1e-4, atol 2e-4 up to 784
+    rows (the reference's own, at its test shapes) and growing with the
+    number of terms beyond."""
+    import torch
+
+    atol = 2e-4 * max(1.0, rows / 784)
+    err = float((got - want).abs().max())
+    require(torch.allclose(got, want, rtol=1e-4, atol=atol),
+            f"{name} {tag}: off by {err} (tol rtol 1e-4, atol {atol:.1e})")
+    return err
+
+
+def patch_inputs(gen, C, B, shape, dtype):
+    """x (C, B, H, W, I), w (C, 3, 3, I, O) and a cotangent g (C, B, H, W,
+    O) for a convolution, as the reference's measurement draws them."""
+    import torch
+
+    H, W, I, O = shape
+    x = torch.randn((C, B, H, W, I), generator=gen, device="cuda")
+    w = torch.randn((C, 3, 3, I, O), generator=gen, device="cuda") * 0.1
+    g = torch.randn((C, B, H, W, O), generator=gen, device="cuda")
+    return x.to(dtype), w.to(dtype), g.to(dtype)
+
+
+def to_library(t):
+    """(C, B, H, W, ch) -> the grouped convolution's (B, C*ch, H, W)."""
+    C, B, H, W, ch = t.shape
+    return t.permute(1, 0, 4, 2, 3).reshape(B, C * ch, H, W).contiguous()
+
+
+def from_library(t, C):
+    """(B, C*ch, H, W) -> (C, B, H, W, ch), contiguous."""
+    B, _, H, W = t.shape
+    return t.reshape(B, C, -1, H, W).permute(1, 0, 3, 4, 2).contiguous()
+
+
+def library_weights(w):
+    """(C, 3, 3, I, O) -> the grouped convolution's (C*O, I, 3, 3)."""
+    return w.permute(0, 4, 3, 1, 2).reshape(-1, w.shape[3], 3, 3).contiguous()
+
+
+def library_conv3x3(x, w):
+    """The library formulation on the port's layout: ``F.conv2d`` with one
+    group per client between the two layout changes. Differentiable."""
+    import torch.nn.functional as F
+
+    C = x.shape[0]
+    return from_library(F.conv2d(to_library(x), library_weights(w), padding=1,
+                                 groups=C), C)
+
+
+def library_backward(gl, xl, wl, groups, dgrad, wgrad):
+    """One half (or both) of the grouped convolution's backward on tensors
+    in the library's layout."""
+    import torch
+
+    return torch.ops.aten.convolution_backward(
+        gl, xl, wl, None, [1, 1], [1, 1], [1, 1], False, [0, 0], groups,
+        [dgrad, wgrad, False])
+
+
+def conv_flops(x, w):
+    """Operations of one direction of the 3x3 convolution of x (C, B, H, W,
+    I) with w (C, 3, 3, I, O): 2 * 9 * I * O per output position. The two
+    gradients do the same count."""
+    C, B, H, W, I = x.shape
+    return 2 * C * B * H * W * 9 * I * w.shape[-1]
+
+
+def check_patch(cp, gen, C, B, shape, dtype):
+    """K7's three products against their plain versions on one set of
+    inputs, and the op through autograd against them."""
+    import torch
+
+    x, w, g = patch_inputs(gen, C, B, shape, dtype)
+    H, W, I, O = shape
+    tag = f"{str(dtype)[6:]} C={C} B={B} {H}x{W} {I}->{O}"
+    w2 = w.reshape(C, 9 * I, O)
+    y, y_ref = cp.patch_gemm_cuda(x, w2), cp.conv3x3_patch_plain(x, w2)
+    dw, dw_ref = cp.patch_wgrad_cuda(x, g), cp.conv3x3_patch_wgrad_plain(x, g)
+    wd = cp.dgrad_weights(w)
+    dx, dx_ref = cp.patch_gemm_cuda(g, wd), cp.conv3x3_patch_plain(g, wd)
+    torch.cuda.synchronize()
+    err = {"fwd": check_rounded("K7 fwd", tag, y, y_ref, dtype),
+           "wgrad": check_wgrad("K7 wgrad", tag, dw, dw_ref, B * H * W),
+           "dgrad": check_rounded("K7 dgrad", tag, dx, dx_ref, dtype)}
+    # the op: the same launches behind autograd, bit for bit
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    out = cp.conv3x3_patch(xr, wr)
+    gx, gw = torch.autograd.grad(out, (xr, wr), g)
+    torch.cuda.synchronize()
+    require(torch.equal(out, y) and torch.equal(gx, dx)
+            and torch.equal(gw, dw.reshape(w.shape).to(dtype)),
+            f"K7 {tag}: conv3x3_patch through autograd differs from its "
+            "own launches")
+    return dict(err=err, x=x, w=w, g=g, w2=w2, wd=wd)
+
+
+def phase_conv_patch(report):
+    import torch
+    import torch.nn.functional as F
+
+    from fl_tpu_torch.ops import conv_patch as cp
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    # the reference's test shapes, the stem's after space-to-depth, and a
+    # ragged one (I, O and the row count no multiples of 4)
+    small = ((2, (14, 14, 32, 64)), (2, (8, 8, 16, 16)), (1, (28, 28, 4, 8)),
+             (2, S2D_STEM_SHAPE), (3, (5, 7, 3, 6)))
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, shape in small:
+            check_patch(cp, gen, 3, B, shape, dtype)
+            n += 1
+    # the bench shapes in f32 (held to plain, not timed), then in bf16
+    for shape in (S2D_STEM_SHAPE, CONV2_SHAPE):
+        check_patch(cp, gen, NUM_CLIENTS, BATCH_SIZE, shape, torch.float32)
+        torch.cuda.empty_cache()
+    stem = check_patch(cp, gen, NUM_CLIENTS, BATCH_SIZE, S2D_STEM_SHAPE,
+                       torch.bfloat16)
+    stem_ms = (time_ms(lambda: cp.patch_gemm_cuda(stem["x"], stem["w2"])),
+               time_ms(lambda: cp.patch_wgrad_cuda(stem["x"], stem["g"])))
+    stem_err = stem["err"]
+    del stem
+    torch.cuda.empty_cache()
+
+    big = check_patch(cp, gen, NUM_CLIENTS, BATCH_SIZE, CONV2_SHAPE,
+                      torch.bfloat16)
+    x, w, g, w2, wd = (big[k] for k in ("x", "w", "g", "w2", "wd"))
+    C = NUM_CLIENTS
+    xl, wl, gl = to_library(x), library_weights(w), to_library(g)
+    # each direction reads two of x, w, dy and writes the third (dW in f32)
+    flops = conv_flops(x, w)
+    b_fwd, b_wgrad, b_dgrad = (bound(nbytes(x, w, g), flops),
+                               bound(nbytes(x, g, w.float()), flops),
+                               bound(nbytes(g, w, x), flops))
+    report["conv3x3_patch_gemm"].update(
+        max_abs_err=big["err"]["fwd"],
+        ms=time_ms(lambda: cp.patch_gemm_cuda(x, w2)),
+        plain_ms=time_ms(lambda: cp.conv3x3_patch_plain(x, w2)),
+        library_ms=time_ms(lambda: F.conv2d(xl, wl, padding=1, groups=C)),
+        bound_ms=b_fwd[0], bound_by=b_fwd[1])
+    report["conv3x3_patch_gemm"]["dgrad"] = dict(
+        max_abs_err=big["err"]["dgrad"],
+        ms=time_ms(lambda: cp.patch_gemm_cuda(g, wd)),
+        plain_ms=time_ms(lambda: cp.conv3x3_patch_plain(g, wd)),
+        library_ms=time_ms(lambda: library_backward(gl, xl, wl, C, True,
+                                                    False)),
+        bound_ms=b_dgrad[0], bound_by=b_dgrad[1])
+    report["conv3x3_patch_wgrad"].update(
+        max_abs_err=big["err"]["wgrad"],
+        ms=time_ms(lambda: cp.patch_wgrad_cuda(x, g)),
+        plain_ms=time_ms(lambda: cp.conv3x3_patch_wgrad_plain(x, g)),
+        library_ms=time_ms(lambda: library_backward(gl, xl, wl, C, False,
+                                                    True)),
+        bound_ms=b_wgrad[0], bound_by=b_wgrad[1])
+    d = report["conv3x3_patch_gemm"]["dgrad"]
+    print(f"kernels (K7): patch GEMM forward, weight gradient and input "
+          f"gradient match plain in {n} small cases (f32 rtol 1e-4 / atol "
+          f"1e-4, weight gradient atol 2e-4 growing with the rows summed; "
+          f"bf16 one ulp + 1e-4) and at the bench's conv2 and s2d-stem "
+          f"shapes in f32 and bf16 (bf16 max abs err fwd {big['err']['fwd']:.2e} wgrad "
+          f"{big['err']['wgrad']:.2e} dgrad {big['err']['dgrad']:.2e}; stem "
+          f"fwd {stem_err['fwd']:.2e} wgrad {stem_err['wgrad']:.2e}); "
+          f"conv3x3_patch through autograd equals its launches bit for "
+          f"bit; input gradient {d['ms']:.3f} ms, plain {d['plain_ms']:.3f}, "
+          f"library {d['library_ms']:.3f}, bound {d['bound_ms']:.3f} "
+          f"({d['bound_by']}); s2d stem 14x14 4->128: forward "
+          f"{stem_ms[0]:.3f} ms, weight gradient {stem_ms[1]:.3f} ms",
+          flush=True)
+    torch.cuda.empty_cache()
+
+
+def phase_conv_probe(report):
+    import torch
+    import torch.nn.functional as F
+
+    from fl_tpu_torch.ops import conv_patch as cp
+    from fl_tpu_torch.ops import conv_probe as probe
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        # whole tiles, and edges ragged in every dimension
+        for C, M, K, N in ((2, 128, 288, 64), (3, 70, 50, 37)):
+            a = torch.randn((C, M, K), generator=gen, device="cuda").to(dtype)
+            b = torch.randn((C, K, N), generator=gen, device="cuda").to(dtype)
+            got, want = probe.batched_gemm_cuda(a, b), (
+                probe.batched_gemm_plain(a, b))
+            torch.cuda.synchronize()
+            check_rounded("K8a", f"{str(dtype)[6:]} {C}x{M}x{K}x{N}", got,
+                          want, dtype)
+            n += 1
+        for B, shape in ((2, CONV2_SHAPE), (1, (28, 28, 4, 8)),
+                         (3, (5, 7, 3, 6))):
+            x, w, _ = patch_inputs(gen, 3, B, shape, dtype)
+            got, want = probe.taploop_conv_cuda(x, w), (
+                probe.taploop_conv_plain(x, w))
+            torch.cuda.synchronize()
+            check_rounded("K8b", f"{str(dtype)[6:]} B={B} {shape}", got, want,
+                          dtype)
+            n += 1
+
+    C, dt = NUM_CLIENTS, torch.bfloat16
+    M, K, N = PROBE_GEMM_SHAPE
+    # the bench shapes in f32 (held to plain, not timed), then in bf16
+    x, w, _ = patch_inputs(gen, C, BATCH_SIZE, CONV2_SHAPE, torch.float32)
+    check_rounded("K8b", "bench shapes f32", probe.taploop_conv_cuda(x, w),
+                  probe.taploop_conv_plain(x, w), torch.float32)
+    del x, w
+    a = torch.randn((C, M, K), generator=gen, device="cuda")
+    b = torch.randn((C, K, N), generator=gen, device="cuda")
+    check_rounded("K8a", "bench shapes f32", probe.batched_gemm_cuda(a, b),
+                  probe.batched_gemm_plain(a, b), torch.float32)
+    del a, b
+    torch.cuda.empty_cache()
+    x, w, _ = patch_inputs(gen, C, BATCH_SIZE, CONV2_SHAPE, dt)
+    y, y_ref = probe.taploop_conv_cuda(x, w), probe.taploop_conv_plain(x, w)
+    torch.cuda.synchronize()
+    err_b = check_rounded("K8b", "bench shapes", y, y_ref, dt)
+    same = torch.equal(y, cp.patch_gemm_cuda(x, w.reshape(C, 288, 64)))
+    xl, wl = to_library(x), library_weights(w)
+    b_ms, b_by = bound(nbytes(x, w, y), conv_flops(x, w))
+    report["probe_taploop_conv"].update(
+        max_abs_err=err_b, ms=time_ms(lambda: probe.taploop_conv_cuda(x, w)),
+        plain_ms=time_ms(lambda: probe.taploop_conv_plain(x, w)),
+        library_ms=time_ms(lambda: F.conv2d(xl, wl, padding=1, groups=C)),
+        bound_ms=b_ms, bound_by=b_by)
+    del x, w, y, y_ref, xl, wl
+    torch.cuda.empty_cache()
+
+    a = torch.randn((C, M, K), generator=gen, device="cuda", dtype=dt)
+    b = torch.randn((C, K, N), generator=gen, device="cuda", dtype=dt)
+    out, out_ref = probe.batched_gemm_cuda(a, b), (
+        probe.batched_gemm_plain(a, b))
+    torch.cuda.synchronize()
+    err_a = check_rounded("K8a", "bench shapes", out, out_ref, dt)
+    b_ms, b_by = bound(nbytes(a, b, out), 2 * C * M * K * N)
+    del out_ref
+    report["probe_batched_gemm"].update(
+        max_abs_err=err_a, ms=time_ms(lambda: probe.batched_gemm_cuda(a, b)),
+        plain_ms=time_ms(lambda: probe.batched_gemm_plain(a, b), reps=2),
+        library_ms=time_ms(lambda: torch.bmm(a, b)), bound_ms=b_ms,
+        bound_by=b_by)
+    del a, b, out
+    torch.cuda.empty_cache()
+    print(f"kernels (K8): batched GEMM and tap-loop conv match plain in {n} "
+          f"small cases, ragged ones among them (f32 rtol 1e-4 / atol 1e-4; "
+          f"bf16 one ulp + 1e-4), and at the bench shapes in f32 and bf16 "
+          f"(bf16 max abs err GEMM "
+          f"{err_a:.2e}, tap loop {err_b:.2e}); tap loop "
+          f"{'==' if same else '!='} patch GEMM forward bit for bit at the "
+          f"bench shapes", flush=True)
+
+
+def _frob(name, got, want, tol=FORMULATION_TOL):
+    """Hold one formulation's tensors to the library's, each to `tol` in
+    relative Frobenius norm; returns the largest distance."""
+    worst = max(_rel(a, b) for a, b in zip(got, want))
+    require(worst <= tol, f"formulations, {name}: {worst} from the library "
+                          f"result in relative Frobenius norm (tol {tol})")
+    return worst
+
+
+def conv_formulations(card, C=NUM_CLIENTS, B=BATCH_SIZE, reps=5):
+    """The conv-formulations measurement at the bench shapes in bf16: the
+    same convolution computed by the library, as nine shifted GEMMs, as one
+    patch GEMM, as a tap loop and as a bare GEMM on a prebuilt patch matrix;
+    and the stem as library chain and as space-to-depth patch GEMM. Each
+    formulation is held to the library result, then timed (CUDA events,
+    `reps` calls after a warm one). Returns (rows, launches): rows of
+    (group, formulation, what, ms, distance from the library) and the K7/K8
+    launch counts of the whole measurement, which are checked here against
+    the calls made: one patch GEMM per forward, one more per input
+    gradient, one weight-gradient launch per backward, none of an input
+    gradient for the stem."""
+    import torch
+    import torch.nn.functional as F
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.ops.conv import conv3x3_same
+    from fl_tpu_torch.ops.conv_patch import conv3x3_patch, conv_stem_s2d
+    from fl_tpu_torch.ops.conv_probe import batched_gemm, taploop_conv
+
+    dt = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    start = before = ops.launch_counts()
+
+    def launched():
+        now = ops.launch_counts()
+        return {k: now[k] - before[k] for k in FORMULATION_KERNELS}
+
+    def expect(section, **want):
+        got = launched()
+        want = {**dict.fromkeys(FORMULATION_KERNELS, 0), **want}
+        require(got == want, f"formulations, {section}: launches {got}, "
+                             f"expected {want}")
+
+    timed = reps + 1   # calls of one time_ms
+
+    # --- conv2 14x14 32->64 ---
+    x, w, g = patch_inputs(gen, C, B, CONV2_SHAPE, dt)
+    xl, wl, gl = to_library(x), library_weights(w), to_library(g)
+
+    def fwd_bwd(fn):
+        def run():
+            xr, wr = x.detach().requires_grad_(True), (
+                w.detach().requires_grad_(True))
+            y = fn(xr, wr)
+            return (y.detach(),) + torch.autograd.grad(y, (xr, wr), g)
+        return run
+
+    def own_layout():
+        xr, wr = xl.detach().requires_grad_(True), (
+            wl.detach().requires_grad_(True))
+        return torch.autograd.grad(F.conv2d(xr, wr, padding=1, groups=C),
+                                   (xr, wr), gl)
+
+    want = fwd_bwd(library_conv3x3)()
+    variants = (("library, F.conv2d groups=clients, between layout changes",
+                 library_conv3x3),
+                ("shift-GEMM, conv3x3_same", conv3x3_same),
+                ("patch GEMM, conv3x3_patch (K7)", conv3x3_patch))
+    group = "conv2 14x14 32->64"
+    with torch.no_grad():
+        rows.append((group, "library, F.conv2d in its own layout", "fwd",
+                     time_ms(lambda: F.conv2d(xl, wl, padding=1, groups=C),
+                             reps), None))
+    rows.append((group, "library, F.conv2d in its own layout", "fwd+bwd",
+                 time_ms(own_layout, reps), None))
+    for name, fn in variants:
+        dist = (None if fn is library_conv3x3 else
+                _frob(f"{group}, {name}", fwd_bwd(fn)(), want))
+        with torch.no_grad():
+            rows.append((group, name, "fwd", time_ms(lambda: fn(x, w), reps),
+                         dist))
+        rows.append((group, name, "fwd+bwd", time_ms(fwd_bwd(fn), reps),
+                     dist))
+    expect("conv2", conv3x3_patch_gemm=2 + timed + 2 * timed,
+           conv3x3_patch_wgrad=1 + timed)
+
+    # --- probes: the tap loop on the same inputs, the bare GEMM ---
+    group = "probes"
+    dist = _frob("tap loop", (taploop_conv(x, w),), want[:1])
+    rows.append((group, "tap loop, taploop_conv (K8b)", "fwd",
+                 time_ms(lambda: taploop_conv(x, w), reps), dist))
+    del x, w, g, xl, wl, gl, want
+    torch.cuda.empty_cache()
+    M, K, N = PROBE_GEMM_SHAPE
+    a = torch.randn((C, M, K), generator=gen, device="cuda", dtype=dt)
+    b = torch.randn((C, K, N), generator=gen, device="cuda", dtype=dt)
+    dist = _frob("bare GEMM", (batched_gemm(a, b),), (torch.bmm(a, b),))
+    rows.append((group, f"library, torch.bmm ({M}x{K} @ {K}x{N})", "fwd",
+                 time_ms(lambda: torch.bmm(a, b), reps), None))
+    rows.append((group, "bare GEMM on a prebuilt patch matrix, batched_gemm "
+                 "(K8a)", "fwd", time_ms(lambda: batched_gemm(a, b), reps),
+                 dist))
+    del a, b
+    torch.cuda.empty_cache()
+    expect("conv2 and probes", conv3x3_patch_gemm=2 + 3 * timed,
+           conv3x3_patch_wgrad=1 + timed, probe_taploop_conv=1 + timed,
+           probe_batched_gemm=1 + timed)
+    before = ops.launch_counts()
+
+    # --- stem 28x28 1->32 + relu + pool ---
+    group = "stem 28x28 1->32 + relu + pool"
+    x = torch.randn((C, B, 28, 28, 1), generator=gen, device="cuda").to(dt)
+    w = (torch.randn((C, 3, 3, 1, 32), generator=gen, device="cuda")
+         * 0.3).to(dt)
+    bias = (torch.randn((C, 32), generator=gen, device="cuda") * 0.1).to(dt)
+    g = torch.randn((C, B, 14, 14, 32), generator=gen, device="cuda").to(dt)
+
+    def library_stem(x, w, b):
+        y = F.conv2d(to_library(x), library_weights(w), padding=1, groups=C)
+        y = F.max_pool2d(torch.relu(y + b.reshape(1, -1, 1, 1)), 2)
+        return from_library(y, C)
+
+    def stem_grads(fn):
+        def run():
+            wr, br = w.detach().requires_grad_(True), (
+                bias.detach().requires_grad_(True))
+            y = fn(x, wr, br)
+            return (y.detach(),) + torch.autograd.grad(y, (wr, br), g)
+        return run
+
+    want = stem_grads(library_stem)()
+    got = stem_grads(conv_stem_s2d)()
+    # values to the formulations' tolerance; gradients to the looser one: a
+    # bf16 pool window ties often, and the library's pool sends a tie's
+    # gradient to the first member where the parity-group max shares it
+    dist = (_frob(f"{group}, values", got[:1], want[:1]),
+            _frob(f"{group}, gradients", got[1:], want[1:],
+                  FORMULATION_GRAD_TOL))
+    for name, fn, d in (("library chain: F.conv2d, bias, relu, F.max_pool2d",
+                         library_stem, None),
+                        ("space-to-depth patch GEMM, conv_stem_s2d (K7)",
+                         conv_stem_s2d, dist)):
+        with torch.no_grad():
+            rows.append((group, name, "fwd",
+                         time_ms(lambda: fn(x, w, bias), reps),
+                         d and d[0]))
+        rows.append((group, name, "fwd+(w,b) grads",
+                     time_ms(stem_grads(fn), reps), d and d[1]))
+    # one patch GEMM per forward and not one more: the stem's input gradient
+    # is never launched
+    expect("stem", conv3x3_patch_gemm=1 + 2 * timed,
+           conv3x3_patch_wgrad=1 + timed)
+    del x, w, bias, g, want, got
+    torch.cuda.empty_cache()
+
+    for grp, name, what, ms, d in rows:
+        print(f"formulations [{grp}] {name}: {what} {ms:.3f} ms"
+              + ("" if d is None else f", {d:.2e} from the library result")
+              + f" [{card}]", flush=True)
+    now = ops.launch_counts()
+    return rows, {k: now[k] - start[k] for k in FORMULATION_KERNELS}
+
+
 def check_pool_first_match():
     """F.max_pool2d's backward on the card sends a tied window's gradient
     to its first member, as the fused kernels and XLA do."""
@@ -823,6 +1299,14 @@ def kernel_report():
          "fl_tpu/ops/conv_block.py:1256"),
         ("quantize_int8_blocks", "triton", "fl_tpu_torch/ops/quantize.py",
          "fl_tpu/ops/quantize.py:72"),
+        ("conv3x3_patch_gemm", "cuda", "fl_tpu_torch/csrc/conv_patch.cu",
+         "fl_tpu/ops/conv_pallas.py:86"),
+        ("conv3x3_patch_wgrad", "cuda", "fl_tpu_torch/csrc/conv_patch.cu",
+         "fl_tpu/ops/conv_pallas.py:86"),
+        ("probe_batched_gemm", "cuda", "fl_tpu_torch/csrc/conv_probe.cu",
+         "scripts/probe_pallas_pipelined.py:37"),
+        ("probe_taploop_conv", "cuda", "fl_tpu_torch/csrc/conv_probe.cu",
+         "scripts/probe_pallas_pipelined.py:62"),
     )
     return {name: {"name": name, "route": route, "source": source,
                    "replaces": replaces}
@@ -868,6 +1352,8 @@ def main() -> int:
     phase_conv(report)
     phase_dp(report)
     phase_quantize(report)
+    phase_conv_patch(report)
+    phase_conv_probe(report)
     print("times (ms, kernel/plain/bound): " + ", ".join(
         f"{k} {v['ms']:.3f}/{v['plain_ms']:.3f}/{v['bound_ms']:.3f}"
         for k, v in report.items()) + "; bound with the conv2 gradient "
@@ -892,7 +1378,14 @@ def main() -> int:
     learning_check("residual")
     learning_check(True)
 
-    # 7. result lines
+    # 7. the conv formulations at full width
+    from fl_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    _, got = conv_formulations(card)
+    counts.update(got)
+
+    # 8. result lines
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -57,30 +57,11 @@
 // no atomics), and a second kernel adds the ceil(B/G) slots of each client
 // in a fixed order: the result is deterministic.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int kMaxThreads = 1024;
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// round an f32 value to T's precision (round to nearest even) and back
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f<T>(from_f<T>(v));
-}
 
 struct Geometry {
   int H, W, H1, W1, Ho, Wo;
@@ -446,18 +427,6 @@ conv_stack_bwd_kernel(const T* __restrict__ gy, const T* __restrict__ x,
   bwd_body<T, true>(gy, nullptr, x, w1, b1, w2, b2, partial, B, H, W, C1, C2, G);
 }
 
-// out[c][p] = sum over the client's block slots, in slot order
-__global__ void reduce_partials_kernel(const float* __restrict__ partial,
-                                       float* __restrict__ out, int C, int NG, int P) {
-  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)C * P) return;
-  size_t c = i / P, p = i - c * P;
-  const float* src = partial + c * NG * P + p;
-  float s = 0.f;
-  for (int j = 0; j < NG; ++j) s += src[(size_t)j * P];
-  out[i] = s;
-}
-
 // idx == nullptr launches the residual-free forward (K4), else K1.
 template <typename T>
 int launch_fwd(const void* x, const void* w1, const float* b1, const void* w2,
@@ -508,11 +477,7 @@ int launch_bwd(const void* gy, const uint8_t* idx, const void* x, const void* w1
         C2, G);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int P = 9 * C1 + C1 + 9 * C1 * C2 + C2;
-  const size_t n = (size_t)C * P;
-  reduce_partials_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(partial, out, C, NG,
-                                                                         P);
-  return (int)cudaGetLastError();
+  return launch_reduce_partials(partial, out, C, NG, 9 * C1 + C1 + 9 * C1 * C2 + C2, stream);
 }
 
 bool bad_threads(int threads) {

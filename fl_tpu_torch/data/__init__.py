@@ -10,5 +10,11 @@ from fl_tpu_torch.data.datasets import (  # noqa: F401
 )
 from fl_tpu_torch.data.federated import (  # noqa: F401
     FederatedArrays,
+    FederatedDataset,
+    analyze_data_distribution,
     make_federated_arrays,
+)
+from fl_tpu_torch.data.loader import (  # noqa: F401
+    create_data_loader,
+    FederatedDataLoader,
 )

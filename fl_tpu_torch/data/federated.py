@@ -15,7 +15,7 @@ weighting.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -61,6 +61,33 @@ class FederatedArrays:
         )
 
 
+class FederatedDataset:
+    """Host-side view of one client's shard of the training set."""
+
+    def __init__(self, splits: DatasetSplits, indices: np.ndarray, client_id: int):
+        self.splits = splits
+        self.indices = np.asarray(indices, np.int64)
+        self.client_id = client_id
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def __getitem__(self, i: int):
+        j = self.indices[i]
+        return self.splits.train_images[j], int(self.splits.train_labels[j])
+
+    def get_statistics(self) -> Dict[str, object]:
+        """Class histogram and counts."""
+        labels = self.splits.train_labels[self.indices]
+        hist = np.bincount(labels, minlength=self.splits.num_classes)
+        return {
+            "client_id": self.client_id,
+            "num_samples": int(len(self.indices)),
+            "class_distribution": {int(c): int(n) for c, n in enumerate(hist)},
+            "num_classes_present": int((hist > 0).sum()),
+        }
+
+
 def make_federated_arrays(
     splits: DatasetSplits,
     num_clients: int,
@@ -104,3 +131,36 @@ def make_federated_arrays(
         std=np.asarray(splits.std, np.float32),
         num_classes=splits.num_classes,
     )
+
+
+def analyze_data_distribution(
+    splits: DatasetSplits, parts: Sequence[np.ndarray]
+) -> Dict[str, object]:
+    """Cross-client distribution statistics: shard sizes, class histograms
+    and the mean pairwise total-variation distance between clients."""
+    sizes = np.asarray([len(p) for p in parts], np.float64)
+    hists = np.stack(
+        [np.bincount(splits.train_labels[p], minlength=splits.num_classes)
+         for p in parts]
+    ).astype(np.float64)
+    probs = hists / np.maximum(hists.sum(axis=1, keepdims=True), 1.0)
+    # mean pairwise total-variation distance as a non-IID-ness score
+    C = len(parts)
+    tv = 0.0
+    pairs = 0
+    for i in range(C):
+        for j in range(i + 1, C):
+            tv += 0.5 * np.abs(probs[i] - probs[j]).sum()
+            pairs += 1
+    return {
+        "num_clients": C,
+        "overall_statistics": {
+            "total_samples": int(sizes.sum()),
+            "min_samples_per_client": int(sizes.min()) if C else 0,
+            "max_samples_per_client": int(sizes.max()) if C else 0,
+            "mean_samples_per_client": float(sizes.mean()) if C else 0.0,
+            "std_samples_per_client": float(sizes.std()) if C else 0.0,
+        },
+        "class_distributions": hists.astype(int).tolist(),
+        "mean_pairwise_tv_distance": float(tv / pairs) if pairs else 0.0,
+    }

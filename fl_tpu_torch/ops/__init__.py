@@ -5,9 +5,10 @@ takes the plain version. Each launcher adds one to its count in
 :func:`launch_counts` where it launches, and nowhere else.
 """
 
-from fl_tpu_torch.ops import conv_block, dp, quantize
+from fl_tpu_torch.ops import conv_block, conv_patch, conv_probe, dp, quantize
 
-_COUNTS = (conv_block.LAUNCHES, dp.LAUNCHES, quantize.LAUNCHES)
+_COUNTS = (conv_block.LAUNCHES, dp.LAUNCHES, quantize.LAUNCHES,
+           conv_patch.LAUNCHES, conv_probe.LAUNCHES)
 
 
 def launch_counts() -> dict:

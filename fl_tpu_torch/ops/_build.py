@@ -1,13 +1,14 @@
 """Build and load the port's CUDA kernels.
 
 Every ``*.cu`` under ``fl_tpu_torch/csrc`` is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface,
+Hopper (``sm_90a``), one ``nvcc`` per source and all started together, and
+the objects are linked into one shared library with a plain C interface,
 loaded with ``ctypes``. The build happens at first use, never at import,
 into ``fl_tpu_torch/_build/<hash>/`` (listed in ``.gitignore``), where the
 hash covers the sources and the flags: a fresh checkout builds once, a
 re-run reuses the library, and an edited source builds anew. nvcc's
-``-Xptxas -v`` report (registers, shared memory, spills per kernel) is kept
-beside the library as ``build.log``.
+``-Xptxas -v`` report (registers, shared memory, spills per kernel) of
+every source is kept beside the library as ``build.log``.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 LIB_NAME = "libfl_tpu_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -72,14 +73,30 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objects = [out.parent / f"{src.stem}.{os.getpid()}.o" for src in sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources(), objects)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    results = []
+    for cmd, proc in zip(cmds, procs):
+        so, se = proc.communicate()
+        results.append((cmd, proc.returncode, so, se))
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}")
+    if all(rc == 0 for _, rc, _, _ in results):
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        results.append((link, proc.returncode, proc.stdout, proc.stderr))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    (out.parent / "build.log").write_text("".join(
+        " ".join(cmd) + "\n" + so + se for cmd, _, so, se in results))
+    for cmd, rc, _, se in results:
+        if rc != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {rc}) on {cmd[-1]}:\n{se[-4000:]}")
     os.replace(tmp, out)
     return out
 
@@ -102,6 +119,18 @@ def load() -> ctypes.CDLL:
             lib.fl_conv_stack_bwd.restype = i
             lib.fl_conv_block_smem_bytes.argtypes = [i] * 6
             lib.fl_conv_block_smem_bytes.restype = ctypes.c_size_t
+            lib.fl_patch_gemm.argtypes = [i] + [p] * 3 + [i] * 9 + [p]
+            lib.fl_patch_gemm.restype = i
+            lib.fl_patch_wgrad.argtypes = [i] + [p] * 4 + [i] * 9 + [p]
+            lib.fl_patch_wgrad.restype = i
+            lib.fl_conv_patch_smem_bytes.argtypes = [i] * 5
+            lib.fl_conv_patch_smem_bytes.restype = ctypes.c_size_t
+            lib.fl_batched_gemm.argtypes = [i] + [p] * 3 + [i] * 4 + [p]
+            lib.fl_batched_gemm.restype = i
+            lib.fl_taploop_conv.argtypes = [i] + [p] * 3 + [i] * 9 + [p]
+            lib.fl_taploop_conv.restype = i
+            lib.fl_taploop_smem_bytes.argtypes = [i] * 5
+            lib.fl_taploop_smem_bytes.restype = ctypes.c_size_t
             lib.fl_cuda_error_string.argtypes = [i]
             lib.fl_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -135,20 +135,25 @@ _SCALARS = ("train_loss", "train_accuracy", "weight_change_norm",
 
 class FederatedRoundEngine:
     """Owns the device-resident data and global model, and the host round
-    loop."""
+    loop. Runs on the GPU unless the caller asks for ``device="cpu"``."""
 
     def __init__(
         self,
         model,
         data: FederatedArrays,
         config: RoundEngineConfig,
-        device="cpu",
+        device="cuda",
         test_images: Optional[np.ndarray] = None,
         test_labels: Optional[np.ndarray] = None,
     ):
         self.model = model
         self.config = config
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"FederatedRoundEngine runs on device={str(device)!r} and no "
+                "CUDA device is available; pass device=\"cpu\" to run on "
+                "the CPU")
         self.num_clients = data.num_clients
         self._num_samples = np.asarray(data.num_samples)
         self.data = data.to_device(self.device)

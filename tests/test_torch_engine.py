@@ -75,7 +75,8 @@ def _engines(dtype_name, participation_rate=1.0, num_clients=4,
             local_epochs=2, batch_size=16, learning_rate=LR,
             optimizer_state_dtype=state),
             privacy=PrivacyConfig(epsilon=1e9, delta=1e-5,
-                                  max_grad_norm=1.0), **common))
+                                  max_grad_norm=1.0), **common),
+        device="cpu")
     teng.global_variables = {"params": params_from_flax(
         jax.device_get(jeng.global_variables["params"]))}
     return jeng, teng
@@ -140,7 +141,7 @@ def test_every_formulation_runs_every_round_path(fused, dtype):
     model = create_model("simple_cnn", dtype=dtype, fused_conv_block=fused)
     training = FederatedTrainingConfig(local_epochs=1, batch_size=8)
     plain = FederatedRoundEngine(
-        model, arr, RoundEngineConfig(training=training),
+        model, arr, RoundEngineConfig(training=training), device="cpu",
         test_images=splits.normalized(splits.test_images),
         test_labels=splits.test_labels)
     hist = plain.run(num_rounds=1)
@@ -148,7 +149,8 @@ def test_every_formulation_runs_every_round_path(fused, dtype):
     assert np.isfinite(plain.evaluate()["loss"])
     private = FederatedRoundEngine(model, arr, RoundEngineConfig(
         training=training, dp_mode="delta", epsilon_per_round=1.0,
-        delta_per_round=1e-7, privacy=PrivacyConfig(epsilon=1e9, delta=1e-5)))
+        delta_per_round=1e-7, privacy=PrivacyConfig(epsilon=1e9, delta=1e-5)),
+        device="cpu")
     results = [private.run_round(evaluate=False)]
     results += private.run_rounds_pipelined(2)
     assert [r.round_number for r in results] == [0, 1, 2]
@@ -165,7 +167,8 @@ def _port_engine(epsilon=1e9, eps_r=1.0, num_clients=4):
         RoundEngineConfig(
             training=FederatedTrainingConfig(local_epochs=1, batch_size=8),
             dp_mode="delta", epsilon_per_round=eps_r, delta_per_round=1e-7,
-            privacy=PrivacyConfig(epsilon=epsilon, delta=1e-5)))
+            privacy=PrivacyConfig(epsilon=epsilon, delta=1e-5)),
+        device="cpu")
 
 
 def test_pipelined_rounds_equal_a_run_round_loop():
@@ -202,7 +205,7 @@ def test_evaluate_and_run():
     eng = FederatedRoundEngine(
         create_model("simple_cnn"), arr, RoundEngineConfig(
             training=FederatedTrainingConfig(local_epochs=1, batch_size=8)),
-        test_images=splits.normalized(splits.test_images),
+        device="cpu", test_images=splits.normalized(splits.test_images),
         test_labels=splits.test_labels)
     hist = eng.run(num_rounds=2)
     assert len(hist) == 2 and all(r.test_accuracy is not None for r in hist)
@@ -235,7 +238,22 @@ def test_delta_dp_needs_a_privacy_config():
                                              n_test_synth=8), 2, "iid")
     with pytest.raises(ValueError, match="PrivacyConfig"):
         FederatedRoundEngine(create_model("simple_cnn"), arr,
-                             RoundEngineConfig(dp_mode="delta"))
+                             RoundEngineConfig(dp_mode="delta"), device="cpu")
+
+
+def test_default_device_is_the_gpu_and_raises_without_one():
+    """No ``device`` argument means the card: where there is none the engine
+    says so instead of carrying on on the CPU."""
+    arr = make_federated_arrays(load_dataset("mnist", n_train_synth=64,
+                                             n_test_synth=8), 2, "iid")
+    if torch.cuda.is_available():
+        eng = FederatedRoundEngine(create_model("simple_cnn"), arr,
+                                   RoundEngineConfig())
+        assert eng.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            FederatedRoundEngine(create_model("simple_cnn"), arr,
+                                 RoundEngineConfig())
 
 
 # ---------------------------------------------------------------------------

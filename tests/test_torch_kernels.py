@@ -16,7 +16,9 @@ its noise by moments at about 6 standard errors; K4 the tolerances of K1/K2
 against its plain version and bit-equality against K1/K2 (the same device
 functions); K5 bit-equal to ``conv_stack`` per client; K6 equal to its
 plain version exactly in the deterministic mode (q and scales) and by
-floor/ceil, mean and P(ceil) in the stochastic mode.
+floor/ceil, mean and P(ceil) in the stochastic mode; K7 and K8 (one f32 sum,
+one rounding) rtol 1e-4 / atol 1e-4 in f32, weight gradients atol 2e-4, and
+one bf16 ulp of the larger value plus 1e-4 in bf16.
 """
 
 import pytest
@@ -26,6 +28,8 @@ from fl_tpu_torch import ops
 from fl_tpu_torch.core import prng
 from fl_tpu_torch.ops import _build
 from fl_tpu_torch.ops import conv_block as cb
+from fl_tpu_torch.ops import conv_patch as cp
+from fl_tpu_torch.ops import conv_probe as probe
 from fl_tpu_torch.ops import dp as dpo
 from fl_tpu_torch.ops import quantize as qz
 
@@ -70,7 +74,35 @@ def test_build_hash_covers_sources_and_flags():
     path = _build.library_path()
     assert path.parent.parent == _build.BUILD_DIR
     assert path == _build.library_path()
-    assert [p.name for p in _build.sources()] == ["conv_block.cu"]
+    assert [p.name for p in _build.sources()] == [
+        "conv_block.cu", "conv_patch.cu", "conv_probe.cu"]
+
+
+def test_launch_counts_cover_every_kernel():
+    assert sorted(ops.launch_counts()) == sorted([
+        "conv_block_fwd", "conv_block_bwd", "conv_stack_fwd",
+        "conv_stack_bwd", "clip_noise", "quantize_int8_blocks",
+        "conv3x3_patch_gemm", "conv3x3_patch_wgrad", "probe_batched_gemm",
+        "probe_taploop_conv"])
+
+
+def test_patch_matrix_times_weights_is_the_convolution():
+    """The plain versions' patch matrix against F.conv2d, and the input
+    gradient's mirrored, transposed weights against autograd's."""
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((2, 3, 6, 5, 4), generator=g, dtype=torch.float64)
+    w = torch.randn((2, 3, 3, 4, 7), generator=g, dtype=torch.float64)
+    x.requires_grad_(True)
+    want = torch.stack([torch.nn.functional.conv2d(
+        x[c].permute(0, 3, 1, 2), w[c].permute(3, 2, 0, 1),
+        padding=1).permute(0, 2, 3, 1) for c in range(2)])
+    got = torch.bmm(cp.patches(x.float()).double(), w.reshape(2, 36, 7))
+    torch.testing.assert_close(got.reshape(want.shape), want.detach(),
+                               rtol=1e-5, atol=1e-5)
+    gy = torch.randn(want.shape, generator=g, dtype=torch.float64)
+    dx, = torch.autograd.grad(want, x, gy)
+    got_dx = cp.conv3x3_patch_dgrad_plain(gy.float(), w.float())
+    torch.testing.assert_close(got_dx.double(), dx, rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +207,123 @@ def test_conv_stack_refuses_cpu_weights_on_a_cuda_image(cuda):
                                      cuda)
     with pytest.raises(ValueError, match="conv_stack_fwd"):
         cb.conv_stack_fwd_cuda(x, w1.cpu(), b1, w2, b2)
+
+
+def _assert_rounded_close(got, want, dtype, ulps=1):
+    a, b = got.float(), want.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -126))) - 7)
+        assert bool(((a - b).abs() <= ulps * ulp + 1e-4).all())
+
+
+def _patch_inputs(gen, C, B, H, W, I, O, dtype, device):
+    x = torch.randn((C, B, H, W, I), generator=gen, device=device)
+    w = torch.randn((C, 3, 3, I, O), generator=gen, device=device) * 0.1
+    g = torch.randn((C, B, H, W, O), generator=gen, device=device)
+    return x.to(dtype), w.to(dtype), g.to(dtype)
+
+
+PATCH_SHAPES = [(2, 14, 14, 32, 64), (2, 8, 8, 16, 16), (1, 28, 28, 4, 8),
+                (2, 14, 14, 4, 128), (3, 5, 7, 3, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", PATCH_SHAPES, ids=str)
+def test_patch_gemm_kernels_match_plain(cuda, dtype, shape):
+    """K7 through the op: forward, weight gradient and input gradient, and
+    the launches the op makes for them."""
+    B, H, W, I, O = shape
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x, w, g = _patch_inputs(gen, 3, B, H, W, I, O, dtype, cuda)
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    ops.reset_launch_counts()
+    y = cp.conv3x3_patch(xr, wr)
+    dx, dw = torch.autograd.grad(y, (xr, wr), g)
+    counts = ops.launch_counts()
+    assert (counts["conv3x3_patch_gemm"], counts["conv3x3_patch_wgrad"]) == (
+        2, 1)
+    w2 = w.reshape(3, 9 * I, O)
+    _assert_rounded_close(y, cp.conv3x3_patch_plain(x, w2), dtype)
+    _assert_rounded_close(dx, cp.conv3x3_patch_dgrad_plain(g, w), dtype)
+    assert dw.dtype == dtype
+    torch.testing.assert_close(
+        cp.patch_wgrad_cuda(x, g),
+        cp.conv3x3_patch_wgrad_plain(x, g), rtol=1e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_s2d_stem_kernels_match_plain_and_launch_no_input_gradient(cuda,
+                                                                   dtype):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    C, B = 3, 4
+    x = torch.randn((C, B, 28, 28, 1), generator=gen, device=cuda).to(dtype)
+    w = (torch.randn((C, 3, 3, 1, 32), generator=gen, device=cuda)
+         * 0.3).to(dtype)
+    b = (torch.randn((C, 32), generator=gen, device=cuda) * 0.1).to(dtype)
+    g = torch.randn((C, B, 14, 14, 32), generator=gen, device=cuda).to(dtype)
+
+    def run(x, w, b, g):
+        wr, br = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        y = cp.conv_stem_s2d(x, wr, br)
+        return (y.detach(),) + torch.autograd.grad(y, (wr, br), g)
+
+    ops.reset_launch_counts()
+    got = run(x, w, b, g)
+    counts = ops.launch_counts()
+    # one patch GEMM for the forward and none for an input gradient
+    assert (counts["conv3x3_patch_gemm"], counts["conv3x3_patch_wgrad"]) == (
+        1, 1)
+    want = run(x.cpu(), w.cpu(), b.cpu(), g.cpu())   # the plain versions
+    # two roundings after the product (the conv's, then the bias sum's)
+    _assert_rounded_close(got[0].cpu(), want[0], dtype, ulps=2)
+    for a, ref in zip(got[1:], want[1:]):
+        if dtype == torch.float32:
+            torch.testing.assert_close(a.cpu(), ref, rtol=1e-4, atol=2e-4)
+        else:
+            # a one-ulp difference in y can move a bf16 pool window's
+            # maximum to another member
+            assert float((a.cpu().float() - ref.float()).norm()
+                         / ref.float().norm()) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_probe_kernels_match_plain(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    ops.reset_launch_counts()
+    for C, M, K, N in ((2, 128, 288, 64), (3, 70, 50, 37)):
+        a = torch.randn((C, M, K), generator=gen, device=cuda).to(dtype)
+        b = torch.randn((C, K, N), generator=gen, device=cuda).to(dtype)
+        _assert_rounded_close(probe.batched_gemm(a, b),
+                              probe.batched_gemm_plain(a, b), dtype)
+    for B, H, W, I, O in PATCH_SHAPES:
+        x, w, _ = _patch_inputs(gen, 3, B, H, W, I, O, dtype, cuda)
+        _assert_rounded_close(probe.taploop_conv(x, w),
+                              probe.taploop_conv_plain(x, w), dtype)
+    counts = ops.launch_counts()
+    assert (counts["probe_batched_gemm"], counts["probe_taploop_conv"]) == (
+        2, len(PATCH_SHAPES))
+
+
+@pytest.mark.cuda
+def test_patch_and_probe_ops_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((1, 1, 4, 4, 2), device=cuda, dtype=torch.float16)
+    w = torch.zeros((1, 3, 3, 2, 2), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cp.conv3x3_patch(x, w)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        probe.taploop_conv(x, w)
+    with pytest.raises(ValueError, match="probe_batched_gemm"):
+        probe.batched_gemm_cuda(torch.zeros((1, 4, 4), device=cuda),
+                                torch.zeros((1, 4, 4)))
 
 
 @pytest.mark.cuda
