@@ -16,7 +16,10 @@ line each; any failure exits non-zero:
    bit-equal to ``conv_stack`` per client for P = 1, 2, 4, 3), K3 (DP
    clip + noise) and K6 (int8 block quantizer: deterministic mode exact,
    stochastic mode by its distribution); K7 (``conv3x3_patch``: patch GEMM
-   forward and input gradient, weight gradient) and K8 (``batched_gemm``,
+   forward and input gradient, weight gradient; f32 on the CUDA cores, bf16
+   on the tensor cores, the route each dtype took printed and checked, the
+   weight gradient repeated bit for bit, the launch plan's shared-memory
+   bytes held to the library's own count) and K8 (``batched_gemm``,
    ``taploop_conv``) in f32 and bf16 on small shapes, ragged ones among
    them, and at the conv2 and stem shapes of the bench, with ``F.conv2d``
    (groups = clients), its backward and ``torch.bmm`` as library yardsticks;
@@ -778,6 +781,14 @@ def check_patch(cp, gen, C, B, shape, dtype):
     err = {"fwd": check_rounded("K7 fwd", tag, y, y_ref, dtype),
            "wgrad": check_wgrad("K7 wgrad", tag, dw, dw_ref, B * H * W),
            "dgrad": check_rounded("K7 dgrad", tag, dx, dx_ref, dtype)}
+    require(torch.equal(dw, cp.patch_wgrad_cuda(x, g)),
+            f"K7 wgrad {tag}: two runs differ")
+    # the launch plan's shared-memory count is the kernel library's own
+    for kernel, i, o in (("gemm", I, O), ("gemm", O, I), ("wgrad", I, O)):
+        plan = cp.launch_plan(kernel, dtype, C, B, H, W, i, o)
+        got = cp.kernel_smem_bytes(plan, dtype, W, i, o)
+        require(plan.route == cp.ROUTES[dtype] and plan.smem_bytes == got,
+                f"K7 {tag}: plan {plan} against {got} B in the library")
     # the op: the same launches behind autograd, bit for bit
     xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
     out = cp.conv3x3_patch(xr, wr)
@@ -797,15 +808,25 @@ def phase_conv_patch(report):
     from fl_tpu_torch.ops import conv_patch as cp
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    # the reference's test shapes, the stem's after space-to-depth, and a
-    # ragged one (I, O and the row count no multiples of 4)
+    # the reference's test shapes, the stem's after space-to-depth, and
+    # ragged ones (I, O and the row count no multiples of 4, of 8, of 16)
     small = ((2, (14, 14, 32, 64)), (2, (8, 8, 16, 16)), (1, (28, 28, 4, 8)),
-             (2, S2D_STEM_SHAPE), (3, (5, 7, 3, 6)))
+             (2, S2D_STEM_SHAPE), (3, (5, 7, 3, 6)), (3, (5, 7, 20, 12)),
+             (2, (14, 14, 48, 40)))
     n = 0
+    routes = {}
     for dtype in (torch.float32, torch.bfloat16):
+        before = dict(cp.ROUTE_LAUNCHES)
         for B, shape in small:
             check_patch(cp, gen, 3, B, shape, dtype)
             n += 1
+        took = {k: v - before[k] for k, v in cp.ROUTE_LAUNCHES.items()
+                if v != before[k]}
+        require(list(took) == [cp.ROUTES[dtype]],
+                f"K7 {dtype}: launches by route {took}")
+        routes[str(dtype)[6:]] = took
+    print(f"routes (K7): {routes} (launches in the small cases; the dtype "
+          f"alone fixes the route)", flush=True)
     # the bench shapes in f32 (held to plain, not timed), then in bf16
     for shape in (S2D_STEM_SHAPE, CONV2_SHAPE):
         check_patch(cp, gen, NUM_CLIENTS, BATCH_SIZE, shape, torch.float32)
@@ -849,17 +870,24 @@ def phase_conv_patch(report):
                                                     True)),
         bound_ms=b_wgrad[0], bound_by=b_wgrad[1])
     d = report["conv3x3_patch_gemm"]["dgrad"]
+    share = {k: 1e3 * flops / e["ms"] / BF16_FLOPS for k, e in (
+        ("fwd", report["conv3x3_patch_gemm"]), ("dgrad", d),
+        ("wgrad", report["conv3x3_patch_wgrad"]))}
     print(f"kernels (K7): patch GEMM forward, weight gradient and input "
           f"gradient match plain in {n} small cases (f32 rtol 1e-4 / atol "
           f"1e-4, weight gradient atol 2e-4 growing with the rows summed; "
           f"bf16 one ulp + 1e-4) and at the bench's conv2 and s2d-stem "
           f"shapes in f32 and bf16 (bf16 max abs err fwd {big['err']['fwd']:.2e} wgrad "
           f"{big['err']['wgrad']:.2e} dgrad {big['err']['dgrad']:.2e}; stem "
-          f"fwd {stem_err['fwd']:.2e} wgrad {stem_err['wgrad']:.2e}); "
-          f"conv3x3_patch through autograd equals its launches bit for "
-          f"bit; input gradient {d['ms']:.3f} ms, plain {d['plain_ms']:.3f}, "
+          f"fwd {stem_err['fwd']:.2e} wgrad {stem_err['wgrad']:.2e}); the "
+          f"weight gradient repeats bit for bit and conv3x3_patch through "
+          f"autograd equals its launches bit for bit; the plan's "
+          f"shared-memory bytes equal the library's count; input gradient "
+          f"{d['ms']:.3f} ms, plain {d['plain_ms']:.3f}, "
           f"library {d['library_ms']:.3f}, bound {d['bound_ms']:.3f} "
-          f"({d['bound_by']}); s2d stem 14x14 4->128: forward "
+          f"({d['bound_by']}); share of the bf16 tensor-core peak fwd "
+          f"{share['fwd']:.3f} dgrad {share['dgrad']:.3f} wgrad "
+          f"{share['wgrad']:.3f}; s2d stem 14x14 4->128: forward "
           f"{stem_ms[0]:.3f} ms, weight gradient {stem_ms[1]:.3f} ms",
           flush=True)
     torch.cuda.empty_cache()
@@ -912,7 +940,14 @@ def phase_conv_probe(report):
     y, y_ref = probe.taploop_conv_cuda(x, w), probe.taploop_conv_plain(x, w)
     torch.cuda.synchronize()
     err_b = check_rounded("K8b", "bench shapes", y, y_ref, dt)
-    same = torch.equal(y, cp.patch_gemm_cuda(x, w.reshape(C, 288, 64)))
+    # the tap loop sums on the CUDA cores in ascending k, the patch GEMM on
+    # the tensor cores: the same f32 sum in two orders, rounded once
+    y7 = cp.patch_gemm_cuda(x, w.reshape(C, 288, 64))
+    check_rounded("K8b against K7", "bench shapes", y, y7, dt)
+    ulps = float((((y.float() - y7.float()).abs() - 1e-4).clamp(min=0)
+                  / bf16_ulp(torch.maximum(y.float().abs(),
+                                           y7.float().abs()))).max())
+    del y7
     xl, wl = to_library(x), library_weights(w)
     b_ms, b_by = bound(nbytes(x, w, y), conv_flops(x, w))
     report["probe_taploop_conv"].update(
@@ -942,9 +977,9 @@ def phase_conv_probe(report):
           f"small cases, ragged ones among them (f32 rtol 1e-4 / atol 1e-4; "
           f"bf16 one ulp + 1e-4), and at the bench shapes in f32 and bf16 "
           f"(bf16 max abs err GEMM "
-          f"{err_a:.2e}, tap loop {err_b:.2e}); tap loop "
-          f"{'==' if same else '!='} patch GEMM forward bit for bit at the "
-          f"bench shapes", flush=True)
+          f"{err_a:.2e}, tap loop {err_b:.2e}); tap loop against patch "
+          f"GEMM forward at the bench shapes: at most 1e-4 + {ulps:.2f} bf16 "
+          f"ulp apart (tol one ulp + 1e-4)", flush=True)
 
 
 def _frob(name, got, want, tol=FORMULATION_TOL):

@@ -1,7 +1,9 @@
 // Shared device helpers of the port's CUDA sources: conversions between the
 // compute dtype T (float or __nv_bfloat16) and f32, four-wide loads into and
-// out of shared memory, the 4x4 register-tile product the GEMM-shaped kernels are built on,
-// and the fixed-order reduction of per-block partial sums.
+// out of shared memory, the 4x4 register-tile product the CUDA-core
+// GEMM-shaped kernels are built on, the tensor-core tile (mma.sync fed by
+// ldmatrix, cp.async staging) of the bf16 ones, and the fixed-order reduction
+// of per-block partial sums.
 //
 // Everything sits in an anonymous namespace: each source compiles on its own
 // and gets its own copy.
@@ -95,6 +97,230 @@ __device__ __forceinline__ void fma_rows4x4(const T* a0, const T* a1, const T* a
 #pragma unroll
         for (int n = 0; n < 4; ++n) acc[j][n] = fmaf(av[j][i], bv[i][n], acc[j][n]);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core tile: bf16 x bf16 -> f32 with the sum in registers, as
+// mma.sync.m16n8k16 fed from shared memory by ldmatrix. A warp owns tiles of
+// 16 rows x 8 columns (four f32 a thread); one k16 step multiplies a 16 x 16
+// A fragment into up to NT of them. Every ldmatrix row is 16 bytes at an
+// address of the lane's own, so an A row may be any gathered 16-byte vector
+// (a pixel's channels at a tap's offset) and ragged row counts cost nothing:
+// a row that does not exist points at a row of zeros. Shared-memory rows are
+// laid out with a stride of an odd number of 16-byte chunks (kSkew elements
+// past a multiple of 16), so the eight rows of one 8 x 8 matrix fall into
+// eight different bank groups.
+// ---------------------------------------------------------------------------
+
+constexpr int kSkew = 8;  // bf16 elements (one 16-byte chunk) added to a row's stride
+
+__host__ __device__ __forceinline__ int round_up8(int n) { return (n + 7) & ~7; }
+__host__ __device__ __forceinline__ int round_up16(int n) { return (n + 15) & ~15; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 matrices of 16-bit values: lanes 8j..8j+7 give the row addresses
+// of matrix j; thread T receives elements (2 * (T % 4), +1) of row T / 4 of
+// each matrix in r[j].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The same with each matrix transposed: thread T receives rows (2 * (T % 4),
+// +1) of column T / 4. Turns an operand that lies [k][m] or [k][n] in shared
+// memory into the fragment mma wants.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col). Thread
+// T = 4 * g + t holds c[g][2t], c[g][2t+1], c[g+8][2t], c[g+8][2t+1].
+__device__ __forceinline__ void mma_bf16_m16n8k16(float (&c)[4], const uint32_t (&a)[4],
+                                                  uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The B fragments of one k16 step for n_tiles (<= NT) column tiles, from B
+// laid out [k][n] in shared memory. b_addr is the lane's own address: row
+// (lane & 15) of the step, column (lane >> 4) * 8 of the first tile. Tiles go
+// in pairs, so the row must hold n_tiles rounded up to even.
+template <int NT>
+__device__ __forceinline__ void load_b_k16(uint32_t (&b)[NT][2], uint32_t b_addr, int n_tiles) {
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np) {
+    if (2 * np < n_tiles) {  // uniform across the warp
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, b_addr + np * 32);
+      b[2 * np][0] = r[0], b[2 * np][1] = r[1];
+      b[2 * np + 1][0] = r[2], b[2 * np + 1][1] = r[3];
+    }
+  }
+}
+
+// acc[nt] += a * b[nt] for nt < n_tiles
+template <int NT>
+__device__ __forceinline__ void mma_k16(float (&acc)[NT][4], const uint32_t (&a)[4],
+                                        const uint32_t (&b)[NT][2], int n_tiles) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+    if (nt < n_tiles) mma_bf16_m16n8k16(acc[nt], a, b[nt][0], b[nt][1]);
+}
+
+// ---------------------------------------------------------------------------
+// The second rung: wgmma. The four warps of a warpgroup multiply a 64-row A
+// tile (16 rows a warp, in registers, the fragment of mma.m16n8k16: so the
+// same ldmatrix gather feeds it) into B read by the tensor cores straight
+// from shared memory, asynchronously; the f32 sums stay in registers, laid
+// out as mma.sync's (tile j of 8 columns in d[j][0..3]). B (16 x N, bf16)
+// lies "MN-major, no swizzle": core matrices of 8 k-rows x 8 columns, 128
+// contiguous bytes each (a k-row is 16 bytes), the next 8 columns
+// `sbo_bytes` on, the next 8 k-rows `lbo_bytes` on.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo_bytes,
+                                               uint32_t sbo_bytes) {
+  return (uint64_t)((addr & 0x3ffffu) >> 4) | ((uint64_t)(lbo_bytes >> 4) << 16) |
+         ((uint64_t)(sbo_bytes >> 4) << 32);
+}
+
+// orders the warpgroup's register writes (A fragments, sums) before wgmma reads them
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (64 x 8*NT, f32) += a (64 x 16, bf16, registers) * b (16 x 8*NT, bf16,
+// shared memory through `desc`), for NT = 1, 2, 4, 8
+template <int NT>
+__device__ __forceinline__ void wgmma_m64k16(float (&d)[NT][4], const uint32_t (&a)[4],
+                                             uint64_t desc);
+
+template <>
+__device__ __forceinline__ void wgmma_m64k16<1>(float (&d)[1][4], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_m64k16<2>(float (&d)[2][4], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_m64k16<4>(float (&d)[4][4], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_m64k16<8>(float (&d)[8][4], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
+        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// 16 bytes from global to shared memory without passing through registers;
+// both addresses aligned to 16.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage `n_slots` rows of `len` bf16 values, rows q0 .. q0 + n_slots - 1 of
+// src (R rows in all), into dst[slot][0 .. LP) with LP = round_up16(len) and a
+// row stride of LP + kSkew: zeros from element len on and in rows outside
+// [0, R). Whole 16-byte chunks go by cp.async where `vec` says src's rows are
+// aligned to 16 bytes (the caller commits and waits); the rest by plain
+// stores.
+__device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* __restrict__ src, int q0,
+                                                int n_slots, int R, int len, bool vec) {
+  const int LP = round_up16(len), per_row = LP / 8, ld = LP + kSkew;
+  for (int e = threadIdx.x; e < n_slots * per_row; e += blockDim.x) {
+    const int slot = e / per_row, ch = (e - slot * per_row) * 8, q = q0 + slot;
+    __nv_bfloat16* d = dst + slot * ld + ch;
+    if (q < 0 || q >= R || ch >= len) {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    } else if (vec && ch + 8 <= len) {
+      cp_async16(d, src + (size_t)q * len + ch);
+    } else {
+      const __nv_bfloat16* s = src + (size_t)q * len + ch;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) d[i] = ch + i < len ? s[i] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+__device__ __forceinline__ bool rows_aligned16(const __nv_bfloat16* p, int row_len) {
+  return row_len % 8 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 // out[c][p] = sum over the client's NG block slots, in slot order

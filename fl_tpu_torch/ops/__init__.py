@@ -9,6 +9,8 @@ from fl_tpu_torch.ops import conv_block, conv_patch, conv_probe, dp, quantize
 
 _COUNTS = (conv_block.LAUNCHES, dp.LAUNCHES, quantize.LAUNCHES,
            conv_patch.LAUNCHES, conv_probe.LAUNCHES)
+# K7's launches by route: reset with the counts, not one of them
+_ROUTE_COUNTS = (conv_patch.ROUTE_LAUNCHES,)
 
 
 def launch_counts() -> dict:
@@ -17,6 +19,6 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    for counts in _COUNTS:
+    for counts in _COUNTS + _ROUTE_COUNTS:
         for k in counts:
             counts[k] = 0

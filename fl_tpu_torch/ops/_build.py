@@ -119,11 +119,11 @@ def load() -> ctypes.CDLL:
             lib.fl_conv_stack_bwd.restype = i
             lib.fl_conv_block_smem_bytes.argtypes = [i] * 6
             lib.fl_conv_block_smem_bytes.restype = ctypes.c_size_t
-            lib.fl_patch_gemm.argtypes = [i] + [p] * 3 + [i] * 9 + [p]
+            lib.fl_patch_gemm.argtypes = [i] + [p] * 3 + [i] * 10 + [p]
             lib.fl_patch_gemm.restype = i
-            lib.fl_patch_wgrad.argtypes = [i] + [p] * 4 + [i] * 9 + [p]
+            lib.fl_patch_wgrad.argtypes = [i] + [p] * 4 + [i] * 10 + [p]
             lib.fl_patch_wgrad.restype = i
-            lib.fl_conv_patch_smem_bytes.argtypes = [i] * 5
+            lib.fl_conv_patch_smem_bytes.argtypes = [i] * 8
             lib.fl_conv_patch_smem_bytes.restype = ctypes.c_size_t
             lib.fl_batched_gemm.argtypes = [i] + [p] * 3 + [i] * 4 + [p]
             lib.fl_batched_gemm.restype = i

@@ -22,15 +22,33 @@ gradient runs only when x needs one: the stem's never does.
 Shapes: x (C, B, H, W, I), w (C, 3, 3, I, O) -> (C, B, H, W, O), any H, W,
 I, O, float32 or bfloat16; a 4-D x with a 4-D w is the single-client case.
 
-On a CUDA tensor the products are kernel K7 (``csrc/conv_patch.cu``:
-``patch_gemm_kernel`` for y and dx, ``patch_wgrad_kernel`` for dW); on a CPU
-tensor the plain PyTorch versions below, which write the patch matrix out
-and are the oracles the kernels are held to.
+On a CUDA tensor the products are kernel K7 (``csrc/conv_patch.cu``), on a
+route that the dtype alone fixes (``ROUTES``; ``ROUTE_LAUNCHES`` counts the
+launches of each):
+
+- bfloat16 goes to the tensor cores, f32 sums in registers:
+  ``patch_gemm_wgmma_kernel`` for y and dx (``wgmma`` m64nNk16, the weights
+  read by the tensor cores straight from shared memory),
+  ``patch_wgrad_mma_kernel`` for dW (``mma.sync`` m16n8k16). By the card's
+  numbers each direction is bound by bytes at the bench shapes, so the
+  kernels read x, dy and w once in 16-byte pieces, stage a tile's pixels
+  once with their halo instead of a nine-fold patch tile, find each tap's
+  pixel through the per-lane row addresses of ``ldmatrix``, and keep every
+  sum in registers until its one rounding.
+- float32 stays on the CUDA cores (``patch_gemm_kernel``,
+  ``patch_wgrad_kernel``): TF32 would break the f32 contract.
+
+A CUDA tensor launches its kernel or the launcher raises; nothing falls back.
+``launch_plan`` is the launch geometry of either route as a pure function of
+the dtype and the shapes. On a CPU tensor the plain PyTorch versions below
+run, which write the patch matrix out and are the oracles the kernels are
+held to.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -41,29 +59,52 @@ from fl_tpu_torch.ops.conv import check_conv_shapes, with_client_axis
 from fl_tpu_torch.ops.conv_block import (SMEM_LIMIT, _DTYPE_CODE, _check_cuda,
                                          _ptr)
 
-# Thread blocks a launch aims for over all clients: a block of the patch
-# GEMM walks several row tiles with one load of its client's weights, and a
-# block of the weight gradient sums its tiles in registers into one slot.
+MAX_THREADS = 512   # kMaxThreads of csrc/conv_patch.cu
+
+# *_BLOCKS: thread blocks a launch aims for over all clients. A block of the
+# patch GEMM walks several row tiles with one load of its client's weights,
+# and a block of the weight gradient sums its tiles in registers into one
+# slot.
+
+# float32, the CUDA cores: a 4x4 register tile a thread
 GEMM_BLOCKS = 4096
 WGRAD_BLOCKS = 2048
 GEMM_THREADS = 256
-MAX_THREADS = 512   # kMaxThreads of csrc/conv_patch.cu
 WGRAD_TASKS = 3     # kWgradTasks there: 4x4 blocks of dW a thread may own
 ROW_TILES = (64, 32, 16, 8, 4)
+
+# bfloat16, the tensor cores. The patch GEMM runs on wgmma: a warpgroup (four
+# warps) owns 128 rows as two 64-row products, 64 columns a pass (8, 16 or 32
+# where O stays under them); the weight gradient on mma.sync: a warp owns two
+# (tap, 16 channels, 64 outputs) blocks of dW. 64 f32 sums a thread in both.
+TC_WARP_ROWS = 32         # kTcRows
+TC_COLS = 64              # kTcCols
+TC_SKEW = 8               # kSkew of csrc/common.cuh
+TC_WGRAD_ITEMS = 2        # kWgradItems
+TC_ACC_REGISTERS = 64
+TC_GEMM_WARPS = (8, 4)    # whole warpgroups
+TC_GEMM_BLOCKS = 512      # few blocks: each loads its client's weights once
+TC_WGRAD_ROWS = (256, 128, 64, 32, 16)
+TC_WGRAD_MAX_WARPS = 9    # kWgradMaxThreads / 32: two thread blocks an SM
+TC_WGRAD_BLOCKS = 512
+
+ROUTES = {torch.float32: "cuda_core", torch.bfloat16: "tensor_core"}
+# the multiply instruction of each route's kernels
+INSTRUCTIONS = {("cuda_core", "gemm"): "fma", ("cuda_core", "wgrad"): "fma",
+                ("tensor_core", "gemm"): "wgmma",
+                ("tensor_core", "wgrad"): "mma.sync"}
 
 # one count per kernel, raised where it is launched; the input gradient is
 # a launch of the patch GEMM
 LAUNCHES = {"conv3x3_patch_gemm": 0, "conv3x3_patch_wgrad": 0}
+# the same launches by the route they took
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES.values(), 0)
 
-_SMEM_GEMM, _SMEM_WGRAD = 0, 1
-
-
-def _up4(n: int) -> int:
-    return (n + 3) // 4 * 4
+_SMEM_WHICH = {"gemm": 0, "wgrad": 1}
 
 
-def _up32(n: int) -> int:
-    return (n + 31) // 32 * 32
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 # ---------------------------------------------------------------------------
@@ -112,23 +153,130 @@ def conv3x3_patch_dgrad_plain(g: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# CUDA launchers (K7)
+# the launch plan
 # ---------------------------------------------------------------------------
 
-def _pick_rows(lib, which, cdt, I, O) -> int:
-    """Rows of a tile: the most that leave room for two blocks on an SM,
-    else the most that fit one block at all."""
-    need = {M: lib.fl_conv_patch_smem_bytes(which, _DTYPE_CODE[cdt], I, O, M)
-            for M in ROW_TILES}
-    for limit in (SMEM_LIMIT // 2, SMEM_LIMIT):
-        for M in ROW_TILES:
-            if need[M] <= limit:
-                return M
-    raise ValueError(
-        f"conv3x3_patch: I={I}, O={O} in {cdt} need {need[ROW_TILES[-1]]} B "
-        f"of shared memory per block at {ROW_TILES[-1]} rows a tile (limit "
-        f"{SMEM_LIMIT})")
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one K7 launch is cut: the route and its multiply instruction;
+    `rows` output rows (pixels, for the weight
+    gradient) a tile; K and N as the kernel pads them in shared memory;
+    `blocks` thread blocks a client along the rows (the weight gradient's
+    `slots`), each walking `tiles_per_block` tiles, times `chunks` blocks
+    that split dW; `stages` tile buffers; the f32 sums a thread holds."""
+    kernel: str
+    route: str
+    instruction: str
+    rows: int
+    k_pad: int
+    n_pad: int
+    threads: int
+    blocks: int
+    tiles_per_block: int
+    slots: int
+    chunks: int
+    stages: int
+    smem_bytes: int
+    acc_registers: int
 
+
+def smem_bytes(kernel: str, dtype, W: int, I: int, O: int, rows: int,
+               threads: int, stages: int) -> int:
+    """Shared memory one block of `kernel` ("gemm" or "wgrad") needs: the
+    count ``fl_conv_patch_smem_bytes`` of csrc/conv_patch.cu makes."""
+    if ROUTES[dtype] == "cuda_core":
+        IP, OP = _up(I, 4), _up(O, 4)
+        patch = rows * (9 * IP + 4)
+        return 4 * (patch + (9 * IP * OP if kernel == "gemm" else rows * OP))
+    IP, XS = _up(I, 16), _up(I, 16) + TC_SKEW
+    tile = (rows + 2 * W + 2) * XS          # the rows' pixels and their halo
+    if kernel == "gemm":
+        cols = gemm_pass_columns(O)
+        return 2 * (9 * IP * _up(O, cols) + XS + stages * tile
+                    + threads // 32 * 16 * (cols + TC_SKEW))
+    return (2 * (XS + stages * (tile + rows * (_up(O, 16) + TC_SKEW)))
+            + 2 * stages * rows)
+
+
+def gemm_pass_columns(O: int) -> int:
+    """Columns one pass of the wgmma patch GEMM covers: 64 where O reaches
+    beyond 32, else the next of 8, 16, 32; the weights are padded to whole
+    passes in shared memory."""
+    return next((n for n in (8, 16, 32) if O <= n), TC_COLS)
+
+
+def _first_fit(kernel, dtype, W, I, O, candidates):
+    """The first (rows, threads, stages) that leaves room for two blocks on
+    an SM, else the first that fits one block at all."""
+    need = [smem_bytes(kernel, dtype, W, I, O, *cand) for cand in candidates]
+    for limit in (SMEM_LIMIT // 2, SMEM_LIMIT):
+        for cand, n in zip(candidates, need):
+            if n <= limit:
+                return cand, n
+    raise ValueError(
+        f"conv3x3_patch: W={W}, I={I}, O={O} in {dtype} need {min(need)} B of "
+        f"shared memory per block in the smallest tile (limit {SMEM_LIMIT})")
+
+
+def launch_plan(kernel: str, dtype, C: int, B: int, H: int, W: int, I: int,
+                O: int) -> LaunchPlan:
+    """The launch of `kernel` ("gemm": y or dx = patches @ w2 with w2
+    (9*I, O); "wgrad": dW (9*I, O)) for C clients' (B, H, W, I) images. A
+    pure function: the route follows from the dtype alone, the rest from
+    the shapes."""
+    route = ROUTES[dtype]
+    R = B * H * W
+    if route == "cuda_core":
+        (rows, _, stages), smem = _first_fit(
+            kernel, dtype, W, I, O, [(M, 0, 1) for M in ROW_TILES])
+        k_pad, n_pad = 9 * _up(I, 4), _up(O, 4)
+        n_tiles = -(-R // rows)
+        if kernel == "gemm":
+            threads = min(GEMM_THREADS, _up(rows // 4 * (n_pad // 4), 32))
+            chunks, acc = 1, 16
+        else:
+            # 4x4 blocks of dW; a thread block holds WGRAD_TASKS a thread
+            tasks = k_pad // 4 * (n_pad // 4)
+            threads = next((_up(-(-tasks // k), 32)
+                            for k in range(1, WGRAD_TASKS + 1)
+                            if -(-tasks // k) <= MAX_THREADS), MAX_THREADS)
+            chunks, acc = -(-tasks // (threads * WGRAD_TASKS)), 16 * WGRAD_TASKS
+        gemm_blocks, wgrad_blocks = GEMM_BLOCKS, WGRAD_BLOCKS
+    else:
+        k_pad, n_pad, acc = 9 * _up(I, 16), _up(O, 8), TC_ACC_REGISTERS
+        if kernel == "gemm":
+            n_pad = _up(O, gemm_pass_columns(O))
+            # no more warpgroups than twice what the rows fill
+            warps = [w for w in TC_GEMM_WARPS
+                     if w == TC_GEMM_WARPS[-1] or w // 2 * TC_WARP_ROWS < R]
+            cands = [(w * TC_WARP_ROWS, w * 32, s)
+                     for w in warps for s in (2, 1)]
+            chunks = 1
+        else:
+            items = -(-n_pad // TC_COLS) * (k_pad // 16)
+            warps = min(TC_WGRAD_MAX_WARPS, -(-items // TC_WGRAD_ITEMS))
+            chunks = -(-items // (warps * TC_WGRAD_ITEMS))
+            cands = [(M, warps * 32, s) for M in TC_WGRAD_ROWS
+                     if M == TC_WGRAD_ROWS[-1] or M // 2 < R for s in (2, 1)]
+        (rows, threads, stages), smem = _first_fit(kernel, dtype, W, I, O,
+                                                   cands)
+        n_tiles = -(-R // rows)
+        gemm_blocks, wgrad_blocks = TC_GEMM_BLOCKS, TC_WGRAD_BLOCKS
+    if kernel == "gemm":
+        tiles_per_block = -(-n_tiles // max(1, min(n_tiles,
+                                                   -(-gemm_blocks // C))))
+        blocks, slots = -(-n_tiles // tiles_per_block), 1
+    else:
+        slots = max(1, min(n_tiles, -(-wgrad_blocks // (C * chunks))))
+        blocks, tiles_per_block = slots, -(-n_tiles // slots)
+    return LaunchPlan(kernel, route, INSTRUCTIONS[route, kernel], rows, k_pad,
+                      n_pad, threads, blocks, tiles_per_block, slots, chunks,
+                      stages, smem, acc)
+
+
+# ---------------------------------------------------------------------------
+# CUDA launchers (K7)
+# ---------------------------------------------------------------------------
 
 def _check_patch_inputs(name, x, other, other_shape, what):
     if x.dim() != 5 or tuple(other.shape) != other_shape:
@@ -141,58 +289,63 @@ def _check_patch_inputs(name, x, other, other_shape, what):
     _check_cuda(name, (x, other), (x.dtype, x.dtype))
 
 
+def _launched(lib, rc, name, plan):
+    _build.check(lib, rc, name)
+    LAUNCHES[name] += 1
+    ROUTE_LAUNCHES[plan.route] += 1
+
+
 def patch_gemm_cuda(x, w2):
-    """Launch ``patch_gemm_kernel``: x (C, B, H, W, I) and w2 (C, 9*I, O) in
-    the compute dtype -> (C, B, H, W, O) in it."""
+    """Launch the patch GEMM of x's dtype: x (C, B, H, W, I) and w2
+    (C, 9*I, O) in the compute dtype -> (C, B, H, W, O) in it."""
     name = "conv3x3_patch_gemm"
     C, B, H, W, I = x.shape
     O = w2.shape[-1]
     _check_patch_inputs(name, x, w2, (C, 9 * I, O), "w2")
+    plan = launch_plan("gemm", x.dtype, C, B, H, W, I, O)
     lib = _build.load()
-    M = _pick_rows(lib, _SMEM_GEMM, x.dtype, I, O)
-    n_tiles = -(-B * H * W // M)
-    blocks = max(1, min(n_tiles, -(-GEMM_BLOCKS // C)))
-    tasks = (M // 4) * (_up4(O) // 4)
     y = torch.empty((C, B, H, W, O), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.fl_patch_gemm(
             _DTYPE_CODE[x.dtype], _ptr(x), _ptr(w2), _ptr(y), C, B, H, W, I,
-            O, M, -(-n_tiles // blocks), min(GEMM_THREADS, _up32(tasks)),
+            O, plan.rows, plan.tiles_per_block, plan.threads, plan.stages,
             ctypes.c_void_p(stream))
-    _build.check(lib, rc, name)
-    LAUNCHES[name] += 1
+    _launched(lib, rc, name, plan)
     return y
 
 
 def patch_wgrad_cuda(x, g):
-    """Launch ``patch_wgrad_kernel`` and the fixed-order reduction of its
-    slots: x (C, B, H, W, I), g (C, B, H, W, O) in the compute dtype ->
-    (C, 9*I, O) f32."""
+    """Launch the weight gradient of x's dtype and, where a client has more
+    than one slot, the fixed-order reduction of its slots: x (C, B, H, W,
+    I), g (C, B, H, W, O) in the compute dtype -> (C, 9*I, O) f32."""
     name = "conv3x3_patch_wgrad"
     C, B, H, W, I = x.shape
     O = g.shape[-1]
     _check_patch_inputs(name, x, g, (C, B, H, W, O), "g")
+    plan = launch_plan("wgrad", x.dtype, C, B, H, W, I, O)
     lib = _build.load()
-    M = _pick_rows(lib, _SMEM_WGRAD, x.dtype, I, O)
-    n_tiles = -(-B * H * W // M)
-    # 4x4 blocks of dW; a thread block holds WGRAD_TASKS of them a thread
-    tasks = (9 * _up4(I) // 4) * (_up4(O) // 4)
-    threads = next((_up32(-(-tasks // k)) for k in range(1, WGRAD_TASKS + 1)
-                    if -(-tasks // k) <= MAX_THREADS), MAX_THREADS)
-    chunks = -(-tasks // (threads * WGRAD_TASKS))
-    slots = max(1, min(n_tiles, -(-WGRAD_BLOCKS // (C * chunks))))
-    partial = torch.empty((C, slots, 9 * I * O), dtype=torch.float32,
-                          device=x.device)
     out = torch.empty((C, 9 * I, O), dtype=torch.float32, device=x.device)
+    # the tensor-core kernel writes a single slot straight to dW
+    partial = out if plan.route == "tensor_core" and plan.slots == 1 else (
+        torch.empty((C, plan.slots, 9 * I * O), dtype=torch.float32,
+                    device=x.device))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.fl_patch_wgrad(
             _DTYPE_CODE[x.dtype], _ptr(x), _ptr(g), _ptr(partial), _ptr(out),
-            C, B, H, W, I, O, M, slots, threads, ctypes.c_void_p(stream))
-    _build.check(lib, rc, name)
-    LAUNCHES[name] += 1
+            C, B, H, W, I, O, plan.rows, plan.slots, plan.threads,
+            plan.stages, ctypes.c_void_p(stream))
+    _launched(lib, rc, name, plan)
     return out
+
+
+def kernel_smem_bytes(plan: LaunchPlan, dtype, W: int, I: int, O: int) -> int:
+    """The kernel library's own count of the shared memory `plan` needs, to
+    hold ``smem_bytes`` to (needs the built library)."""
+    return _build.load().fl_conv_patch_smem_bytes(
+        _SMEM_WHICH[plan.kernel], _DTYPE_CODE[dtype], W, I, O, plan.rows,
+        plan.threads, plan.stages)
 
 
 # ---------------------------------------------------------------------------

@@ -84,6 +84,11 @@ def test_launch_counts_cover_every_kernel():
         "conv_stack_bwd", "clip_noise", "quantize_int8_blocks",
         "conv3x3_patch_gemm", "conv3x3_patch_wgrad", "probe_batched_gemm",
         "probe_taploop_conv"])
+    # K7's launches once more, by the route the dtype sent them
+    assert sorted(cp.ROUTE_LAUNCHES) == ["cuda_core", "tensor_core"]
+    cp.ROUTE_LAUNCHES["tensor_core"] = 3
+    ops.reset_launch_counts()
+    assert set(cp.ROUTE_LAUNCHES.values()) == {0}
 
 
 def test_patch_matrix_times_weights_is_the_convolution():
@@ -227,7 +232,8 @@ def _patch_inputs(gen, C, B, H, W, I, O, dtype, device):
 
 
 PATCH_SHAPES = [(2, 14, 14, 32, 64), (2, 8, 8, 16, 16), (1, 28, 28, 4, 8),
-                (2, 14, 14, 4, 128), (3, 5, 7, 3, 6)]
+                (2, 14, 14, 4, 128), (3, 5, 7, 3, 6), (3, 5, 7, 20, 12),
+                (2, 14, 14, 48, 40)]
 
 
 @pytest.mark.cuda
@@ -247,6 +253,12 @@ def test_patch_gemm_kernels_match_plain(cuda, dtype, shape):
     counts = ops.launch_counts()
     assert (counts["conv3x3_patch_gemm"], counts["conv3x3_patch_wgrad"]) == (
         2, 1)
+    # the dtype alone fixes the route: f32 on the CUDA cores, bf16 on the
+    # tensor cores
+    mine, other = (("cuda_core", "tensor_core") if dtype == torch.float32
+                   else ("tensor_core", "cuda_core"))
+    assert cp.ROUTES[dtype] == mine
+    assert (cp.ROUTE_LAUNCHES[mine], cp.ROUTE_LAUNCHES[other]) == (3, 0)
     w2 = w.reshape(3, 9 * I, O)
     _assert_rounded_close(y, cp.conv3x3_patch_plain(x, w2), dtype)
     _assert_rounded_close(dx, cp.conv3x3_patch_dgrad_plain(g, w), dtype)

@@ -3,6 +3,9 @@ quotes it.
 
     python3 tools/conv_formulations.py [--reps N]
     python3 tools/conv_formulations.py library
+    python3 tools/conv_formulations.py k7
+    python3 tools/conv_formulations.py sweep
+    python3 tools/conv_formulations.py limits
 
 Runs ``chip_smoke.py``'s ``conv_formulations`` at the bench shapes (512
 clients x 32 images, bf16): conv2 14x14 32->64 as library convolution
@@ -21,6 +24,17 @@ forward (without gradients, and with ``channels_last`` operands prepared
 beforehand) and its backward, each timed with CUDA events and then run once
 under ``torch.profiler``, with the device time and the launches of its
 largest kernels.
+
+``k7`` builds the kernels, prints what nvcc reports for K7's (registers,
+spills), runs ``chip_smoke.py``'s checks of K7 against its plain versions and
+prints its three directions' times, bounds and library times. ``sweep`` times
+the bf16 tensor-core kernels of K7 at the bench shapes over the knobs of
+their launch plan (warps a block, tile buffers, blocks a launch; pixels a
+stage and slots of the weight gradient), ten calls each. ``limits`` measures
+what the card allows those kernels, without them: the ``mma.sync`` rate on
+registers alone, a copy and a fill of y's size, and the forward's traffic at
+its block geometry with idle clocks in place of the products (a small CUDA
+source in this file, built by ``nvcc`` next to the kernel library).
 
 The shapes, the inputs and the timer are those of ``chip_smoke.py`` at the
 root of the checkout, imported from there. Every line carries the card's
@@ -80,6 +94,222 @@ def library(card: str) -> None:
             print(f"    {t / 1e3:8.3f} ms  x{n:<5d} {k}")
 
 
+def k7(card: str) -> None:
+    """K7 alone: what nvcc reports for its kernels, chip_smoke's checks
+    against the plain versions, and the three directions' times."""
+    from fl_tpu_torch.ops import _build
+
+    _build.load()
+    log = (_build.library_path().parent / "build.log").read_text()
+    lines = log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and "patch" in ln:
+            print("build: " + " | ".join(t.strip() for t in lines[i:i + 4]))
+    report = chip_smoke.kernel_report()
+    chip_smoke.phase_conv_patch(report)
+    for name in ("conv3x3_patch_gemm", "conv3x3_patch_wgrad"):
+        print(f"{name}: {report[name]} [{card}]")
+
+
+def sweep(card: str, reps: int) -> None:
+    """The bf16 tensor-core kernels of K7 at the bench shapes over the
+    launch plan's knobs: warps a block and tile buffers of the patch GEMM
+    (forward, input gradient, stem forward), pixels a stage and blocks of
+    the weight gradient. The first row of each group is the plan as it
+    stands."""
+    from fl_tpu_torch.ops import conv_patch as cp
+
+    C, B = chip_smoke.NUM_CLIENTS, chip_smoke.BATCH_SIZE
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x, w, g = chip_smoke.patch_inputs(gen, C, B, chip_smoke.CONV2_SHAPE,
+                                      torch.bfloat16)
+    xs, ws, gs = chip_smoke.patch_inputs(gen, C, B, chip_smoke.S2D_STEM_SHAPE,
+                                         torch.bfloat16)
+    w2, wd = w.reshape(C, 288, 64), cp.dgrad_weights(w)
+    ws2 = ws.reshape(C, 36, 128)
+    cases = (("forward", lambda: cp.patch_gemm_cuda(x, w2)),
+             ("input gradient", lambda: cp.patch_gemm_cuda(g, wd)),
+             ("stem forward", lambda: cp.patch_gemm_cuda(xs, ws2)))
+    first_fit = cp._first_fit
+    try:
+        for warps in (None, 8, 4):
+            for stages in ((None,) if warps is None else (2, 1)):
+                if warps is not None:
+                    cp._first_fit = (
+                        lambda kernel, dtype, W, I, O, cands, pick=(
+                            warps * cp.TC_WARP_ROWS, warps * 32, stages):
+                        (pick, cp.smem_bytes(kernel, dtype, W, I, O, *pick)))
+                for blocks in (512, 1024, 2048, 4096):
+                    cp.TC_GEMM_BLOCKS = blocks
+                    ms = [chip_smoke.time_ms(fn, reps) for _, fn in cases]
+                    print(f"sweep gemm warps={warps} stages={stages} "
+                          f"blocks={blocks}: " + ", ".join(
+                              f"{n} {t:.3f} ms" for (n, _), t in zip(cases, ms))
+                          + f" [{card}]", flush=True)
+        cp.TC_GEMM_BLOCKS = 512
+        wcases = (("weight gradient", lambda: cp.patch_wgrad_cuda(x, g)),
+                  ("stem weight gradient", lambda: cp.patch_wgrad_cuda(xs, gs)))
+        for rows in (None, 128, 64, 256):
+            for stages in ((None,) if rows is None else (2, 1)):
+                cp._first_fit = first_fit if rows is None else (
+                    lambda kernel, dtype, W, I, O, cands, r=rows, st=stages:
+                    ((r, cands[0][1], st),
+                     cp.smem_bytes(kernel, dtype, W, I, O, r, cands[0][1], st)))
+                for blocks in (512, 1024, 2048, 4096):
+                    cp.TC_WGRAD_BLOCKS = blocks
+                    ms = [chip_smoke.time_ms(fn, reps) for _, fn in wcases]
+                    print(f"sweep wgrad rows={rows} stages={stages} "
+                          f"blocks={blocks}: " + ", ".join(
+                              f"{n} {t:.3f} ms" for (n, _), t in zip(wcases, ms))
+                          + f" [{card}]", flush=True)
+    finally:
+        cp._first_fit = first_fit
+
+
+LIMITS_CU = r"""
+// Two yardsticks for K7's tensor-core kernels, no convolution in them.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// mma.sync m16n8k16 bf16 on registers alone: NACC independent sums a warp
+template <int NACC>
+__global__ void mma_loop(float* out, int iters) {
+  float c[NACC][4];
+  for (int i = 0; i < NACC; ++i)
+    for (int v = 0; v < 4; ++v) c[i][v] = 0.f;
+  uint32_t a[4] = {threadIdx.x, 2u, 3u, 4u}, b0 = 5u + threadIdx.x, b1 = 6u;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < NACC; ++i)
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+f"(c[i][0]), "+f"(c[i][1]), "+f"(c[i][2]), "+f"(c[i][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  float s = 0.f;
+  for (int i = 0; i < NACC; ++i)
+    for (int v = 0; v < 4; ++v) s += c[i][v];
+  if (s == 1234.5f) out[0] = s;
+}
+
+// The forward's traffic and block geometry without its products: a block of
+// 256 threads walks tiles of 256 rows, reads 64 B a row (16 KB a tile)
+// through shared memory, idles `spin` clocks in place of the products, and
+// writes 128 B a row (32 KB a tile) in 16-byte pieces; 100 KB of shared
+// memory a block keeps two blocks on an SM.
+__global__ void __launch_bounds__(256)
+traffic(const uint4* __restrict__ x, uint4* __restrict__ y, int tiles_per_block, int n_tiles,
+        int spin) {
+  extern __shared__ uint4 s[];
+  const int c = blockIdx.y, tile0 = blockIdx.x * tiles_per_block;
+  const uint4* xc = x + (size_t)c * n_tiles * 1024;
+  uint4* yc = y + (size_t)c * n_tiles * 2048;
+  for (int t = 0; t < tiles_per_block && tile0 + t < n_tiles; ++t) {
+    const size_t tile = tile0 + t;
+    for (int i = 0; i < 4; ++i)
+      s[i * 256 + threadIdx.x] = xc[tile * 1024 + i * 256 + threadIdx.x];
+    __syncthreads();
+    const uint4 v = s[(threadIdx.x * 7) & 1023];
+    const long long t0 = clock64();
+    while (clock64() - t0 < spin) {}
+    for (int i = 0; i < 8; ++i) yc[tile * 2048 + i * 256 + threadIdx.x] = v;
+    __syncthreads();
+  }
+}
+
+static float timed(void (*launch)(void*), void* arg, int reps) {
+  cudaEvent_t e0, e1;
+  cudaEventCreate(&e0), cudaEventCreate(&e1);
+  launch(arg);
+  cudaEventRecord(e0);
+  for (int r = 0; r < reps; ++r) launch(arg);
+  cudaEventRecord(e1), cudaEventSynchronize(e1);
+  float ms;
+  cudaEventElapsedTime(&ms, e0, e1);
+  return ms / reps;
+}
+
+struct MmaArgs { float* out; int warps, iters; };
+static void launch_mma(void* p) {
+  MmaArgs* a = (MmaArgs*)p;
+  mma_loop<16><<<132, a->warps * 32>>>(a->out, a->iters);
+}
+extern "C" float limits_mma_ms(int warps, int iters) {
+  MmaArgs a;
+  cudaMalloc(&a.out, 4), a.warps = warps, a.iters = iters;
+  const float ms = timed(launch_mma, &a, 3);
+  cudaFree(a.out);
+  return ms;
+}
+
+struct TrafficArgs { const uint4* x; uint4* y; int C, n_tiles, tpb, spin; };
+static void launch_traffic(void* p) {
+  TrafficArgs* a = (TrafficArgs*)p;
+  dim3 grid((a->n_tiles + a->tpb - 1) / a->tpb, a->C);
+  traffic<<<grid, 256, 102400>>>(a->x, a->y, a->tpb, a->n_tiles, a->spin);
+}
+extern "C" float limits_traffic_ms(const void* x, void* y, int C, int n_tiles, int tpb,
+                                   int spin) {
+  cudaFuncSetAttribute(traffic, cudaFuncAttributeMaxDynamicSharedMemorySize, 102400);
+  TrafficArgs a = {(const uint4*)x, (uint4*)y, C, n_tiles, tpb, spin};
+  return timed(launch_traffic, &a, 10);
+}
+"""
+
+
+def limits(card: str) -> None:
+    """What the card allows K7's tensor-core kernels, measured without them:
+    the rate of ``mma.sync`` m16n8k16 on registers alone; a device-to-device
+    copy and a fill of y's size; and the forward's traffic at its block
+    geometry (two blocks of 256 threads an SM, tiles of 256 rows) with idle
+    clocks in place of the products."""
+    import ctypes
+    import subprocess
+
+    from fl_tpu_torch.ops import _build
+
+    out = _build.BUILD_DIR / "limits"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "limits.cu").write_text(LIMITS_CU)
+    subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-O3", "-shared", "-Xcompiler", "-fPIC", "-o",
+                    str(out / "limits.so"), str(out / "limits.cu")], check=True)
+    lib = ctypes.CDLL(str(out / "limits.so"))
+    lib.limits_mma_ms.restype = lib.limits_traffic_ms.restype = ctypes.c_float
+    lib.limits_mma_ms.argtypes = [ctypes.c_int] * 2
+    lib.limits_traffic_ms.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+    torch.zeros(1, device="cuda")
+
+    iters = 20000
+    for warps in (4, 8, 16):
+        ms = lib.limits_mma_ms(warps, iters)
+        tflops = 132 * warps * iters * 16 * 4096 / ms / 1e9
+        print(f"limits: mma.sync m16n8k16 bf16, registers only, {warps} warps "
+              f"an SM: {tflops:.1f} TFLOP/s [{card}]")
+
+    C, B = chip_smoke.NUM_CLIENTS, chip_smoke.BATCH_SIZE
+    n_tiles = 25                       # of 256 rows: 32 images x 14 x 14
+    x = torch.zeros((C, n_tiles * 256, 32), dtype=torch.bfloat16, device="cuda")
+    y = torch.zeros((C, n_tiles * 256, 64), dtype=torch.bfloat16, device="cuda")
+    y2 = torch.empty_like(y)
+    mb = y.numel() * 2 / 1e6
+    ms = chip_smoke.time_ms(lambda: y2.copy_(y), 10)
+    print(f"limits: copy of {mb:.0f} MB (read and written): {ms:.3f} ms, "
+          f"{2 * mb / ms / 1e3:.2f} TB/s [{card}]")
+    ms = chip_smoke.time_ms(lambda: y.zero_(), 10)
+    print(f"limits: fill of {mb:.0f} MB: {ms:.3f} ms, {mb / ms / 1e3:.2f} TB/s "
+          f"[{card}]")
+    del y2
+    for tpb in (4, 25):
+        for spin in (0, 3000, 6000, 9000):
+            ms = lib.limits_traffic_ms(x.data_ptr(), y.data_ptr(), C, n_tiles,
+                                       tpb, spin)
+            print(f"limits: the forward's traffic ({x.numel() * 2 / 1e6:.0f} MB "
+                  f"read, {mb:.0f} MB written), two blocks an SM, {tpb} tiles a "
+                  f"block, {spin} idle clocks a tile: {ms:.3f} ms [{card}]")
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: these measurements need one GPU",
@@ -90,6 +320,15 @@ def main(argv) -> int:
     card = chip_smoke.card_line()
     if argv == ["library"]:
         library(card)
+        return 0
+    if argv == ["k7"]:
+        k7(card)
+        return 0
+    if argv == ["sweep"]:
+        sweep(card, 10)
+        return 0
+    if argv == ["limits"]:
+        limits(card)
         return 0
     reps = 20
     if argv[:1] == ["--reps"] and len(argv) == 2 and argv[1].isdigit():
