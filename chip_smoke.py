@@ -12,7 +12,12 @@ line each; any failure exits non-zero:
    of SimpleCNN; one round's client deltas for the int8 quantizer), with
    the kernel's, the plain version's and a library yardstick's time:
    K1/K2 (``conv_stack_res``), K4 forward and backward (``conv_stack``,
-   also held to K1/K2 on the same inputs), K5 (``conv_stack_packed``,
+   also held to K1/K2 on the same inputs: bit for bit except the bf16
+   backward, whose conv2 gradients run on the tensor cores and which is
+   held to K2 within its tolerance and to itself bit for bit across two
+   runs; the route each dtype took printed and checked, the launch plan's
+   shared-memory bytes held to the library's own count), K5
+   (``conv_stack_packed``,
    bit-equal to ``conv_stack`` per client for P = 1, 2, 4, 3), K3 (DP
    clip + noise) and K6 (int8 block quantizer: deterministic mode exact,
    stochastic mode by its distribution); K7 (``conv3x3_patch``: patch GEMM
@@ -21,7 +26,10 @@ line each; any failure exits non-zero:
    weight gradient repeated bit for bit, the launch plan's shared-memory
    bytes held to the library's own count) and K8 (``batched_gemm``,
    ``taploop_conv``) in f32 and bf16 on small shapes, ragged ones among
-   them, and at the conv2 and stem shapes of the bench, with ``F.conv2d``
+   them, and at the conv2 and stem shapes of the bench (K8a: the route
+   each dtype and shape took, TMA, staged or the CUDA cores, printed and
+   checked against its launch plan and the plan's shared memory against
+   the library's count), with ``F.conv2d``
    (groups = clients), its backward and ``torch.bmm`` as library yardsticks;
 4. the delta-DP FedAvg round of the 512-client bench configuration
    (bench.py's workload) with ``fused_conv_block="residual"``: one warm-up
@@ -104,6 +112,14 @@ S2D_STEM_SHAPE = (14, 14, 4, 128)
 # the probe's bare GEMM: conv2's patch matrix with the padded 16x16 grid's
 # rows, (M, K, N) per client
 PROBE_GEMM_SHAPE = (BATCH_SIZE * 16 * 16, 9 * 32, 64)
+# K8a's small cases: whole tiles, edges ragged in every dimension (no
+# 16-byte rows: the staged route); in bf16 also one client of the bench
+# shape and N over 64 (three column passes)
+PROBE_GEMM_SMALL = {
+    "float32": ((2, 128, 288, 64), (3, 70, 50, 37)),
+    "bfloat16": ((2, 128, 288, 64), (3, 70, 50, 37), (2, 8192, 288, 64),
+             (1, 300, 64, 136)),
+}
 # two formulations of one bf16 convolution round the same f32 sum, so they
 # differ by rare one-ulp flips; a library algorithm that transforms the
 # operands adds its own rounding. Relative Frobenius norm.
@@ -157,6 +173,12 @@ def bound(n_bytes, flops):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def nbytes_gemm(C, M, K, N, size=2):
+    """Bytes a batched GEMM must move: a and b read once, the output
+    written once."""
+    return size * C * (M * K + K * N + M * N)
 
 
 def bf16_ulp(t):
@@ -273,10 +295,17 @@ def check_conv(cb, gen, C, B, dtype, constant=False):
              cb.conv_stack_res_bwd_plain(g_k, idx, x, w1, b1, w2))
     # K4 against K2 fed K1's own residuals: the same function
     got2 = cb.conv_block_bwd_cuda(g_k, idx, x, w1, b1, w2)
+    again = cb.conv_stack_bwd_cuda(g_raw, *args)
     torch.cuda.synchronize()
     err["conv_stack_bwd"] = check_grads("K4 bwd", tag, got4, want4, dtype)
+    # f32: the same device functions as K2, bit for bit; bf16: the conv2
+    # gradients on the tensor cores, K2's sums in another order
     bwd_equal = all(torch.equal(a, b) for a, b in zip(got4, got2))
+    require(bwd_equal or dtype != torch.float32,
+            f"K4 bwd {tag}: not bit-equal to K2 in f32")
     check_grads("K4 bwd vs K2", tag, got4, got2, dtype)
+    require(all(torch.equal(a, b) for a, b in zip(got4, again)),
+            f"K4 bwd {tag}: two runs differ")
     return dict(err=err, args=args, g=g, idx=i_ref, g_raw=g_raw,
                 fwd_equal=fwd_equal, bwd_equal=bwd_equal,
                 same_route=same_route)
@@ -427,9 +456,26 @@ def phase_conv(report):
     gen.manual_seed(0)
     cases = []
     # small cases: both dtypes, random and all-tie images
+    routes = {}
     for dtype in (torch.float32, torch.bfloat16):
+        before = dict(cb.BWD_ROUTE_LAUNCHES)
         cases.append(check_conv(cb, gen, 4, BATCH_SIZE, dtype))
         cases.append(check_conv(cb, gen, 2, BATCH_SIZE, dtype, constant=True))
+        took = {k: v - before[k] for k, v in cb.BWD_ROUTE_LAUNCHES.items()
+                if v != before[k]}
+        require(list(took) == [cb.BWD_ROUTES[dtype]],
+                f"K4 bwd {dtype}: launches by route {took}")
+        routes[str(dtype)[6:]] = took
+        # the launch plan's shared-memory count is the library's own
+        for geo in ((28, 28, 32, 64), (16, 16, 8, 16)):
+            plan = cb.backward_plan(dtype, *geo)
+            got = cb.kernel_stack_bwd_smem_bytes(dtype, *geo)
+            require(plan.smem_bytes == got, f"K4 bwd {dtype} {geo}: plan "
+                    f"{plan} against {got} B in the library")
+    print(f"routes (K4 bwd): {routes} (launches in the small cases; the "
+          f"dtype alone fixes the route: bf16's conv2 gradients on mma.sync, "
+          f"f32 on the CUDA cores; plan at the bench widths "
+          f"{cb.backward_plan(torch.bfloat16, 28, 28, 32, 64)})", flush=True)
     # the bench shapes of the main path (bf16), with the times
     big = check_conv(cb, gen, NUM_CLIENTS, BATCH_SIZE, torch.bfloat16)
     cases.append(big)
@@ -521,8 +567,9 @@ def phase_conv(report):
     n_route = sum(c["same_route"] for c in cases)
     print(f"kernels (conv): K1/K2/K4 f32+bf16 (random, all-ties) and bench "
           f"shapes match plain; K4 == K1 bit for bit in {n_eq_f}/{len(cases)} "
-          f"cases, K4 bwd == K2 in {n_eq_b}/{len(cases)} (else within "
-          f"tolerance); routing equal to plain's in {n_route}/{len(cases)}; "
+          f"cases, K4 bwd == K2 bit for bit in {n_eq_b}/{len(cases)} (all "
+          f"f32 cases; bf16 within K2's tolerance, and two bf16 runs equal "
+          f"bit for bit); routing equal to plain's in {n_route}/{len(cases)}; "
           f"K5 == conv_stack bit for bit for P in (1, 2, 4, 3); unfused "
           f"cuDNN segment matches plain in all {len(cases)}, f32 also "
           f"with cudnn.allow_tf32 on (f32 1e-5 / 2e-4; bf16 against its f32 "
@@ -902,16 +949,26 @@ def phase_conv_probe(report):
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     n = 0
+    routes = {}
     for dtype in (torch.float32, torch.bfloat16):
-        # whole tiles, and edges ragged in every dimension
-        for C, M, K, N in ((2, 128, 288, 64), (3, 70, 50, 37)):
+        for C, M, K, N in PROBE_GEMM_SMALL[str(dtype)[6:]]:
             a = torch.randn((C, M, K), generator=gen, device="cuda").to(dtype)
             b = torch.randn((C, K, N), generator=gen, device="cuda").to(dtype)
+            tag = f"{str(dtype)[6:]} {C}x{M}x{K}x{N}"
+            before = dict(probe.ROUTE_LAUNCHES)
             got, want = probe.batched_gemm_cuda(a, b), (
                 probe.batched_gemm_plain(a, b))
             torch.cuda.synchronize()
-            check_rounded("K8a", f"{str(dtype)[6:]} {C}x{M}x{K}x{N}", got,
-                          want, dtype)
+            check_rounded("K8a", tag, got, want, dtype)
+            took = [k for k, v in probe.ROUTE_LAUNCHES.items()
+                    if v != before[k]]
+            plan = probe.launch_plan(dtype, C, M, K, N)
+            lib_smem = probe.kernel_smem_bytes(plan, K, N)
+            require(took == [plan.route] and plan.smem_bytes == lib_smem
+                    and (plan.route == "cuda_core") == (dtype == torch.float32),
+                    f"K8a {tag}: took {took}, plan {plan}, {lib_smem} B of "
+                    "shared memory in the library")
+            routes[tag] = plan.route
             n += 1
         for B, shape in ((2, CONV2_SHAPE), (1, (28, 28, 4, 8)),
                          (3, (5, 7, 3, 6))):
@@ -964,6 +1021,9 @@ def phase_conv_probe(report):
         probe.batched_gemm_plain(a, b))
     torch.cuda.synchronize()
     err_a = check_rounded("K8a", "bench shapes", out, out_ref, dt)
+    plan = probe.launch_plan(dt, C, M, K, N)
+    routes[f"bf16 {C}x{M}x{K}x{N}"] = plan.route
+    require(plan.route == "tma", f"K8a at the bench shapes: plan {plan}")
     b_ms, b_by = bound(nbytes(a, b, out), 2 * C * M * K * N)
     del out_ref
     report["probe_batched_gemm"].update(
@@ -973,13 +1033,22 @@ def phase_conv_probe(report):
         bound_by=b_by)
     del a, b, out
     torch.cuda.empty_cache()
+    print(f"routes (K8a): {routes} (the dtype and the shape fix the route: "
+          f"bf16 on TMA + wgmma where K and N are multiples of 8, else "
+          f"staged + wgmma; f32 on the CUDA cores)", flush=True)
+    e = report["probe_batched_gemm"]
     print(f"kernels (K8): batched GEMM and tap-loop conv match plain in {n} "
           f"small cases, ragged ones among them (f32 rtol 1e-4 / atol 1e-4; "
           f"bf16 one ulp + 1e-4), and at the bench shapes in f32 and bf16 "
           f"(bf16 max abs err GEMM "
           f"{err_a:.2e}, tap loop {err_b:.2e}); tap loop against patch "
           f"GEMM forward at the bench shapes: at most 1e-4 + {ulps:.2f} bf16 "
-          f"ulp apart (tol one ulp + 1e-4)", flush=True)
+          f"ulp apart (tol one ulp + 1e-4); bf16 GEMM at the bench shapes "
+          f"{e['ms']:.3f} ms on {plan.stages} stages x {plan.blocks} blocks, "
+          f"torch.bmm {e['library_ms']:.3f}, {e['bound_ms'] / e['ms']:.3f} of "
+          f"its bound ({e['bound_by']}), "
+          f"{1e3 * nbytes_gemm(C, M, K, N) / e['ms'] / 1e12:.2f} TB/s",
+          flush=True)
 
 
 def _frob(name, got, want, tol=FORMULATION_TOL):

@@ -1,17 +1,20 @@
 // Shared device helpers of the port's CUDA sources: conversions between the
 // compute dtype T (float or __nv_bfloat16) and f32, four-wide loads into and
 // out of shared memory, the 4x4 register-tile product the CUDA-core
-// GEMM-shaped kernels are built on, the tensor-core tile (mma.sync fed by
-// ldmatrix, cp.async staging) of the bf16 ones, and the fixed-order reduction
-// of per-block partial sums.
+// GEMM-shaped kernels are built on, the tensor-core tiles (mma.sync fed by
+// ldmatrix, wgmma, cp.async staging) of the bf16 ones, the blocks of a
+// warp-specialized pipeline (mbarrier ring, TMA loads and stores, setmaxnreg,
+// tensor maps), and the fixed-order reduction of per-block partial sums.
 //
 // Everything sits in an anonymous namespace: each source compiles on its own
 // and gets its own copy.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace {
@@ -321,6 +324,156 @@ __device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* dst,
 
 __device__ __forceinline__ bool rows_aligned16(const __nv_bfloat16* p, int row_len) {
   return row_len % 8 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// ---------------------------------------------------------------------------
+// The third rung: a warp-specialized pipeline. One producer warp keeps TMA
+// loads (cp.async.bulk.tensor) of tiles in flight into a ring of shared-memory
+// stages; consumer warpgroups wait for a stage on its `full` mbarrier, take
+// what they need from it and give it back on its `empty` mbarrier, so that
+// the warps that multiply never issue a load. setmaxnreg moves registers from
+// the producer's warpgroup to the consumers'. Results leave by TMA stores
+// (shared -> global, bulk groups) that run under the next tile's products.
+// A tensor map is made on the host per call (cuTensorMapEncodeTiled, looked
+// up in the driver library at run time) and passed as a __grid_constant__
+// kernel parameter.
+// ---------------------------------------------------------------------------
+
+// mbarrier waits give up after this many clocks (several seconds) and trap:
+// a pipeline fault then ends the kernel with an error instead of a hang
+constexpr long long kHangClocks = 1LL << 34;
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+// makes the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// arrive, and expect `bytes` more of transactions before the phase completes
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// wait until the phase of parity `parity` has completed; on a barrier that
+// was never completed, parity 1 counts as done (a ring's stages start empty)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > kHangClocks) __trap();
+}
+
+// orders this thread's generic-proxy shared-memory writes before later
+// async-proxy reads of them (wgmma operands, TMA stores)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (1..15) over `count` threads, a multiple of 32
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// box (c0, c1, c2) of a 3-D tensor map into shared memory; completion is
+// counted on `bar` in bytes
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+// shared memory into box (c0, c1, c2); what lies outside the tensor is not
+// written
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's bulk groups still read shared memory
+template <int N> __device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// until at most N of them are still in flight at all
+template <int N> __device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Byte offset of 16-byte chunk `chunk` of row `row` in a tile of 128-byte
+// rows written with the 128-byte swizzle (CU_TENSOR_MAP_SWIZZLE_128B, tile
+// base aligned to 1024): the chunk index is XORed with the row's index mod 8,
+// so the eight rows of one ldmatrix fall into eight bank groups.
+__host__ __device__ __forceinline__ uint32_t swizzle128(int row, int chunk) {
+  return (uint32_t)(row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver library the runtime already loaded,
+// so the kernel library links against no driver stub
+EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
+    if (h != nullptr) fn = reinterpret_cast<EncodeTiledFn>(dlsym(h, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// A 3-D bf16 tensor (d0 innermost, d0 * 2 and d0 * d1 * 2 bytes the strides
+// of the outer two, multiples of 16) cut into boxes of b0 x b1 x 1; elements
+// outside the tensor read as zeros and are not written. Returns a
+// cudaError_t.
+int make_map_bf16_3d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+                     uint32_t b0, uint32_t b1, bool swizzle) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
+  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                  strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // out[c][p] = sum over the client's NG block slots, in slot order

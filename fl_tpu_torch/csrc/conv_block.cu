@@ -32,30 +32,37 @@
 //
 // What bounds it on the H100: the per-image work is ~3.6 MFMA for conv2
 // (forward), the same for dgrad, and a quarter of that for the sparse
-// wgrad, on operands that live in shared memory: the kernels are bound by
-// shared-memory load bandwidth on the CUDA cores. Device memory traffic is
+// wgrad, on operands that live in shared memory. Device memory traffic is
 // small (one image in, one 7x7x64 pooled map and its uint8 index out). The
 // design keeps every intermediate of an image (padded image, pool1 plane,
 // the pool1 argmax, dz2, dx2) in shared memory, loads the client's weights
 // once per block of IMAGES images, and gives each thread four window
-// positions per weight load in the forward conv2. No tensor cores yet: that
-// is later work (wgmma over the K = 9*C1 patches).
+// positions per weight load in the forward conv2. K1, K2, K4's forward and
+// every f32 kernel sum on the CUDA cores, bound by shared-memory loads and
+// FMA issue there.
 //
 // K4's backward pays one more conv2 forward per image than K2 and saves the
 // index and pooled residuals (2 + 1 bytes per pooled value), which K1 had
 // already made small. It routes pool2 window by window as the recomputed
 // conv2 outputs appear, so no a2 plane is held: only the masked cotangent
-// and the window index per pooled position. It keeps one copy of w2, in
-// the dgrad's [k][o][ci] order with rows padded to C1 + 1 so that both the
-// recomputed forward (threads along o) and the dgrad (threads along ci)
-// read it without bank conflicts; the f32 variant fits the 227 KB block
-// limit at the bench shapes that way.
+// and the window index per pooled position. In f32 it is bwd_body: one copy
+// of w2 in the dgrad's [k][o][ci] order with rows padded to C1 + 1, so that
+// both the recomputed forward (threads along o) and the dgrad (threads along
+// ci) read it without bank conflicts, which fits the 227 KB block limit at
+// the bench shapes. In bf16 it is stack_bwd_tc_body: the recompute and the
+// stem stay the forward's CUDA-core code, and the conv2 input and weight
+// gradients (~7 MFMA an image, dense) run on mma.sync, which leaves the
+// recompute (~3.6 MFMA on the CUDA cores) the larger part of its time. The
+// products sum in another order than K2's, so K4's bf16 gradients are no
+// longer bit-equal to K2's (within K2's tolerance); they repeat bit for bit.
 //
 // Block layout: grid (ceil(B / G), C), a launch-time thread count; one block = one client
 // and G consecutive images. K2 sums its images' weight gradients into a
 // per-block slot of a partial buffer (each element owned by one thread, so
 // no atomics), and a second kernel adds the ceil(B/G) slots of each client
 // in a fixed order: the result is deterministic.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -99,11 +106,12 @@ __device__ void load_image(float* s_img, const T* __restrict__ xb, const Geometr
 }
 
 // conv1 -> +b1 -> relu -> round to T -> pool1 (first-match argmax).
-// Writes the pool1 plane into the interior of the zero-bordered s_x2 and,
-// when s_arg is given, the winning window position per (h, w, o).
+// Writes the pool1 plane into the interior of the zero-bordered s_x2 (xs
+// elements a pixel) and, when s_arg is given, the winning window position
+// per (h, w, o).
 template <typename T>
 __device__ void stem_pool1(const float* s_img, const float* s_w1, const float* s_b1,
-                           T* s_x2, uint8_t* s_arg, const Geometry& g, int C1) {
+                           T* s_x2, uint8_t* s_arg, const Geometry& g, int C1, int xs) {
   for (int i = threadIdx.x; i < g.H1 * g.W1 * C1; i += blockDim.x) {
     int o = i % C1, p = i / C1;
     int h = p / g.W1, w = p - h * g.W1;
@@ -122,7 +130,7 @@ __device__ void stem_pool1(const float* s_img, const float* s_w1, const float* s
         arg = win;
       }
     }
-    s_x2[((h + 1) * g.W1P + w + 1) * C1 + o] = from_f<T>(best);
+    s_x2[((h + 1) * g.W1P + w + 1) * xs + o] = from_f<T>(best);
     if (s_arg) s_arg[i] = (uint8_t)arg;
   }
 }
@@ -130,24 +138,25 @@ __device__ void stem_pool1(const float* s_img, const float* s_w1, const float* s
 // conv2 (no bias) at the four members of pool2 window (ph, pw) for output
 // channel o: acc[a * 2 + b] is the f32 sum over taps k and channels ci, in
 // that order, at conv2 output (2ph + a, 2pw + b). Weight (k, ci, o) sits at
-// s_w[k * wk + ci * wci + o * wo].
+// s_w[k * wk + ci * wci + o * wo], pixels of s_x2 are xs elements apart (a
+// stride moves no sum: every layout gives the same f32 values).
 template <typename T>
 __device__ __forceinline__ void conv2_window(const T* s_x2, const T* s_w, int wk, int wci,
                                              int wo, int ph, int pw, int o,
-                                             const Geometry& g, int C1, float acc[4]) {
+                                             const Geometry& g, int C1, int xs, float acc[4]) {
   acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
   for (int k = 0; k < 9; ++k) {
     const T* wv_k = s_w + k * wk + o * wo;
     // tap k of output row 2ph + a reads pool1 row 2ph + a + dh - 1, which is
     // s_x2 row 2ph + a + dh
-    const T* x00 = s_x2 + ((2 * ph + k / 3) * g.W1P + 2 * pw + k % 3) * C1;
-    const T* x10 = x00 + g.W1P * C1;
+    const T* x00 = s_x2 + ((2 * ph + k / 3) * g.W1P + 2 * pw + k % 3) * xs;
+    const T* x10 = x00 + g.W1P * xs;
     for (int ci = 0; ci < C1; ++ci) {
       float wv = to_f<T>(wv_k[ci * wci]);
       acc[0] = fmaf(to_f<T>(x00[ci]), wv, acc[0]);
-      acc[1] = fmaf(to_f<T>(x00[C1 + ci]), wv, acc[1]);
+      acc[1] = fmaf(to_f<T>(x00[xs + ci]), wv, acc[1]);
       acc[2] = fmaf(to_f<T>(x10[ci]), wv, acc[2]);
-      acc[3] = fmaf(to_f<T>(x10[C1 + ci]), wv, acc[3]);
+      acc[3] = fmaf(to_f<T>(x10[xs + ci]), wv, acc[3]);
     }
   }
 }
@@ -203,13 +212,13 @@ __device__ __forceinline__ void fwd_body(const T* __restrict__ x, const T* __res
     const size_t img = (size_t)c * B + b;
     load_image<T>(s_img, x + img * H * W, g);
     __syncthreads();
-    stem_pool1<T>(s_img, s_w1, s_b1, s_x2, nullptr, g, C1);
+    stem_pool1<T>(s_img, s_w1, s_b1, s_x2, nullptr, g, C1, C1);
     __syncthreads();
 
     for (int i = threadIdx.x; i < n_out; i += blockDim.x) {
       int o = i % C2, p = i / C2;
       float acc[4];
-      conv2_window<T>(s_x2, s_w2, C1 * C2, C2, 1, p / g.Wo, p % g.Wo, o, g, C1, acc);
+      conv2_window<T>(s_x2, s_w2, C1 * C2, C2, 1, p / g.Wo, p % g.Wo, o, g, C1, C1, acc);
       int arg;
       float best = pool2_first<T>(acc, s_b2[o], &arg);
       pooled[img * n_out + i] = from_f<T>(best);
@@ -308,7 +317,7 @@ __device__ __forceinline__ void bwd_body(const T* __restrict__ gy,
     load_image<T>(s_img, x + img * H * W, g);
     __syncthreads();
     // stem recompute: pool1 plane and its first-match routing
-    stem_pool1<T>(s_img, s_w1, s_b1, s_x2, s_arg, g, C1);
+    stem_pool1<T>(s_img, s_w1, s_b1, s_x2, s_arg, g, C1, C1);
     if (kRecompute) {
       __syncthreads();
       // conv2 recompute with the forward's sums: pool2's first-match member
@@ -316,7 +325,7 @@ __device__ __forceinline__ void bwd_body(const T* __restrict__ gy,
       for (int i = threadIdx.x; i < n_pool * C2; i += blockDim.x) {
         int o = i % C2, p = i / C2;
         float acc[4];
-        conv2_window<T>(s_x2, s_w2t, C2 * ldw, 1, ldw, p / g.Wo, p % g.Wo, o, g, C1, acc);
+        conv2_window<T>(s_x2, s_w2t, C2 * ldw, 1, ldw, p / g.Wo, p % g.Wo, o, g, C1, C1, acc);
         int arg;
         float best = pool2_first<T>(acc, s_b2[o], &arg);
         s_g[i] = best > 0.f ? g_b[i] : from_f<T>(0.f);
@@ -407,6 +416,289 @@ __device__ __forceinline__ void bwd_body(const T* __restrict__ gy,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4's backward in bfloat16: the conv2 gradient products on the tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// Groups of pooled-1 positions the stem backward splits its sums into
+constexpr int kStemGroups = 24;
+
+// Channels padded to 16 for the k16 steps (zeros in shared memory only) and
+// row strides of an odd number of 16-byte chunks, so that the eight rows of
+// an ldmatrix miss each other's banks: x2's pixels XS apart, dz2's DS, w2's
+// (tap, ci) rows LW.
+struct TcLayout {
+  int C1P, C2P, XS, DS, LW;
+  __host__ __device__ TcLayout(int C1, int C2)
+      : C1P(round_up16(C1)), C2P(round_up16(C2)), XS(round_up16(C1) + kSkew),
+        DS(round_up16(C2) + kSkew), LW(round_up16(C2) + kSkew) {}
+};
+
+// (tap, 16 channels, 16 outputs) blocks of dW2
+__host__ __device__ inline int tc_wgrad_units(const TcLayout& L) {
+  return 9 * (L.C1P / 16) * (L.C2P / 16);
+}
+__host__ __device__ inline int tc_dgrad_units(const Geometry& g, const TcLayout& L) {
+  return (g.H1 * g.W1 + 15) / 16 * (L.C1P / 16);
+}
+
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+__host__ __device__ inline int stem_groups(const Geometry& g) {
+  return min(kStemGroups, g.H1 * g.W1);
+}
+
+size_t tc_bwd_smem_bytes(const Geometry& g, int C1, int C2) {
+  const TcLayout L(C1, C2);
+  const size_t n_x2 = (size_t)g.H1 * g.W1, n_pool = (size_t)g.Ho * g.Wo;
+  const size_t plane = (size_t)g.H1P * g.W1P;
+  const size_t floats = 9 * C1 + C1 + (size_t)g.HP * g.WP + n_x2 * C1 + C2 +
+                        (size_t)stem_groups(g) * 10 * C1 + n_x2;
+  return align16(floats * 4) + 2 * ((size_t)9 * L.C1P * L.LW + plane * L.XS + plane * L.DS) +
+         2 * n_pool * C2 + n_x2 * C1 + n_pool * C2;
+}
+
+// K4's backward for bfloat16. The stem (recompute, pool1 routing, dw1, db1)
+// and the conv2 recompute are bwd_body's, through the forward's own device
+// functions (so relu2' and the pool2 member are K4's forward's, bit for
+// bit); the two conv2 gradient products run on mma.sync m16n8k16:
+//   dx2[p, ci] = sum over (tap, o) of dz2[p - tap, o] * w2[tap, ci, o]: an
+//       implicit GEMM, M = the H1 x W1 pixels in m16 tiles, K = 9 * C2P, N =
+//       C1P. A's rows are gathered by ldmatrix from the zero-bordered dz2
+//       plane at the mirrored tap's offset (a pixel past the plane reads its
+//       zero corner); B is w2 in the forward's [tap][ci][o] layout, which is
+//       [n][k] for this product, so plain ldmatrix gives its fragment and the
+//       recompute and the product read one copy. Masked by relu1' into s_dx2.
+//   dW2[tap] (C1 x C2) = sum over the pixels of x2 shifted by the tap,
+//       transposed, times dz2: dense, with the pixel as the k of the mma and
+//       both operands turned by ldmatrix.trans, a (tap, 16 channels, 16
+//       outputs) block a warp at a time, added to the block's slot after
+//       each image (held in registers across the images instead, the sums
+//       cost the recompute registers and the kernel 1 ms more).
+// A warp takes dgrad units (m16 tile, 16 channels) from the front and dW2
+// blocks from the back of the warp list. Pixel p's place in the padded
+// planes comes from a table, not from a division in every k step.
+__device__ __forceinline__ void stack_bwd_tc_body(
+    const bf16* __restrict__ gy, const bf16* __restrict__ x, const bf16* __restrict__ w1,
+    const float* __restrict__ b1, const bf16* __restrict__ w2, const float* __restrict__ b2,
+    float* __restrict__ partial, int B, int H, int W, int C1, int C2, int G) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Geometry g(H, W);
+  const TcLayout L(C1, C2);
+  const int c = blockIdx.y;
+  const int n_pool = g.Ho * g.Wo, n_x2 = g.H1 * g.W1, plane = g.H1P * g.W1P;
+  float* s_w1 = reinterpret_cast<float*>(smem);
+  float* s_b1 = s_w1 + 9 * C1;
+  float* s_img = s_b1 + C1;
+  float* s_dx2 = s_img + g.HP * g.WP;  // [p][ci], f32
+  float* s_b2 = s_dx2 + n_x2 * C1;
+  float* s_red = s_b2 + C2;  // [group][10][C1]: the stem backward's partial sums
+  const int n_grp = stem_groups(g);
+  int* s_pix = reinterpret_cast<int*>(s_red + n_grp * 10 * C1);  // [p]: (h + 1) * W1P + w + 1
+  bf16* s_w2 = reinterpret_cast<bf16*>(
+      smem + align16((size_t)(9 * C1 + C1 + g.HP * g.WP + n_x2 * C1 + C2 + n_grp * 10 * C1 +
+                              n_x2) *
+                     4));  // [tap][ci][o], LW
+  bf16* s_x2 = s_w2 + 9 * L.C1P * L.LW;  // [(h+1)][(w+1)][ci], XS
+  bf16* s_dz2 = s_x2 + plane * L.XS;     // [(h+1)][(w+1)][o], DS
+  bf16* s_g = s_dz2 + plane * L.DS;      // [p][o]
+  uint8_t* s_arg = reinterpret_cast<uint8_t*>(s_g + n_pool * C2);
+  uint8_t* s_win = s_arg + n_x2 * C1;  // [p][o]
+
+  const size_t P = (size_t)9 * C1 + C1 + (size_t)9 * C1 * C2 + C2;
+  float* part = partial + ((size_t)c * gridDim.x + blockIdx.x) * P;
+  float* p_dw1 = part;
+  float* p_db1 = p_dw1 + 9 * C1;
+  float* p_dw2 = p_db1 + C1;
+  float* p_db2 = p_dw2 + 9 * C1 * C2;
+
+  const bf16* w1c = w1 + (size_t)c * 9 * C1;
+  const bf16* w2c = w2 + (size_t)c * 9 * C1 * C2;
+  for (int i = threadIdx.x; i < 9 * C1; i += blockDim.x) s_w1[i] = to_f<bf16>(w1c[i]);
+  for (int i = threadIdx.x; i < C1; i += blockDim.x) s_b1[i] = b1[(size_t)c * C1 + i];
+  for (int i = threadIdx.x; i < C2; i += blockDim.x) s_b2[i] = b2[(size_t)c * C2 + i];
+  for (int i = threadIdx.x; i < 9 * L.C1P * L.C2P; i += blockDim.x) {
+    const int row = i / L.C2P, o = i - row * L.C2P, tap = row / L.C1P, ci = row - tap * L.C1P;
+    s_w2[row * L.LW + o] =
+        ci < C1 && o < C2 ? w2c[(size_t)(tap * C1 + ci) * C2 + o] : __float2bfloat16(0.f);
+  }
+  for (int i = threadIdx.x; i < g.HP * g.WP; i += blockDim.x) s_img[i] = 0.f;
+  for (int i = threadIdx.x; i < plane * L.XS; i += blockDim.x) s_x2[i] = __float2bfloat16(0.f);
+  for (int i = threadIdx.x; i < plane * L.DS; i += blockDim.x) s_dz2[i] = __float2bfloat16(0.f);
+  for (int p = threadIdx.x; p < n_x2; p += blockDim.x)
+    s_pix[p] = (p / g.W1 + 1) * g.W1P + p % g.W1 + 1;
+  __syncthreads();
+
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t4 = lane & 3, q = lane >> 3;
+  const int n_dg = tc_dgrad_units(g, L), n_wg = tc_wgrad_units(L);
+  const int mq = L.C1P / 16, nq = L.C2P / 16;
+
+  for (int j = 0; j < G; ++j) {
+    const int b = blockIdx.x * G + j;
+    if (b >= B) break;  // uniform across the block
+    const bool first = (j == 0);
+    const size_t img = (size_t)c * B + b;
+    const bf16* g_b = gy + img * n_pool * C2;
+
+    load_image<bf16>(s_img, x + img * H * W, g);
+    // the cotangent, masked in place by the recompute
+    for (int i = threadIdx.x; i < n_pool * C2; i += blockDim.x) s_g[i] = g_b[i];
+    __syncthreads();
+    // stem recompute: pool1 plane and its first-match routing
+    stem_pool1<bf16>(s_img, s_w1, s_b1, s_x2, s_arg, g, C1, L.XS);
+    __syncthreads();
+    // conv2 recompute with the forward's sums: pool2's first-match member
+    // and relu2' = (a2 > 0) at it, window by window
+    for (int i = threadIdx.x; i < n_pool * C2; i += blockDim.x) {
+      int o = i % C2, p = i / C2;
+      float acc[4];
+      conv2_window<bf16>(s_x2, s_w2, L.C1P * L.LW, L.LW, 1, p / g.Wo, p % g.Wo, o, g, C1, L.XS,
+                         acc);
+      int arg;
+      float best = pool2_first<bf16>(acc, s_b2[o], &arg);
+      if (!(best > 0.f)) s_g[i] = __float2bfloat16(0.f);
+      s_win[i] = (uint8_t)arg;
+    }
+    __syncthreads();
+    // pool2 backward: the cotangent lands on the indexed window position
+    for (int i = threadIdx.x; i < n_pool * C2; i += blockDim.x) {
+      int o = i % C2, p = i / C2;
+      int ph = p / g.Wo, pw = p - ph * g.Wo;
+      int win = s_win[i];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        int r = 2 * ph + (a >> 1) + 1, qq = 2 * pw + (a & 1) + 1;
+        s_dz2[(r * g.W1P + qq) * L.DS + o] = a == win ? s_g[i] : __float2bfloat16(0.f);
+      }
+    }
+    for (int o = threadIdx.x; o < C2; o += blockDim.x) {
+      float sum = 0.f;
+      for (int p = 0; p < n_pool; ++p) sum += to_f<bf16>(s_g[p * C2 + o]);
+      p_db2[o] = first ? sum : p_db2[o] + sum;
+    }
+    __syncthreads();
+
+    // conv2 dgrad on the tensor cores, masked by relu1' = (x2 > 0)
+    for (int u = warp; u < n_dg; u += warps) {
+      const int mt = u / mq, np = u - mt * mq;
+      const int pa = mt * 16 + (lane & 15);
+      const bool valid = pa < n_x2;
+      // pixel pa's place in the padded plane, plus one row and column: tap
+      // (dh, dw) subtracts dh * W1P + dw
+      const int base = valid ? s_pix[pa] + g.W1P + 1 : 0;
+      const uint32_t dz_lane = smem_addr(s_dz2 + (lane >> 4) * 8);
+      const uint32_t w_lane =
+          smem_addr(s_w2 + (size_t)(np * 16 + (lane & 7) + ((lane >> 4) << 3)) * L.LW +
+                    ((lane >> 3) & 1) * 8);
+      float acc[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[nt][v] = 0.f;
+      for (int k = 0; k < 9; ++k) {
+        // tap k of pixel (h, w) reads dz2 at (h - dh + 1, w - dw + 1), plane
+        // row h - dh + 2; a pixel past the plane reads its zero corner
+        const int pix = valid ? base - (k / 3) * g.W1P - k % 3 : 0;
+        const uint32_t a_addr = dz_lane + pix * L.DS * 2;
+        const uint32_t b_addr = w_lane + k * L.C1P * L.LW * 2;
+        for (int o0 = 0; o0 < L.C2P; o0 += 16) {
+          uint32_t a[4], bf[4];
+          ldmatrix_x4(a, a_addr + o0 * 2);
+          ldmatrix_x4(bf, b_addr + o0 * 2);
+          mma_bf16_m16n8k16(acc[0], a, bf[0], bf[1]);
+          mma_bf16_m16n8k16(acc[1], a, bf[2], bf[3]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int p = mt * 16 + gq + 8 * half;
+          if (p >= n_x2) continue;
+          const bf16* xv = s_x2 + s_pix[p] * L.XS;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ci = np * 16 + nt * 8 + 2 * t4 + e;
+            if (ci < C1)
+              s_dx2[p * C1 + ci] = to_f<bf16>(xv[ci]) > 0.f ? acc[nt][2 * half + e] : 0.f;
+          }
+        }
+    }
+    // conv2 wgrad on the tensor cores, dense over the pixels (dz2 is zero off
+    // the routed member), added to the slot image by image
+    for (int u = warps - 1 - warp; u < n_wg; u += warps) {
+      const int tap = u / (mq * nq), rem = u - tap * mq * nq, mt = rem / nq, np = rem - mt * nq;
+      const int shift = (tap / 3 - 1) * g.W1P + tap % 3 - 1;
+      float acc[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[nt][v] = 0.f;
+      for (int kp = 0; kp < n_x2; kp += 16) {
+        // x2's lane rows: pixels kp + (lane & 7) + (q >> 1) * 8 shifted by
+        // the tap, channels (q & 1) * 8 on; dz2's: pixel kp + (lane & 15),
+        // outputs (lane >> 4) * 8 on. Pixels past the plane read a zero
+        // corner.
+        const int pa = kp + (lane & 7) + (q >> 1) * 8, pb = kp + (lane & 15);
+        const int xa = pa < n_x2 ? s_pix[pa] + shift : 0, xb = pb < n_x2 ? s_pix[pb] : 0;
+        uint32_t a[4], bq[4];
+        ldmatrix_x4_trans(a, smem_addr(s_x2 + (size_t)xa * L.XS + mt * 16 + (q & 1) * 8));
+        ldmatrix_x4_trans(bq, smem_addr(s_dz2 + (size_t)xb * L.DS + np * 16 + (lane >> 4) * 8));
+        mma_bf16_m16n8k16(acc[0], a, bq[0], bq[1]);
+        mma_bf16_m16n8k16(acc[1], a, bq[2], bq[3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int ci = mt * 16 + gq + 8 * half, o = np * 16 + nt * 8 + 2 * t4;
+          if (ci >= C1) continue;
+          float* d = p_dw2 + (size_t)(tap * C1 + ci) * C2 + o;
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (o + e < C2) d[e] = first ? acc[nt][2 * half + e] : d[e] + acc[nt][2 * half + e];
+        }
+    }
+    __syncthreads();
+
+    // stem backward: dz1 is dx2 at the pool1 winner, zero elsewhere. A
+    // thread owns a channel o and every n_grp-th pooled-1 position: it reads
+    // each dx2 once for db1 and, rounded, for the nine taps of dw1; the
+    // groups' partial sums are then added in group order (deterministic)
+    for (int e = threadIdx.x; e < n_grp * C1; e += blockDim.x) {
+      const int o = e % C1, grp = e / C1;
+      float acc[10];
+#pragma unroll
+      for (int k = 0; k < 10; ++k) acc[k] = 0.f;
+      for (int p = grp; p < n_x2; p += n_grp) {
+        const float d = s_dx2[p * C1 + o];
+        acc[9] += d;
+        const float v = round_to<bf16>(d);
+        if (v == 0.f) continue;
+        const int win = s_arg[p * C1 + o];
+        const int h = p / g.W1, w = p - h * g.W1;
+        const float* im = s_img + (2 * h + (win >> 1)) * g.WP + 2 * w + (win & 1);
+#pragma unroll
+        for (int k = 0; k < 9; ++k) acc[k] = fmaf(im[(k / 3) * g.WP + k % 3], v, acc[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < 10; ++k) s_red[(grp * 10 + k) * C1 + o] = acc[k];
+    }
+    __syncthreads();
+    // e = k * C1 + o: dw1 [k][o] for k < 9, db1 for k = 9
+    for (int e = threadIdx.x; e < 10 * C1; e += blockDim.x) {
+      float sum = 0.f;
+      for (int grp = 0; grp < n_grp; ++grp) sum += s_red[grp * 10 * C1 + e];
+      float* d = e < 9 * C1 ? p_dw1 + e : p_db1 + (e - 9 * C1);
+      *d = first ? sum : *d + sum;
+    }
+    __syncthreads();
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
 conv_block_bwd_kernel(const T* __restrict__ gy, const uint8_t* __restrict__ idx,
@@ -425,6 +717,15 @@ conv_stack_bwd_kernel(const T* __restrict__ gy, const T* __restrict__ x,
                       float* __restrict__ partial, int B, int H, int W, int C1, int C2,
                       int G) {
   bwd_body<T, true>(gy, nullptr, x, w1, b1, w2, b2, partial, B, H, W, C1, C2, G);
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+conv_stack_bwd_tc_kernel(const bf16* __restrict__ gy, const bf16* __restrict__ x,
+                         const bf16* __restrict__ w1, const float* __restrict__ b1,
+                         const bf16* __restrict__ w2, const float* __restrict__ b2,
+                         float* __restrict__ partial, int B, int H, int W, int C1, int C2,
+                         int G) {
+  stack_bwd_tc_body(gy, x, w1, b1, w2, b2, partial, B, H, W, C1, C2, G);
 }
 
 // idx == nullptr launches the residual-free forward (K4), else K1.
@@ -450,34 +751,44 @@ int launch_fwd(const void* x, const void* w1, const float* b1, const void* w2,
   return (int)cudaGetLastError();
 }
 
-// idx == nullptr launches the residual-free backward (K4, which needs b2),
-// else K2; both are followed by the fixed-order reduction of the slots.
+// Dynamic shared memory of `kernel` up to `smem`, then the launch.
+template <typename Kernel, typename... Args>
+cudaError_t launch_with_smem(Kernel kernel, dim3 grid, int threads, size_t smem,
+                             cudaStream_t stream, Args... args) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// idx == nullptr launches the residual-free backward (K4, which needs b2;
+// its bf16 body runs the conv2 gradients on the tensor cores), else K2; both
+// are followed by the fixed-order reduction of the slots.
 template <typename T>
 int launch_bwd(const void* gy, const uint8_t* idx, const void* x, const void* w1,
                const float* b1, const void* w2, const float* b2, float* partial, float* out,
                int C, int B, int H, int W, int C1, int C2, int G, int threads,
                cudaStream_t stream) {
   const Geometry g(H, W);
-  size_t smem = bwd_smem_bytes(g, C1, C2, sizeof(T), idx == nullptr);
-  cudaError_t e =
-      idx ? cudaFuncSetAttribute(conv_block_bwd_kernel<T>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
-          : cudaFuncSetAttribute(conv_stack_bwd_kernel<T>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const dim3 grid((B + G - 1) / G, C);
+  const T *gyt = (const T*)gy, *xt = (const T*)x, *w1t = (const T*)w1, *w2t = (const T*)w2;
+  cudaError_t e;
+  if (idx) {
+    e = launch_with_smem(conv_block_bwd_kernel<T>, grid, threads,
+                         bwd_smem_bytes(g, C1, C2, sizeof(T), false), stream, gyt, idx, xt, w1t,
+                         b1, w2t, partial, B, H, W, C1, C2, G);
+  } else if constexpr (std::is_same_v<T, bf16>) {
+    e = launch_with_smem(conv_stack_bwd_tc_kernel, grid, threads, tc_bwd_smem_bytes(g, C1, C2),
+                         stream, gyt, xt, w1t, b1, w2t, b2, partial, B, H, W, C1, C2, G);
+  } else {
+    e = launch_with_smem(conv_stack_bwd_kernel<T>, grid, threads,
+                         bwd_smem_bytes(g, C1, C2, sizeof(T), true), stream, gyt, xt, w1t, b1,
+                         w2t, b2, partial, B, H, W, C1, C2, G);
+  }
   if (e != cudaSuccess) return (int)e;
-  const int NG = (B + G - 1) / G;
-  dim3 grid(NG, C);
-  if (idx)
-    conv_block_bwd_kernel<T><<<grid, threads, smem, stream>>>(
-        (const T*)gy, idx, (const T*)x, (const T*)w1, b1, (const T*)w2, partial, B, H, W, C1,
-        C2, G);
-  else
-    conv_stack_bwd_kernel<T><<<grid, threads, smem, stream>>>(
-        (const T*)gy, (const T*)x, (const T*)w1, b1, (const T*)w2, b2, partial, B, H, W, C1,
-        C2, G);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return launch_reduce_partials(partial, out, C, NG, 9 * C1 + C1 + 9 * C1 * C2 + C2, stream);
+  return launch_reduce_partials(partial, out, C, (B + G - 1) / G,
+                                9 * C1 + C1 + 9 * C1 * C2 + C2, stream);
 }
 
 bool bad_threads(int threads) {
@@ -554,6 +865,7 @@ extern "C" size_t fl_conv_block_smem_bytes(int which, int dtype, int H, int W, i
                                            int C2) {
   const Geometry g(H, W);
   size_t tsize = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
+  if (which == 2 && dtype == 1) return tc_bwd_smem_bytes(g, C1, C2);
   return which ? bwd_smem_bytes(g, C1, C2, tsize, which == 2)
                : fwd_smem_bytes(g, C1, C2, tsize);
 }

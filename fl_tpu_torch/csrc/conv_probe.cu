@@ -15,10 +15,22 @@
 // (B * Hp * Wp, I) rows with a halo of 2 * Wp + 2 rows, the per-client
 // BlockSpecs and the VMEM accumulator.
 //
-// batched_gemm_kernel   grid (N tiles, M tiles, C): a 64 x 64 output tile per
-//                       block, K walked in chunks of 32 through shared
-//                       memory, a 4 x 4 register tile per thread, ragged
-//                       edges zero-filled on load and masked on store.
+// The batched GEMM takes one of three routes, fixed by the dtype and the
+// shape (ops/conv_probe.py launch_plan):
+//   gemm_tma_wgmma_kernel     bfloat16 where rows of K and N are whole 16-byte
+//       pieces: a persistent block an SM walks (client, pass, 128-row tile)
+//       items client-major, one producer warp streams A by TMA through a
+//       ring of 16 KB stages, two consumer warpgroups multiply on wgmma
+//       against the client's B held in shared memory, and the rounded tile
+//       leaves by a TMA store under the next tile's products (common.cuh's
+//       pipeline blocks);
+//   gemm_staged_wgmma_kernel  the other bfloat16 shapes: the same wgmma
+//       products on a tile's rows staged by cp.async, one tile at a time,
+//       stores masked to M and N;
+//   batched_gemm_kernel       float32 (TF32 would break the contract): grid
+//       (N tiles, M tiles, C), a 64 x 64 output tile per block, K walked in
+//       chunks of 32 through shared memory, a 4 x 4 register tile per thread
+//       on the CUDA cores.
 // taploop_conv_kernel   grid (image groups, C): a block stages a band of an
 //                       image with its one-pixel halo (zeros outside the
 //                       image) and the client's weights in shared memory; a
@@ -29,8 +41,14 @@
 // What bounds them on the H100: at the probe shapes (512 clients, M = 8192,
 // K = 288, N = 64, bf16) the GEMM is 77 G FMA on 2.97 GB, the convolution
 // (512 x 32 images, 14x14, 32 -> 64) 59 G FMA on 0.6 GB: both bound by bytes
-// by the card's numbers; as written, on the CUDA cores, by FMA issue and
-// shared-memory loads.
+// by the card's numbers. The TMA route answers for the GEMM: A (81% of the
+// bytes) is read once, in whole boxes, by a warp that does nothing else, so
+// the products and stores hide under its stream; what is left is the
+// card's copy rate. K = 288 is 4.5 swizzle boxes of 64: the fifth box's
+// columns past K are zero-filled by TMA in shared memory only (K padded to
+// 320 there), which costs shared-memory bandwidth and no device memory. The
+// tap loop runs on the CUDA cores, bound by FMA issue and shared-memory
+// loads.
 
 #include "common.cuh"
 
@@ -78,6 +96,333 @@ batched_gemm_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restr
     for (int n = 0; n < 4; ++n) {
       const int col = n0 + og * 4 + n;
       if (col < N) oc[(size_t)m * N + col] = from_f<T>(acc[j][n]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: the tensor-core GEMMs
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTmaRows = 128;     // rows of a tile: 64 for each of two consumer warpgroups
+constexpr int kTmaThreads = 384;  // the producer's warpgroup and two consumer warpgroups
+constexpr int kKBox = 64;         // K columns of one TMA box: 128 bytes, the swizzle's span
+constexpr int kStageBytes = kTmaRows * kKBox * 2;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kStagedMaxThreads = 256;
+
+// 8-column tiles a column pass covers: 64 columns where N reaches beyond 32,
+// else the next of 8, 16, 32
+int gemm_pass_tiles(int N) {
+  const int n = round_up8(N) / 8;
+  return n > 4 ? 8 : n > 2 ? 4 : n;
+}
+
+// The TMA route's shared memory: the slack to align to 1024, the stages
+// ([128 rows][64 k], 128-byte swizzle), two warpgroups' output tiles, B's
+// pass as core matrices, the full and empty barriers.
+size_t tma_gemm_smem_bytes(int K, int N, int stages) {
+  const size_t NP = 8 * gemm_pass_tiles(N);
+  return 1024 + (size_t)stages * kStageBytes + 2 * 64 * NP * 2 + (size_t)round_up16(K) * NP * 2 +
+         (size_t)2 * stages * 8;
+}
+
+// The staged route's: B's pass, the tile's rows [row][k] with the skewed
+// stride, a 16-row output buffer a warp.
+size_t staged_gemm_smem_bytes(int K, int N, int rows) {
+  const size_t NP = 8 * gemm_pass_tiles(N), KP = round_up16(K);
+  return 2 * (KP * NP + (size_t)rows * (KP + kSkew) + (size_t)rows * (NP + kSkew));
+}
+
+// Columns n0 .. n0 + 8 * NT of the client's B (K x N) as the core matrices
+// wgmma reads, [k / 8][n / 8][k % 8][n % 8] over round_up16(K) rows, zeros
+// past K and N; eight threads fill one core matrix. The caller commits and
+// waits for the cp.async part.
+template <int NT>
+__device__ void load_b_pass(bf16* s_b, const bf16* __restrict__ bc, int K, int N, int n0,
+                            bool vec, int tid, int nthreads) {
+  const int KP = round_up16(K);
+  for (int e = tid; e < KP * NT; e += nthreads) {
+    const int k0 = e & 7, nb = (e >> 3) % NT, kb = (e >> 3) / NT;
+    const int k = kb * 8 + k0, o = n0 + nb * 8;
+    bf16* d = s_b + ((size_t)(kb * NT + nb) * 8 + k0) * 8;
+    const bf16* src = bc + (size_t)k * N + o;
+    if (k >= K || o >= N) {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    } else if (vec && o + 8 <= N) {
+      cp_async16(d, src);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) d[i] = o + i < N ? src[i] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// A work item is (client, column pass, 128-row tile), numbered client-major,
+// then pass, then tile; a block takes items_per_block consecutive ones, so B
+// is loaded again only where the client or the pass changes.
+struct GemmItem {
+  int c, p, t;
+};
+__device__ __forceinline__ GemmItem gemm_item(long long it, int passes, int m_tiles) {
+  const int per_client = passes * m_tiles;
+  const int c = (int)(it / per_client), rem = (int)(it - (long long)c * per_client);
+  return {c, rem / m_tiles, rem % m_tiles};
+}
+
+// The TMA route: K * 2 and N * 2 multiples of 16, the operands 16-byte
+// aligned. Warpgroup 0 is the producer: after giving up registers, one thread
+// walks the block's items and streams A in boxes of 128 rows x 64 k through
+// the ring of stages (K beyond the tensor reads as zeros, so K = 288 takes
+// five boxes). Warpgroups 1 and 2 consume: each owns 64 rows of the tile,
+// gathers its A fragments from a stage by ldmatrix (the 128-byte swizzle
+// makes the eight rows of a matrix miss each other's banks), hands the stage
+// back at once and multiplies on wgmma m64nNk16 against B, which sits in
+// shared memory as core matrices for the whole client and pass. The sums
+// stay in registers over all of K, are rounded once, written to the
+// warpgroup's output tile and stored by TMA while the next tile multiplies.
+template <int NT>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+gemm_tma_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                      const __grid_constant__ CUtensorMap map_out, const bf16* __restrict__ b,
+                      int C, int M, int K, int N, int stages, int items_per_block) {
+  extern __shared__ unsigned char smem_tma[];
+  constexpr int NP = 8 * NT;
+  unsigned char* s_a = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_tma) + 1023) & ~(uintptr_t)1023);
+  bf16* s_out = reinterpret_cast<bf16*>(s_a + (size_t)stages * kStageBytes);  // 2 x [64][NP]
+  bf16* s_b = s_out + 2 * 64 * NP;
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_b + (size_t)round_up16(K) * NP);
+  uint64_t* empty = full + stages;
+
+  const int m_tiles = (M + kTmaRows - 1) / kTmaRows, passes = (N + NP - 1) / NP;
+  const long long item0 = (long long)blockIdx.x * items_per_block;
+  const long long item1 = min((long long)C * passes * m_tiles, item0 + items_per_block);
+  const int nkb = (K + kKBox - 1) / kKBox, n_steps = (K + 15) / 16;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival from each consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (item0 >= item1) return;  // uniform across the block
+
+  if (wg == 0) {
+    // the producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int u = 0;
+      for (long long it = item0; it < item1; ++it) {
+        const GemmItem w = gemm_item(it, passes, m_tiles);
+        for (int kb = 0; kb < nkb; ++kb, ++u) {
+          const int s = u % stages;
+          mbar_wait(&empty[s], ((u / stages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[s], kStageBytes);
+          tma_load_3d(s_a + (size_t)s * kStageBytes, &map_a, &full[s], kb * kKBox,
+                      w.t * kTmaRows, w.c);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers
+  setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int a_row = cw * 64 + warp * 16 + (lane & 15), a_chunk = lane >> 4;
+  const uint32_t a_lane = smem_addr(s_a) + a_row * 128;
+  const uint32_t lbo = NT * 128, sbo = 128;  // bytes between k-blocks, between column blocks
+  const uint64_t desc0 = wgmma_desc(smem_addr(s_b), lbo, sbo);
+  unsigned char* my_out = reinterpret_cast<unsigned char*>(s_out + cw * 64 * NP);
+  const bool issuer = (threadIdx.x & 127) == 0;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  long long cur = -1;
+  int u = 0;
+  for (long long it = item0; it < item1; ++it) {
+    const GemmItem w = gemm_item(it, passes, m_tiles);
+    const long long key = (long long)w.c * passes + w.p;
+    if (key != cur) {
+      named_barrier(1, 256);  // every consumer is done with the last pass's B
+      load_b_pass<NT>(s_b, b + (size_t)w.c * K * N, K, N, w.p * NP, true, threadIdx.x - 128, 256);
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_proxy_async();
+      named_barrier(1, 256);
+      cur = key;
+    }
+
+    float acc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[n][v] = 0.f;
+
+    // box kb: wait for its stage, take the A fragments of its (up to) four
+    // k16 steps into registers and hand the stage back
+    auto gather = [&](uint32_t (&a)[4][4], int kb) {
+      const int s = u % stages;
+      mbar_wait(&full[s], (u / stages) & 1);
+      const uint32_t row = a_lane + s * kStageBytes;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (kb * 4 + j < n_steps)
+          ldmatrix_x4(a[j], row + ((((2 * j + a_chunk) ^ (a_row & 7))) << 4));
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      ++u;
+    };
+    auto multiply = [&](const uint32_t (&a)[4][4], int kb) {
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (kb * 4 + j < n_steps)
+          wgmma_m64k16<NT>(acc, a[j], desc0 + (uint64_t)((2 * (kb * 4 + j) * lbo) >> 4));
+      wgmma_commit();
+    };
+    uint32_t a0[4][4], a1[4][4];
+    for (int kb = 0; kb < nkb; kb += 2) {
+      gather(a0, kb);
+      multiply(a0, kb);
+      wgmma_wait<1>();  // box kb - 1 is done with a1
+      if (kb + 1 < nkb) {
+        gather(a1, kb + 1);
+        multiply(a1, kb + 1);
+        wgmma_wait<1>();  // box kb is done with a0
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) asm volatile("" : "+f"(acc[n][v])::"memory");
+
+    // one rounding; the warpgroup's tile goes out by one TMA store, which
+    // the next epilogue waits for before it writes the tile again
+    if (issuer) bulk_wait_read<0>();
+    named_barrier(2 + cw, 128);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = warp * 16 + g + 8 * half;
+        const uint32_t off = NP == 64 ? swizzle128(r, n) + 4 * t4 : r * NP * 2 + n * 16 + 4 * t4;
+        *reinterpret_cast<__nv_bfloat162*>(my_out + off) =
+            __floats2bfloat162_rn(acc[n][2 * half], acc[n][2 * half + 1]);
+      }
+    fence_proxy_async();
+    named_barrier(2 + cw, 128);
+    if (issuer) {
+      tma_store_3d(&map_out, my_out, w.p * NP, w.t * kTmaRows + cw * 64, w.c);
+      bulk_commit();
+    }
+  }
+  if (issuer) bulk_wait<0>();
+}
+
+// The staged route, for what TMA cannot take (rows of K or N not whole
+// 16-byte pieces, operands not 16-byte aligned): the same products on wgmma,
+// with a tile's rows staged by cp.async (scalar loads where a row is not
+// aligned) into rows of the skewed stride, one tile at a time, and stores
+// masked to M and N through a row buffer a warp. blockDim.x / 2 rows a tile
+// (one or two warpgroups).
+template <int NT>
+__global__ void __launch_bounds__(kStagedMaxThreads)
+gemm_staged_wgmma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
+                         bf16* __restrict__ out, int C, int M, int K, int N,
+                         int items_per_block) {
+  extern __shared__ __align__(128) unsigned char smem_st[];
+  constexpr int NP = 8 * NT, kOutLd = NP + kSkew;
+  const int KP = round_up16(K), LD = KP + kSkew, rows = blockDim.x / 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  bf16* s_b = reinterpret_cast<bf16*>(smem_st);  // core matrices, KP x NP
+  bf16* s_a = s_b + (size_t)KP * NP;             // [row][k], stride LD
+  bf16* s_out = s_a + (size_t)rows * LD + warp * 16 * kOutLd;
+
+  const int m_tiles = (M + rows - 1) / rows, passes = (N + NP - 1) / NP;
+  const long long item0 = (long long)blockIdx.x * items_per_block;
+  const long long item1 = min((long long)C * passes * m_tiles, item0 + items_per_block);
+  const int n_steps = KP / 16, N8 = round_up8(N);
+  const int row0 = (warp >> 2) * 64 + (warp & 3) * 16;  // the warp's rows of its warpgroup's product
+  const uint32_t a_lane = smem_addr(s_a + (size_t)(row0 + (lane & 15)) * LD + (lane >> 4) * 8);
+  const uint32_t lbo = NT * 128, sbo = 128;
+  const uint64_t desc0 = wgmma_desc(smem_addr(s_b), lbo, sbo);
+  const int g = lane >> 2, t4 = lane & 3;
+
+  long long cur = -1;
+  for (long long it = item0; it < item1; ++it) {
+    const GemmItem w = gemm_item(it, passes, m_tiles);
+    const bf16* ac = a + (size_t)w.c * M * K;
+    const bf16* bc = b + (size_t)w.c * K * N;
+    bf16* oc = out + (size_t)w.c * M * N;
+    __syncthreads();  // every warp is done with the last tile (and B)
+    const long long key = (long long)w.c * passes + w.p;
+    if (key != cur) {
+      load_b_pass<NT>(s_b, bc, K, N, w.p * NP, rows_aligned16(bc, N), threadIdx.x, blockDim.x);
+      cur = key;
+    }
+    stage_rows_bf16(s_a, ac, w.t * rows, rows, M, K, rows_aligned16(ac, K));
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+
+    float acc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[n][v] = 0.f;
+    auto multiply = [&](int step, const uint32_t (&fa)[4]) {
+      wgmma_fence();
+      wgmma_m64k16<NT>(acc, fa, desc0 + (uint64_t)((2 * step * lbo) >> 4));
+      wgmma_commit();
+    };
+    uint32_t a0[4], a1[4];
+    ldmatrix_x4(a0, a_lane);
+    int step = 0;
+    for (; step + 1 < n_steps; step += 2) {
+      multiply(step, a0);
+      wgmma_wait<1>();  // step - 1 is done with a1
+      ldmatrix_x4(a1, a_lane + (step + 1) * 32);
+      multiply(step + 1, a1);
+      wgmma_wait<1>();  // step is done with a0
+      if (step + 2 < n_steps) ldmatrix_x4(a0, a_lane + (step + 2) * 32);
+    }
+    if (step < n_steps) multiply(step, a0);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) asm volatile("" : "+f"(acc[n][v])::"memory");
+
+    // one rounding, then the warp's 16 rows through its row buffer
+    const int n0 = w.p * NP, nt = min(NT, (N8 - n0) / 8);
+    __syncwarp();
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(s_out + g * kOutLd + n * 8 + 2 * t4) =
+          __floats2bfloat162_rn(acc[n][0], acc[n][1]);
+      *reinterpret_cast<__nv_bfloat162*>(s_out + (g + 8) * kOutLd + n * 8 + 2 * t4) =
+          __floats2bfloat162_rn(acc[n][2], acc[n][3]);
+    }
+    __syncwarp();
+    const bool vec_o = rows_aligned16(oc, N);
+    for (int e = lane; e < 16 * nt; e += 32) {
+      const int row = e / nt, ch = e - row * nt, r = w.t * rows + row0 + row, o = n0 + ch * 8;
+      if (r >= M) continue;
+      const bf16* src = s_out + row * kOutLd + ch * 8;
+      bf16* dst = oc + (size_t)r * N + o;
+      if (vec_o && o + 8 <= N) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int i = 0; i < 8 && o + i < N; ++i) dst[i] = src[i];
+      }
     }
   }
 }
@@ -155,15 +500,77 @@ taploop_conv_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restr
   }
 }
 
-template <typename T>
-int launch_gemm(const void* a, const void* b, void* out, int C, int M, int K, int N,
-                cudaStream_t stream) {
+int launch_gemm_f32(const void* a, const void* b, void* out, int C, int M, int K, int N,
+                    cudaStream_t stream) {
   dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, C);
-  batched_gemm_kernel<T><<<grid, kGemmThreads, 0, stream>>>((const T*)a, (const T*)b, (T*)out,
-                                                            M, K, N);
+  batched_gemm_kernel<float><<<grid, kGemmThreads, 0, stream>>>(
+      (const float*)a, (const float*)b, (float*)out, M, K, N);
   return (int)cudaGetLastError();
 }
 
+template <int NT>
+int launch_gemm_tma_nt(const bf16* a, const bf16* b, bf16* out, int C, int M, int K, int N,
+                       int stages, int blocks, int items_per_block, cudaStream_t stream) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, gemm_tma_wgmma_kernel<NT>);
+  if (e != cudaSuccess) return (int)e;
+  // setmaxnreg hands the consumers registers that the launch must have
+  // given the block: refuse rather than wait on them forever
+  if (attr.numRegs * kTmaThreads < kProducerRegs * 128 + kConsumerRegs * 256)
+    return (int)cudaErrorInvalidConfiguration;
+  CUtensorMap map_a, map_out;
+  int rc = make_map_bf16_3d(&map_a, a, K, M, C, kKBox, kTmaRows, true);
+  if (rc) return rc;
+  rc = make_map_bf16_3d(&map_out, out, N, M, C, 8 * NT, 64, NT == 8);
+  if (rc) return rc;
+  const size_t smem = tma_gemm_smem_bytes(K, N, stages);
+  e = cudaFuncSetAttribute(gemm_tma_wgmma_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  gemm_tma_wgmma_kernel<NT><<<blocks, kTmaThreads, smem, stream>>>(map_a, map_out, b, C, M, K, N,
+                                                                   stages, items_per_block);
+  return (int)cudaGetLastError();
+}
+
+template <int NT>
+int launch_gemm_staged_nt(const bf16* a, const bf16* b, bf16* out, int C, int M, int K, int N,
+                          int rows, int blocks, int items_per_block, cudaStream_t stream) {
+  const size_t smem = staged_gemm_smem_bytes(K, N, rows);
+  cudaError_t e = cudaFuncSetAttribute(gemm_staged_wgmma_kernel<NT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  gemm_staged_wgmma_kernel<NT><<<blocks, 2 * rows, smem, stream>>>(a, b, out, C, M, K, N,
+                                                                   items_per_block);
+  return (int)cudaGetLastError();
+}
+
+// route 1: TMA, route 2: staged
+int launch_gemm_bf16(int route, const void* a, const void* b, void* out, int C, int M, int K,
+                     int N, int rows, int stages, int blocks, int items_per_block,
+                     cudaStream_t stream) {
+  const bf16 *ab = (const bf16*)a, *bb = (const bf16*)b;
+  bf16* ob = (bf16*)out;
+  if (route == 1) {
+    const bool aligned = reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(b) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    if (K % 8 || N % 8 || !aligned || rows != kTmaRows || stages < 2)
+      return (int)cudaErrorInvalidValue;
+    switch (gemm_pass_tiles(N)) {
+      case 1: return launch_gemm_tma_nt<1>(ab, bb, ob, C, M, K, N, stages, blocks, items_per_block, stream);
+      case 2: return launch_gemm_tma_nt<2>(ab, bb, ob, C, M, K, N, stages, blocks, items_per_block, stream);
+      case 4: return launch_gemm_tma_nt<4>(ab, bb, ob, C, M, K, N, stages, blocks, items_per_block, stream);
+      default: return launch_gemm_tma_nt<8>(ab, bb, ob, C, M, K, N, stages, blocks, items_per_block, stream);
+    }
+  }
+  if (route != 2 || (rows != 64 && rows != 128)) return (int)cudaErrorInvalidValue;
+  switch (gemm_pass_tiles(N)) {
+    case 1: return launch_gemm_staged_nt<1>(ab, bb, ob, C, M, K, N, rows, blocks, items_per_block, stream);
+    case 2: return launch_gemm_staged_nt<2>(ab, bb, ob, C, M, K, N, rows, blocks, items_per_block, stream);
+    case 4: return launch_gemm_staged_nt<4>(ab, bb, ob, C, M, K, N, rows, blocks, items_per_block, stream);
+    default: return launch_gemm_staged_nt<8>(ab, bb, ob, C, M, K, N, rows, blocks, items_per_block, stream);
+  }
+}
 template <typename T>
 int launch_taploop(const void* x, const void* w, void* y, int C, int B, int H, int W, int I,
                    int O, int TH, int G, int threads, cudaStream_t stream) {
@@ -182,13 +589,28 @@ int launch_taploop(const void* x, const void* w, void* y, int C, int B, int H, i
 // dtype: 0 = float32, 1 = bfloat16. Every pointer is device memory; the
 // return value is the cudaError_t of the launch (0 = success).
 
-// out (C, M, N) = a (C, M, K) @ b (C, K, N), in a's dtype.
-extern "C" int fl_batched_gemm(int dtype, const void* a, const void* b, void* out, int C, int M,
-                               int K, int N, void* stream) {
+// out (C, M, N) = a (C, M, K) @ b (C, K, N), in a's dtype, on route 0 (the
+// CUDA cores; float32 only, the other arguments unused) or, for bfloat16, 1
+// (TMA + wgmma, tiles of 128 rows, `stages` >= 2) or 2 (staged + wgmma, tiles
+// of 64 or 128 rows); `blocks` persistent blocks of `items_per_block` work
+// items each.
+extern "C" int fl_batched_gemm(int dtype, int route, const void* a, const void* b, void* out,
+                               int C, int M, int K, int N, int rows, int stages, int blocks,
+                               int items_per_block, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch_gemm<float>(a, b, out, C, M, K, N, s);
-  if (dtype == 1) return launch_gemm<__nv_bfloat16>(a, b, out, C, M, K, N, s);
+  if (dtype == 0 && route == 0) return launch_gemm_f32(a, b, out, C, M, K, N, s);
+  if (dtype == 1 && (route == 1 || route == 2) && blocks >= 1 && items_per_block >= 1)
+    return launch_gemm_bf16(route, a, b, out, C, M, K, N, rows, stages, blocks, items_per_block,
+                            s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Shared memory one block of route `route` needs (route 0: the static
+// buffers of the float32 kernel).
+extern "C" size_t fl_batched_gemm_smem_bytes(int route, int K, int N, int rows, int stages) {
+  if (route == 1) return tma_gemm_smem_bytes(K, N, stages);
+  if (route == 2) return staged_gemm_smem_bytes(K, N, rows);
+  return sizeof(float) * (kBM * kLda + kBK * kBN);
 }
 
 // y (C, B, H, W, O) = conv3x3_same(x (C, B, H, W, I), w (C, 3, 3, I, O)), in

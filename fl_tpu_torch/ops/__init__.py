@@ -9,8 +9,10 @@ from fl_tpu_torch.ops import conv_block, conv_patch, conv_probe, dp, quantize
 
 _COUNTS = (conv_block.LAUNCHES, dp.LAUNCHES, quantize.LAUNCHES,
            conv_patch.LAUNCHES, conv_probe.LAUNCHES)
-# K7's launches by route: reset with the counts, not one of them
-_ROUTE_COUNTS = (conv_patch.ROUTE_LAUNCHES,)
+# K7's, K8a's and K4's backward's launches by route: reset with the counts,
+# not among them
+_ROUTE_COUNTS = (conv_patch.ROUTE_LAUNCHES, conv_probe.ROUTE_LAUNCHES,
+                 conv_block.BWD_ROUTE_LAUNCHES)
 
 
 def launch_counts() -> dict:

@@ -3,8 +3,9 @@
 Every ``*.cu`` under ``fl_tpu_torch/csrc`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``), one ``nvcc`` per source and all started together, and
 the objects are linked into one shared library with a plain C interface,
-loaded with ``ctypes``. The build happens at first use, never at import,
-into ``fl_tpu_torch/_build/<hash>/`` (listed in ``.gitignore``), where the
+loaded with ``ctypes``; the driver's tensor-map encoder is looked up with
+``dlopen`` at run time, so nothing links against the driver. The build
+happens at first use, never at import, into ``fl_tpu_torch/_build/<hash>/`` (listed in ``.gitignore``), where the
 hash covers the sources and the flags: a fresh checkout builds once, a
 re-run reuses the library, and an edited source builds anew. nvcc's
 ``-Xptxas -v`` report (registers, shared memory, spills per kernel) of
@@ -86,7 +87,7 @@ def build() -> Path:
         results.append((cmd, proc.returncode, so, se))
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
     if all(rc == 0 for _, rc, _, _ in results):
-        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objects)]
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objects), "-ldl"]
         proc = subprocess.run(link, capture_output=True, text=True)
         results.append((link, proc.returncode, proc.stdout, proc.stderr))
     for obj in objects:
@@ -125,8 +126,10 @@ def load() -> ctypes.CDLL:
             lib.fl_patch_wgrad.restype = i
             lib.fl_conv_patch_smem_bytes.argtypes = [i] * 8
             lib.fl_conv_patch_smem_bytes.restype = ctypes.c_size_t
-            lib.fl_batched_gemm.argtypes = [i] + [p] * 3 + [i] * 4 + [p]
+            lib.fl_batched_gemm.argtypes = [i, i] + [p] * 3 + [i] * 8 + [p]
             lib.fl_batched_gemm.restype = i
+            lib.fl_batched_gemm_smem_bytes.argtypes = [i] * 5
+            lib.fl_batched_gemm_smem_bytes.restype = ctypes.c_size_t
             lib.fl_taploop_conv.argtypes = [i] + [p] * 3 + [i] * 9 + [p]
             lib.fl_taploop_conv.restype = i
             lib.fl_taploop_smem_bytes.argtypes = [i] * 5

@@ -37,11 +37,22 @@ On a CUDA tensor ``conv_stack_res`` launches kernels K1 and K2, and
 ``conv_stack`` and ``conv_stack_packed`` the two K4 kernels
 (``csrc/conv_block.cu``); on a CPU tensor they take the plain PyTorch
 versions below, which are also the oracles the kernels are held to.
+
+K4's backward takes one of two routes, which the dtype alone fixes
+(``backward_plan``, counted in ``BWD_ROUTE_LAUNCHES``). In float32 it is
+``conv_stack_bwd_kernel``, K2's device functions on the CUDA cores, bit for
+bit K2's gradients. In bfloat16 it is ``conv_stack_bwd_tc_kernel``: the
+stem and the conv2 recompute stay the forward's CUDA-core code (so relu2'
+and the pool2 member are K4's forward's, bit for bit), and the conv2 input
+and weight gradients run on ``mma.sync``; they sum in another order than
+K2, so they are held to K2 within its tolerance, and repeat bit for bit.
+The CUDA-core recompute bounds it now.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Tuple
 
 import torch
@@ -54,18 +65,31 @@ from fl_tpu_torch.ops import _build
 IMAGES_PER_BLOCK = 4
 # CUDA threads per block. One backward block fills most of an SM's shared
 # memory, so its thread count is its occupancy: at the bench shapes on an
-# H100 (700 W) K2 ran 42 ms at 256 threads and 27 ms at 1024, K4's
-# backward 54 ms and 37 ms; both forwards are flat from 256 to 1024, with
-# their best at 512 (PERF.md, Findings; tools/profile_round.py sweep). The
-# launchers take ``threads=`` to override an entry for one call.
+# H100 (700 W) K2 ran 42 ms at 256 threads and 27 ms at 1024; both forwards
+# are flat from 256 to 1024, with their best at 512 (PERF.md, Findings;
+# tools/profile_round.py sweep). K4's backward in bf16
+# ("conv_stack_bwd_tc") runs its CUDA-core recompute, which wants many
+# threads, and its tensor-core products in one block. The launchers take
+# ``threads=`` to override an entry for one call.
 THREADS = {"conv_block_fwd": 512, "conv_block_bwd": 1024,
-           "conv_stack_fwd": 512, "conv_stack_bwd": 1024}
+           "conv_stack_fwd": 512, "conv_stack_bwd": 1024,
+           "conv_stack_bwd_tc": 1024}
 SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
+MAX_THREADS = 1024   # kMaxThreads of csrc/conv_block.cu
+STEM_GROUPS = 24     # kStemGroups: the bf16 stem backward's partial sums
+
+# K4's backward: the route is fixed by the dtype. bf16 runs the conv2 input
+# and weight gradients on mma.sync (stack_bwd_tc_body), f32 everything on the
+# CUDA cores (TF32 would break the f32 contract).
+BWD_ROUTES = {torch.float32: "cuda_core", torch.bfloat16: "tensor_core"}
+TC_SKEW = 8          # kSkew of csrc/common.cuh
 
 # one count per kernel, raised where it is launched; conv_stack_packed has
 # no kernel of its own and shows in conv_stack_fwd / conv_stack_bwd
 LAUNCHES = {"conv_block_fwd": 0, "conv_block_bwd": 0,
             "conv_stack_fwd": 0, "conv_stack_bwd": 0}
+# K4's backward launches once more, by the route they took
+BWD_ROUTE_LAUNCHES = dict.fromkeys(BWD_ROUTES.values(), 0)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -279,6 +303,77 @@ def _launch_fwd(name, x, w1, b1, w2, b2, with_idx, threads=None):
     return pooled, idx
 
 
+# ---------------------------------------------------------------------------
+# K4's backward launch plan
+# ---------------------------------------------------------------------------
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How one launch of K4's backward is cut: the route and the multiply
+    instruction of its conv2 gradient products, the threads a block, its
+    shared memory, and the f32 sums a thread holds at once in those
+    products (the CUDA cores: the nine taps of one dW2 element)."""
+    route: str
+    instruction: str
+    threads: int
+    smem_bytes: int
+    acc_registers: int
+
+
+def stack_bwd_smem_bytes(dtype, H: int, W: int, C1: int, C2: int) -> int:
+    """Shared memory one block of K4's backward needs: the count
+    ``fl_conv_block_smem_bytes(2, ...)`` of csrc/conv_block.cu makes."""
+    H1, W1, Ho, Wo = H // 2, W // 2, H // 4, W // 4
+    plane, n_x2, n_pool = (H1 + 2) * (W1 + 2), H1 * W1, Ho * Wo
+    floats = 9 * C1 + C1 + (H + 2) * (W + 2) + n_x2 * C1 + C2
+    if BWD_ROUTES[dtype] == "cuda_core":
+        ts = 9 * C2 * (C1 + 1) + plane * (C1 + C2) + n_pool * C2
+        return floats * 4 + ts * 4 + n_x2 * C1 + n_pool * C2
+    C1P, C2P = _up(C1, 16), _up(C2, 16)
+    floats += min(STEM_GROUPS, n_x2) * 10 * C1 + n_x2
+    halves = 9 * C1P * (C2P + TC_SKEW) + plane * (C1P + TC_SKEW) + plane * (
+        C2P + TC_SKEW) + n_pool * C2
+    return _up(floats * 4, 16) + 2 * halves + n_x2 * C1 + n_pool * C2
+
+
+def backward_plan(dtype, H: int, W: int, C1: int, C2: int,
+                  threads=None) -> BwdPlan:
+    """The launch of K4's backward for H x W images with C1 and C2
+    channels. A pure function: the route follows from the dtype alone
+    (``BWD_ROUTES``; another dtype raises KeyError), the rest from the
+    shapes; `threads` defaults to ``THREADS["conv_stack_bwd"]`` (f32) or
+    ``THREADS["conv_stack_bwd_tc"]`` (bf16). Raises where no block can hold
+    it."""
+    route = BWD_ROUTES[dtype]
+    smem = stack_bwd_smem_bytes(dtype, H, W, C1, C2)
+    if route == "cuda_core":
+        key, instruction, acc = "conv_stack_bwd", "fma", 9
+    else:
+        # two m16n8 tiles of f32 sums a warp at a time
+        key, instruction, acc = "conv_stack_bwd_tc", "mma.sync", 8
+    if threads is None:
+        threads = THREADS[key]
+    if threads % 32 or not 32 <= threads <= MAX_THREADS:
+        raise ValueError(f"conv_stack_bwd: {threads} threads a block; it "
+                         f"takes a multiple of 32 up to {MAX_THREADS}")
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"conv_block: {H}x{W} images with C1={C1}, "
+                         f"C2={C2} need {smem} B of shared memory per block "
+                         f"(limit {SMEM_LIMIT})")
+    return BwdPlan(route, instruction, threads, smem, acc)
+
+
+def kernel_stack_bwd_smem_bytes(dtype, H, W, C1, C2) -> int:
+    """The kernel library's own count behind ``stack_bwd_smem_bytes``
+    (needs the built library)."""
+    return _build.load().fl_conv_block_smem_bytes(
+        _SMEM_STACK_BWD, _DTYPE_CODE[dtype], H, W, C1, C2)
+
+
 def _launch_bwd(name, g, idx, x, w1, b1, w2, b2, threads=None):
     """K2 (given ``idx``) or K4's backward (given ``b2``): the per-block
     pass and its fixed-order reduction."""
@@ -298,8 +393,12 @@ def _launch_bwd(name, g, idx, x, w1, b1, w2, b2, threads=None):
             cdt, cdt, cdt, torch.float32, cdt, torch.float32)
     _check_cuda(name, ins, dtypes)
     lib = _build.load()
-    _check_smem(lib, _SMEM_BWD if idx is not None else _SMEM_STACK_BWD, cdt,
-                H, W, C1, C2)
+    plan = None
+    if idx is None:
+        plan = backward_plan(cdt, H, W, C1, C2, threads)
+        threads = plan.threads
+    else:
+        _check_smem(lib, _SMEM_BWD, cdt, H, W, C1, C2)
     P = 9 * C1 + C1 + 9 * C1 * C2 + C2
     ng = -(-B // IMAGES_PER_BLOCK)
     partial = torch.empty((C, ng, P), dtype=torch.float32, device=x.device)
@@ -312,6 +411,8 @@ def _launch_bwd(name, g, idx, x, w1, b1, w2, b2, threads=None):
                 threads or THREADS[name], ctypes.c_void_p(stream))
     _build.check(lib, rc, name)
     LAUNCHES[name] += 1
+    if plan is not None:
+        BWD_ROUTE_LAUNCHES[plan.route] += 1
     dw1, db1, dw2, db2 = torch.split(out, [9 * C1, C1, 9 * C1 * C2, C2], 1)
     return (dw1.reshape(C, 3, 3, 1, C1), db1.contiguous(),
             dw2.reshape(C, 3, 3, C1, C2), db2.contiguous())

@@ -23,11 +23,29 @@ column; the kernel body is right and is what is ported.
 On a CUDA tensor they launch kernels K8a and K8b (``csrc/conv_probe.cu``);
 on a CPU tensor the plain PyTorch versions below, which are also the
 oracles the kernels are held to. Forward only, as in the reference.
+
+K8a takes one of three routes (``ROUTES``), which ``launch_plan`` fixes from
+the dtype and the shape alone, and ``ROUTE_LAUNCHES`` counts:
+
+- ``tma``: bfloat16 where a row of K and of N is whole 16-byte pieces
+  (K and N multiples of 8). A persistent block an SM; one producer warp
+  streams A by TMA through a ring of shared-memory stages, two consumer
+  warpgroups multiply on ``wgmma`` against the client's B held in shared
+  memory, the rounded tile leaves by a TMA store. Bound by bytes at the
+  bench shape: A is read once, by a warp that does nothing else.
+- ``staged``: the other bfloat16 shapes, the same ``wgmma`` products on rows
+  staged by ``cp.async``, stores masked to the ragged edges.
+- ``cuda_core``: float32, a 4x4 register tile a thread; TF32 would break the
+  f32 contract.
+
+Nothing falls back: a CUDA tensor launches its route's kernel or the
+launcher raises (an operand that the TMA route cannot address raises).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -39,8 +57,29 @@ from fl_tpu_torch.ops.conv_block import (IMAGES_PER_BLOCK, SMEM_LIMIT,
 
 MAX_THREADS = 512   # kMaxThreads of csrc/conv_probe.cu
 
+# K8a's launch geometry (the constants of csrc/conv_probe.cu)
+SMS = 132            # SMs of an H100 SXM: one persistent block each
+TMA_ROWS = 128       # kTmaRows: two consumer warpgroups of 64 rows
+TMA_THREADS = 384    # kTmaThreads: the producer's warpgroup and two consumers
+K_BOX = 64           # kKBox: K columns of one TMA box (128 bytes, the swizzle)
+STAGE_BYTES = TMA_ROWS * K_BOX * 2
+MAX_STAGES = 8       # 128 KB of A in flight an SM: far beyond what hides latency
+STAGED_ROWS = (128, 64)
+SKEW = 8             # kSkew of csrc/common.cuh
+F32_TILE, F32_K_CHUNK, F32_THREADS = 64, 32, 256
+
+ROUTES = ("tma", "staged", "cuda_core")
+INSTRUCTIONS = {"tma": "wgmma", "staged": "wgmma", "cuda_core": "fma"}
+_ROUTE_CODE = {"cuda_core": 0, "tma": 1, "staged": 2}
+
 # one count per kernel, raised where it is launched
 LAUNCHES = {"probe_batched_gemm": 0, "probe_taploop_conv": 0}
+# K8a's launches once more, by the route they took
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 def _check_gemm_shapes(a, b):
@@ -86,25 +125,133 @@ def _check_dtype(name, t):
                          f"bfloat16, got {t.dtype}")
 
 
+# ---------------------------------------------------------------------------
+# K8a's launch plan
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """How one K8a launch is cut: the route and its multiply instruction;
+    `rows` output rows a tile; K padded in shared memory to `k_pad`; N cut
+    into `passes` column passes of `n_pass`; `stages` A buffers; `blocks`
+    thread blocks of `threads`, each walking `items_per_block` (client,
+    pass, tile) items (the float32 kernel: one tile a block); the f32 sums
+    a consumer thread holds."""
+    route: str
+    instruction: str
+    rows: int
+    k_pad: int
+    n_pass: int
+    passes: int
+    stages: int
+    threads: int
+    blocks: int
+    items_per_block: int
+    smem_bytes: int
+    acc_registers: int
+
+
+def gemm_pass_columns(N: int) -> int:
+    """Columns a column pass of the tensor-core routes covers: 64 where N
+    reaches beyond 32, else the next of 8, 16, 32."""
+    return next((n for n in (8, 16, 32) if N <= n), 64)
+
+
+def tma_takes(K: int, N: int) -> bool:
+    """TMA needs the row strides of A and of the output, K * 2 and N * 2
+    bytes, to be multiples of 16."""
+    return (2 * K) % 16 == 0 and (2 * N) % 16 == 0
+
+
+def gemm_smem_bytes(route: str, K: int, N: int, rows: int,
+                    stages: int) -> int:
+    """Shared memory one block of `route` needs: the count
+    ``fl_batched_gemm_smem_bytes`` of csrc/conv_probe.cu makes."""
+    if route == "cuda_core":
+        return 4 * (F32_TILE * (F32_K_CHUNK + 4) + F32_K_CHUNK * F32_TILE)
+    NP, KP = gemm_pass_columns(N), _up(K, 16)
+    if route == "tma":
+        # alignment slack, the stages, two output tiles, B, the barriers
+        return (1024 + stages * STAGE_BYTES + 2 * 64 * NP * 2 + KP * NP * 2
+                + 2 * 8 * stages)
+    return 2 * (KP * NP + rows * (KP + SKEW) + rows * (NP + SKEW))
+
+
+def launch_plan(dtype, C: int, M: int, K: int, N: int) -> GemmPlan:
+    """The launch of K8a for (C, M, K) @ (C, K, N). A pure function: the
+    route follows from the dtype and the shape alone (float32: the CUDA
+    cores; bfloat16: TMA where ``tma_takes``, else staged; other dtypes
+    raise), and so does the rest."""
+    if dtype == torch.float32:
+        tiles = -(-M // F32_TILE) * -(-N // F32_TILE)
+        return GemmPlan("cuda_core", "fma", F32_TILE, _up(K, F32_K_CHUNK),
+                        F32_TILE, -(-N // F32_TILE), 1, F32_THREADS,
+                        C * tiles, 1, gemm_smem_bytes("cuda_core", K, N, 0, 1),
+                        16)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"batched_gemm: compute dtype must be float32 or "
+                         f"bfloat16, got {dtype}")
+    NP = gemm_pass_columns(N)
+    if tma_takes(K, N):
+        route, rows, threads = "tma", TMA_ROWS, TMA_THREADS
+        fixed = gemm_smem_bytes(route, K, N, rows, 0)
+        stages = min(MAX_STAGES, (SMEM_LIMIT - fixed) // (STAGE_BYTES + 16))
+        smem = gemm_smem_bytes(route, K, N, rows, stages)
+        if stages < 2:
+            raise ValueError(
+                f"batched_gemm: K={K}, N={N} need {gemm_smem_bytes(route, K, N, rows, 2)} "
+                f"B of shared memory per block for two stages (limit "
+                f"{SMEM_LIMIT})")
+    else:
+        route, stages = "staged", 1
+        need = {r: gemm_smem_bytes(route, K, N, r, 1) for r in STAGED_ROWS}
+        rows = next((r for r in STAGED_ROWS if need[r] <= SMEM_LIMIT), None)
+        if rows is None:
+            raise ValueError(
+                f"batched_gemm: K={K}, N={N} need {min(need.values())} B of "
+                f"shared memory per block (limit {SMEM_LIMIT})")
+        threads, smem = 2 * rows, need[rows]
+    passes = -(-N // NP)
+    items = C * passes * -(-M // rows)
+    per_block = -(-items // min(items, SMS))
+    return GemmPlan(route, INSTRUCTIONS[route], rows, _up(K, 16), NP, passes,
+                    stages, threads, -(-items // per_block), per_block, smem,
+                    NP // 2)
+
+
+def kernel_smem_bytes(plan: GemmPlan, K: int, N: int) -> int:
+    """The kernel library's own count of the shared memory `plan` needs, to
+    hold ``gemm_smem_bytes`` to (needs the built library)."""
+    return _build.load().fl_batched_gemm_smem_bytes(
+        _ROUTE_CODE[plan.route], K, N, plan.rows, plan.stages)
+
+
 def batched_gemm_cuda(a, b):
-    """Launch ``batched_gemm_kernel`` (K8a)."""
+    """Launch K8a on the route of ``launch_plan``."""
     name = "probe_batched_gemm"
     _check_gemm_shapes(a, b)
     _check_dtype(name, a)
     _check_cuda(name, (a, b), (a.dtype, a.dtype))
     C, M, K = a.shape
     N = b.shape[2]
-    if -(-M // 64) > 65535 or C > 65535:
+    plan = launch_plan(a.dtype, C, M, K, N)
+    if plan.route == "cuda_core" and (-(-M // F32_TILE) > 65535
+                                      or C > 65535):
         raise ValueError(f"{name}: M={M} or C={C} is beyond the launch grid")
+    if plan.route == "tma" and (a.data_ptr() % 16 or b.data_ptr() % 16):
+        raise ValueError(f"{name}: the TMA route needs 16-byte aligned "
+                         "operands")
     lib = _build.load()
     out = torch.empty((C, M, N), dtype=a.dtype, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.fl_batched_gemm(_DTYPE_CODE[a.dtype], _ptr(a), _ptr(b),
-                                 _ptr(out), C, M, K, N,
-                                 ctypes.c_void_p(stream))
+        rc = lib.fl_batched_gemm(
+            _DTYPE_CODE[a.dtype], _ROUTE_CODE[plan.route], _ptr(a), _ptr(b),
+            _ptr(out), C, M, K, N, plan.rows, plan.stages, plan.blocks,
+            plan.items_per_block, ctypes.c_void_p(stream))
     _build.check(lib, rc, name)
     LAUNCHES[name] += 1
+    ROUTE_LAUNCHES[plan.route] += 1
     return out
 
 

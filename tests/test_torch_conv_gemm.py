@@ -250,6 +250,27 @@ def test_probe_ops_match_the_probe_script(probe_script):
     assert np.abs(ref - true).max() > 1.0
 
 
+def test_batched_gemm_bf16_ragged_matches_the_probe_script(probe_script):
+    """K8a's plain path in bf16 at the smoke run's ragged shape (rows of K
+    and N not 16-byte pieces: the staged route on the card) against the
+    probe script's kernel in interpret mode. Both sum in f32 over all of K
+    and round once to bf16: one bf16 ulp of the larger value plus 1e-4."""
+    rng = np.random.default_rng(8)
+    a = rng.standard_normal((3, 70, 50)).astype(np.float32)
+    b = rng.standard_normal((3, 50, 37)).astype(np.float32)
+    want = probe_script.pallas_batched_gemm(jnp.asarray(a, jnp.bfloat16),
+                                            jnp.asarray(b, jnp.bfloat16))
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    got = probe.batched_gemm(torch.tensor(a).bfloat16(),
+                             torch.tensor(b).bfloat16())
+    assert got.dtype == torch.bfloat16 and got.shape == (3, 70, 37)
+    got = got.float().numpy()
+    mag = np.maximum(np.maximum(np.abs(got), np.abs(want)), 2.0 ** -126)
+    ulp = 2.0 ** (np.floor(np.log2(mag)) - 7)
+    assert not (np.abs(got - want) > ulp + 1e-4).any()
+
+
 def test_probe_plain_versions_round_once_in_bf16():
     rng = np.random.default_rng(7)
     a = torch.tensor(rng.standard_normal((2, 8, 40)).astype(np.float32))

@@ -13,12 +13,16 @@ gradients 2e-4 in f32 and a relative Frobenius error of 1e-2 in bf16 (the
 kernel and the plain version round dz2/dz1 to bf16 at the same points but
 sum in different orders); K3 at σ=0 exactly x·scale to 1e-6 relative, and
 its noise by moments at about 6 standard errors; K4 the tolerances of K1/K2
-against its plain version and bit-equality against K1/K2 (the same device
-functions); K5 bit-equal to ``conv_stack`` per client; K6 equal to its
-plain version exactly in the deterministic mode (q and scales) and by
-floor/ceil, mean and P(ceil) in the stochastic mode; K7 and K8 (one f32 sum,
-one rounding) rtol 1e-4 / atol 1e-4 in f32, weight gradients atol 2e-4, and
-one bf16 ulp of the larger value plus 1e-4 in bf16.
+against its plain version, its forward bit-equal to K1 in both dtypes and
+its backward bit-equal to K2 in f32 (the same device functions); its bf16
+backward runs the conv2 gradients on the tensor cores, so it is held to K2
+within K2's relative Frobenius 1e-2 and to itself bit for bit across two
+runs; K5 bit-equal to ``conv_stack`` per client; K6 equal to its plain
+version exactly in the deterministic mode (q and scales) and by floor/ceil,
+mean and P(ceil) in the stochastic mode; K7 and K8 (one f32 sum, one
+rounding) rtol 1e-4 / atol 1e-4 in f32, weight gradients atol 2e-4, and one
+bf16 ulp of the larger value plus 1e-4 in bf16, whatever route K8a's plan
+takes.
 """
 
 import pytest
@@ -84,11 +88,18 @@ def test_launch_counts_cover_every_kernel():
         "conv_stack_bwd", "clip_noise", "quantize_int8_blocks",
         "conv3x3_patch_gemm", "conv3x3_patch_wgrad", "probe_batched_gemm",
         "probe_taploop_conv"])
-    # K7's launches once more, by the route the dtype sent them
+    # K7's, K8a's and K4's backward's launches once more, by the route they
+    # took: reset with the counts
     assert sorted(cp.ROUTE_LAUNCHES) == ["cuda_core", "tensor_core"]
+    assert sorted(probe.ROUTE_LAUNCHES) == ["cuda_core", "staged", "tma"]
+    assert sorted(cb.BWD_ROUTE_LAUNCHES) == ["cuda_core", "tensor_core"]
     cp.ROUTE_LAUNCHES["tensor_core"] = 3
+    probe.ROUTE_LAUNCHES["tma"] = 2
+    cb.BWD_ROUTE_LAUNCHES["tensor_core"] = 1
     ops.reset_launch_counts()
-    assert set(cp.ROUTE_LAUNCHES.values()) == {0}
+    for counts in (cp.ROUTE_LAUNCHES, probe.ROUTE_LAUNCHES,
+                   cb.BWD_ROUTE_LAUNCHES):
+        assert set(counts.values()) == {0}
 
 
 def test_patch_matrix_times_weights_is_the_convolution():
@@ -154,18 +165,27 @@ def test_conv_kernels_match_plain(cuda, dtype, ones):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ones", [False, True], ids=["random", "all_ties"])
 def test_residual_free_kernels_equal_k1_k2_and_match_plain(cuda, dtype, ones):
-    """K4 computes K1/K2's function with no residual: bit-equal to them on
-    the same inputs, and (on the same routing) within K2's tolerance of the
-    plain version."""
+    """K4 computes K1/K2's function with no residual: its forward bit-equal
+    to K1 on the same inputs, its backward bit-equal to K2 in f32 and within
+    K2's tolerance in bf16 (the conv2 gradients on the tensor cores), the
+    same bits on a second run, and (on the same routing) within K2's
+    tolerance of the plain version."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     args = _conv_inputs(gen, 4, 32, 28, 32, 64, dtype, cuda, ones)
     x, w1, b1, w2, b2 = args
     pooled, idx = cb.conv_block_fwd_cuda(*args)
     assert torch.equal(cb.conv_stack_fwd_cuda(*args), pooled)
     gy = torch.randn(pooled.shape, generator=gen, device=cuda).to(dtype)
+    ops.reset_launch_counts()
     got = cb.conv_stack_bwd_cuda(gy, *args)
+    assert cb.BWD_ROUTE_LAUNCHES[cb.BWD_ROUTES[dtype]] == 1
     masked = (gy * (pooled > 0)).to(dtype).contiguous()
     for a, b in zip(got, cb.conv_block_bwd_cuda(masked, idx, x, w1, b1, w2)):
+        if dtype == torch.float32:
+            assert torch.equal(a, b)
+        else:
+            assert float((a - b).norm() / b.norm().clamp(min=1e-30)) <= 1e-2
+    for a, b in zip(got, cb.conv_stack_bwd_cuda(gy, *args)):
         assert torch.equal(a, b)
     refs = [cb.conv_stack_res_bwd_plain(masked, idx, x, w1, b1, w2)]
     # the residual-free plain version finds its own routing: comparable
@@ -305,24 +325,36 @@ def test_s2d_stem_kernels_match_plain_and_launch_no_input_gradient(cuda,
                          / ref.float().norm()) <= 2e-2
 
 
+# (C, M, K, N) of K8a and the route its plan takes in bf16 (f32 always
+# takes the CUDA cores)
+GEMM_SHAPES = [((2, 128, 288, 64), "tma"), ((3, 70, 50, 37), "staged"),
+               ((2, 8192, 288, 64), "tma"), ((1, 300, 64, 136), "tma"),
+               ((3, 200, 40, 8), "tma"), ((2, 33, 20, 12), "staged")]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_probe_kernels_match_plain(cuda, dtype):
     gen = torch.Generator(device=cuda).manual_seed(8)
     ops.reset_launch_counts()
-    for C, M, K, N in ((2, 128, 288, 64), (3, 70, 50, 37)):
+    for (C, M, K, N), route in GEMM_SHAPES:
         a = torch.randn((C, M, K), generator=gen, device=cuda).to(dtype)
         b = torch.randn((C, K, N), generator=gen, device=cuda).to(dtype)
+        before = dict(probe.ROUTE_LAUNCHES)
         _assert_rounded_close(probe.batched_gemm(a, b),
                               probe.batched_gemm_plain(a, b), dtype)
+        want = route if dtype == torch.bfloat16 else "cuda_core"
+        assert probe.launch_plan(dtype, C, M, K, N).route == want
+        assert {k: v - before[k] for k, v in probe.ROUTE_LAUNCHES.items()
+                if v != before[k]} == {want: 1}
     for B, H, W, I, O in PATCH_SHAPES:
         x, w, _ = _patch_inputs(gen, 3, B, H, W, I, O, dtype, cuda)
         _assert_rounded_close(probe.taploop_conv(x, w),
                               probe.taploop_conv_plain(x, w), dtype)
     counts = ops.launch_counts()
     assert (counts["probe_batched_gemm"], counts["probe_taploop_conv"]) == (
-        2, len(PATCH_SHAPES))
+        len(GEMM_SHAPES), len(PATCH_SHAPES))
 
 
 @pytest.mark.cuda

@@ -6,7 +6,7 @@
 ``sweep`` times the four conv kernels at the bench shapes (512 clients x 32
 images, bf16, C1=32, C2=64) for each thread count per block, CUDA events
 over 5 launches after a warm one, in the order 1024 ... 128 ... 1024 so
-that drift shows.
+that drift shows (K4's backward in bf16 is ``conv_stack_bwd_tc_kernel``).
 
 ``profile`` runs the 512-client bf16 delta-DP round of ``bench.py``'s
 workload for each named value of ``fused_conv_block``: one warm-up round,
@@ -42,6 +42,7 @@ FAMILIES = (
     ("conv_block_bwd_kernel", "K2 conv_block_bwd_kernel"),
     ("conv_block_fwd_kernel", "K1 conv_block_fwd_kernel"),
     ("conv_stack_bwd_kernel", "K4 conv_stack_bwd_kernel"),
+    ("conv_stack_bwd_tc_kernel", "K4 conv_stack_bwd_tc_kernel"),
     ("conv_stack_fwd_kernel", "K4 conv_stack_fwd_kernel"),
     ("reduce_partials_kernel", "reduce_partials_kernel"),
     ("clip_noise_kernel", "K3 clip_noise_kernel"),
