@@ -12,11 +12,13 @@ line each; any failure exits non-zero:
    of SimpleCNN; one round's client deltas for the int8 quantizer), with
    the kernel's, the plain version's and a library yardstick's time:
    K1/K2 (``conv_stack_res``), K4 forward and backward (``conv_stack``,
-   also held to K1/K2 on the same inputs: bit for bit except the bf16
-   backward, whose conv2 gradients run on the tensor cores and which is
-   held to K2 within its tolerance and to itself bit for bit across two
-   runs; the route each dtype took printed and checked, the launch plan's
-   shared-memory bytes held to the library's own count), K5
+   also held to K1/K2 on the same inputs bit for bit in both dtypes: K4's
+   forward to K1, K4's backward to K2 fed K1's residuals; each kernel to
+   itself across two runs), at the bench widths and at H=16, C1=12, C2=20
+   with 5 images a client (the bf16 route's padded channels, a partial
+   block); every launch's route (bf16 on the tensor cores, f32 on the CUDA
+   cores) counted and checked, the launch plans' shared-memory bytes held
+   to the library's own count for all four kernels, K5
    (``conv_stack_packed``,
    bit-equal to ``conv_stack`` per client for P = 1, 2, 4, 3), K3 (DP
    clip + noise) and K6 (int8 block quantizer: deterministic mode exact,
@@ -29,11 +31,13 @@ line each; any failure exits non-zero:
    them, and at the conv2 and stem shapes of the bench (K8a: the route
    each dtype and shape took, TMA, staged or the CUDA cores, printed and
    checked against its launch plan and the plan's shared memory against
-   the library's count), with ``F.conv2d``
+   the library's count; ``batched_gemm`` on a bf16 view that does not start
+   on a 16-byte boundary), with ``F.conv2d``
    (groups = clients), its backward and ``torch.bmm`` as library yardsticks;
 4. the delta-DP FedAvg round of the 512-client bench configuration
    (bench.py's workload) with ``fused_conv_block="residual"``: one warm-up
-   round, then 3 pipelined rounds with the kernel launch counts checked;
+   round, then 3 pipelined rounds with the kernel launch counts and their
+   routes (the tensor cores) checked;
 5. the same configuration with ``fused_conv_block=True`` (K4), 3 pipelined
    rounds, and with ``fused_conv_block=False`` (cuDNN convolutions through
    autograd, no hand-written conv kernel), 2 pipelined rounds, launch
@@ -106,6 +110,9 @@ BF16_FLOPS = 989e12
 UNFUSED_GRAD_TOL = 1e-2
 FORMULATION_GRAD_TOL = 0.2
 
+# the fused conv kernels' second geometry (H, C1, C2): widths that are no
+# multiples of 16, so the tensor-core route pads its channels
+G2_GEOMETRY = (16, 12, 20)
 # conv2 of SimpleCNN and the stem after space-to-depth, (H, W, I, O)
 CONV2_SHAPE = (14, 14, 32, 64)
 S2D_STEM_SHAPE = (14, 14, 4, 128)
@@ -248,22 +255,29 @@ def check_grads(name, tag, got, want, dtype):
     return worst
 
 
-def check_conv(cb, gen, C, B, dtype, constant=False):
+def check_conv(cb, gen, C, B, dtype, constant=False, geo=(28, 32, 64)):
     """K1, K2 and K4 against their plain versions, and K4 against K1/K2,
-    on the same inputs. Returns the errors and the tensors for timing."""
+    on the same inputs; `geo` is (H, C1, C2). Returns the errors and the
+    tensors for timing."""
     import torch
 
-    args = conv_inputs(gen, C, B, dtype, constant=constant)
+    H, C1, C2 = geo
+    args = conv_inputs(gen, C, B, dtype, H=H, C1=C1, C2=C2, constant=constant)
     x, w1, b1, w2, b2 = args
-    tag = f"{str(dtype)[6:]} C={C} B={B}{' all-ties' if constant else ''}"
+    tag = (f"{str(dtype)[6:]} C={C} B={B} H={H} C1={C1} C2={C2}"
+           f"{' all-ties' if constant else ''}")
     pooled, idx = cb.conv_block_fwd_cuda(*args)
     pooled4 = cb.conv_stack_fwd_cuda(*args)
     p_ref, i_ref = cb.conv_stack_res_fwd_plain(*args)
+    pooled_again, idx_again = cb.conv_block_fwd_cuda(*args)
     torch.cuda.synchronize()
     err = {"conv_block_fwd": check_pooled("K1", tag, pooled, p_ref, dtype),
            "conv_stack_fwd": check_pooled(
                "K4 fwd", tag, pooled4, cb.conv_stack_fwd_plain(*args), dtype)}
-    fwd_equal = torch.equal(pooled, pooled4)
+    # one template: K4's forward is K1 without the index, bit for bit
+    require(torch.equal(pooled, pooled4), f"K4 fwd {tag}: not bit-equal to K1")
+    require(torch.equal(pooled, pooled_again) and torch.equal(idx, idx_again),
+            f"K1 {tag}: two runs differ")
     # idx may differ only where the plain window holds a near-tie: the
     # kernel's chosen member within one ulp of the window max
     pr = p_ref.float()
@@ -282,8 +296,11 @@ def check_conv(cb, gen, C, B, dtype, constant=False):
     g = (g_raw * (p_ref > 0)).to(dtype).contiguous()
     got = cb.conv_block_bwd_cuda(g, i_ref, x, w1, b1, w2)
     want = cb.conv_stack_res_bwd_plain(g, i_ref, x, w1, b1, w2)
+    again2 = cb.conv_block_bwd_cuda(g, i_ref, x, w1, b1, w2)
     torch.cuda.synchronize()
     err["conv_block_bwd"] = check_grads("K2", tag, got, want, dtype)
+    require(all(torch.equal(a, b) for a, b in zip(got, again2)),
+            f"K2 {tag}: two runs differ")
     # K4's backward finds its own routing and relu2'. Where they are the
     # plain version's, it is held to conv_stack_bwd_plain; where a near-tie
     # (checked above) sent the kernel elsewhere, to the plain backward on
@@ -298,16 +315,13 @@ def check_conv(cb, gen, C, B, dtype, constant=False):
     again = cb.conv_stack_bwd_cuda(g_raw, *args)
     torch.cuda.synchronize()
     err["conv_stack_bwd"] = check_grads("K4 bwd", tag, got4, want4, dtype)
-    # f32: the same device functions as K2, bit for bit; bf16: the conv2
-    # gradients on the tensor cores, K2's sums in another order
-    bwd_equal = all(torch.equal(a, b) for a, b in zip(got4, got2))
-    require(bwd_equal or dtype != torch.float32,
-            f"K4 bwd {tag}: not bit-equal to K2 in f32")
-    check_grads("K4 bwd vs K2", tag, got4, got2, dtype)
+    # both dtypes: K4's recompute finds K1's index and mask, and from there
+    # K4 and K2 run one body
+    require(all(torch.equal(a, b) for a, b in zip(got4, got2)),
+            f"K4 bwd {tag}: not bit-equal to K2 fed K1's residuals")
     require(all(torch.equal(a, b) for a, b in zip(got4, again)),
             f"K4 bwd {tag}: two runs differ")
     return dict(err=err, args=args, g=g, idx=i_ref, g_raw=g_raw,
-                fwd_equal=fwd_equal, bwd_equal=bwd_equal,
                 same_route=same_route)
 
 
@@ -455,27 +469,37 @@ def phase_conv(report):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     cases = []
-    # small cases: both dtypes, random and all-tie images
+    # small cases in both dtypes: random and all-tie images at the bench
+    # widths, and a second geometry with widths that are no multiples of 16
+    # (the tensor-core route's padded channels) and a batch that is no
+    # multiple of IMAGES_PER_BLOCK
     routes = {}
     for dtype in (torch.float32, torch.bfloat16):
-        before = dict(cb.BWD_ROUTE_LAUNCHES)
+        before = dict(cb.ROUTE_LAUNCHES)
         cases.append(check_conv(cb, gen, 4, BATCH_SIZE, dtype))
         cases.append(check_conv(cb, gen, 2, BATCH_SIZE, dtype, constant=True))
-        took = {k: v - before[k] for k, v in cb.BWD_ROUTE_LAUNCHES.items()
+        cases.append(check_conv(cb, gen, 3, 5, dtype, geo=G2_GEOMETRY))
+        took = {k: v - before[k] for k, v in cb.ROUTE_LAUNCHES.items()
                 if v != before[k]}
-        require(list(took) == [cb.BWD_ROUTES[dtype]],
-                f"K4 bwd {dtype}: launches by route {took}")
-        routes[str(dtype)[6:]] = took
-        # the launch plan's shared-memory count is the library's own
-        for geo in ((28, 28, 32, 64), (16, 16, 8, 16)):
-            plan = cb.backward_plan(dtype, *geo)
-            got = cb.kernel_stack_bwd_smem_bytes(dtype, *geo)
-            require(plan.smem_bytes == got, f"K4 bwd {dtype} {geo}: plan "
-                    f"{plan} against {got} B in the library")
-    print(f"routes (K4 bwd): {routes} (launches in the small cases; the "
-          f"dtype alone fixes the route: bf16's conv2 gradients on mma.sync, "
-          f"f32 on the CUDA cores; plan at the bench widths "
-          f"{cb.backward_plan(torch.bfloat16, 28, 28, 32, 64)})", flush=True)
+        require({r for _, r in took} == {cb.ROUTES[dtype]}
+                and {k for k, _ in took} == set(cb.LAUNCHES),
+                f"K1/K2/K4 {dtype}: launches by (kernel, route) {took}")
+        routes[str(dtype)[6:]] = cb.ROUTES[dtype]
+        # the launch plans' shared-memory counts are the library's own
+        for geo in ((28, 28, 32, 64), (16, 16, 12, 20), (16, 16, 8, 16)):
+            for kernel in cb.LAUNCHES:
+                plan = cb.launch_plan(kernel, dtype, *geo)
+                got = cb.kernel_smem_bytes(kernel, dtype, *geo)
+                require(plan.smem_bytes == got, f"{kernel} {dtype} {geo}: "
+                        f"plan {plan} against {got} B in the library")
+    plans = {k: cb.launch_plan(k, torch.bfloat16, 28, 28, 32, 64)
+             for k in cb.LAUNCHES}
+    print(f"routes (K1/K2/K4): {routes} (every launch of the small cases "
+          f"took its dtype's route; bf16's conv2 and its gradients on "
+          f"mma.sync, f32 on the CUDA cores; plans at the bench widths in "
+          f"bf16: " + "; ".join(
+              f"{k} {p.instruction} {p.threads} threads {p.smem_bytes} B"
+              for k, p in plans.items()) + ")", flush=True)
     # the bench shapes of the main path (bf16), with the times
     big = check_conv(cb, gen, NUM_CLIENTS, BATCH_SIZE, torch.bfloat16)
     cases.append(big)
@@ -517,6 +541,7 @@ def phase_conv(report):
             lambda: cb.conv_stack_bwd_plain(g_raw, *args), lib_bwd),
     }
     for name, (kernel, plain, lib_ms) in timed.items():
+        report[name]["instruction"] = plans[name].instruction
         report[name].update(
             max_abs_err=big["err"][name], ms=time_ms(kernel),
             plain_ms=time_ms(plain), bound_ms=bounds[name][0],
@@ -562,14 +587,13 @@ def phase_conv(report):
     report["conv_block_bwd"]["dense_ms"] = dense_ms["conv_block_bwd"]
     report["conv_stack_bwd"]["dense_ms"] = dense_ms["conv_stack_bwd"]
     bf = [m for m in unfused_err if m is not None]
-    n_eq_f = sum(c["fwd_equal"] for c in cases)
-    n_eq_b = sum(c["bwd_equal"] for c in cases)
     n_route = sum(c["same_route"] for c in cases)
-    print(f"kernels (conv): K1/K2/K4 f32+bf16 (random, all-ties) and bench "
-          f"shapes match plain; K4 == K1 bit for bit in {n_eq_f}/{len(cases)} "
-          f"cases, K4 bwd == K2 bit for bit in {n_eq_b}/{len(cases)} (all "
-          f"f32 cases; bf16 within K2's tolerance, and two bf16 runs equal "
-          f"bit for bit); routing equal to plain's in {n_route}/{len(cases)}; "
+    print(f"kernels (conv): K1/K2/K4 f32+bf16 (random, all-ties, and "
+          f"H={G2_GEOMETRY[0]} C1={G2_GEOMETRY[1]} C2={G2_GEOMETRY[2]} B=5) "
+          f"and bench shapes match plain; in all {len(cases)} cases K4 fwd "
+          f"== K1 and K4 bwd == K2 fed K1's residuals bit for bit, and K1, K2 "
+          f"and K4 bwd each repeat bit for bit; routing equal to plain's in "
+          f"{n_route}/{len(cases)} (the others differ only at near-ties); "
           f"K5 == conv_stack bit for bit for P in (1, 2, 4, 3); unfused "
           f"cuDNN segment matches plain in all {len(cases)}, f32 also "
           f"with cudnn.allow_tf32 on (f32 1e-5 / 2e-4; bf16 against its f32 "
@@ -980,6 +1004,19 @@ def phase_conv_probe(report):
                           dtype)
             n += 1
 
+    # a bf16 view that starts 2 bytes past an allocation (K and N multiples
+    # of 8, so the TMA route): batched_gemm copies it to an aligned one
+    C, M, K, N = PROBE_GEMM_SMALL["bfloat16"][0]
+    buf = torch.empty(1 + C * M * K, dtype=torch.bfloat16, device="cuda")
+    buf[1:] = torch.randn(C * M * K, generator=gen, device="cuda")
+    a = buf[1:].view(C, M, K)
+    b = torch.randn((C, K, N), generator=gen, device="cuda").bfloat16()
+    require(a.data_ptr() % 16 != 0, "F1: the view is aligned after all")
+    check_rounded("K8a", "misaligned bf16 view", probe.batched_gemm(a, b),
+                  probe.batched_gemm_plain(a, b), torch.bfloat16)
+    del buf, a, b
+    n += 1
+
     C, dt = NUM_CLIENTS, torch.bfloat16
     M, K, N = PROBE_GEMM_SHAPE
     # the bench shapes in f32 (held to plain, not timed), then in bf16
@@ -1276,6 +1313,7 @@ def bench_engine(card, fused, rounds, conv_counts):
     import torch
 
     from fl_tpu_torch import ops
+    from fl_tpu_torch.ops import conv_block as cb
 
     engine = make_bench_engine(fused)
     t0 = time.perf_counter()
@@ -1299,6 +1337,11 @@ def bench_engine(card, fused, rounds, conv_counts):
                 clip_noise=2 * rounds)
     require(counts == want, f"fused_conv_block={fused!r}: launch counts "
                             f"{counts}, expected {want}")
+    # the bf16 model's fused kernels all took the tensor-core route
+    require(all(cb.ROUTE_LAUNCHES[(k, "tensor_core")] == counts[k]
+                for k in conv_counts),
+            f"fused_conv_block={fused!r}: launches by route "
+            f"{ {k: v for k, v in cb.ROUTE_LAUNCHES.items() if v} }")
     params = engine.global_variables["params"]
     require(all(bool(torch.isfinite(t).all())
                 for d in params.values() for t in d.values()),
@@ -1497,8 +1540,10 @@ def main() -> int:
         entry["launches"] = counts[k]
         require(entry["launches"] > 0, f"{k} was never launched on its path")
     print(f"smoke: {time.perf_counter() - t_start:.1f}s in all", flush=True)
-    print(json.dumps({"kernels": [{k: e[k] for k in order}
-                                  for e in report.values()]}))
+    # the fused conv kernels also name the instruction of their bf16 route
+    print(json.dumps({"kernels": [
+        {k: e[k] for k in order + ("instruction",) if k in e}
+        for e in report.values()]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,11 +35,20 @@
 // wgrad, on operands that live in shared memory. Device memory traffic is
 // small (one image in, one 7x7x64 pooled map and its uint8 index out). The
 // design keeps every intermediate of an image (padded image, pool1 plane,
-// the pool1 argmax, dz2, dx2) in shared memory, loads the client's weights
-// once per block of IMAGES images, and gives each thread four window
-// positions per weight load in the forward conv2. K1, K2, K4's forward and
-// every f32 kernel sum on the CUDA cores, bound by shared-memory loads and
-// FMA issue there.
+// the pool1 argmax, dz2, dx2) in shared memory and loads the client's
+// weights once per block of G images. The dtype alone fixes the route:
+//   float32 (fwd_body, bwd_body): everything on the CUDA cores, bound by
+//     shared-memory loads and FMA issue there; each thread takes four
+//     window positions per weight load in the forward conv2. TF32 would
+//     break the f32 contract.
+//   bfloat16 (fwd_tc_body, bwd_tc_body): the stem stays on the CUDA cores
+//     (one input channel: no product to speak of); conv2 in the forward and
+//     its input and weight gradients in the backward run on mma.sync fed by
+//     ldmatrix, with the f32 sums in registers. The forward's conv2 is one
+//     device function, conv2_pool2_tc, called by K1, K4's forward and K4's
+//     backward recompute, so their pool2 masks and window index are the same
+//     bits; it sums in another order than fwd_body, so bf16 values and
+//     near-tie indices may differ from the f32-route arithmetic by one ulp.
 //
 // K4's backward pays one more conv2 forward per image than K2 and saves the
 // index and pooled residuals (2 + 1 bytes per pooled value), which K1 had
@@ -49,12 +58,10 @@
 // of w2 in the dgrad's [k][o][ci] order with rows padded to C1 + 1, so that
 // both the recomputed forward (threads along o) and the dgrad (threads along
 // ci) read it without bank conflicts, which fits the 227 KB block limit at
-// the bench shapes. In bf16 it is stack_bwd_tc_body: the recompute and the
-// stem stay the forward's CUDA-core code, and the conv2 input and weight
-// gradients (~7 MFMA an image, dense) run on mma.sync, which leaves the
-// recompute (~3.6 MFMA on the CUDA cores) the larger part of its time. The
-// products sum in another order than K2's, so K4's bf16 gradients are no
-// longer bit-equal to K2's (within K2's tolerance); they repeat bit for bit.
+// the bench shapes. In bf16 it is bwd_tc_body<true>, K2's bf16 body
+// (bwd_tc_body<false>) after a tensor-core recompute: from the masked
+// cotangent and the window index on both run the same code, so K4's
+// gradients equal K2's fed K1's residuals bit for bit in both dtypes.
 //
 // Block layout: grid (ceil(B / G), C), a launch-time thread count; one block = one client
 // and G consecutive images. K2 sums its images' weight gradients into a
@@ -177,7 +184,8 @@ __device__ __forceinline__ float pool2_first(const float acc[4], float bias, int
   return best;
 }
 
-// The forward of one block: kIdx also writes the pool2 window index (K1).
+// The float32 forward of one block (bfloat16: fwd_tc_body): kIdx also writes
+// the pool2 window index (K1).
 template <typename T, bool kIdx>
 __device__ __forceinline__ void fwd_body(const T* __restrict__ x, const T* __restrict__ w1,
                                          const float* __restrict__ b1,
@@ -250,12 +258,13 @@ conv_stack_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1,
 // Partial-gradient slot layout (P floats per block):
 //   dw1 [k][o] (9*C1) | db1 (C1) | dw2 [k][ci][o] (9*C1*C2) | db2 (C2)
 //
-// The backward of one block. Without kRecompute (K2) the cotangent arrives
-// already multiplied by relu2' and the pool2 window index comes from the
-// forward. With kRecompute (K4) neither exists: per image the block runs
-// conv2 again on the recomputed pool1 plane and keeps, per pooled position,
-// the first-match window member and the cotangent masked by a2 > 0 in shared
-// memory, where the rest of the body reads them as K2 reads its inputs.
+// The float32 backward of one block (bfloat16: bwd_tc_body). Without
+// kRecompute (K2) the cotangent arrives already multiplied by relu2' and the
+// pool2 window index comes from the forward. With kRecompute (K4) neither
+// exists: per image the block runs conv2 again on the recomputed pool1 plane
+// and keeps, per pooled position, the first-match window member and the
+// cotangent masked by a2 > 0 in shared memory, where the rest of the body
+// reads them as K2 reads its inputs.
 template <typename T, bool kRecompute>
 __device__ __forceinline__ void bwd_body(const T* __restrict__ gy,
                                          const uint8_t* __restrict__ idx,
@@ -417,7 +426,7 @@ __device__ __forceinline__ void bwd_body(const T* __restrict__ gy,
 }
 
 // ---------------------------------------------------------------------------
-// K4's backward in bfloat16: the conv2 gradient products on the tensor cores
+// The bfloat16 routes: conv2 and its gradients on the tensor cores
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -450,27 +459,199 @@ __host__ __device__ inline int stem_groups(const Geometry& g) {
   return min(kStemGroups, g.H1 * g.W1);
 }
 
-size_t tc_bwd_smem_bytes(const Geometry& g, int C1, int C2) {
+// w2 (tap, ci, o) of one client into the [tap][ci][o] rows of LW elements,
+// channels and outputs padded to 16 with zeros
+__device__ void load_w2_tc(bf16* s_w2, const bf16* __restrict__ w2c, const TcLayout& L, int C1,
+                           int C2) {
+  for (int i = threadIdx.x; i < 9 * L.C1P * L.C2P; i += blockDim.x) {
+    const int row = i / L.C2P, o = i - row * L.C2P, tap = row / L.C1P, ci = row - tap * L.C1P;
+    s_w2[row * L.LW + o] =
+        ci < C1 && o < C2 ? w2c[(size_t)(tap * C1 + ci) * C2 + o] : __float2bfloat16(0.f);
+  }
+}
+
+// conv2 -> +b2 -> relu -> round to bf16 -> first-match pool2 over one image,
+// the conv2 sums on mma.sync m16n8k16: an implicit GEMM with M = the 4 * Ho *
+// Wo conv2 outputs that pool2 reads, K = 9 * C1P, N = C2P. The M rows are
+// ordered window-major (row 4 * p + a is member a of pooled position p), so
+// a window's four members are the rows g, g ^ 1, g ^ 2, g ^ 3 of an m16
+// tile's fragment: lanes 4 and 8 apart. A's rows are gathered by ldmatrix
+// from the zero-bordered x2 plane (XS elements a pixel) at each tap's offset;
+// a row past the image reads the plane's zero corner. B is w2 in its
+// [tap][ci][o] rows of LW, which is [k][n]: ldmatrix.trans gives its
+// fragments. A warp takes (m16 tile, 32 outputs) units. The epilogue is
+// pool2_first's arithmetic on the four f32 sums (+b2, relu, round, the first
+// member of the largest value) with the window gathered by two shuffles;
+// epi(p * C2 + o, best, arg) gets every pooled position p and output o < C2
+// once. The sums of a unit run in one fixed order whatever the thread count,
+// so every caller gets the same bits.
+template <typename Epilogue>
+__device__ __forceinline__ void conv2_pool2_tc(const bf16* s_x2, const bf16* s_w2,
+                                               const float* s_b2, const Geometry& g,
+                                               const TcLayout& L, int C2, Epilogue epi) {
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t4 = lane & 3, member = gq & 3;
+  const int n_pool = g.Ho * g.Wo;
+  const int n_mt = (4 * n_pool + 15) / 16, n_nc = (L.C2P + 31) / 32;
+  const uint32_t a_lane = smem_addr(s_x2 + (lane >> 4) * 8);
+  for (int u = warp; u < n_mt * n_nc; u += warps) {
+    const int mt = u / n_nc, n0 = (u - mt * n_nc) * 32;
+    const int n_tiles = min(4, (L.C2P - n0) / 8);  // 2 or 4, uniform across the warp
+    // this lane's A row: member a of pooled position p, conv2 output (h, w);
+    // tap (dh, dw) reads pool1 pixel (h + dh - 1, w + dw - 1), plane pixel
+    // (h + dh, w + dw)
+    const int m = mt * 16 + (lane & 15), p = m >> 2, a = m & 3;
+    const bool valid = p < n_pool;
+    const int ph = valid ? p / g.Wo : 0, pw = valid ? p - ph * g.Wo : 0;
+    const int base = (2 * ph + (a >> 1)) * g.W1P + 2 * pw + (a & 1);
+    const uint32_t b_lane =
+        smem_addr(s_w2 + (size_t)(lane & 15) * L.LW + n0 + (lane >> 4) * 8);
+    float acc[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[nt][v] = 0.f;
+    for (int k = 0; k < 9; ++k) {
+      const int pix = valid ? base + (k / 3) * g.W1P + k % 3 : 0;
+      const uint32_t a_addr = a_lane + pix * L.XS * 2;
+      const uint32_t b_addr = b_lane + k * L.C1P * L.LW * 2;
+      for (int c0 = 0; c0 < L.C1P; c0 += 16) {
+        uint32_t af[4], bf[4][2];
+        ldmatrix_x4(af, a_addr + c0 * 2);
+        load_b_k16<4>(bf, b_addr + c0 * L.LW * 2, n_tiles);
+        mma_k16<4>(acc, af, bf, n_tiles);
+      }
+    }
+    // rows gq and gq + 8 are member `member` of pooled positions
+    // 4 * mt + (gq >> 2) and 4 * mt + 2 + (gq >> 2); the lanes of member q
+    // hand on the windows of column tile q
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      if (nt >= n_tiles) break;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int pp = 4 * mt + 2 * half + (gq >> 2);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int o = n0 + nt * 8 + 2 * t4 + e;
+          const float bias = o < C2 ? s_b2[o] : 0.f;
+          float best = round_to<bf16>(fmaxf(acc[nt][2 * half + e] + bias, 0.f));
+          int arg = member;
+#pragma unroll
+          for (int s = 4; s <= 8; s <<= 1) {
+            const float vo = __shfl_xor_sync(0xffffffffu, best, s);
+            const int ao = __shfl_xor_sync(0xffffffffu, arg, s);
+            if (vo > best || (vo == best && ao < arg)) {
+              best = vo;
+              arg = ao;
+            }
+          }
+          if (nt == member && pp < n_pool && o < C2) epi(pp * C2 + o, best, arg);
+        }
+      }
+    }
+  }
+}
+
+size_t tc_fwd_smem_bytes(const Geometry& g, int C1, int C2) {
+  const TcLayout L(C1, C2);
+  const size_t floats = 9 * C1 + C1 + C2 + (size_t)g.HP * g.WP;
+  return align16(floats * 4) + 2 * ((size_t)9 * L.C1P * L.LW + (size_t)g.H1P * g.W1P * L.XS);
+}
+
+// The bfloat16 forward of one block: the stem on the CUDA cores as in
+// fwd_body, conv2 and pool2 through conv2_pool2_tc; kIdx also writes the
+// pool2 window index (K1).
+template <bool kIdx>
+__device__ __forceinline__ void fwd_tc_body(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                                            const float* __restrict__ b1,
+                                            const bf16* __restrict__ w2,
+                                            const float* __restrict__ b2,
+                                            bf16* __restrict__ pooled, uint8_t* __restrict__ idx,
+                                            int B, int H, int W, int C1, int C2, int G) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Geometry g(H, W);
+  const TcLayout L(C1, C2);
+  const int c = blockIdx.y;
+  const int plane = g.H1P * g.W1P;
+  float* s_w1 = reinterpret_cast<float*>(smem);
+  float* s_b1 = s_w1 + 9 * C1;
+  float* s_b2 = s_b1 + C1;
+  float* s_img = s_b2 + C2;
+  bf16* s_w2 = reinterpret_cast<bf16*>(
+      smem + align16((size_t)(9 * C1 + C1 + C2 + g.HP * g.WP) * 4));  // [tap][ci][o], LW
+  bf16* s_x2 = s_w2 + 9 * L.C1P * L.LW;  // [(h+1)][(w+1)][ci], XS
+
+  const bf16* w1c = w1 + (size_t)c * 9 * C1;
+  for (int i = threadIdx.x; i < 9 * C1; i += blockDim.x) s_w1[i] = to_f<bf16>(w1c[i]);
+  for (int i = threadIdx.x; i < C1; i += blockDim.x) s_b1[i] = b1[(size_t)c * C1 + i];
+  for (int i = threadIdx.x; i < C2; i += blockDim.x) s_b2[i] = b2[(size_t)c * C2 + i];
+  load_w2_tc(s_w2, w2 + (size_t)c * 9 * C1 * C2, L, C1, C2);
+  for (int i = threadIdx.x; i < g.HP * g.WP; i += blockDim.x) s_img[i] = 0.f;
+  for (int i = threadIdx.x; i < plane * L.XS; i += blockDim.x) s_x2[i] = __float2bfloat16(0.f);
+  __syncthreads();
+
+  const int n_out = g.Ho * g.Wo * C2;
+  for (int j = 0; j < G; ++j) {
+    const int b = blockIdx.x * G + j;
+    if (b >= B) break;  // uniform across the block
+    const size_t img = (size_t)c * B + b;
+    load_image<bf16>(s_img, x + img * H * W, g);
+    __syncthreads();
+    stem_pool1<bf16>(s_img, s_w1, s_b1, s_x2, nullptr, g, C1, L.XS);
+    __syncthreads();
+    bf16* out = pooled + img * n_out;
+    uint8_t* out_idx = kIdx ? idx + img * n_out : nullptr;
+    conv2_pool2_tc(s_x2, s_w2, s_b2, g, L, C2, [&](int i, float best, int arg) {
+      out[i] = __float2bfloat16(best);
+      if (kIdx) out_idx[i] = (uint8_t)arg;
+    });
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+conv_block_fwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                         const float* __restrict__ b1, const bf16* __restrict__ w2,
+                         const float* __restrict__ b2, bf16* __restrict__ pooled,
+                         uint8_t* __restrict__ idx, int B, int H, int W, int C1, int C2, int G) {
+  fwd_tc_body<true>(x, w1, b1, w2, b2, pooled, idx, B, H, W, C1, C2, G);
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+conv_stack_fwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                         const float* __restrict__ b1, const bf16* __restrict__ w2,
+                         const float* __restrict__ b2, bf16* __restrict__ pooled, int B, int H,
+                         int W, int C1, int C2, int G) {
+  fwd_tc_body<false>(x, w1, b1, w2, b2, pooled, nullptr, B, H, W, C1, C2, G);
+}
+
+// recompute = K4 (b2 comes on top); K2 stages its cotangent and index where
+// K4's recompute writes its own
+size_t tc_bwd_smem_bytes(const Geometry& g, int C1, int C2, bool recompute) {
   const TcLayout L(C1, C2);
   const size_t n_x2 = (size_t)g.H1 * g.W1, n_pool = (size_t)g.Ho * g.Wo;
   const size_t plane = (size_t)g.H1P * g.W1P;
-  const size_t floats = 9 * C1 + C1 + (size_t)g.HP * g.WP + n_x2 * C1 + C2 +
+  const size_t floats = 9 * C1 + C1 + (size_t)g.HP * g.WP + n_x2 * C1 + (recompute ? C2 : 0) +
                         (size_t)stem_groups(g) * 10 * C1 + n_x2;
   return align16(floats * 4) + 2 * ((size_t)9 * L.C1P * L.LW + plane * L.XS + plane * L.DS) +
          2 * n_pool * C2 + n_x2 * C1 + n_pool * C2;
 }
 
-// K4's backward for bfloat16. The stem (recompute, pool1 routing, dw1, db1)
-// and the conv2 recompute are bwd_body's, through the forward's own device
-// functions (so relu2' and the pool2 member are K4's forward's, bit for
-// bit); the two conv2 gradient products run on mma.sync m16n8k16:
+// The bfloat16 backward of one block, K2 (kRecompute = false) and K4 (true).
+// K2 takes the cotangent already masked by relu2' and K1's pool2 index; K4
+// takes the raw cotangent and finds both again through conv2_pool2_tc, the
+// forward's own device function, so its masks are K4's forward's (and K1's)
+// bit for bit. The stem (recompute, pool1 routing, dw1, db1) is bwd_body's
+// CUDA-core code; the two conv2 gradient products run on mma.sync m16n8k16:
 //   dx2[p, ci] = sum over (tap, o) of dz2[p - tap, o] * w2[tap, ci, o]: an
 //       implicit GEMM, M = the H1 x W1 pixels in m16 tiles, K = 9 * C2P, N =
 //       C1P. A's rows are gathered by ldmatrix from the zero-bordered dz2
 //       plane at the mirrored tap's offset (a pixel past the plane reads its
 //       zero corner); B is w2 in the forward's [tap][ci][o] layout, which is
 //       [n][k] for this product, so plain ldmatrix gives its fragment and the
-//       recompute and the product read one copy. Masked by relu1' into s_dx2.
+//       forward's product and this one read one copy. Masked by relu1' into
+//       s_dx2.
 //   dW2[tap] (C1 x C2) = sum over the pixels of x2 shifted by the tap,
 //       transposed, times dz2: dense, with the pixel as the k of the mma and
 //       both operands turned by ldmatrix.trans, a (tap, 16 channels, 16
@@ -479,33 +660,42 @@ size_t tc_bwd_smem_bytes(const Geometry& g, int C1, int C2) {
 //       cost the recompute registers and the kernel 1 ms more).
 // A warp takes dgrad units (m16 tile, 16 channels) from the front and dW2
 // blocks from the back of the warp list. Pixel p's place in the padded
-// planes comes from a table, not from a division in every k step.
-__device__ __forceinline__ void stack_bwd_tc_body(
-    const bf16* __restrict__ gy, const bf16* __restrict__ x, const bf16* __restrict__ w1,
-    const float* __restrict__ b1, const bf16* __restrict__ w2, const float* __restrict__ b2,
-    float* __restrict__ partial, int B, int H, int W, int C1, int C2, int G) {
+// planes comes from a table, not from a division in every k step. Both
+// kernels run the same code from the masked cotangent and the window index
+// on, so K4's gradients equal K2's fed K1's residuals bit for bit.
+template <bool kRecompute>
+__device__ __forceinline__ void bwd_tc_body(const bf16* __restrict__ gy,
+                                            const uint8_t* __restrict__ idx,
+                                            const bf16* __restrict__ x,
+                                            const bf16* __restrict__ w1,
+                                            const float* __restrict__ b1,
+                                            const bf16* __restrict__ w2,
+                                            const float* __restrict__ b2,
+                                            float* __restrict__ partial, int B, int H, int W,
+                                            int C1, int C2, int G) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Geometry g(H, W);
   const TcLayout L(C1, C2);
   const int c = blockIdx.y;
   const int n_pool = g.Ho * g.Wo, n_x2 = g.H1 * g.W1, plane = g.H1P * g.W1P;
+  const int n_b2 = kRecompute ? C2 : 0;
   float* s_w1 = reinterpret_cast<float*>(smem);
   float* s_b1 = s_w1 + 9 * C1;
   float* s_img = s_b1 + C1;
   float* s_dx2 = s_img + g.HP * g.WP;  // [p][ci], f32
-  float* s_b2 = s_dx2 + n_x2 * C1;
-  float* s_red = s_b2 + C2;  // [group][10][C1]: the stem backward's partial sums
+  float* s_b2 = s_dx2 + n_x2 * C1;     // K4 only
+  float* s_red = s_b2 + n_b2;  // [group][10][C1]: the stem backward's partial sums
   const int n_grp = stem_groups(g);
   int* s_pix = reinterpret_cast<int*>(s_red + n_grp * 10 * C1);  // [p]: (h + 1) * W1P + w + 1
   bf16* s_w2 = reinterpret_cast<bf16*>(
-      smem + align16((size_t)(9 * C1 + C1 + g.HP * g.WP + n_x2 * C1 + C2 + n_grp * 10 * C1 +
+      smem + align16((size_t)(9 * C1 + C1 + g.HP * g.WP + n_x2 * C1 + n_b2 + n_grp * 10 * C1 +
                               n_x2) *
                      4));  // [tap][ci][o], LW
   bf16* s_x2 = s_w2 + 9 * L.C1P * L.LW;  // [(h+1)][(w+1)][ci], XS
   bf16* s_dz2 = s_x2 + plane * L.XS;     // [(h+1)][(w+1)][o], DS
-  bf16* s_g = s_dz2 + plane * L.DS;      // [p][o]
+  bf16* s_g = s_dz2 + plane * L.DS;      // [p][o]: the masked cotangent
   uint8_t* s_arg = reinterpret_cast<uint8_t*>(s_g + n_pool * C2);
-  uint8_t* s_win = s_arg + n_x2 * C1;  // [p][o]
+  uint8_t* s_win = s_arg + n_x2 * C1;  // [p][o]: the pool2 window index
 
   const size_t P = (size_t)9 * C1 + C1 + (size_t)9 * C1 * C2 + C2;
   float* part = partial + ((size_t)c * gridDim.x + blockIdx.x) * P;
@@ -515,15 +705,11 @@ __device__ __forceinline__ void stack_bwd_tc_body(
   float* p_db2 = p_dw2 + 9 * C1 * C2;
 
   const bf16* w1c = w1 + (size_t)c * 9 * C1;
-  const bf16* w2c = w2 + (size_t)c * 9 * C1 * C2;
   for (int i = threadIdx.x; i < 9 * C1; i += blockDim.x) s_w1[i] = to_f<bf16>(w1c[i]);
   for (int i = threadIdx.x; i < C1; i += blockDim.x) s_b1[i] = b1[(size_t)c * C1 + i];
-  for (int i = threadIdx.x; i < C2; i += blockDim.x) s_b2[i] = b2[(size_t)c * C2 + i];
-  for (int i = threadIdx.x; i < 9 * L.C1P * L.C2P; i += blockDim.x) {
-    const int row = i / L.C2P, o = i - row * L.C2P, tap = row / L.C1P, ci = row - tap * L.C1P;
-    s_w2[row * L.LW + o] =
-        ci < C1 && o < C2 ? w2c[(size_t)(tap * C1 + ci) * C2 + o] : __float2bfloat16(0.f);
-  }
+  if (kRecompute)
+    for (int i = threadIdx.x; i < C2; i += blockDim.x) s_b2[i] = b2[(size_t)c * C2 + i];
+  load_w2_tc(s_w2, w2 + (size_t)c * 9 * C1 * C2, L, C1, C2);
   for (int i = threadIdx.x; i < g.HP * g.WP; i += blockDim.x) s_img[i] = 0.f;
   for (int i = threadIdx.x; i < plane * L.XS; i += blockDim.x) s_x2[i] = __float2bfloat16(0.f);
   for (int i = threadIdx.x; i < plane * L.DS; i += blockDim.x) s_dz2[i] = __float2bfloat16(0.f);
@@ -544,25 +730,24 @@ __device__ __forceinline__ void stack_bwd_tc_body(
     const bf16* g_b = gy + img * n_pool * C2;
 
     load_image<bf16>(s_img, x + img * H * W, g);
-    // the cotangent, masked in place by the recompute
-    for (int i = threadIdx.x; i < n_pool * C2; i += blockDim.x) s_g[i] = g_b[i];
+    // the cotangent (K4: masked in place by the recompute) and K2's index
+    for (int i = threadIdx.x; i < n_pool * C2; i += blockDim.x) {
+      s_g[i] = g_b[i];
+      if (!kRecompute) s_win[i] = idx[img * n_pool * C2 + i];
+    }
     __syncthreads();
     // stem recompute: pool1 plane and its first-match routing
     stem_pool1<bf16>(s_img, s_w1, s_b1, s_x2, s_arg, g, C1, L.XS);
-    __syncthreads();
-    // conv2 recompute with the forward's sums: pool2's first-match member
-    // and relu2' = (a2 > 0) at it, window by window
-    for (int i = threadIdx.x; i < n_pool * C2; i += blockDim.x) {
-      int o = i % C2, p = i / C2;
-      float acc[4];
-      conv2_window<bf16>(s_x2, s_w2, L.C1P * L.LW, L.LW, 1, p / g.Wo, p % g.Wo, o, g, C1, L.XS,
-                         acc);
-      int arg;
-      float best = pool2_first<bf16>(acc, s_b2[o], &arg);
-      if (!(best > 0.f)) s_g[i] = __float2bfloat16(0.f);
-      s_win[i] = (uint8_t)arg;
+    if (kRecompute) {
+      __syncthreads();
+      // conv2 recompute with the forward's sums: pool2's first-match member
+      // and relu2' = (a2 > 0) at it
+      conv2_pool2_tc(s_x2, s_w2, s_b2, g, L, C2, [&](int i, float best, int arg) {
+        if (!(best > 0.f)) s_g[i] = __float2bfloat16(0.f);
+        s_win[i] = (uint8_t)arg;
+      });
+      __syncthreads();
     }
-    __syncthreads();
     // pool2 backward: the cotangent lands on the indexed window position
     for (int i = threadIdx.x; i < n_pool * C2; i += blockDim.x) {
       int o = i % C2, p = i / C2;
@@ -720,35 +905,21 @@ conv_stack_bwd_kernel(const T* __restrict__ gy, const T* __restrict__ x,
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
+conv_block_bwd_tc_kernel(const bf16* __restrict__ gy, const uint8_t* __restrict__ idx,
+                         const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                         const float* __restrict__ b1, const bf16* __restrict__ w2,
+                         float* __restrict__ partial, int B, int H, int W, int C1, int C2,
+                         int G) {
+  bwd_tc_body<false>(gy, idx, x, w1, b1, w2, nullptr, partial, B, H, W, C1, C2, G);
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
 conv_stack_bwd_tc_kernel(const bf16* __restrict__ gy, const bf16* __restrict__ x,
                          const bf16* __restrict__ w1, const float* __restrict__ b1,
                          const bf16* __restrict__ w2, const float* __restrict__ b2,
                          float* __restrict__ partial, int B, int H, int W, int C1, int C2,
                          int G) {
-  stack_bwd_tc_body(gy, x, w1, b1, w2, b2, partial, B, H, W, C1, C2, G);
-}
-
-// idx == nullptr launches the residual-free forward (K4), else K1.
-template <typename T>
-int launch_fwd(const void* x, const void* w1, const float* b1, const void* w2,
-               const float* b2, void* pooled, uint8_t* idx, int C, int B, int H, int W,
-               int C1, int C2, int G, int threads, cudaStream_t stream) {
-  const Geometry g(H, W);
-  size_t smem = fwd_smem_bytes(g, C1, C2, sizeof(T));
-  cudaError_t e =
-      idx ? cudaFuncSetAttribute(conv_block_fwd_kernel<T>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
-          : cudaFuncSetAttribute(conv_stack_fwd_kernel<T>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((B + G - 1) / G, C);
-  if (idx)
-    conv_block_fwd_kernel<T><<<grid, threads, smem, stream>>>(
-        (const T*)x, (const T*)w1, b1, (const T*)w2, b2, (T*)pooled, idx, B, H, W, C1, C2, G);
-  else
-    conv_stack_fwd_kernel<T><<<grid, threads, smem, stream>>>(
-        (const T*)x, (const T*)w1, b1, (const T*)w2, b2, (T*)pooled, B, H, W, C1, C2, G);
-  return (int)cudaGetLastError();
+  bwd_tc_body<true>(gy, nullptr, x, w1, b1, w2, b2, partial, B, H, W, C1, C2, G);
 }
 
 // Dynamic shared memory of `kernel` up to `smem`, then the launch.
@@ -762,9 +933,37 @@ cudaError_t launch_with_smem(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-// idx == nullptr launches the residual-free backward (K4, which needs b2;
-// its bf16 body runs the conv2 gradients on the tensor cores), else K2; both
-// are followed by the fixed-order reduction of the slots.
+// idx == nullptr launches the residual-free forward (K4), else K1. The dtype
+// fixes the route: f32 fwd_body on the CUDA cores, bf16 fwd_tc_body.
+template <typename T>
+int launch_fwd(const void* x, const void* w1, const float* b1, const void* w2,
+               const float* b2, void* pooled, uint8_t* idx, int C, int B, int H, int W,
+               int C1, int C2, int G, int threads, cudaStream_t stream) {
+  const Geometry g(H, W);
+  const dim3 grid((B + G - 1) / G, C);
+  const T *xt = (const T*)x, *w1t = (const T*)w1, *w2t = (const T*)w2;
+  T* out = (T*)pooled;
+  cudaError_t e;
+  if constexpr (std::is_same_v<T, bf16>) {
+    const size_t smem = tc_fwd_smem_bytes(g, C1, C2);
+    e = idx ? launch_with_smem(conv_block_fwd_tc_kernel, grid, threads, smem, stream, xt, w1t,
+                               b1, w2t, b2, out, idx, B, H, W, C1, C2, G)
+            : launch_with_smem(conv_stack_fwd_tc_kernel, grid, threads, smem, stream, xt, w1t,
+                               b1, w2t, b2, out, B, H, W, C1, C2, G);
+  } else {
+    const size_t smem = fwd_smem_bytes(g, C1, C2, sizeof(T));
+    e = idx ? launch_with_smem(conv_block_fwd_kernel<T>, grid, threads, smem, stream, xt, w1t,
+                               b1, w2t, b2, out, idx, B, H, W, C1, C2, G)
+            : launch_with_smem(conv_stack_fwd_kernel<T>, grid, threads, smem, stream, xt, w1t,
+                               b1, w2t, b2, out, B, H, W, C1, C2, G);
+  }
+  return (int)e;
+}
+
+// idx == nullptr launches the residual-free backward (K4, which needs b2),
+// else K2; the dtype fixes the route (bf16: bwd_tc_body, the conv2 products
+// on the tensor cores); both are followed by the fixed-order reduction of
+// the slots.
 template <typename T>
 int launch_bwd(const void* gy, const uint8_t* idx, const void* x, const void* w1,
                const float* b1, const void* w2, const float* b2, float* partial, float* out,
@@ -774,17 +973,19 @@ int launch_bwd(const void* gy, const uint8_t* idx, const void* x, const void* w1
   const dim3 grid((B + G - 1) / G, C);
   const T *gyt = (const T*)gy, *xt = (const T*)x, *w1t = (const T*)w1, *w2t = (const T*)w2;
   cudaError_t e;
-  if (idx) {
-    e = launch_with_smem(conv_block_bwd_kernel<T>, grid, threads,
-                         bwd_smem_bytes(g, C1, C2, sizeof(T), false), stream, gyt, idx, xt, w1t,
-                         b1, w2t, partial, B, H, W, C1, C2, G);
-  } else if constexpr (std::is_same_v<T, bf16>) {
-    e = launch_with_smem(conv_stack_bwd_tc_kernel, grid, threads, tc_bwd_smem_bytes(g, C1, C2),
-                         stream, gyt, xt, w1t, b1, w2t, b2, partial, B, H, W, C1, C2, G);
+  if constexpr (std::is_same_v<T, bf16>) {
+    const size_t smem = tc_bwd_smem_bytes(g, C1, C2, idx == nullptr);
+    e = idx ? launch_with_smem(conv_block_bwd_tc_kernel, grid, threads, smem, stream, gyt, idx,
+                               xt, w1t, b1, w2t, partial, B, H, W, C1, C2, G)
+            : launch_with_smem(conv_stack_bwd_tc_kernel, grid, threads, smem, stream, gyt, xt,
+                               w1t, b1, w2t, b2, partial, B, H, W, C1, C2, G);
   } else {
-    e = launch_with_smem(conv_stack_bwd_kernel<T>, grid, threads,
-                         bwd_smem_bytes(g, C1, C2, sizeof(T), true), stream, gyt, xt, w1t, b1,
-                         w2t, b2, partial, B, H, W, C1, C2, G);
+    e = idx ? launch_with_smem(conv_block_bwd_kernel<T>, grid, threads,
+                               bwd_smem_bytes(g, C1, C2, sizeof(T), false), stream, gyt, idx,
+                               xt, w1t, b1, w2t, partial, B, H, W, C1, C2, G)
+            : launch_with_smem(conv_stack_bwd_kernel<T>, grid, threads,
+                               bwd_smem_bytes(g, C1, C2, sizeof(T), true), stream, gyt, xt, w1t,
+                               b1, w2t, b2, partial, B, H, W, C1, C2, G);
   }
   if (e != cudaSuccess) return (int)e;
   return launch_reduce_partials(partial, out, C, (B + G - 1) / G,
@@ -864,10 +1065,10 @@ extern "C" int fl_conv_stack_bwd(int dtype, const void* gy, const void* x, const
 extern "C" size_t fl_conv_block_smem_bytes(int which, int dtype, int H, int W, int C1,
                                            int C2) {
   const Geometry g(H, W);
-  size_t tsize = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
-  if (which == 2 && dtype == 1) return tc_bwd_smem_bytes(g, C1, C2);
-  return which ? bwd_smem_bytes(g, C1, C2, tsize, which == 2)
-               : fwd_smem_bytes(g, C1, C2, tsize);
+  if (dtype == 1)
+    return which ? tc_bwd_smem_bytes(g, C1, C2, which == 2) : tc_fwd_smem_bytes(g, C1, C2);
+  return which ? bwd_smem_bytes(g, C1, C2, sizeof(float), which == 2)
+               : fwd_smem_bytes(g, C1, C2, sizeof(float));
 }
 
 extern "C" const char* fl_cuda_error_string(int err) {

@@ -38,15 +38,22 @@ On a CUDA tensor ``conv_stack_res`` launches kernels K1 and K2, and
 (``csrc/conv_block.cu``); on a CPU tensor they take the plain PyTorch
 versions below, which are also the oracles the kernels are held to.
 
-K4's backward takes one of two routes, which the dtype alone fixes
-(``backward_plan``, counted in ``BWD_ROUTE_LAUNCHES``). In float32 it is
-``conv_stack_bwd_kernel``, K2's device functions on the CUDA cores, bit for
-bit K2's gradients. In bfloat16 it is ``conv_stack_bwd_tc_kernel``: the
-stem and the conv2 recompute stay the forward's CUDA-core code (so relu2'
-and the pool2 member are K4's forward's, bit for bit), and the conv2 input
-and weight gradients run on ``mma.sync``; they sum in another order than
-K2, so they are held to K2 within its tolerance, and repeat bit for bit.
-The CUDA-core recompute bounds it now.
+Every kernel of the segment takes one of two routes, which the dtype alone
+fixes (``ROUTES``; ``launch_plan`` gives a launch's route, instruction,
+threads and shared memory; ``ROUTE_LAUNCHES`` counts the launches by
+kernel and route). In float32 all four run on the CUDA cores, and K4's
+backward is K2's device functions after a recompute, bit for bit K2's
+gradients (TF32 would break the f32 contract). In bfloat16 the stem stays
+on the CUDA cores and conv2 runs on ``mma.sync``: in the forwards of K1
+and K4 (``conv_block_fwd_tc_kernel``, ``conv_stack_fwd_tc_kernel``) and
+in K4's backward recompute through one device function, so K1's index
+and K4's masks are the same bits; the conv2 input and weight gradients of
+K2 and K4 (``conv_block_bwd_tc_kernel``, ``conv_stack_bwd_tc_kernel``) run
+one body, so K4's gradients equal K2's fed K1's residuals bit for bit.
+The tensor cores sum in another order than the plain version, so bf16
+values are held to it within one ulp, the index differs only at its
+near-ties, and the gradients are held within K2's tolerance; every kernel
+repeats bit for bit.
 """
 
 from __future__ import annotations
@@ -63,33 +70,35 @@ from fl_tpu_torch.ops import _build
 # Images per CUDA block: one block loads a client's weights once for this
 # many images (and, in the backward, sums their gradients in one slot).
 IMAGES_PER_BLOCK = 4
-# CUDA threads per block. One backward block fills most of an SM's shared
-# memory, so its thread count is its occupancy: at the bench shapes on an
-# H100 (700 W) K2 ran 42 ms at 256 threads and 27 ms at 1024; both forwards
-# are flat from 256 to 1024, with their best at 512 (PERF.md, Findings;
-# tools/profile_round.py sweep). K4's backward in bf16
-# ("conv_stack_bwd_tc") runs its CUDA-core recompute, which wants many
-# threads, and its tensor-core products in one block. The launchers take
-# ``threads=`` to override an entry for one call.
+# CUDA threads per block, by kernel and route (``_tc``: bfloat16). One
+# backward block fills most of an SM's shared memory, so its thread count is
+# its occupancy: at the bench shapes on an H100 (700 W) K2 on the CUDA cores
+# ran 42 ms at 256 threads and 27 ms at 1024; both CUDA-core forwards are
+# flat from 256 to 1024, with their best at 512 (PERF.md, Findings;
+# tools/profile_round.py sweep). The bf16 backwards run their CUDA-core stem,
+# which wants many threads, and their tensor-core products in one block. The
+# launchers take ``threads=`` to override an entry for one call.
 THREADS = {"conv_block_fwd": 512, "conv_block_bwd": 1024,
            "conv_stack_fwd": 512, "conv_stack_bwd": 1024,
-           "conv_stack_bwd_tc": 1024}
+           "conv_block_fwd_tc": 512, "conv_block_bwd_tc": 1024,
+           "conv_stack_fwd_tc": 512, "conv_stack_bwd_tc": 1024}
 SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 MAX_THREADS = 1024   # kMaxThreads of csrc/conv_block.cu
 STEM_GROUPS = 24     # kStemGroups: the bf16 stem backward's partial sums
-
-# K4's backward: the route is fixed by the dtype. bf16 runs the conv2 input
-# and weight gradients on mma.sync (stack_bwd_tc_body), f32 everything on the
-# CUDA cores (TF32 would break the f32 contract).
-BWD_ROUTES = {torch.float32: "cuda_core", torch.bfloat16: "tensor_core"}
 TC_SKEW = 8          # kSkew of csrc/common.cuh
+
+# The route of every kernel is fixed by the dtype: bf16 runs conv2 and its
+# gradients on mma.sync, f32 everything on the CUDA cores (TF32 would break
+# the f32 contract).
+ROUTES = {torch.float32: "cuda_core", torch.bfloat16: "tensor_core"}
+INSTRUCTIONS = {"cuda_core": "fma", "tensor_core": "mma.sync"}
 
 # one count per kernel, raised where it is launched; conv_stack_packed has
 # no kernel of its own and shows in conv_stack_fwd / conv_stack_bwd
 LAUNCHES = {"conv_block_fwd": 0, "conv_block_bwd": 0,
             "conv_stack_fwd": 0, "conv_stack_bwd": 0}
-# K4's backward launches once more, by the route they took
-BWD_ROUTE_LAUNCHES = dict.fromkeys(BWD_ROUTES.values(), 0)
+# the same launches once more, by (kernel, route)
+ROUTE_LAUNCHES = {(k, r): 0 for k in LAUNCHES for r in ROUTES.values()}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -247,6 +256,101 @@ def conv_stack_bwd_plain(g, x, w1, b1, w2, b2):
 
 
 # ---------------------------------------------------------------------------
+# launch plans (pure functions of the dtype and the shapes)
+# ---------------------------------------------------------------------------
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one launch of a kernel of the segment is cut: the kernel (its
+    ``LAUNCHES`` name), the route and the multiply instruction of its conv2
+    products, the threads a block, its shared memory, and the f32 sums a
+    thread holds at once in those products (CUDA cores: the four window
+    members of the forward, the nine taps of one dW2 element; tensor cores:
+    the m16n8 tiles of a warp's unit)."""
+    kernel: str
+    route: str
+    instruction: str
+    threads: int
+    smem_bytes: int
+    acc_registers: int
+
+
+# f32 sums a thread holds in the conv2 products, by (forward?, route)
+_ACC_REGISTERS = {(True, "cuda_core"): 4, (False, "cuda_core"): 9,
+                  (True, "tensor_core"): 16, (False, "tensor_core"): 8}
+
+
+def smem_bytes(kernel: str, dtype, H: int, W: int, C1: int, C2: int) -> int:
+    """Shared memory one block of `kernel` needs for H x W images with C1
+    and C2 channels: the count ``fl_conv_block_smem_bytes`` of
+    csrc/conv_block.cu makes. The two forwards take the same; K4's
+    backward (``conv_stack_bwd``) adds b2 and, on the CUDA cores, its
+    recompute's buffers to K2's."""
+    if kernel not in LAUNCHES:
+        raise ValueError(f"conv_block: no kernel {kernel!r}; the kernels are "
+                         f"{sorted(LAUNCHES)}")
+    fwd, rec = kernel.endswith("_fwd"), kernel == "conv_stack_bwd"
+    H1, W1, Ho, Wo = H // 2, W // 2, H // 4, W // 4
+    plane, n_x2, n_pool = (H1 + 2) * (W1 + 2), H1 * W1, Ho * Wo
+    img = (H + 2) * (W + 2)
+    if ROUTES[dtype] == "cuda_core":
+        if fwd:
+            return 4 * (9 * C1 + C1 + C2 + img + 9 * C1 * C2 + plane * C1)
+        # f32 values, then the compute dtype's (f32 too), then bytes
+        floats = 9 * C1 + C1 + img + n_x2 * C1 + rec * C2
+        ts = 9 * C2 * (C1 + rec) + plane * (C1 + C2) + rec * n_pool * C2
+        return 4 * (floats + ts) + n_x2 * C1 + rec * n_pool * C2
+    C1P, C2P = _up(C1, 16), _up(C2, 16)
+    XS, LW, DS = C1P + TC_SKEW, C2P + TC_SKEW, C2P + TC_SKEW
+    if fwd:
+        return _up(4 * (9 * C1 + C1 + C2 + img), 16) + 2 * (
+            9 * C1P * LW + plane * XS)
+    floats = (9 * C1 + C1 + img + n_x2 * C1 + rec * C2
+              + min(STEM_GROUPS, n_x2) * 10 * C1 + n_x2)
+    halves = 9 * C1P * LW + plane * XS + plane * DS + n_pool * C2
+    return _up(4 * floats, 16) + 2 * halves + n_x2 * C1 + n_pool * C2
+
+
+def launch_plan(kernel: str, dtype, H: int, W: int, C1: int, C2: int,
+                threads=None) -> LaunchPlan:
+    """The launch of `kernel` (a ``LAUNCHES`` name) for H x W images with
+    C1 and C2 channels. A pure function: the route follows from the dtype
+    alone (``ROUTES``; another dtype raises KeyError), the rest from the
+    shapes; `threads` defaults to ``THREADS[kernel]`` (f32) or
+    ``THREADS[kernel + "_tc"]`` (bf16). Raises where no block can hold
+    it."""
+    route = ROUTES[dtype]
+    smem = smem_bytes(kernel, dtype, H, W, C1, C2)
+    if threads is None:
+        threads = THREADS[kernel + ("_tc" if route == "tensor_core" else "")]
+    if threads % 32 or not 32 <= threads <= MAX_THREADS:
+        raise ValueError(f"{kernel}: {threads} threads a block; it takes a "
+                         f"multiple of 32 up to {MAX_THREADS}")
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"conv_block: {H}x{W} images with C1={C1}, "
+                         f"C2={C2} need {smem} B of shared memory per block "
+                         f"(limit {SMEM_LIMIT})")
+    return LaunchPlan(kernel, route, INSTRUCTIONS[route], threads, smem,
+                      _ACC_REGISTERS[(kernel.endswith("_fwd"), route)])
+
+
+# the `which` argument of fl_conv_block_smem_bytes
+_SMEM_WHICH = {"conv_block_fwd": 0, "conv_stack_fwd": 0, "conv_block_bwd": 1,
+               "conv_stack_bwd": 2}
+
+
+def kernel_smem_bytes(kernel: str, dtype, H, W, C1, C2) -> int:
+    """The kernel library's own count behind ``smem_bytes`` (needs the
+    built library)."""
+    return _build.load().fl_conv_block_smem_bytes(
+        _SMEM_WHICH[kernel], _DTYPE_CODE[dtype], H, W, C1, C2)
+
+
+# ---------------------------------------------------------------------------
 # CUDA launchers (K1, K2, K4)
 # ---------------------------------------------------------------------------
 
@@ -265,29 +369,24 @@ def _check_cuda(name, tensors, dtypes):
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
-# the `which` argument of fl_conv_block_smem_bytes
-_SMEM_FWD, _SMEM_BWD, _SMEM_STACK_BWD = 0, 1, 2
+def _counted(plan: LaunchPlan) -> None:
+    LAUNCHES[plan.kernel] += 1
+    ROUTE_LAUNCHES[(plan.kernel, plan.route)] += 1
 
 
-def _check_smem(lib, which, cdt, H, W, C1, C2):
-    need = lib.fl_conv_block_smem_bytes(which, _DTYPE_CODE[cdt], H, W, C1, C2)
-    if need > SMEM_LIMIT:
-        raise ValueError(f"conv_block: {H}x{W} images with C1={C1}, "
-                         f"C2={C2} need {need} B of shared memory per block "
-                         f"(limit {SMEM_LIMIT})")
-
-
-def _launch_fwd(name, x, w1, b1, w2, b2, with_idx, threads=None):
-    """K1 (``with_idx``) or K4's forward on checked CUDA tensors."""
+def _launch_fwd(name, x, w1, b1, w2, b2, threads=None):
+    """K1 (``conv_block_fwd``, with the index) or K4's forward on checked
+    CUDA tensors."""
     C, H, W, C1, C2 = _check_shapes(x, w1, b1, w2, b2)
     cdt = x.dtype
     _check_cuda(name, (x, w1, b1, w2, b2),
                 (cdt, cdt, torch.float32, cdt, torch.float32))
+    plan = launch_plan(name, cdt, H, W, C1, C2, threads)
     lib = _build.load()
-    _check_smem(lib, _SMEM_FWD, cdt, H, W, C1, C2)
     B = x.shape[1]
     shape = (C, B, H // 4, W // 4, C2)
     pooled = torch.empty(shape, dtype=cdt, device=x.device)
+    with_idx = name == "conv_block_fwd"
     idx = (torch.empty(shape, dtype=torch.uint8, device=x.device)
            if with_idx else None)
     fn = lib.fl_conv_block_fwd if with_idx else lib.fl_conv_stack_fwd
@@ -296,82 +395,10 @@ def _launch_fwd(name, x, w1, b1, w2, b2, with_idx, threads=None):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(_DTYPE_CODE[cdt], _ptr(x), _ptr(w1), _ptr(b1), _ptr(w2),
                 _ptr(b2), *map(_ptr, outs), C, B, H, W, C1, C2,
-                IMAGES_PER_BLOCK, threads or THREADS[name],
-                ctypes.c_void_p(stream))
+                IMAGES_PER_BLOCK, plan.threads, ctypes.c_void_p(stream))
     _build.check(lib, rc, name)
-    LAUNCHES[name] += 1
+    _counted(plan)
     return pooled, idx
-
-
-# ---------------------------------------------------------------------------
-# K4's backward launch plan
-# ---------------------------------------------------------------------------
-
-def _up(n: int, m: int) -> int:
-    return -(-n // m) * m
-
-
-@dataclasses.dataclass(frozen=True)
-class BwdPlan:
-    """How one launch of K4's backward is cut: the route and the multiply
-    instruction of its conv2 gradient products, the threads a block, its
-    shared memory, and the f32 sums a thread holds at once in those
-    products (the CUDA cores: the nine taps of one dW2 element)."""
-    route: str
-    instruction: str
-    threads: int
-    smem_bytes: int
-    acc_registers: int
-
-
-def stack_bwd_smem_bytes(dtype, H: int, W: int, C1: int, C2: int) -> int:
-    """Shared memory one block of K4's backward needs: the count
-    ``fl_conv_block_smem_bytes(2, ...)`` of csrc/conv_block.cu makes."""
-    H1, W1, Ho, Wo = H // 2, W // 2, H // 4, W // 4
-    plane, n_x2, n_pool = (H1 + 2) * (W1 + 2), H1 * W1, Ho * Wo
-    floats = 9 * C1 + C1 + (H + 2) * (W + 2) + n_x2 * C1 + C2
-    if BWD_ROUTES[dtype] == "cuda_core":
-        ts = 9 * C2 * (C1 + 1) + plane * (C1 + C2) + n_pool * C2
-        return floats * 4 + ts * 4 + n_x2 * C1 + n_pool * C2
-    C1P, C2P = _up(C1, 16), _up(C2, 16)
-    floats += min(STEM_GROUPS, n_x2) * 10 * C1 + n_x2
-    halves = 9 * C1P * (C2P + TC_SKEW) + plane * (C1P + TC_SKEW) + plane * (
-        C2P + TC_SKEW) + n_pool * C2
-    return _up(floats * 4, 16) + 2 * halves + n_x2 * C1 + n_pool * C2
-
-
-def backward_plan(dtype, H: int, W: int, C1: int, C2: int,
-                  threads=None) -> BwdPlan:
-    """The launch of K4's backward for H x W images with C1 and C2
-    channels. A pure function: the route follows from the dtype alone
-    (``BWD_ROUTES``; another dtype raises KeyError), the rest from the
-    shapes; `threads` defaults to ``THREADS["conv_stack_bwd"]`` (f32) or
-    ``THREADS["conv_stack_bwd_tc"]`` (bf16). Raises where no block can hold
-    it."""
-    route = BWD_ROUTES[dtype]
-    smem = stack_bwd_smem_bytes(dtype, H, W, C1, C2)
-    if route == "cuda_core":
-        key, instruction, acc = "conv_stack_bwd", "fma", 9
-    else:
-        # two m16n8 tiles of f32 sums a warp at a time
-        key, instruction, acc = "conv_stack_bwd_tc", "mma.sync", 8
-    if threads is None:
-        threads = THREADS[key]
-    if threads % 32 or not 32 <= threads <= MAX_THREADS:
-        raise ValueError(f"conv_stack_bwd: {threads} threads a block; it "
-                         f"takes a multiple of 32 up to {MAX_THREADS}")
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"conv_block: {H}x{W} images with C1={C1}, "
-                         f"C2={C2} need {smem} B of shared memory per block "
-                         f"(limit {SMEM_LIMIT})")
-    return BwdPlan(route, instruction, threads, smem, acc)
-
-
-def kernel_stack_bwd_smem_bytes(dtype, H, W, C1, C2) -> int:
-    """The kernel library's own count behind ``stack_bwd_smem_bytes``
-    (needs the built library)."""
-    return _build.load().fl_conv_block_smem_bytes(
-        _SMEM_STACK_BWD, _DTYPE_CODE[dtype], H, W, C1, C2)
 
 
 def _launch_bwd(name, g, idx, x, w1, b1, w2, b2, threads=None):
@@ -392,13 +419,8 @@ def _launch_bwd(name, g, idx, x, w1, b1, w2, b2, threads=None):
         ins, dtypes = (g, x, w1, b1, w2, b2), (
             cdt, cdt, cdt, torch.float32, cdt, torch.float32)
     _check_cuda(name, ins, dtypes)
+    plan = launch_plan(name, cdt, H, W, C1, C2, threads)
     lib = _build.load()
-    plan = None
-    if idx is None:
-        plan = backward_plan(cdt, H, W, C1, C2, threads)
-        threads = plan.threads
-    else:
-        _check_smem(lib, _SMEM_BWD, cdt, H, W, C1, C2)
     P = 9 * C1 + C1 + 9 * C1 * C2 + C2
     ng = -(-B // IMAGES_PER_BLOCK)
     partial = torch.empty((C, ng, P), dtype=torch.float32, device=x.device)
@@ -407,12 +429,10 @@ def _launch_bwd(name, g, idx, x, w1, b1, w2, b2, threads=None):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(_DTYPE_CODE[cdt], *map(_ptr, ins), _ptr(partial), _ptr(out),
-                C, B, H, W, C1, C2, IMAGES_PER_BLOCK,
-                threads or THREADS[name], ctypes.c_void_p(stream))
+                C, B, H, W, C1, C2, IMAGES_PER_BLOCK, plan.threads,
+                ctypes.c_void_p(stream))
     _build.check(lib, rc, name)
-    LAUNCHES[name] += 1
-    if plan is not None:
-        BWD_ROUTE_LAUNCHES[plan.route] += 1
+    _counted(plan)
     dw1, db1, dw2, db2 = torch.split(out, [9 * C1, C1, 9 * C1 * C2, C2], 1)
     return (dw1.reshape(C, 3, 3, 1, C1), db1.contiguous(),
             dw2.reshape(C, 3, 3, C1, C2), db2.contiguous())
@@ -421,7 +441,7 @@ def _launch_bwd(name, g, idx, x, w1, b1, w2, b2, threads=None):
 def conv_block_fwd_cuda(x, w1, b1, w2, b2, threads=None):
     """Launch K1. x, w1, w2 in the compute dtype; b1, b2 f32. Returns
     (pooled, idx). ``threads`` overrides the block size of ``THREADS``."""
-    return _launch_fwd("conv_block_fwd", x, w1, b1, w2, b2, True, threads)
+    return _launch_fwd("conv_block_fwd", x, w1, b1, w2, b2, threads)
 
 
 def conv_block_bwd_cuda(g, idx, x, w1, b1, w2, threads=None):
@@ -433,8 +453,7 @@ def conv_block_bwd_cuda(g, idx, x, w1, b1, w2, threads=None):
 
 def conv_stack_fwd_cuda(x, w1, b1, w2, b2, threads=None):
     """Launch K4's forward: K1 without the index output. Returns pooled."""
-    return _launch_fwd("conv_stack_fwd", x, w1, b1, w2, b2, False,
-                       threads)[0]
+    return _launch_fwd("conv_stack_fwd", x, w1, b1, w2, b2, threads)[0]
 
 
 def conv_stack_bwd_cuda(g, x, w1, b1, w2, b2, threads=None):

@@ -301,12 +301,21 @@ def taploop_conv_cuda(x, w):
 # the public ops
 # ---------------------------------------------------------------------------
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and starting on a 16-byte boundary: a view that starts
+    elsewhere is copied into a fresh allocation."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def batched_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(C, M, K) @ (C, K, N) -> (C, M, N) in a's dtype, f32 sums; b is cast
-    to a's dtype."""
+    to a's dtype. Any strides and any offset are taken: the TMA route reads
+    the operands from 16-byte boundaries, so a view that starts elsewhere is
+    copied first (the route stays a function of dtype and shape)."""
     b = b.to(a.dtype)
     if a.is_cuda:
-        return batched_gemm_cuda(a.contiguous(), b.contiguous())
+        return batched_gemm_cuda(_aligned16(a), _aligned16(b))
     return batched_gemm_plain(a, b)
 
 

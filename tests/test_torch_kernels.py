@@ -13,11 +13,12 @@ gradients 2e-4 in f32 and a relative Frobenius error of 1e-2 in bf16 (the
 kernel and the plain version round dz2/dz1 to bf16 at the same points but
 sum in different orders); K3 at σ=0 exactly x·scale to 1e-6 relative, and
 its noise by moments at about 6 standard errors; K4 the tolerances of K1/K2
-against its plain version, its forward bit-equal to K1 in both dtypes and
-its backward bit-equal to K2 in f32 (the same device functions); its bf16
-backward runs the conv2 gradients on the tensor cores, so it is held to K2
-within K2's relative Frobenius 1e-2 and to itself bit for bit across two
-runs; K5 bit-equal to ``conv_stack`` per client; K6 equal to its plain
+against its plain version, its forward bit-equal to K1 and its backward
+bit-equal to K2 fed K1's residuals in both dtypes (one body each: in bf16
+conv2 and its gradients run on the tensor cores for all of them), and to
+itself bit for bit across two runs; K1/K2/K4 also at a second geometry
+whose widths are no multiples of 16 (H=16, C1=12, C2=20, 5 images a
+client); K5 bit-equal to ``conv_stack`` per client; K6 equal to its plain
 version exactly in the deterministic mode (q and scales) and by floor/ceil,
 mean and P(ceil) in the stochastic mode; K7 and K8 (one f32 sum, one
 rounding) rtol 1e-4 / atol 1e-4 in f32, weight gradients atol 2e-4, and one
@@ -92,13 +93,14 @@ def test_launch_counts_cover_every_kernel():
     # took: reset with the counts
     assert sorted(cp.ROUTE_LAUNCHES) == ["cuda_core", "tensor_core"]
     assert sorted(probe.ROUTE_LAUNCHES) == ["cuda_core", "staged", "tma"]
-    assert sorted(cb.BWD_ROUTE_LAUNCHES) == ["cuda_core", "tensor_core"]
+    assert sorted(cb.ROUTE_LAUNCHES) == sorted(
+        (k, r) for k in cb.LAUNCHES for r in ("cuda_core", "tensor_core"))
     cp.ROUTE_LAUNCHES["tensor_core"] = 3
     probe.ROUTE_LAUNCHES["tma"] = 2
-    cb.BWD_ROUTE_LAUNCHES["tensor_core"] = 1
+    cb.ROUTE_LAUNCHES[("conv_block_bwd", "tensor_core")] = 1
     ops.reset_launch_counts()
     for counts in (cp.ROUTE_LAUNCHES, probe.ROUTE_LAUNCHES,
-                   cb.BWD_ROUTE_LAUNCHES):
+                   cb.ROUTE_LAUNCHES):
         assert set(counts.values()) == {0}
 
 
@@ -166,10 +168,10 @@ def test_conv_kernels_match_plain(cuda, dtype, ones):
 @pytest.mark.parametrize("ones", [False, True], ids=["random", "all_ties"])
 def test_residual_free_kernels_equal_k1_k2_and_match_plain(cuda, dtype, ones):
     """K4 computes K1/K2's function with no residual: its forward bit-equal
-    to K1 on the same inputs, its backward bit-equal to K2 in f32 and within
-    K2's tolerance in bf16 (the conv2 gradients on the tensor cores), the
-    same bits on a second run, and (on the same routing) within K2's
-    tolerance of the plain version."""
+    to K1 on the same inputs, its backward bit-equal to K2 fed K1's
+    residuals in both dtypes (in bf16 the recompute is K1's tensor-core
+    conv2 and the gradients K2's body), the same bits on a second run, and
+    (on the same routing) within K2's tolerance of the plain version."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     args = _conv_inputs(gen, 4, 32, 28, 32, 64, dtype, cuda, ones)
     x, w1, b1, w2, b2 = args
@@ -178,13 +180,10 @@ def test_residual_free_kernels_equal_k1_k2_and_match_plain(cuda, dtype, ones):
     gy = torch.randn(pooled.shape, generator=gen, device=cuda).to(dtype)
     ops.reset_launch_counts()
     got = cb.conv_stack_bwd_cuda(gy, *args)
-    assert cb.BWD_ROUTE_LAUNCHES[cb.BWD_ROUTES[dtype]] == 1
+    assert cb.ROUTE_LAUNCHES[("conv_stack_bwd", cb.ROUTES[dtype])] == 1
     masked = (gy * (pooled > 0)).to(dtype).contiguous()
     for a, b in zip(got, cb.conv_block_bwd_cuda(masked, idx, x, w1, b1, w2)):
-        if dtype == torch.float32:
-            assert torch.equal(a, b)
-        else:
-            assert float((a - b).norm() / b.norm().clamp(min=1e-30)) <= 1e-2
+        assert torch.equal(a, b)
     for a, b in zip(got, cb.conv_stack_bwd_cuda(gy, *args)):
         assert torch.equal(a, b)
     refs = [cb.conv_stack_res_bwd_plain(masked, idx, x, w1, b1, w2)]
@@ -200,6 +199,75 @@ def test_residual_free_kernels_equal_k1_k2_and_match_plain(cuda, dtype, ones):
             else:
                 assert float((a - b).norm()
                              / b.norm().clamp(min=1e-30)) <= 1e-2
+
+
+def _assert_pooled_close(got, want, dtype):
+    """K1's tolerance: 1e-5 in f32, one bf16 ulp of the larger value plus
+    1e-5 in bf16."""
+    pk, pr = got.float(), want.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(pk, pr, rtol=1e-5, atol=1e-5)
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            torch.maximum(pk.abs(), pr.abs()).clamp(min=2.0 ** -126))) - 7)
+        assert bool(((pk - pr).abs() <= ulp + 1e-5).all())
+
+
+def _assert_grads_close(got, want, dtype):
+    """K2's tolerance: 2e-4 in f32, relative Frobenius 1e-2 in bf16."""
+    for a, b in zip(got, want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+        else:
+            assert float((a - b).norm() / b.norm().clamp(min=1e-30)) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_conv_kernels_at_a_second_geometry(cuda, dtype):
+    """K1, K2 and K4 at widths that are no multiples of 16 (the bf16
+    route pads C1 and C2 to 16 in shared memory) and 5 images a client (a
+    block with one image): each held to its plain version with the
+    tolerances above, K4 to K1/K2 bit for bit, every launch on its dtype's
+    route."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    args = _conv_inputs(gen, 3, 5, 16, 12, 20, dtype, cuda)
+    x, w1, b1, w2, b2 = args
+    ops.reset_launch_counts()
+    pooled, idx = cb.conv_block_fwd_cuda(*args)
+    want, want_idx = cb.conv_stack_res_fwd_plain(*args)
+    _assert_pooled_close(pooled, want, dtype)
+    assert torch.equal(cb.conv_stack_fwd_cuda(*args), pooled)
+    # the index differs from the plain version's only at its near-ties
+    bad = idx != want_idx
+    if bool(bad.any()):
+        chosen = cb.pool2_windows_plain(*args).gather(
+            -1, idx.long()[..., None])[..., 0]
+        pr = want.float()
+        tol = (1e-5 * (1 + pr.abs()) if dtype == torch.float32 else
+               torch.exp2(torch.floor(torch.log2(
+                   pr.abs().clamp(min=2.0 ** -126))) - 7) + 1e-5)
+        assert bool(((chosen - pr).abs() <= tol)[bad].all())
+    gy = torch.randn(pooled.shape, generator=gen, device=cuda).to(dtype)
+    masked = (gy * (want > 0)).to(dtype).contiguous()
+    _assert_grads_close(cb.conv_block_bwd_cuda(masked, want_idx, x, w1, b1,
+                                               w2),
+                        cb.conv_stack_res_bwd_plain(masked, want_idx, x, w1,
+                                                    b1, w2), dtype)
+    got4 = cb.conv_stack_bwd_cuda(gy, *args)
+    own = (gy * (pooled > 0)).to(dtype).contiguous()
+    for a, b in zip(got4, cb.conv_block_bwd_cuda(own, idx, x, w1, b1, w2)):
+        assert torch.equal(a, b)
+    _assert_grads_close(got4, cb.conv_stack_res_bwd_plain(own, idx, x, w1, b1,
+                                                          w2), dtype)
+    route = cb.ROUTES[dtype]
+    assert {k: v for k, v in cb.ROUTE_LAUNCHES.items() if v} == {
+        ("conv_block_fwd", route): 1, ("conv_stack_fwd", route): 1,
+        ("conv_block_bwd", route): 2, ("conv_stack_bwd", route): 1}
+    for kernel in cb.LAUNCHES:
+        assert cb.launch_plan(kernel, dtype, 16, 16, 12, 20).smem_bytes == (
+            cb.kernel_smem_bytes(kernel, dtype, 16, 16, 12, 20))
 
 
 @pytest.mark.cuda
@@ -355,6 +423,32 @@ def test_probe_kernels_match_plain(cuda, dtype):
     counts = ops.launch_counts()
     assert (counts["probe_batched_gemm"], counts["probe_taploop_conv"]) == (
         len(GEMM_SHAPES), len(PATCH_SHAPES))
+
+
+def test_aligned16_copies_only_a_view_off_a_16_byte_boundary():
+    buf = torch.arange(1 + 2 * 8 * 16, dtype=torch.float32).bfloat16()
+    view = buf[1:].view(2, 8, 16)
+    assert view.data_ptr() % 16 != 0
+    moved = probe._aligned16(view)
+    assert moved.data_ptr() % 16 == 0 and torch.equal(moved, view)
+    whole = buf[:-1].view(2, 8, 16)
+    assert probe._aligned16(whole) is whole
+
+
+@pytest.mark.cuda
+def test_batched_gemm_takes_a_misaligned_bf16_view(cuda):
+    """A bf16 view that starts 2 bytes past its allocation, with K and N
+    multiples of 8 (the TMA route): the op copies it and launches."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    C, M, K, N = 2, 128, 288, 64
+    buf = torch.empty(1 + C * M * K, dtype=torch.bfloat16, device=cuda)
+    buf[1:] = torch.randn(C * M * K, generator=gen, device=cuda)
+    a = buf[1:].view(C, M, K)
+    b = torch.randn((C, K, N), generator=gen, device=cuda).bfloat16()
+    assert a.data_ptr() % 16 != 0
+    assert probe.launch_plan(torch.bfloat16, C, M, K, N).route == "tma"
+    _assert_rounded_close(probe.batched_gemm(a, b),
+                          probe.batched_gemm_plain(a, b), torch.bfloat16)
 
 
 @pytest.mark.cuda

@@ -1,10 +1,11 @@
-"""The launch plans of K8a (``batched_gemm``) and of K4's backward
-(``conv_stack`` / ``conv_stack_packed``) held to the card's limits, on the
-CPU.
+"""The launch plans of K8a (``batched_gemm``) and of the fused conv
+segment's four kernels (K1 and K4's forward, K2 and K4's backward, behind
+``conv_stack_res`` / ``conv_stack`` / ``conv_stack_packed``) held to the
+card's limits, on the CPU.
 
-Both plans are pure functions of the dtype and the shapes
+The plans are pure functions of the dtype and the shapes
 (``fl_tpu_torch.ops.conv_probe.launch_plan``,
-``fl_tpu_torch.ops.conv_block.backward_plan``), so what a CUDA launch would
+``fl_tpu_torch.ops.conv_block.launch_plan``), so what a CUDA launch would
 ask of an H100 can be checked without one: at most 232,448 bytes of shared
 memory a block, whole warps and at most 1024 threads, at most 255 registers'
 worth of f32 sums a thread, and the route: float32 always on the CUDA cores,
@@ -37,9 +38,12 @@ GEMM_SHAPES = {
     "two_clients_of_the_bench": (2, 8192, 288, 64),
     "n_over_64": (1, 300, 64, 136),
 }
-# (H, W, C1, C2): the bench widths and the 16x16 geometry of the CPU
-# parity tests
-BWD_GEOMETRIES = {"bench_28x28": (28, 28, 32, 64), "small_16x16": (16, 16, 8, 16)}
+# (H, W, C1, C2): the bench widths, the 16x16 geometry of the CPU parity
+# tests, and the card's second geometry (widths that are no multiples of 16)
+BWD_GEOMETRIES = {"bench_28x28": (28, 28, 32, 64), "small_16x16": (16, 16, 8, 16),
+                  "g2_16x16": (16, 16, 12, 20)}
+CONV_KERNELS = ("conv_block_fwd", "conv_block_bwd", "conv_stack_fwd",
+                "conv_stack_bwd")
 
 
 def _check_gemm_plan(plan, dtype, C, M, K, N):
@@ -125,22 +129,41 @@ def test_gemm_plan_fits_the_card_over_a_sweep_of_shapes(C, M, K, N, bf16):
     _check_gemm_plan(plan, dtype, C, M, K, N)
 
 
-def _check_bwd_plan(plan, dtype, H, W, C1, C2):
+def _check_conv_plan(plan, kernel, dtype, H, W, C1, C2):
+    assert plan.kernel == kernel
     assert 0 < plan.smem_bytes <= SMEM_LIMIT
-    assert plan.smem_bytes == cb.stack_bwd_smem_bytes(dtype, H, W, C1, C2)
+    assert plan.smem_bytes == cb.smem_bytes(kernel, dtype, H, W, C1, C2)
     assert plan.threads % 32 == 0 and 32 <= plan.threads <= MAX_THREADS
     assert 0 < plan.acc_registers <= MAX_REGISTERS
     if dtype == torch.float32:
         assert (plan.route, plan.instruction) == ("cuda_core", "fma")
+        assert plan.threads == cb.THREADS[kernel]
     else:
         assert (plan.route, plan.instruction) == ("tensor_core", "mma.sync")
+        assert plan.threads == cb.THREADS[kernel + "_tc"]
+
+
+def _check_bwd_plan(plan, dtype, H, W, C1, C2):
+    _check_conv_plan(plan, "conv_stack_bwd", dtype, H, W, C1, C2)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("name", sorted(BWD_GEOMETRIES))
 def test_backward_plan_fits_the_card(name, dtype):
     geo = BWD_GEOMETRIES[name]
-    _check_bwd_plan(cb.backward_plan(dtype, *geo), dtype, *geo)
+    _check_bwd_plan(cb.launch_plan("conv_stack_bwd", dtype, *geo), dtype,
+                    *geo)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("kernel", ["conv_block_fwd", "conv_block_bwd",
+                                    "conv_stack_fwd"])
+@pytest.mark.parametrize("name", sorted(BWD_GEOMETRIES))
+def test_forward_and_residual_backward_plans_fit_the_card(name, kernel,
+                                                          dtype):
+    geo = BWD_GEOMETRIES[name]
+    _check_conv_plan(cb.launch_plan(kernel, dtype, *geo), kernel, dtype,
+                     *geo)
 
 
 def test_backward_plans_at_the_bench_widths():
@@ -148,8 +171,8 @@ def test_backward_plans_at_the_bench_widths():
     conv2 gradients on mma.sync, with channels padded to 16 and skewed row
     strides in shared memory (w2, x2 and dz2 planes, the stem backward's
     partial sums, a pixel table)."""
-    f32 = cb.backward_plan(torch.float32, 28, 28, 32, 64)
-    bf16 = cb.backward_plan(torch.bfloat16, 28, 28, 32, 64)
+    f32 = cb.launch_plan("conv_stack_bwd", torch.float32, 28, 28, 32, 64)
+    bf16 = cb.launch_plan("conv_stack_bwd", torch.bfloat16, 28, 28, 32, 64)
     assert (f32.route, f32.threads, f32.smem_bytes) == (
         "cuda_core", 1024, 226512)
     assert (bf16.route, bf16.instruction) == ("tensor_core", "mma.sync")
@@ -158,19 +181,71 @@ def test_backward_plans_at_the_bench_widths():
     halves = 9 * 32 * 72 + 256 * 40 + 256 * 72 + 49 * 64
     assert bf16.smem_bytes == -(-4 * floats // 16) * 16 + 2 * halves + (
         196 * 32 + 49 * 64)
-    assert cb.BWD_ROUTES == {torch.float32: "cuda_core",
-                             torch.bfloat16: "tensor_core"}
+    assert cb.ROUTES == {torch.float32: "cuda_core",
+                         torch.bfloat16: "tensor_core"}
+
+
+def test_forward_and_residual_backward_plans_at_the_bench_widths():
+    """K1 and K4's forward take one plan: in f32 the CUDA-core body's
+    111,632 bytes, in bf16 the tensor-core body's w2 rows and x2 plane with
+    padded, skewed strides (67,088 bytes: three blocks' worth of an SM's
+    shared memory). K2 in bf16 is K4's backward body without b2; in f32
+    without the recompute's buffers."""
+    for kernel in ("conv_block_fwd", "conv_stack_fwd"):
+        f32 = cb.launch_plan(kernel, torch.float32, 28, 28, 32, 64)
+        bf16 = cb.launch_plan(kernel, torch.bfloat16, 28, 28, 32, 64)
+        assert f32.smem_bytes == 4 * (9 * 32 + 32 + 64 + 900 + 9 * 32 * 64
+                                      + 256 * 32) == 111632
+        floats = 9 * 32 + 32 + 64 + 30 * 30
+        assert bf16.smem_bytes == -(-4 * floats // 16) * 16 + 2 * (
+            9 * 32 * 72 + 256 * 40) == 67088
+        assert 3 * bf16.smem_bytes <= SMEM_LIMIT
+        assert (bf16.acc_registers, f32.acc_registers) == (16, 4)
+    k2 = {dt: cb.launch_plan("conv_block_bwd", dt, 28, 28, 32, 64)
+          for dt in DTYPES}
+    k4 = {dt: cb.launch_plan("conv_stack_bwd", dt, 28, 28, 32, 64)
+          for dt in DTYPES}
+    assert k4[torch.bfloat16].smem_bytes - k2[torch.bfloat16].smem_bytes == (
+        4 * 64)
+    assert k2[torch.float32].smem_bytes == 208272
+    assert (k2[torch.bfloat16].route, k2[torch.bfloat16].threads) == (
+        "tensor_core", cb.THREADS["conv_block_bwd_tc"])
+
+
+def test_every_kernel_routes_by_dtype_alone():
+    for kernel in CONV_KERNELS:
+        for H, W, C1, C2 in BWD_GEOMETRIES.values():
+            assert {cb.launch_plan(kernel, dt, H, W, C1, C2).route
+                    for dt in DTYPES} == {"cuda_core", "tensor_core"}
+            assert cb.launch_plan(kernel, torch.bfloat16, H, W, C1,
+                                  C2).route == cb.ROUTES[torch.bfloat16]
+    assert sorted(cb.LAUNCHES) == sorted(CONV_KERNELS)
+    with pytest.raises(ValueError, match="no kernel"):
+        cb.launch_plan("conv_block", torch.float32, 28, 28, 32, 64)
 
 
 def test_backward_plan_refuses_threads_the_kernel_cannot_take():
     for dtype in DTYPES:
-        for threads in (16, 100, 1056):
-            with pytest.raises(ValueError, match="threads a block"):
-                cb.backward_plan(dtype, 28, 28, 32, 64, threads=threads)
-        assert cb.backward_plan(dtype, 28, 28, 32, 64,
-                                threads=256).threads == 256
+        for kernel in CONV_KERNELS:
+            for threads in (16, 100, 1056):
+                with pytest.raises(ValueError, match="threads a block"):
+                    cb.launch_plan(kernel, dtype, 28, 28, 32, 64,
+                                   threads=threads)
+            assert cb.launch_plan(kernel, dtype, 28, 28, 32, 64,
+                                  threads=256).threads == 256
     with pytest.raises(KeyError):
-        cb.backward_plan(torch.float16, 28, 28, 32, 64)
+        cb.launch_plan("conv_stack_bwd", torch.float16, 28, 28, 32, 64)
+
+
+def test_plans_refuse_shared_memory_beyond_the_limit():
+    """56x56 images with C1=64, C2=128: no block holds any of the four, in
+    either dtype; the refusal names the bytes."""
+    for kernel in CONV_KERNELS:
+        for dtype in DTYPES:
+            need = cb.smem_bytes(kernel, dtype, 56, 56, 64, 128)
+            assert need > SMEM_LIMIT
+            with pytest.raises(ValueError, match=f"{need} B of shared memory"):
+                cb.launch_plan(kernel, dtype, 56, 56, 64, 128)
 
 
 @settings(max_examples=150, deadline=None)
@@ -181,10 +256,36 @@ def test_backward_plan_fits_the_card_over_a_sweep_of_shapes(h, w, C1, C2,
     dtype = torch.bfloat16 if bf16 else torch.float32
     H, W = 2 * h, 2 * w
     try:
-        plan = cb.backward_plan(dtype, H, W, C1, C2)
+        plan = cb.launch_plan("conv_stack_bwd", dtype, H, W, C1, C2)
     except ValueError as e:
         # refused in words, never planned beyond the card
         assert "shared memory" in str(e)
-        assert cb.stack_bwd_smem_bytes(dtype, H, W, C1, C2) > SMEM_LIMIT
+        assert cb.smem_bytes("conv_stack_bwd", dtype, H, W, C1,
+                             C2) > SMEM_LIMIT
         return
     _check_bwd_plan(plan, dtype, H, W, C1, C2)
+
+
+@settings(max_examples=150, deadline=None)
+@given(h=st.integers(2, 20), w=st.integers(2, 20), C1=st.integers(1, 64),
+       C2=st.integers(1, 128), bf16=st.booleans(),
+       kernel=st.sampled_from(["conv_block_fwd", "conv_block_bwd",
+                               "conv_stack_fwd"]))
+def test_forward_and_residual_backward_plans_over_a_sweep_of_shapes(
+        h, w, C1, C2, bf16, kernel):
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    H, W = 2 * h, 2 * w
+    try:
+        plan = cb.launch_plan(kernel, dtype, H, W, C1, C2)
+    except ValueError as e:
+        assert "shared memory" in str(e)
+        assert cb.smem_bytes(kernel, dtype, H, W, C1, C2) > SMEM_LIMIT
+        return
+    _check_conv_plan(plan, kernel, dtype, H, W, C1, C2)
+    # K2 never needs more than K4's backward, and the two forwards agree
+    if kernel == "conv_block_bwd":
+        assert plan.smem_bytes <= cb.smem_bytes("conv_stack_bwd", dtype, H,
+                                                W, C1, C2)
+    if kernel.endswith("_fwd"):
+        assert plan.smem_bytes == cb.smem_bytes("conv_stack_fwd", dtype, H,
+                                                W, C1, C2)

@@ -1,12 +1,21 @@
 """Measurements of the port on one NVIDIA GPU that PERF.md quotes.
 
     python3 tools/profile_round.py sweep
+    python3 tools/profile_round.py parts
     python3 tools/profile_round.py profile [--out DIR] [residual|true|false ...]
 
 ``sweep`` times the four conv kernels at the bench shapes (512 clients x 32
 images, bf16, C1=32, C2=64) for each thread count per block, CUDA events
 over 5 launches after a warm one, in the order 1024 ... 128 ... 1024 so
-that drift shows (K4's backward in bf16 is ``conv_stack_bwd_tc_kernel``).
+that drift shows (in bf16 these are the tensor-core kernels,
+``conv_block_fwd_tc_kernel`` and its three siblings).
+
+``parts`` splits the four conv kernels' bf16 time (512 clients x 32 images,
+28x28, C1=32) into the part that grows with C2 (conv2 and its gradients on
+the tensor cores, w2 and the outputs) and the part that does not (the image,
+the stem and its backward on the CUDA cores, the syncs): it times each kernel
+at C2 = 16, 32, 48, 64 as ``sweep`` does and fits time = a + b * C2 by least
+squares; a is the C2-free part, a / time(64) its share at the bench width.
 
 ``profile`` runs the 512-client bf16 delta-DP round of ``bench.py``'s
 workload for each named value of ``fused_conv_block``: one warm-up round,
@@ -40,10 +49,13 @@ ROUNDS = 3
 # kernel-name fragments -> family, first match wins
 FAMILIES = (
     ("conv_block_bwd_kernel", "K2 conv_block_bwd_kernel"),
+    ("conv_block_bwd_tc_kernel", "K2 conv_block_bwd_tc_kernel"),
     ("conv_block_fwd_kernel", "K1 conv_block_fwd_kernel"),
+    ("conv_block_fwd_tc_kernel", "K1 conv_block_fwd_tc_kernel"),
     ("conv_stack_bwd_kernel", "K4 conv_stack_bwd_kernel"),
     ("conv_stack_bwd_tc_kernel", "K4 conv_stack_bwd_tc_kernel"),
     ("conv_stack_fwd_kernel", "K4 conv_stack_fwd_kernel"),
+    ("conv_stack_fwd_tc_kernel", "K4 conv_stack_fwd_tc_kernel"),
     ("reduce_partials_kernel", "reduce_partials_kernel"),
     ("clip_noise_kernel", "K3 clip_noise_kernel"),
     ("max_pool", "library max pool fwd/bwd"),
@@ -88,6 +100,46 @@ def sweep(card: str) -> None:
         print(f"sweep threads={threads}: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in times.items()) + f" [{card}]",
             flush=True)
+
+
+def parts(card: str) -> None:
+    from fl_tpu_torch.ops import conv_block as cb
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dt = torch.bfloat16
+    widths = (16, 32, 48, 64)
+    times = {}
+    for C2 in widths:
+        args = chip_smoke.conv_inputs(gen, chip_smoke.NUM_CLIENTS,
+                                      chip_smoke.BATCH_SIZE, dt, C2=C2)
+        x, w1, b1, w2, b2 = args
+        pooled, idx = cb.conv_block_fwd_cuda(*args)
+        g_raw = torch.randn(pooled.shape, generator=gen, device="cuda").to(dt)
+        g = (g_raw * (pooled > 0)).to(dt).contiguous()
+        times[C2] = {
+            "conv_block_fwd": chip_smoke.time_ms(
+                lambda: cb.conv_block_fwd_cuda(*args)),
+            "conv_block_bwd": chip_smoke.time_ms(
+                lambda: cb.conv_block_bwd_cuda(g, idx, x, w1, b1, w2)),
+            "conv_stack_fwd": chip_smoke.time_ms(
+                lambda: cb.conv_stack_fwd_cuda(*args)),
+            "conv_stack_bwd": chip_smoke.time_ms(
+                lambda: cb.conv_stack_bwd_cuda(g_raw, *args)),
+        }
+        del args, x, w1, b1, w2, b2, pooled, idx, g_raw, g
+        torch.cuda.empty_cache()
+    n, mx = len(widths), sum(widths) / len(widths)
+    sxx = sum((c - mx) ** 2 for c in widths)
+    for kernel in cb.LAUNCHES:
+        ys = [times[c][kernel] for c in widths]
+        my = sum(ys) / n
+        b = sum((c - mx) * (y - my) for c, y in zip(widths, ys)) / sxx
+        a = my - b * mx
+        print(f"parts {kernel} bf16: " + ", ".join(
+            f"C2={c} {y:.3f} ms" for c, y in zip(widths, ys))
+            + f"; fit {a:.3f} + {b:.4f} * C2 ms: the C2-free part (image, "
+            f"stem, syncs) {a:.3f} ms = {a / times[64][kernel]:.3f} of the "
+            f"time at C2=64 [{card}]", flush=True)
 
 
 def _family(name: str) -> str:
@@ -162,7 +214,8 @@ def main(argv) -> int:
     out_dir = None
     if argv[1:2] == ["--out"] and len(argv) > 2:
         out_dir, argv = Path(argv[2]), argv[:1] + argv[3:]
-    if not argv or argv[0] not in ("sweep", "profile") or any(
+    if not argv or argv[0] not in ("sweep", "parts", "profile") or (
+            argv[0] != "profile" and len(argv) > 1) or any(
             a not in modes for a in argv[1:]):
         print(__doc__, file=sys.stderr)
         return 2
@@ -171,6 +224,8 @@ def main(argv) -> int:
     card = chip_smoke.card_line()
     if argv[0] == "sweep":
         sweep(card)
+    elif argv[0] == "parts":
+        parts(card)
     else:
         for name in argv[1:] or list(modes):
             profile(card, modes[name], out_dir)
