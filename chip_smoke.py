@@ -21,19 +21,26 @@ line each; any failure exits non-zero:
    to the library's own count for all four kernels, K5
    (``conv_stack_packed``,
    bit-equal to ``conv_stack`` per client for P = 1, 2, 4, 3), K3 (DP
-   clip + noise) and K6 (int8 block quantizer: deterministic mode exact,
-   stochastic mode by its distribution); K7 (``conv3x3_patch``: patch GEMM
-   forward and input gradient, weight gradient; f32 on the CUDA cores, bf16
-   on the tensor cores, the route each dtype took printed and checked, the
-   weight gradient repeated bit for bit, the launch plan's shared-memory
-   bytes held to the library's own count) and K8 (``batched_gemm``,
-   ``taploop_conv``) in f32 and bf16 on small shapes, ragged ones among
-   them, and at the conv2 and stem shapes of the bench (K8a: the route
-   each dtype and shape took, TMA, staged or the CUDA cores, printed and
-   checked against its launch plan and the plan's shared memory against
-   the library's count; ``batched_gemm`` on a bf16 view that does not start
-   on a 16-byte boundary), with ``F.conv2d``
-   (groups = clients), its backward and ``torch.bmm`` as library yardsticks;
+   clip + noise: exact at sigma = 0; its noise equal to the numpy
+   Philox4x32-10 oracle of ``tests/philox_oracle.py`` through its counter
+   map at ragged widths, to 1e-5; held by moments, 3-sigma tail, a
+   Kolmogorov–Smirnov test and correlations across clients, groups, the
+   cosine and sine of one radius and the two pairs of one Philox call) and
+   K6 (int8 block quantizer: deterministic mode exact, stochastic mode
+   equal to the oracle's decisions on 5 blocks and held by floor/ceil,
+   bias, P(ceil) per decile and the correlation of one call's quarters); K7
+   (``conv3x3_patch``: patch GEMM forward and input gradient, weight
+   gradient; f32 on the CUDA cores, bf16 on the tensor cores, the route
+   each dtype took printed and checked, the weight gradient repeated bit
+   for bit, the launch plan's shared-memory bytes held to the library's own
+   count) and K8 (``batched_gemm``, ``taploop_conv``) in f32 and bf16 on
+   small shapes, ragged ones among them, and at the conv2 and stem shapes
+   of the bench (K8a: the route each dtype and shape took, TMA, staged or
+   the CUDA cores, printed and checked against its launch plan and the
+   plan's shared memory against the library's count; ``batched_gemm`` on a
+   bf16 view that does not start on a 16-byte boundary), with ``F.conv2d``
+   (groups = clients), its backward and ``torch.bmm`` as library
+   yardsticks;
 4. the delta-DP FedAvg round of the 512-client bench configuration
    (bench.py's workload) with ``fused_conv_block="residual"``: one warm-up
    round, then 3 pipelined rounds with the kernel launch counts and their
@@ -104,6 +111,7 @@ N_PARAMS = 421642  # SimpleCNN
 # published peaks of one H100 SXM (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12    # on the CUDA cores
 
 # relative Frobenius tolerances of the unfused bf16 chain's gradients: see
 # check_unfused
@@ -170,10 +178,10 @@ def time_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, peak=BF16_FLOPS):
     """(bound_ms, bound_by) of a function that must move n_bytes and do
-    flops bf16-input operations."""
-    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    flops operations whose inputs' type runs at peak (bf16 by default)."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return (1e3 * max(by_bytes, by_ops),
             "bytes" if by_bytes >= by_ops else "operations")
 
@@ -605,7 +613,25 @@ def phase_conv(report):
           f"bwd {lib_bwd:.3f} ms", flush=True)
 
 
+def philox_oracle():
+    """The numpy Philox4x32-10 of the tests (tests/philox_oracle.py)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "philox_oracle", os.path.join(ROOT, "tests", "philox_oracle.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def corr(a, b):
+    import torch
+
+    return float(torch.corrcoef(torch.stack([a.flatten(), b.flatten()]))[0, 1])
+
+
 def phase_dp(report):
+    import numpy as np
     import torch
 
     from fl_tpu_torch.core import prng
@@ -637,11 +663,14 @@ def phase_dp(report):
         require(torch.allclose(got, want, rtol=1e-6, atol=0.0),
                 "K3 sigma=0: output is not x*scale to 1e-6 relative")
     sig = torch.full((C,), 0.01, device="cuda")
-    # x read once, the output written once, three (C,) vectors; ~40 f32
-    # operations of Philox and Box-Muller per element, held to the same
-    # peak as the other kernels (it is never the bound)
+    # x read once, the output written once, three (C,) vectors. The
+    # operations: about 10 f32 ones an element (Box–Muller for a pair
+    # shared by two elements, then x * scale + sigma * z) over the 67
+    # TFLOP/s f32 peak, far under the bytes. Philox's integer work has no
+    # line in the card's table of peaks; it held the old design, which
+    # drew a whole Philox call an element, at 2.2x this bound.
     n = sum(xg.numel() for xg, _, _ in groups)
-    b_ms, b_by = bound(8 * n + 2 * 16 * C, 40 * n)
+    b_ms, b_by = bound(8 * n + 2 * 16 * C, 10 * n, F32_FLOPS)
     report["clip_noise"].update(
         max_abs_err=err,
         ms=time_ms(lambda: [dpo.clip_noise_cuda(xg, s, sig, sd)
@@ -650,6 +679,26 @@ def phase_dp(report):
                                   for xg, s, sd in groups], reps=2),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
     del groups
+
+    # the stream itself: x = 0, scale = 0, sigma = 1 gives z, which must be
+    # the numpy Philox4x32-10 oracle's words through K3's counter map and
+    # Box–Muller, to 1e-5 (the card's log, sqrt, sin and cos), at ragged
+    # widths and with the seeds of two real clients
+    oracle = philox_oracle()
+    seeds = prng.as_int64(prng.client_stream_seeds(rseed, 2,
+                                                   prng.Stream.DP_NOISE, 1))
+    worst = 0.0
+    for D in (1, 3, 4097, widths[1]):
+        z = dpo.clip_noise_cuda(torch.zeros((2, D), device="cuda"),
+                                torch.zeros(2, device="cuda"),
+                                torch.ones(2, device="cuda"),
+                                torch.as_tensor(seeds).cuda()).cpu().numpy()
+        counter, word = (t.numpy() for t in dpo.noise_layout(D))
+        for c in range(2):
+            worst = max(worst, float(np.abs(
+                z[c] - oracle.box_muller(seeds[c], counter, word)).max()))
+    require(worst <= 1e-5, f"K3 differs from the Philox oracle by {worst} "
+            "(tol 1e-5)")
 
     # K3 noise statistics at sigma=1: 4 clients x 2^20 per group
     D, Cs = 1 << 20, 4
@@ -671,9 +720,30 @@ def phase_dp(report):
             f"K3 fraction beyond 3 sigma {tail} (0.27% +- 0.05%)")
     require(abs(corr_c) <= 5e-3 and abs(corr_g) <= 5e-3,
             f"K3 correlation client {corr_c} group {corr_g} (tol 5e-3)")
-    print(f"kernels (K3): sigma=0 exact to 1e-6, noise mean={mean:.2e} "
+    # the elements one Philox call feeds: the cosine and sine of a pair
+    # share their radius, so z and z^2 would show a fault there; the two
+    # pairs of a call come from other words (2M pairs each, 5e-3 is 7
+    # standard errors)
+    w = z[0][:, torch.as_tensor(oracle.word_index(*dpo.noise_layout(D)))
+              .cuda()]
+    cos_sin = max(abs(corr(torch.cat([w[:, 0], w[:, 2]]) ** p,
+                           torch.cat([w[:, 1], w[:, 3]]) ** p))
+                  for p in (1, 2))
+    pairs = max(abs(corr(torch.cat([w[:, 0], w[:, 1]]) ** p,
+                         torch.cat([w[:, 2], w[:, 3]]) ** p))
+                for p in (1, 2))
+    require(cos_sin <= 5e-3 and pairs <= 5e-3,
+            f"K3 correlation within a Philox call: cosine/sine {cos_sin}, "
+            f"pair/pair {pairs} (tol 5e-3, z and z^2)")
+    ks, ks_crit = oracle.ks_normal(flat)
+    require(ks <= ks_crit, f"K3 noise: Kolmogorov–Smirnov distance {ks} "
+            f"from N(0, 1) above {ks_crit} (significance 1e-3)")
+    print(f"kernels (K3): sigma=0 exact to 1e-6, the Philox oracle to "
+          f"{worst:.1e} at D=1, 3, 4097, {widths[1]}; noise mean={mean:.2e} "
           f"var={var:.5f} tail3={tail:.5f} corr_clients={corr_c:.1e} "
-          f"corr_groups={corr_g:.1e}", flush=True)
+          f"corr_groups={corr_g:.1e} corr_cos_sin={cos_sin:.1e} "
+          f"corr_pairs={pairs:.1e} KS={ks:.2e} (<= {ks_crit:.2e})",
+          flush=True)
 
 
 def quantize_width():
@@ -684,6 +754,7 @@ def quantize_width():
 
 
 def phase_quantize(report):
+    import numpy as np
     import torch
 
     from fl_tpu_torch.ops import quantize as qz
@@ -702,13 +773,29 @@ def phase_quantize(report):
     require(int(diff.max()) == 0,
             f"K6 deterministic: {int((diff != 0).sum())} of {D} values "
             "differ from the plain version")
-    b_ms, b_by = bound(5 * D + 4 * (D // qz.CHUNK), 30 * D)
+    # x read once, q and the scales written once; about 10 f32 operations
+    # a value over the f32 peak
+    b_ms, b_by = bound(5 * D + 4 * (D // qz.CHUNK), 10 * D, F32_FLOPS)
     report["quantize_int8_blocks"].update(
         max_abs_err=float(diff.max()),
         ms=time_ms(lambda: qz.quantize_int8_blocks_cuda(x, 5)),
         plain_ms=time_ms(lambda: qz.quantize_int8_blocks_plain(x, 5), reps=2),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
     del x, q, s, q_ref, s_ref, diff
+
+    # the stream itself: on 5 blocks every rounding decision is the numpy
+    # Philox4x32-10 oracle's uniform through K6's counter map, exactly
+    oracle = philox_oracle()
+    x = torch.randn((5 * qz.CHUNK,), generator=gen, device="cuda")
+    q, s = qz.quantize_int8_blocks_cuda(x, 11)
+    xn, sn = x.cpu().numpy(), s.cpu().numpy()
+    scaled = (xn.reshape(5, -1) * (np.float32(1) / sn)[:, None]).reshape(-1)
+    lo = np.floor(scaled)
+    u = oracle.uniforms(11, *(t.numpy() for t in qz.rounding_layout(5)))
+    want = np.clip(lo + (u < scaled - lo), -128, 127).astype(np.int8)
+    n_off = int((q.cpu().numpy() != want).sum())
+    require(n_off == 0, f"K6: {n_off} of {x.numel()} rounding decisions "
+            "differ from the Philox oracle's")
 
     # stochastic mode on 2^22 values, by its distribution
     n = 1 << 22
@@ -734,12 +821,23 @@ def phase_quantize(report):
                                - float(frac[sel].mean())))
     require(worst <= 0.01, f"K6 stochastic: P(ceil) off the fractional part "
             f"by {worst} in some decile (tol 0.01)")
+    # the four values one Philox call rounds: their decisions less their
+    # expectations are uncorrelated (1M per quarter, 5e-3 is 5 standard
+    # errors)
+    e = (up.double() - frac.double())[torch.as_tensor(oracle.word_index(
+        *qz.rounding_layout(n // qz.CHUNK))).cuda()]
+    quarters = max(abs(corr(e[a], e[b]))
+                   for a in range(4) for b in range(a + 1, 4))
+    require(quarters <= 5e-3, f"K6 stochastic: decisions of one Philox "
+            f"call's quarters correlate by {quarters} (tol 5e-3)")
     require(torch.equal(q1, q1b), "K6 stochastic: same seed, different bits")
     require(not torch.equal(q1, q2), "K6 stochastic: two seeds, same bits")
     print(f"kernels (K6): deterministic mode equals plain exactly at "
-          f"D={D}; stochastic on 2^22: floor/ceil only, mean(q - scaled)="
+          f"D={D}; the Philox oracle's decisions exactly on 5 blocks; "
+          f"stochastic on 2^22: floor/ceil only, mean(q - scaled)="
           f"{bias:.2e}, P(ceil) within {worst:.4f} of the fraction per "
-          f"decile, seeds differ and repeat", flush=True)
+          f"decile, quarters' correlation {quarters:.1e}, seeds differ and "
+          f"repeat", flush=True)
 
 
 def check_rounded(name, tag, got, want, dtype):

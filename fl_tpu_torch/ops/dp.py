@@ -5,31 +5,49 @@ sigma[c] * z`` with z ~ N(0, 1) drawn element by element from client c's
 seed — the counterpart of ``fl_tpu.ops.dp._clip_noise_pallas``. The
 Gaussian is Box–Muller on two 24-bit uniforms exactly as the TPU kernel
 builds them: u1 = (bits1 >> 8) / 2^24 + 2^-25 in [2^-25, 1), u2 =
-(bits2 >> 8) / 2^24, z = sqrt(-2 ln u1) cos(2 pi u2).
+(bits2 >> 8) / 2^24, r = sqrt(-2 ln u1), theta = 2 pi u2.
 
 On a CUDA tensor this launches kernel K3, a Triton kernel that draws its
-bits with Philox (``tl.randint4x``) keyed by the client's 64-bit seed at
-counter = element index, so every (seed, element) pair is its own stream.
-On a CPU tensor it takes the plain PyTorch version, which draws the same
-uniforms' distribution from one ``torch.Generator`` per client seed. The
-two give different bits by construction; tests compare distributions.
+bits with Philox4x32-10 (``tl.randint4x``) keyed by the client's 64-bit
+seed. One call gives four 32-bit words, and all four are used: words 0 and
+1 make one Box–Muller pair, whose r cos(theta) and r sin(theta) are two
+elements' noise, and words 2 and 3 make another. :func:`noise_layout` is
+the map from an element to its (counter, word); no (seed, counter, word)
+feeds two elements. On a CPU tensor it takes the plain PyTorch version,
+which draws the same uniforms' distribution from one ``torch.Generator``
+per client seed. The two give different bits by construction; the tests
+hold K3 to a numpy Philox oracle through the map, and the plain version
+by its distribution.
 
-K3 replaces ``_clip_noise_kernel`` (fl_tpu/ops/dp.py). What bounds it on
-the H100: it reads each element once and writes it once (8 B/element,
-about 1.7 GB a round at the 512-client bench), with ~40 flops of Philox and
-Box–Muller per element — far under the 295 flop/byte ridge, so it is bound
-by memory bandwidth. Its design streams each client row with masked
-1024-element block loads and stores, and keeps every random draw in
-registers, so nothing but x and the output touches device memory.
+K3 replaces ``_clip_noise_kernel`` (fl_tpu/ops/dp.py). The least time for
+its work on the H100 is the bytes: it reads each element once and writes it
+once (8 B an element, 1.73 GB a round at the 512-client bench, 0.516 ms at
+3.35 TB/s), with about 10 f32 operations an element. The first design drew
+one whole Philox call an element and used two of its words, and that held
+it at 2.2x the bound: in its compiled code an element cost 129 instructions
+on the path it runs, 68 of them integer (Philox's ten rounds of 32-bit
+products). At one instruction a clock on each of an SM's 128 lanes, 216 M
+elements take 0.83 ms at 1.98 GHz for that alone, more than the bytes need.
+This design makes one call for four elements, which cuts that to 70
+instructions (0.45 ms), 28 of them integer, and leaves the loads and stores
+as the limit. A program covers 4·BQ elements of one client row as four
+contiguous quarters, each loaded and stored coalesced and masked on its own
+(the small leaf group's width is no multiple of 4); lane i of program p
+calls Philox at counter BQ·p + i, and x, the draws and the output never
+leave registers. (Counts: ``tools/rng_kernels.py isa``.)
 """
 
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
-BLOCK = 1024
+# Philox calls (lanes) a program makes; it covers 4·BQ elements of a row
+BQ = 512
+NUM_WARPS = 4
+MAX_D = (1 << 31) - 1 - 4 * BQ
 LAUNCHES = {"clip_noise": 0}
 
 
@@ -74,6 +92,17 @@ def clip_noise_plain(x, scale, sigma, seeds):
     return out
 
 
+def noise_layout(D: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(counter, word) of each element of a client's row of width D, as K3
+    draws them: program p covers elements [4·BQ·p, 4·BQ·(p+1)) as four
+    contiguous quarters, and element 4·BQ·p + q·BQ + i takes word q of the
+    Philox call at counter BQ·p + i. Words 0 and 1 are one Box–Muller pair
+    (quarter 0 its cosine, quarter 1 its sine), words 2 and 3 the other."""
+    j = torch.arange(D, dtype=torch.int64)
+    p, r = j // (4 * BQ), j % (4 * BQ)
+    return p * BQ + r % BQ, r // BQ
+
+
 def _kernel():
     """K3, compiled at first use (Triton is imported only here)."""
     import triton
@@ -81,21 +110,43 @@ def _kernel():
 
     @triton.jit
     def clip_noise_kernel(x_ptr, out_ptr, scale_ptr, sigma_ptr, seed_ptr, D,
-                          BLOCK: tl.constexpr):
+                          BQ: tl.constexpr):
         c = tl.program_id(1)
-        offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < D
+        p = tl.program_id(0)
+        lane = tl.arange(0, BQ)
         row = c.to(tl.int64) * D
-        x = tl.load(x_ptr + row + offs, mask=mask, other=0.0)
+        # the four quarters of this program's 4·BQ elements
+        o0 = p * (4 * BQ) + lane
+        o1 = o0 + BQ
+        o2 = o1 + BQ
+        o3 = o2 + BQ
+        x0 = tl.load(x_ptr + row + o0, mask=o0 < D, other=0.0)
+        x1 = tl.load(x_ptr + row + o1, mask=o1 < D, other=0.0)
+        x2 = tl.load(x_ptr + row + o2, mask=o2 < D, other=0.0)
+        x3 = tl.load(x_ptr + row + o3, mask=o3 < D, other=0.0)
         scale = tl.load(scale_ptr + c)
         sigma = tl.load(sigma_ptr + c)
         seed = tl.load(seed_ptr + c)
-        r1, r2, _, _ = tl.randint4x(seed, offs)
-        u1 = (r1 >> 8).to(tl.float32) * (1.0 / 16777216.0) \
-            + (1.0 / 33554432.0)
-        u2 = (r2 >> 8).to(tl.float32) * (1.0 / 16777216.0)
-        z = tl.sqrt(-2.0 * tl.log(u1)) * tl.cos(6.283185307179586 * u2)
-        tl.store(out_ptr + row + offs, x * scale + sigma * z, mask=mask)
+        # one Philox4x32-10 call a lane, two Box–Muller pairs from it
+        w0, w1, w2, w3 = tl.randint4x(seed, p * BQ + lane)
+        ra = tl.sqrt(-2.0 * tl.log((w0 >> 8).to(tl.float32)
+                                   * (1.0 / 16777216.0)
+                                   + (1.0 / 33554432.0)))
+        ta = 6.283185307179586 * ((w1 >> 8).to(tl.float32)
+                                  * (1.0 / 16777216.0))
+        rb = tl.sqrt(-2.0 * tl.log((w2 >> 8).to(tl.float32)
+                                   * (1.0 / 16777216.0)
+                                   + (1.0 / 33554432.0)))
+        tb = 6.283185307179586 * ((w3 >> 8).to(tl.float32)
+                                  * (1.0 / 16777216.0))
+        tl.store(out_ptr + row + o0, x0 * scale + sigma * (ra * tl.cos(ta)),
+                 mask=o0 < D)
+        tl.store(out_ptr + row + o1, x1 * scale + sigma * (ra * tl.sin(ta)),
+                 mask=o1 < D)
+        tl.store(out_ptr + row + o2, x2 * scale + sigma * (rb * tl.cos(tb)),
+                 mask=o2 < D)
+        tl.store(out_ptr + row + o3, x3 * scale + sigma * (rb * tl.sin(tb)),
+                 mask=o3 < D)
 
     return clip_noise_kernel
 
@@ -110,13 +161,16 @@ def clip_noise_cuda(x, scale, sigma, seeds):
     if not all(t.is_cuda and t.is_contiguous()
                for t in (x, scale, sigma, seeds)):
         raise ValueError("clip_noise_cuda needs contiguous CUDA tensors")
+    C, D = x.shape
+    if D > MAX_D:
+        raise ValueError(f"D={D} must be at most {MAX_D} (the kernel's "
+                         "column offsets are 32-bit)")
     if _compiled is None:
         _compiled = _kernel()
-    C, D = x.shape
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        _compiled[(-(-D // BLOCK), C)](x, out, scale, sigma, seeds, D,
-                                       BLOCK=BLOCK, num_warps=4)
+        _compiled[(-(-D // (4 * BQ)), C)](x, out, scale, sigma, seeds, D,
+                                          BQ=BQ, num_warps=NUM_WARPS)
     LAUNCHES["clip_noise"] += 1
     return out
 

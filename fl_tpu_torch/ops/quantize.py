@@ -16,20 +16,33 @@
 
 On a CUDA tensor ``quantize_int8_blocks`` launches kernel K6, a Triton
 kernel that replaces ``_make_quantize_kernel`` (fl_tpu/ops/quantize.py). It
-draws its bits with Philox (``tl.randint``) keyed by the seed at counter =
-element index; the plain version, which a CPU tensor takes, draws uniforms
-from one ``torch.Generator``. The two give different bits by construction:
-the deterministic mode is held exactly, the stochastic mode by its
-distribution.
+draws its uniforms with Philox4x32-10 (``tl.randint4x``) keyed by the seed:
+one call gives four 32-bit words, and each word's top 24 bits round one
+value, so a call serves four values (:func:`rounding_layout` is the map
+from a value to its (counter, word)). The plain version, which a CPU
+tensor takes, draws uniforms from one ``torch.Generator``. The two give
+different bits by construction: the deterministic mode is held exactly,
+the stochastic mode to a numpy Philox oracle through the map on the card
+and by its distribution.
 
-What bounds K6 on the H100: it reads 4 bytes and writes 1 per element (plus
-one scale per 2048), with a 2048-wide max and ~30 integer and float
-operations of Philox per element — far under the 295 flop/byte ridge, so it
-is bound by memory bandwidth. One program owns one whole block, so it
-computes the block maximum itself and reads x once, held in registers
-between the reduction and the rounding (the TPU version computes the scales
-in a separate pass only because of an output-tiling limit there; its 8-row
-sublane padding is TPU tiling too and is not carried over).
+The least time for K6's work on the H100 is the bytes: it reads 4 bytes and
+writes 1 per value (plus one scale per 2048), with a 2048-wide max and
+about 10 f32 operations a value. The first design drew one whole Philox
+call a value and used one of its four words: its compiled code cost 78
+instructions a value, 56 of them integer, which at one instruction a clock
+on each of an SM's 128 lanes take 0.50 ms for 216 M values at 1.98 GHz and
+held it at 2.2x the bound. This design makes 512 calls a block, each
+rounding one value in each of the block's four contiguous quarters; with
+two warps a block (8 values a thread in each quarter) that cuts it to 39
+instructions, 22 of them integer, and the loads and stores are the limit.
+One program still owns one whole block, so it computes the block maximum
+itself and reads x once, held in registers between the reduction and the
+rounding (the TPU version computes the scales in a separate pass only
+because of an output-tiling limit there; its 8-row sublane padding is TPU
+tiling too and is not carried over). It is compiled without fused
+multiply-adds, so a value rounds by the rounded product x * (1 / scale), as
+in the plain version and the oracle. (Counts: ``tools/rng_kernels.py
+isa``.)
 """
 
 from __future__ import annotations
@@ -39,6 +52,11 @@ from typing import Optional, Tuple, Union
 import torch
 
 CHUNK = 2048
+# K6's quarter: a program's Philox calls, each rounding four values
+QW = CHUNK // 4
+# two warps a block, 8 values a thread in each quarter: faster than four
+# (``tools/rng_kernels.py sweep``)
+NUM_WARPS = 2
 LAUNCHES = {"quantize_int8_blocks": 0}
 
 Seed = Union[int, torch.Tensor]
@@ -91,8 +109,8 @@ def _check_blocks(x: torch.Tensor) -> int:
     if d == 0 or d % CHUNK:
         raise ValueError(f"D={d} must be a positive multiple of {CHUNK}")
     if d >= 1 << 31:
-        raise ValueError(f"D={d} must be below 2^31 (the random stream is "
-                         "keyed by a 32-bit element index)")
+        raise ValueError(f"D={d} must be below 2^31 (the random "
+                         "stream's counters are 32-bit)")
     return d // CHUNK
 
 
@@ -122,6 +140,16 @@ def quantize_int8_blocks_plain(x: torch.Tensor, seed: Seed, *,
     return q.clamp(-128, 127).to(torch.int8).reshape(-1), scales
 
 
+def rounding_layout(n_blocks: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(counter, word) of each of n_blocks·CHUNK values, as K6 draws its
+    stochastic-rounding uniforms: block b's values are four contiguous
+    quarters of QW = CHUNK / 4, and value b·CHUNK + q·QW + i takes word q
+    of the Philox call at counter b·QW + i."""
+    j = torch.arange(n_blocks * CHUNK, dtype=torch.int64)
+    b, r = j // CHUNK, j % CHUNK
+    return b * QW + r % QW, r // QW
+
+
 def _kernel():
     """K6, compiled at first use (Triton is imported only here)."""
     import triton
@@ -129,31 +157,65 @@ def _kernel():
 
     @triton.jit
     def quantize_int8_kernel(x_ptr, q_ptr, scale_ptr, seed,
-                             STOCHASTIC: tl.constexpr, CHUNK: tl.constexpr):
+                             STOCHASTIC: tl.constexpr, QW: tl.constexpr):
         blk = tl.program_id(0)
-        idx = blk * CHUNK + tl.arange(0, CHUNK)     # < 2^31, the counter
-        offs = blk.to(tl.int64) * CHUNK + tl.arange(0, CHUNK)
-        x = tl.load(x_ptr + offs)
-        amax = tl.max(tl.abs(x), axis=0)
+        lane = tl.arange(0, QW)
+        # the block's four quarters, at o0 + q·QW
+        o0 = blk.to(tl.int64) * (4 * QW) + lane
+        o1 = o0 + QW
+        o2 = o1 + QW
+        o3 = o2 + QW
+        x0 = tl.load(x_ptr + o0)
+        x1 = tl.load(x_ptr + o1)
+        x2 = tl.load(x_ptr + o2)
+        x3 = tl.load(x_ptr + o3)
+        amax = tl.maximum(
+            tl.maximum(tl.max(tl.abs(x0), axis=0), tl.max(tl.abs(x1), axis=0)),
+            tl.maximum(tl.max(tl.abs(x2), axis=0), tl.max(tl.abs(x3), axis=0)))
         # IEEE divisions (`/` is an approximate one), so that the scales
         # equal the plain version's bit for bit
         scale = tl.div_rn(tl.maximum(amax, 1e-12), 127.0)
-        scaled = x * tl.div_rn(1.0, scale)
-        lo = tl.floor(scaled)
+        rcp = tl.div_rn(1.0, scale)
+        s0 = x0 * rcp
+        s1 = x1 * rcp
+        s2 = x2 * rcp
+        s3 = x3 * rcp
+        l0 = tl.floor(s0)
+        l1 = tl.floor(s1)
+        l2 = tl.floor(s2)
+        l3 = tl.floor(s3)
         if STOCHASTIC:
-            u = (tl.randint(seed, idx) >> 8).to(tl.float32) \
-                * (1.0 / 16777216.0)                # 24 bits, [0, 1)
-            up = u < scaled - lo
+            # one Philox4x32-10 call a lane; word q's top 24 bits are
+            # quarter q's uniform in [0, 1), and it rounds up below frac(s)
+            w0, w1, w2, w3 = tl.randint4x(seed, blk * QW + lane)
+            up0 = (w0 >> 8).to(tl.float32) * (1.0 / 16777216.0) < s0 - l0
+            up1 = (w1 >> 8).to(tl.float32) * (1.0 / 16777216.0) < s1 - l1
+            up2 = (w2 >> 8).to(tl.float32) * (1.0 / 16777216.0) < s2 - l2
+            up3 = (w3 >> 8).to(tl.float32) * (1.0 / 16777216.0) < s3 - l3
         else:
             # half to even: up past the half, and at it when lo is odd.
             # Compared, not subtracted: a product fused into a subtraction
             # would decide an exact half by the unrounded product.
-            half = lo + 0.5
-            odd = (lo - 2.0 * tl.floor(lo * 0.5)) == 1.0
-            up = (scaled > half) | ((scaled == half) & odd)
-        q = tl.where(up, lo + 1.0, lo)
-        q = tl.minimum(tl.maximum(q, -128.0), 127.0)
-        tl.store(q_ptr + offs, q.to(tl.int8))
+            up0 = (s0 > l0 + 0.5) | ((s0 == l0 + 0.5)
+                                     & (l0 - 2.0 * tl.floor(l0 * 0.5) == 1.0))
+            up1 = (s1 > l1 + 0.5) | ((s1 == l1 + 0.5)
+                                     & (l1 - 2.0 * tl.floor(l1 * 0.5) == 1.0))
+            up2 = (s2 > l2 + 0.5) | ((s2 == l2 + 0.5)
+                                     & (l2 - 2.0 * tl.floor(l2 * 0.5) == 1.0))
+            up3 = (s3 > l3 + 0.5) | ((s3 == l3 + 0.5)
+                                     & (l3 - 2.0 * tl.floor(l3 * 0.5) == 1.0))
+        q0 = tl.where(up0, l0 + 1.0, l0)
+        q1 = tl.where(up1, l1 + 1.0, l1)
+        q2 = tl.where(up2, l2 + 1.0, l2)
+        q3 = tl.where(up3, l3 + 1.0, l3)
+        tl.store(q_ptr + o0, tl.minimum(tl.maximum(q0, -128.0), 127.0)
+                 .to(tl.int8))
+        tl.store(q_ptr + o1, tl.minimum(tl.maximum(q1, -128.0), 127.0)
+                 .to(tl.int8))
+        tl.store(q_ptr + o2, tl.minimum(tl.maximum(q2, -128.0), 127.0)
+                 .to(tl.int8))
+        tl.store(q_ptr + o3, tl.minimum(tl.maximum(q3, -128.0), 127.0)
+                 .to(tl.int8))
         tl.store(scale_ptr + blk, scale)
 
     return quantize_int8_kernel
@@ -176,9 +238,11 @@ def quantize_int8_blocks_cuda(x: torch.Tensor, seed: Seed, *,
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scales = torch.empty((n_blocks,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
+        # no fused multiply-adds: the rounding decides by the rounded
+        # product x * (1 / scale), as the plain version does
         _compiled[(n_blocks,)](x, q, scales, int(seed) & 0x7FFFFFFF,
-                               STOCHASTIC=stochastic, CHUNK=CHUNK,
-                               num_warps=4)
+                               STOCHASTIC=stochastic, QW=QW,
+                               num_warps=NUM_WARPS, enable_fp_fusion=False)
     LAUNCHES["quantize_int8_blocks"] += 1
     return q, scales
 

@@ -5,7 +5,11 @@ at ε = 1e9, where σ = sens·√(2 ln(1.25/δ))/ε is ~1e-9: the clip is
 exercised and the noise (whose bits differ by construction) is negligible.
 Clip scale, sensitivity and σ agree to 1e-6, outputs to 1e-5. The noise
 itself is tested by its distribution, with tolerances set from the sample
-size (about 5 standard errors each).
+size (about 5 standard errors each). At σ > 0 (ε = 5) the reference's tree
+path, whose jnp noise is real, and the port's plain path are both held to
+the same oracle: sensitivity and σ agree to 1e-6, and in each package the
+residual (noisy − Δ·scale)/σ is N(0, 1) per leaf and per client and does
+not correlate across the port's two leaf groups.
 """
 
 import jax
@@ -65,6 +69,102 @@ def test_matches_jax_delta_dp():
             np.testing.assert_allclose(t_noisy[l][k].numpy(),
                                        np.asarray(j_noisy[l][k]),
                                        rtol=1e-5, atol=1e-5, err_msg=l + k)
+
+
+G3_CLIENTS = 64
+G3_EPS, G3_DELTA, G3_CLIP = 5.0, 1e-5, 1.0
+
+
+@pytest.fixture(scope="module")
+def noised_at_eps_5():
+    """Both packages' noisy deltas at ε = 5 on the same 64 clients, whose
+    norms spread across the clip bound: {package: (noisy, sens, sigma)},
+    the deltas and the clip scale, all numpy."""
+    C = G3_CLIENTS
+    rng = np.random.default_rng(3)
+    mult = np.geomspace(1e-4, 1e-2, C).astype(np.float32)
+    d = {l: {k: (rng.standard_normal((C,) + s).astype(np.float32)
+                 * mult.reshape((C,) + (1,) * len(s)))
+             for k, s in leaves.items()} for l, leaves in SHAPES.items()}
+    keys = jprng.client_round_keys(jprng.root_key(0), 0, C)
+    jd = jax.tree.map(jnp.asarray, d)
+    j_noisy, j_sens, j_sigma = jax_dp_noise(jd, keys, G3_EPS, G3_DELTA,
+                                            G3_CLIP, use_pallas=False)
+    td = {l: {k: torch.tensor(v) for k, v in leaves.items()}
+          for l, leaves in d.items()}
+    t_noisy, t_sens, t_sigma = privacy.dp_noise_client_deltas(
+        td, prng.round_seed(prng.root_seed(0), 0), G3_EPS, G3_DELTA, G3_CLIP)
+    norm = privacy.client_norms(td).numpy()
+    out = {"jax": (jax.tree.map(np.asarray, j_noisy), np.asarray(j_sens),
+                   np.asarray(j_sigma)),
+           "torch": ({l: {k: v.numpy() for k, v in leaves.items()}
+                      for l, leaves in t_noisy.items()}, t_sens.numpy(),
+                     t_sigma.numpy())}
+    return out, d, np.minimum(1.0, G3_CLIP / np.maximum(norm, 1e-12))
+
+
+def _residuals(noisy, d, scale, sigma):
+    """(noisy − Δ·scale)/σ of each leaf, (C, leaf size) float64."""
+    C = scale.shape[0]
+    return {(l, k): ((noisy[l][k].astype(np.float64)
+                      - d[l][k] * scale.reshape((C,) + (1,) * (d[l][k].ndim
+                                                               - 1)))
+                     / sigma.reshape((C,) + (1,) * (d[l][k].ndim - 1))
+                     ).reshape(C, -1)
+            for l in d for k in d[l]}
+
+
+def _assert_standard_normal(z, what):
+    n = z.size
+    assert abs(z.mean()) < 5 / np.sqrt(n), what
+    assert abs(z.var() - 1) < 5 * np.sqrt(2 / n), what
+
+
+def test_sensitivity_and_sigma_match_jax_at_eps_5(noised_at_eps_5):
+    out, _, scale = noised_at_eps_5
+    _, j_sens, j_sigma = out["jax"]
+    _, t_sens, t_sigma = out["torch"]
+    assert (scale < 1).any() and (scale == 1).any()  # the clip is exercised
+    np.testing.assert_allclose(t_sens, j_sens, rtol=1e-6)
+    np.testing.assert_allclose(t_sigma, j_sigma, rtol=1e-6)
+    np.testing.assert_allclose(
+        t_sigma, t_sens * dpo.gaussian_factor(G3_EPS, G3_DELTA), rtol=1e-6)
+    assert t_sigma.min() > 0
+
+
+@pytest.mark.parametrize("package", ["jax", "torch"])
+def test_noise_residuals_are_standard_normal_per_leaf_and_client(
+        noised_at_eps_5, package):
+    """Per leaf over its clients (n = 256 for conv1's bias up to 4.9M for
+    fc1's kernel) and per client over its leaves (n = 77,096)."""
+    out, d, scale = noised_at_eps_5
+    noisy, _, sigma = out[package]
+    res = _residuals(noisy, d, scale, sigma)
+    for path, z in res.items():
+        _assert_standard_normal(z, f"{package} {path}")
+    per_client = np.concatenate(list(res.values()), axis=1)
+    for c in range(G3_CLIENTS):
+        _assert_standard_normal(per_client[c], f"{package} client {c}")
+    assert abs((np.abs(per_client) > 3).mean() - 0.0027) < 5 * np.sqrt(
+        0.0027 / per_client.size)
+
+
+@pytest.mark.parametrize("package", ["jax", "torch"])
+def test_noise_does_not_correlate_across_leaf_groups(noised_at_eps_5,
+                                                     package):
+    """fc1's kernel (its own group in the port) against the small leaves
+    concatenated (the other group), element by element, per client, and
+    across clients on the same leaf."""
+    out, d, scale = noised_at_eps_5
+    noisy, _, sigma = out[package]
+    res = _residuals(noisy, d, scale, sigma)
+    small = np.concatenate([z for p, z in res.items()
+                            if p != ("fc1", "kernel")], axis=1)
+    big = res[("fc1", "kernel")][:, :small.shape[1]]
+    tol = 5 / np.sqrt(small.size)
+    assert abs(np.corrcoef(big.ravel(), small.ravel())[0, 1]) < tol
+    fc1 = res[("fc1", "kernel")]
+    assert abs(np.corrcoef(fc1[0], fc1[1])[0, 1]) < 5 / np.sqrt(fc1.shape[1])
 
 
 def test_gaussian_factor_matches_jax():

@@ -11,24 +11,33 @@ own invariants on the CPU. Tolerances: K1 forward 1e-5 in f32 and one
 bf16 ulp (plus 1e-5 where a sum straddles zero before relu) in bf16; K2
 gradients 2e-4 in f32 and a relative Frobenius error of 1e-2 in bf16 (the
 kernel and the plain version round dz2/dz1 to bf16 at the same points but
-sum in different orders); K3 at σ=0 exactly x·scale to 1e-6 relative, and
-its noise by moments at about 6 standard errors; K4 the tolerances of K1/K2
-against its plain version, its forward bit-equal to K1 and its backward
-bit-equal to K2 fed K1's residuals in both dtypes (one body each: in bf16
-conv2 and its gradients run on the tensor cores for all of them), and to
-itself bit for bit across two runs; K1/K2/K4 also at a second geometry
-whose widths are no multiples of 16 (H=16, C1=12, C2=20, 5 images a
-client); K5 bit-equal to ``conv_stack`` per client; K6 equal to its plain
-version exactly in the deterministic mode (q and scales) and by floor/ceil,
-mean and P(ceil) in the stochastic mode; K7 and K8 (one f32 sum, one
-rounding) rtol 1e-4 / atol 1e-4 in f32, weight gradients atol 2e-4, and one
-bf16 ulp of the larger value plus 1e-4 in bf16, whatever route K8a's plan
-takes.
+sum in different orders); K3 at σ=0 exactly x·scale to 1e-6 relative, its
+noise equal to the numpy Philox4x32-10 oracle (``philox_oracle.py``)
+through its counter map to 1e-5 (the card's log, sqrt, sin and cos) at
+ragged widths, by moments at about 6 standard errors, by a
+Kolmogorov–Smirnov test at significance 1e-3, and uncorrelated (z and z²,
+5e-3) between the cosine and sine of one radius and between the two pairs
+of one Philox call; ``dp_noise_client_deltas`` through K3 at ε = 5 on
+SimpleCNN's leaves, each residual N(0, 1) at 5 standard errors; K4 the
+tolerances of K1/K2 against its plain version, its forward bit-equal to K1
+and its backward bit-equal to K2 fed K1's residuals in both dtypes (one
+body each: in bf16 conv2 and its gradients run on the tensor cores for all
+of them), and to itself bit for bit across two runs; K1/K2/K4 also at a
+second geometry whose widths are no multiples of 16 (H=16, C1=12, C2=20, 5
+images a client); K5 bit-equal to ``conv_stack`` per client; K6 equal to
+its plain version exactly in the deterministic mode (q and scales), in the
+stochastic mode equal to the Philox oracle's decisions exactly and held by
+floor/ceil, mean, P(ceil) and the correlation of one call's quarters
+(5e-3); K7 and K8 (one f32 sum, one rounding) rtol 1e-4 / atol 1e-4 in f32,
+weight gradients atol 2e-4, and one bf16 ulp of the larger value plus 1e-4
+in bf16, whatever route K8a's plan takes.
 """
 
+import numpy as np
 import pytest
 import torch
 
+import philox_oracle as oracle
 from fl_tpu_torch import ops
 from fl_tpu_torch.core import prng
 from fl_tpu_torch.ops import _build
@@ -525,6 +534,128 @@ def test_clip_noise_kernel(cuda):
     assert abs(float(flat.var()) - 1.0) <= 0.01
     assert abs(float((flat.abs() > 3).double().mean()) - 0.0027) <= 5e-4
     assert abs(float(torch.corrcoef(z[:2])[0, 1])) <= 5e-3
+
+
+def _corr(a, b):
+    return float(torch.corrcoef(torch.stack([a.flatten(), b.flatten()]))[0, 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 3, 4097, 20234])
+def test_clip_noise_kernel_is_the_philox_oracle(cuda, D):
+    seeds = prng.as_int64(prng.client_stream_seeds(5, 3, prng.Stream.DP_NOISE,
+                                                   1))
+    z = dpo.clip_noise(torch.zeros((3, D), device=cuda),
+                       torch.zeros(3, device=cuda), torch.ones(3, device=cuda),
+                       torch.as_tensor(seeds).to(cuda)).cpu().numpy()
+    counter, word = (t.numpy() for t in dpo.noise_layout(D))
+    for c in range(3):
+        np.testing.assert_allclose(
+            z[c], oracle.box_muller(seeds[c], counter, word), rtol=0,
+            atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_clip_noise_kernel_pairs_and_normality(cuda):
+    """4M draws: the cosine and sine of one radius, and the two pairs of one
+    call, uncorrelated in z and z² (2M pairs, 5e-3 = 7 standard errors);
+    Kolmogorov–Smirnov distance from N(0, 1) under its critical value at
+    significance 1e-3."""
+    C, D = 4, 1 << 20
+    seeds = torch.as_tensor(prng.as_int64(prng.client_stream_seeds(
+        2, C, prng.Stream.DP_NOISE))).to(cuda)
+    z = dpo.clip_noise(torch.zeros((C, D), device=cuda),
+                       torch.zeros(C, device=cuda), torch.ones(C, device=cuda),
+                       seeds).double()
+    w = z[:, torch.as_tensor(oracle.word_index(*dpo.noise_layout(D)))
+          .to(cuda)]
+    for p in (1, 2):
+        assert abs(_corr(torch.cat([w[:, 0], w[:, 2]]) ** p,
+                         torch.cat([w[:, 1], w[:, 3]]) ** p)) <= 5e-3
+        assert abs(_corr(torch.cat([w[:, 0], w[:, 1]]) ** p,
+                         torch.cat([w[:, 2], w[:, 3]]) ** p)) <= 5e-3
+    ks, critical = oracle.ks_normal(z)
+    assert ks <= critical
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_blocks", [1, 3])
+def test_quantize_kernel_is_the_philox_oracle(cuda, n_blocks):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((n_blocks * qz.CHUNK,), generator=gen, device=cuda)
+    q, s = qz.quantize_int8_blocks(x, 21)
+    xn, sn = x.cpu().numpy(), s.cpu().numpy()
+    scaled = (xn.reshape(n_blocks, -1)
+              * (np.float32(1) / sn)[:, None]).reshape(-1)
+    lo = np.floor(scaled)
+    u = oracle.uniforms(21, *(t.numpy() for t in qz.rounding_layout(
+        n_blocks)))
+    want = np.clip(lo + (u < scaled - lo), -128, 127).astype(np.int8)
+    np.testing.assert_array_equal(q.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_quantize_kernel_quarters_are_uncorrelated(cuda):
+    """The four values one Philox call rounds: their decisions less their
+    expectations do not correlate (1M per quarter, 5e-3 = 5 standard
+    errors)."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((1 << 22,), generator=gen, device=cuda)
+    q, s = qz.quantize_int8_blocks(x, 13)
+    scaled = (x.reshape(-1, qz.CHUNK) * (1.0 / s)[:, None]).reshape(-1)
+    lo = torch.floor(scaled)
+    e = ((q.float() > lo).double() - (scaled - lo).double())[torch.as_tensor(
+        oracle.word_index(*qz.rounding_layout(x.numel() // qz.CHUNK)))
+        .to(cuda)]
+    for a in range(4):
+        for b in range(a + 1, 4):
+            assert abs(_corr(e[a], e[b])) <= 5e-3
+
+
+@pytest.mark.cuda
+def test_dp_noise_client_deltas_through_the_kernel(cuda):
+    """Delta DP at ε = 5 on SimpleCNN's real leaves for 8 clients, through
+    K3 (one launch per leaf group): sensitivity and σ from the clipped
+    norm; the residual (noisy − Δ·scale)/σ N(0, 1) per leaf and per client
+    at 5 standard errors; no correlation across the two leaf groups."""
+    from fl_tpu_torch.fl import privacy
+    from fl_tpu_torch.models import create_model
+
+    C, eps, delta = 8, 5.0, 1e-5
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    mult = torch.logspace(-4, -2, C, device=cuda)
+    tree = {l: {k: torch.randn((C,) + s, generator=gen, device=cuda)
+                * mult.reshape((C,) + (1,) * len(s))
+                for k, s in leaves.items()}
+            for l, leaves in create_model("simple_cnn").param_shapes().items()}
+    ops.reset_launch_counts()
+    noisy, sens, sigma = privacy.dp_noise_client_deltas(
+        tree, prng.round_seed(prng.root_seed(0), 0), eps, delta, 1.0)
+    assert ops.launch_counts()["clip_noise"] == 2
+    norm = privacy.client_norms(tree)
+    scale = torch.clamp(1.0 / norm, max=1.0)
+    assert bool((scale < 1).any()) and bool((scale == 1).any())
+    torch.testing.assert_close(sens, torch.clamp(norm, max=1.0), rtol=1e-6,
+                               atol=0)
+    torch.testing.assert_close(sigma, sens * dpo.gaussian_factor(eps, delta),
+                               rtol=1e-6, atol=0)
+    res = {}
+    for l in tree:
+        for k, t in tree[l].items():
+            shape = (C,) + (1,) * (t.dim() - 1)
+            res[(l, k)] = ((noisy[l][k].double() - t.double()
+                            * scale.double().reshape(shape))
+                           / sigma.double().reshape(shape)).reshape(C, -1)
+    for what, z in list(res.items()) + [
+            (f"client {c}", torch.cat([r[c] for r in res.values()]))
+            for c in range(C)]:
+        n = z.numel()
+        assert abs(float(z.mean())) < 5 / n ** 0.5, what
+        assert abs(float(z.var()) - 1) < 5 * (2 / n) ** 0.5, what
+    groups = privacy.leaf_groups(tree)
+    small = torch.cat([res[p] for p in groups[1]], 1)
+    big = res[groups[0][0]][:, :small.shape[1]]
+    assert abs(_corr(big, small)) < 5 / small.numel() ** 0.5
 
 
 @pytest.mark.cuda
