@@ -38,7 +38,11 @@ line each; any failure exits non-zero:
    of the bench (K8a: the route each dtype and shape took, TMA, staged or
    the CUDA cores, printed and checked against its launch plan and the
    plan's shared memory against the library's count; ``batched_gemm`` on a
-   bf16 view that does not start on a 16-byte boundary), with ``F.conv2d``
+   bf16 view that does not start on a 16-byte boundary; K8b: the route each
+   dtype and shape took, TMA or the CUDA cores, checked against its plan
+   and the plan's shared memory against the library's count, and the bf16
+   TMA route at the bench shape also held to K7's forward, with the largest
+   gap in bf16 ulps and the share of bit-equal outputs), with ``F.conv2d``
    (groups = clients), its backward and ``torch.bmm`` as library
    yardsticks;
 4. the delta-DP FedAvg round of the 512-client bench configuration
@@ -135,6 +139,11 @@ PROBE_GEMM_SMALL = {
     "bfloat16": ((2, 128, 288, 64), (3, 70, 50, 37), (2, 8192, 288, 64),
              (1, 300, 64, 136)),
 }
+# K8b's small cases, (B, (H, W, I, O)) with 3 clients, and the route each
+# takes in bf16 (f32 always takes the CUDA cores): a tile over two images,
+# channels TMA cannot address (I = 4, 3), a ragged last tile of 105 rows
+TAPLOOP_SMALL = {(2, CONV2_SHAPE): "tma", (1, (28, 28, 4, 8)): "cuda_core",
+                 (3, (5, 7, 3, 6)): "cuda_core", (3, (5, 7, 16, 8)): "tma"}
 # two formulations of one bf16 convolution round the same f32 sum, so they
 # differ by rare one-ulp flips; a library algorithm that transforms the
 # operands adds its own rounding. Relative Frobenius norm.
@@ -202,6 +211,18 @@ def bf16_ulp(t):
 
     mag = t.abs().clamp(min=2.0 ** -126)
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def ulp_gap(a, b):
+    """(largest |a - b| beyond 1e-4 in bf16 ulps of the larger magnitude,
+    the measure check_rounded holds to 1; share of elements that are
+    bit-equal) of two bf16 tensors."""
+    import torch
+
+    a, b = a.float(), b.float()
+    ulps = ((a - b).abs() - 1e-4).clamp(min=0) / bf16_ulp(
+        torch.maximum(a.abs(), b.abs()))
+    return float(ulps.max()), float((a == b).float().mean())
 
 
 def conv_inputs(gen, C, B, dtype, H=28, C1=32, C2=64, constant=False):
@@ -1071,7 +1092,7 @@ def phase_conv_probe(report):
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     n = 0
-    routes = {}
+    routes, routes_b = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         for C, M, K, N in PROBE_GEMM_SMALL[str(dtype)[6:]]:
             a = torch.randn((C, M, K), generator=gen, device="cuda").to(dtype)
@@ -1092,14 +1113,24 @@ def phase_conv_probe(report):
                     "shared memory in the library")
             routes[tag] = plan.route
             n += 1
-        for B, shape in ((2, CONV2_SHAPE), (1, (28, 28, 4, 8)),
-                         (3, (5, 7, 3, 6))):
+        for (B, shape), bf16_route in TAPLOOP_SMALL.items():
             x, w, _ = patch_inputs(gen, 3, B, shape, dtype)
+            tag = f"{str(dtype)[6:]} B={B} {shape}"
+            before = dict(probe.TAPLOOP_ROUTE_LAUNCHES)
             got, want = probe.taploop_conv_cuda(x, w), (
                 probe.taploop_conv_plain(x, w))
             torch.cuda.synchronize()
-            check_rounded("K8b", f"{str(dtype)[6:]} B={B} {shape}", got, want,
-                          dtype)
+            check_rounded("K8b", tag, got, want, dtype)
+            took = [k for k, v in probe.TAPLOOP_ROUTE_LAUNCHES.items()
+                    if v != before[k]]
+            plan = probe.taploop_launch_plan(dtype, 3, B, *shape)
+            lib_smem = probe.taploop_kernel_smem_bytes(plan, dtype, *shape)
+            route = bf16_route if dtype == torch.bfloat16 else "cuda_core"
+            require(took == [plan.route] == [route]
+                    and plan.smem_bytes == lib_smem,
+                    f"K8b {tag}: took {took}, plan {plan}, {lib_smem} B of "
+                    "shared memory in the library")
+            routes_b[tag] = plan.route
             n += 1
 
     # a bf16 view that starts 2 bytes past an allocation (K and N multiples
@@ -1129,26 +1160,51 @@ def phase_conv_probe(report):
     del a, b
     torch.cuda.empty_cache()
     x, w, _ = patch_inputs(gen, C, BATCH_SIZE, CONV2_SHAPE, dt)
+    plan_b = probe.taploop_launch_plan(dt, C, BATCH_SIZE, *CONV2_SHAPE)
+    lib_smem = probe.taploop_kernel_smem_bytes(plan_b, dt, *CONV2_SHAPE)
+    require(plan_b.route == "tma" and plan_b.smem_bytes == lib_smem,
+            f"K8b at the bench shapes: plan {plan_b}, {lib_smem} B of shared "
+            "memory in the library")
+    before = dict(probe.TAPLOOP_ROUTE_LAUNCHES)
     y, y_ref = probe.taploop_conv_cuda(x, w), probe.taploop_conv_plain(x, w)
     torch.cuda.synchronize()
+    took = {k: v - before[k] for k, v in probe.TAPLOOP_ROUTE_LAUNCHES.items()
+            if v != before[k]}
+    require(took == {"tma": 1}, f"K8b at the bench shapes: launches by "
+                                f"route {took}")
+    routes_b[f"bf16 B={BATCH_SIZE} {CONV2_SHAPE}"] = plan_b.route
     err_b = check_rounded("K8b", "bench shapes", y, y_ref, dt)
-    # the tap loop sums on the CUDA cores in ascending k, the patch GEMM on
-    # the tensor cores: the same f32 sum in two orders, rounded once
+    # the tap loop and the patch GEMM both sum on the tensor cores, in their
+    # own orders: the same f32 sum, rounded once
     y7 = cp.patch_gemm_cuda(x, w.reshape(C, 288, 64))
     check_rounded("K8b against K7", "bench shapes", y, y7, dt)
-    ulps = float((((y.float() - y7.float()).abs() - 1e-4).clamp(min=0)
-                  / bf16_ulp(torch.maximum(y.float().abs(),
-                                           y7.float().abs()))).max())
+    gaps = {k: ulp_gap(y, other) for k, other in (("plain", y_ref),
+                                                  ("K7", y7))}
     del y7
     xl, wl = to_library(x), library_weights(w)
     b_ms, b_by = bound(nbytes(x, w, y), conv_flops(x, w))
     report["probe_taploop_conv"].update(
-        max_abs_err=err_b, ms=time_ms(lambda: probe.taploop_conv_cuda(x, w)),
+        instruction=plan_b.instruction, max_abs_err=err_b,
+        ms=time_ms(lambda: probe.taploop_conv_cuda(x, w)),
         plain_ms=time_ms(lambda: probe.taploop_conv_plain(x, w)),
         library_ms=time_ms(lambda: F.conv2d(xl, wl, padding=1, groups=C)),
         bound_ms=b_ms, bound_by=b_by)
     del x, w, y, y_ref, xl, wl
     torch.cuda.empty_cache()
+    e = report["probe_taploop_conv"]
+    print(f"routes (K8b): {routes_b} (the dtype and the shape fix the route: "
+          f"bf16 on TMA + wgmma where I and O are multiples of 8 and the "
+          f"ring fits; other bf16 shapes and f32 on the CUDA cores)",
+          flush=True)
+    print(f"kernels (K8b): bf16 at the bench shapes on route {plan_b.route} "
+          f"({plan_b.stages} stages x {plan_b.blocks} blocks of "
+          f"{plan_b.items_per_block} tiles) {e['ms']:.3f} ms, "
+          f"{e['bound_ms'] / e['ms']:.3f} of its bound {e['bound_ms']:.3f} "
+          f"({e['bound_by']}), library {e['library_ms']:.3f}, plain "
+          f"{e['plain_ms']:.3f}; largest gap beyond 1e-4 / share of "
+          f"bit-equal outputs: " + ", ".join(
+              f"against {k} {g[0]:.2f} ulp / {g[1]:.4f}"
+              for k, g in gaps.items()), flush=True)
 
     a = torch.randn((C, M, K), generator=gen, device="cuda", dtype=dt)
     b = torch.randn((C, K, N), generator=gen, device="cuda", dtype=dt)
@@ -1177,8 +1233,8 @@ def phase_conv_probe(report):
           f"bf16 one ulp + 1e-4), and at the bench shapes in f32 and bf16 "
           f"(bf16 max abs err GEMM "
           f"{err_a:.2e}, tap loop {err_b:.2e}); tap loop against patch "
-          f"GEMM forward at the bench shapes: at most 1e-4 + {ulps:.2f} bf16 "
-          f"ulp apart (tol one ulp + 1e-4); bf16 GEMM at the bench shapes "
+          f"GEMM forward at the bench shapes within one bf16 ulp + 1e-4; "
+          f"bf16 GEMM at the bench shapes "
           f"{e['ms']:.3f} ms on {plan.stages} stages x {plan.blocks} blocks, "
           f"torch.bmm {e['library_ms']:.3f}, {e['bound_ms'] / e['ms']:.3f} of "
           f"its bound ({e['bound_by']}), "

@@ -392,6 +392,11 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
+// arrive at barrier `id` without waiting: threads that bar.sync on it go on
+// once `count` threads in all have arrived or synced
+__device__ __forceinline__ void named_barrier_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
 
 template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
@@ -408,6 +413,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+// box (c0, c1, c2, c3) of a 4-D tensor map; coordinates may be negative, and
+// what lies outside the tensor arrives as zeros (and counts as bytes)
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_addr(bar))
       : "memory");
 }
 // shared memory into box (c0, c1, c2); what lies outside the tensor is not
@@ -438,6 +454,14 @@ template <int N> __device__ __forceinline__ void bulk_wait() {
 // so the eight rows of one ldmatrix fall into eight bank groups.
 __host__ __device__ __forceinline__ uint32_t swizzle128(int row, int chunk) {
   return (uint32_t)(row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
+// The same for rows of `span` bytes (32, 64 or 128: CU_TENSOR_MAP_SWIZZLE_32B,
+// _64B, _128B), as a byte offset from a base aligned to 1024: the 16-byte
+// chunk index (bits 4 and up) is XORed with as many bits of the offset from
+// bit 7 on as a row has chunks' bits. swizzle_span(off, 128) is swizzle128.
+__host__ __device__ __forceinline__ uint32_t swizzle_span(uint32_t off, int span) {
+  return off ^ (((off >> 7) & (uint32_t)(span / 16 - 1)) << 4);
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -472,6 +496,31 @@ int make_map_bf16_3d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
                   strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                   swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A 4-D bf16 tensor (d0 innermost, each outer stride the product of the
+// inner dimensions times 2 bytes, multiples of 16) cut into boxes of
+// b0 x b1 x b2 x 1, b0 * 2 bytes a row under the swizzle of that span (32,
+// 64 or 128 bytes); elements outside the tensor read as zeros. Returns a
+// cudaError_t.
+int make_map_bf16_4d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+                     uint64_t d3, uint32_t b0, uint32_t b1, uint32_t b2) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
+  const CUtensorMapSwizzle swizzle = b0 * 2 == 32   ? CU_TENSOR_MAP_SWIZZLE_32B
+                                     : b0 * 2 == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                     : b0 * 2 == 128
+                                         ? CU_TENSOR_MAP_SWIZZLE_128B
+                                         : CU_TENSOR_MAP_SWIZZLE_NONE;
+  if (swizzle == CU_TENSOR_MAP_SWIZZLE_NONE) return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[4] = {d0, d1, d2, d3};
+  const cuuint64_t strides[3] = {d0 * 2, d0 * d1 * 2, d0 * d1 * d2 * 2};
+  const cuuint32_t box[4] = {b0, b1, b2, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                  strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }

@@ -31,24 +31,38 @@
 //       (N tiles, M tiles, C), a 64 x 64 output tile per block, K walked in
 //       chunks of 32 through shared memory, a 4 x 4 register tile per thread
 //       on the CUDA cores.
-// taploop_conv_kernel   grid (image groups, C): a block stages a band of an
-//                       image with its one-pixel halo (zeros outside the
-//                       image) and the client's weights in shared memory; a
-//                       thread owns four output positions x four channels in
-//                       registers and makes nine passes over the staged
-//                       rows, one K = I product each.
+// The tap loop takes one of two routes, fixed by the dtype and the shape
+// (ops/conv_probe.py taploop_launch_plan):
+//   taploop_tma_wgmma_kernel  bfloat16 where a pixel's channels and outputs
+//       are whole 16-byte pieces and the ring fits: a persistent block an SM
+//       walks (client, pass, 128-row tile) items client-major, one producer
+//       warp streams whole images with their one-pixel halo by TMA (the
+//       halo's zeros are TMA's out-of-bounds fill), two consumer warpgroups
+//       take the tiles in turn, gather each tap's rows from the staged
+//       images by ldmatrix and multiply them on wgmma against the client's
+//       nine taps held in shared memory, and the rounded tile leaves by a TMA
+//       store;
+//   taploop_conv_kernel       float32 (TF32 would break the contract) and the
+//       bfloat16 shapes TMA cannot take: grid (image groups, C), a block
+//       stages a band of an image with its one-pixel halo (zeros outside the
+//       image) and the client's weights in shared memory; a thread owns four
+//       output positions x four channels in registers and makes nine passes
+//       over the staged rows, one K = I product each.
 //
 // What bounds them on the H100: at the probe shapes (512 clients, M = 8192,
 // K = 288, N = 64, bf16) the GEMM is 77 G FMA on 2.97 GB, the convolution
-// (512 x 32 images, 14x14, 32 -> 64) 59 G FMA on 0.6 GB: both bound by bytes
-// by the card's numbers. The TMA route answers for the GEMM: A (81% of the
-// bytes) is read once, in whole boxes, by a warp that does nothing else, so
-// the products and stores hide under its stream; what is left is the
-// card's copy rate. K = 288 is 4.5 swizzle boxes of 64: the fifth box's
-// columns past K are zero-filled by TMA in shared memory only (K padded to
-// 320 there), which costs shared-memory bandwidth and no device memory. The
-// tap loop runs on the CUDA cores, bound by FMA issue and shared-memory
-// loads.
+// (512 x 32 images, 14x14, 32 -> 64) 59 G FMA on 0.64 GB: both bound by
+// bytes by the card's numbers. The TMA routes answer for that. The GEMM's A
+// (81% of its bytes) is read once, in whole boxes, by a warp that does
+// nothing else, so the products and stores hide under its stream; what is
+// left is the card's copy rate. K = 288 is 4.5 swizzle boxes of 64: the fifth
+// box's columns past K are zero-filled by TMA in shared memory only (K padded
+// to 320 there), which costs shared-memory bandwidth and no device memory.
+// The tap loop's x is read once and y written once, and its products (9 x
+// 2 x 2 wgmma m64n64k16 a 128-row tile) run on the tensor cores; what holds
+// it above its bytes is the consumers' own work a tile (addresses, waits,
+// the epilogue) and the latency of wgmma with A from registers, which lets
+// only a few products be in flight (PERF.md).
 
 #include "common.cuh"
 
@@ -112,6 +126,7 @@ constexpr int kKBox = 64;         // K columns of one TMA box: 128 bytes, the sw
 constexpr int kStageBytes = kTmaRows * kKBox * 2;
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kStagedMaxThreads = 256;
+constexpr int kHandTap = 4;  // the tap loop's turns pass after this tap's products
 
 // 8-column tiles a column pass covers: 64 columns where N reaches beyond 32,
 // else the next of 8, 16, 32
@@ -427,6 +442,378 @@ gemm_staged_wgmma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16: the tap loop on TMA + wgmma
+// ---------------------------------------------------------------------------
+
+// Channels of one staged TMA box: 16, 32 or 64, so that a staged pixel is one
+// row of 32, 64 or 128 bytes, the span of the box's swizzle. I is padded to a
+// whole number of boxes; TMA reads the channels past I as zeros.
+__host__ __device__ __forceinline__ int taploop_chunk(int I) {
+  return I <= 16 ? 16 : I <= 32 ? 32 : 64;
+}
+
+// Bytes of one box: a whole image with its one-pixel halo, (H + 2) x (W + 2)
+// pixels of KC channels, rounded up to 1024 so that every box starts where
+// its swizzle's pattern does.
+__host__ __device__ __forceinline__ uint32_t taploop_box_bytes(int H, int W, int KC) {
+  return (uint32_t)(((size_t)(H + 2) * (W + 2) * KC * 2 + 1023) & ~(size_t)1023);
+}
+
+// Images two tiles, 256 consecutive output rows, can touch (HW rows an
+// image): the two consumer warpgroups hold at most that many at once.
+__host__ __device__ __forceinline__ int taploop_span(int B, int HW) {
+  const int n = (2 * kTmaRows - 2) / HW + 2;
+  return n < B ? n : B;
+}
+
+// The TMA route's shared memory: the slack to align to 1024, the stages (one
+// halo'd image each, I / KC boxes rounded up), two warpgroups' output
+// tiles, the client's nine taps of one column pass as core matrices, the
+// full and empty barriers.
+size_t taploop_tma_smem_bytes(int H, int W, int I, int O, int stages) {
+  const int KC = taploop_chunk(I), KP = (I + KC - 1) / KC * KC;
+  const size_t NP = 8 * gemm_pass_tiles(O);
+  return 1024 + (size_t)stages * (KP / KC) * taploop_box_bytes(H, W, KC) +
+         2 * kTmaRows * NP * 2 + (size_t)9 * KP * NP * 2 + (size_t)2 * stages * 8;
+}
+
+// Columns n0 .. n0 + 8 * NT of the client's nine taps (wc: [tap][I][O]) as
+// the core matrices wgmma reads, [k / 8][n / 8][k % 8][n % 8], tap t's
+// channels at rows t * KP .. t * KP + KP, zeros past I and past O (O a
+// multiple of 8 and wc 16-byte aligned on this route). The caller commits
+// and waits.
+template <int NT>
+__device__ void load_b_taps(bf16* s_b, const bf16* __restrict__ wc, int I, int O, int KP,
+                            int n0, int tid, int nthreads) {
+  for (int e = tid; e < 9 * KP * NT; e += nthreads) {
+    const int k0 = e & 7, nb = (e >> 3) % NT, kb = (e >> 3) / NT;
+    const int k = kb * 8 + k0, tap = k / KP, ci = k - tap * KP, o = n0 + nb * 8;
+    bf16* d = s_b + ((size_t)(kb * NT + nb) * 8 + k0) * 8;
+    if (ci >= I || o >= O)
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    else
+      cp_async16(d, wc + ((size_t)tap * I + ci) * O + o);
+  }
+}
+
+// n / d for 0 <= n < 2^24 (so that n is exact as a float): the quotient by
+// d's float reciprocal, off by at most one, then corrected
+struct FastDiv {
+  int d;
+  float inv;
+  __device__ __forceinline__ FastDiv(int d_) : d(d_), inv(1.f / (float)d_) {}
+  __device__ __forceinline__ int operator()(int n) const {
+    int q = __float2int_rz(__int2float_rz(n) * inv);
+    q += (q + 1) * d <= n;
+    q -= q * d > n;
+    return q;
+  }
+};
+
+// A tap-loop work item (client, column pass, tile); a block walks its items
+// in order, and next() steps to the following one without a division.
+struct TapItem {
+  int c, p, t;
+  __device__ __forceinline__ void next(int passes, int m_tiles) {
+    if (++t == m_tiles) {
+      t = 0;
+      if (++p == passes) p = 0, ++c;
+    }
+  }
+};
+
+// The ring positions of the images each item reads, as the producer fills
+// them: a (client, pass) starts where the last one's images end, at its
+// first image (tile t of the client's M output rows reads images
+// t * 128 / HW .. ((t + 1) * 128 - 1) / HW); positions only grow.
+struct TapRing {
+  int u_key = 0, b0_key = 0, u_end = 0;
+  int b_lo = 0, first = 0, last = 0;  // of the item stepped last
+  __device__ __forceinline__ void step(bool fresh, int t, int M, const FastDiv& hw) {
+    b_lo = hw(t * kTmaRows);
+    const int b_hi = hw(min(M, (t + 1) * kTmaRows) - 1);
+    if (fresh) u_key = u_end, b0_key = b_lo;
+    first = u_key + b_lo - b0_key;
+    last = u_key + b_hi - b0_key;
+    u_end = last + 1;
+  }
+};
+
+// The TMA route of the tap loop: I * 2 and O * 2 multiples of 16, x, w and y
+// 16-byte aligned, W + 2 and H + 2 at most 256, `stages` a power of two.
+// Work items are (client, column pass, 128-row tile of the client's B * H *
+// W output rows), walked client-major by a persistent block an SM, as the
+// GEMM's. Warpgroup 0 is the producer: one thread streams the images the
+// block's tiles read, each once per (client, pass), in order, through the
+// ring of stages. An image arrives whole with its one-pixel halo: a 4-D
+// tensor map over x seen as (I, W, H, C * B), boxes of (KC, W + 2, H + 2,
+// 1) at (kc * KC, -1, -1, image), so TMA writes the halo's zeros and no
+// padded copy of x exists. Warpgroups 1 and 2 take the items in turn (0, 2,
+// 4, ... and 1, 3, 5, ...), each a whole tile as two 64-row halves: for
+// each tap, each box of its channels and each half, a lane gathers its
+// row's 16-byte pieces from its image's stage at the tap's offset by
+// ldmatrix (the swizzle's XOR applied to the address) and the warpgroup
+// multiplies them on wgmma m64nNk16 against the nine taps held in shared
+// memory for the client and pass, into the half's f32 accumulator, tap-major
+// and channel-minor; a half's gather runs while the other half multiplies.
+// A stage is handed back by both warpgroups, in ring order, once neither's
+// next tile reads it. The rounded tile leaves by a TMA store of y seen as
+// (O, B * H * W, C), clipped at the client's last row, while the other
+// warpgroup's products run. Where a (client, pass) starts, the warpgroup
+// whose tile it is reloads the taps once the other's products on the old
+// ones have retired, and the other waits for the reload.
+template <int NT, int KC>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+taploop_tma_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                         const __grid_constant__ CUtensorMap map_y, const bf16* __restrict__ w,
+                         int C, int B, int H, int W, int I, int O, int stages,
+                         int items_per_block) {
+  extern __shared__ unsigned char smem_tap[];
+  constexpr int NP = 8 * NT, SPC = KC / 16, CB = 2 * KC;  // k16 steps and bytes of a staged row
+  constexpr int kParts = kTmaRows / 64;  // a tile: two 64-row parts
+  const int IC = (I + KC - 1) / KC, KP = IC * KC;
+  const int WP = W + 2, HW = H * W, M = B * HW;
+  const uint32_t box_bytes = taploop_box_bytes(H, W, KC), stage_bytes = IC * box_bytes;
+  const int smask = stages - 1, sshift = __ffs(stages) - 1;
+  unsigned char* s_x = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_tap) + 1023) & ~(uintptr_t)1023);
+  bf16* s_out = reinterpret_cast<bf16*>(s_x + (size_t)stages * stage_bytes);  // 2 x [128][NP]
+  bf16* s_b = s_out + 2 * kTmaRows * NP;
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_b + (size_t)9 * KP * NP);
+  uint64_t* empty = full + stages;
+
+  const int m_tiles = (M + kTmaRows - 1) / kTmaRows, passes = (O + NP - 1) / NP;
+  const long long item0 = (long long)blockIdx.x * items_per_block;
+  const int n_items = (int)min((long long)C * passes * m_tiles - item0, (long long)items_per_block);
+  const int wg = threadIdx.x >> 7;
+  const FastDiv div_hw(HW), div_w(W);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival from each consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (n_items <= 0) return;  // uniform across the block
+  const GemmItem g0 = gemm_item(item0, passes, m_tiles);
+
+  if (wg == 0) {
+    // the producer: image after image, each once per (client, pass)
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      const uint32_t tx = (uint32_t)IC * (H + 2) * WP * KC * 2;
+      TapItem q = {g0.c, g0.p, g0.t};
+      TapRing ring;
+      int u = 0;
+      for (int i = 0; i < n_items; ++i, q.next(passes, m_tiles)) {
+        ring.step(i == 0 || q.t == 0, q.t, M, div_hw);
+        for (; u <= ring.last; ++u) {
+          const int s = u & smask;
+          mbar_wait(&empty[s], ((u >> sshift) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[s], tx);
+          for (int kc = 0; kc < IC; ++kc)
+            tma_load_4d(s_x + (size_t)s * stage_bytes + kc * box_bytes, &map_x, &full[s],
+                        kc * KC, -1, -1, q.c * B + ring.b_lo + u - ring.first);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup cw takes items cw, cw + 2, ...
+  setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int a_row = warp * 16 + (lane & 15);
+  const uint32_t lbo = NT * 128, sbo = 128;  // bytes between k-blocks, between column blocks
+  const uint64_t desc0 = wgmma_desc(smem_addr(s_b), lbo, sbo);
+  const uint32_t x_base = smem_addr(s_x);
+  unsigned char* my_out = reinterpret_cast<unsigned char*>(s_out + cw * kTmaRows * NP);
+  const bool issuer = (threadIdx.x & 127) == 0;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int my_turn = 3 + cw, their_turn = 4 - cw;  // named barriers of the hand-overs
+  uint32_t chunk[SPC];  // the lane's 16-byte piece of each k16 step in a staged row
+#pragma unroll
+  for (int j = 0; j < SPC; ++j) chunk[j] = (2 * j + (lane >> 4)) << 4;
+
+  // ring: stepped through the item before this warpgroup's next one
+  TapItem q = {g0.c, g0.p, g0.t};
+  TapRing ring;
+  ring.step(true, q.t, M, div_hw);
+  if (cw == 1) {
+    if (n_items < 2) return;
+    q.next(passes, m_tiles);
+    ring.step(q.t == 0, q.t, M, div_hw);
+  }
+  int u_rel = 0;  // the first ring position this warpgroup has not handed back
+  for (int i = cw; i < n_items; i += 2) {
+    const bool fresh = i == 0 || q.t == 0;
+    const int first = ring.first, b_lo = ring.b_lo, last = ring.last;
+    const TapItem cur = q;
+    // the next two items: this warpgroup's next tile reads nothing before
+    // `keep`
+    int keep = ring.u_end;
+    if (i + 1 < n_items) {
+      q.next(passes, m_tiles);
+      ring.step(q.t == 0, q.t, M, div_hw);
+      keep = ring.u_end;
+      if (i + 2 < n_items) {
+        q.next(passes, m_tiles);
+        ring.step(q.t == 0, q.t, M, div_hw);
+        keep = ring.first;
+      }
+    }
+    // The warpgroups take turns: item i + 1 starts once item i has issued
+    // the products of its first kHandTap + 1 taps, so that their epilogues
+    // fall apart and each runs under the other's products. Where item i + 1
+    // starts a (client, pass) and reloads the taps, the turn passes only
+    // once item i's products have retired.
+    const bool next_fresh = i + 1 < n_items && cur.t + 1 == m_tiles;
+    const bool hand_mid = i + 1 < n_items && !next_fresh;
+
+    // each part's lane row (rows past the client's last read its last row,
+    // and the store drops them): the shared-memory address of its image's
+    // stage, and the byte offset in the halo'd image of its pixel under tap
+    // (0, 0), row r and column c at r * (W + 2) + c = hw + 2 r
+    uint32_t x_lane[kParts], p_off[kParts];
+#pragma unroll
+    for (int h = 0; h < kParts; ++h) {
+      const int m = min(cur.t * kTmaRows + h * 64 + a_row, M - 1);
+      const int b = div_hw(m), hw = m - b * HW;
+      p_off[h] = (uint32_t)(hw + 2 * div_w(hw)) * CB;
+      x_lane[h] = x_base + (uint32_t)((first + b - b_lo) & smask) * stage_bytes;
+    }
+
+    if (i > 0) named_barrier(my_turn, 256);
+    if (fresh) {
+      load_b_taps<NT>(s_b, w + (size_t)cur.c * 9 * I * O, I, O, KP, cur.p * NP,
+                      threadIdx.x & 127, 128);
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_proxy_async();
+      named_barrier(1 + cw, 128);
+    }
+    for (int u = first; u <= last; ++u) mbar_wait(&full[u & smask], (u >> sshift) & 1);
+
+    // zeroed before the first fence: a write to a sum between a wgmma's
+    // fence and its retirement makes ptxas serialize the products
+    float acc[kParts][NT][4];
+#pragma unroll
+    for (int h = 0; h < kParts; ++h)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          acc[h][n][v] = 0.f;
+          asm volatile("" : "+f"(acc[h][n][v])::"memory");
+        }
+
+    // one part's k16 steps of box kc at the tap `toff` bytes on: gather the
+    // A fragments, then multiply them into the part's sums. The descriptors
+    // are in registers before the fence: an instruction that writes a
+    // wgmma's input between fence and commit makes ptxas serialize the
+    // group.
+    auto unit = [&](uint32_t (&a)[SPC][4], float (&d)[NT][4], int h, uint32_t toff, int kc,
+                    uint64_t dgrp) {
+      const uint32_t off = p_off[h] + toff;  // a multiple of CB: the row's XOR alone
+      const uint32_t row = x_lane[h] + kc * box_bytes + off, flip = swizzle_span(off, CB) ^ off;
+#pragma unroll
+      for (int j = 0; j < SPC; ++j) ldmatrix_x4(a[j], row + (chunk[j] ^ flip));
+      uint64_t desc[SPC];
+#pragma unroll
+      for (int j = 0; j < SPC; ++j) {
+        desc[j] = dgrp + (uint64_t)((j * 2 * lbo) >> 4);
+        asm volatile("" : "+l"(desc[j]));
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < SPC; ++j) wgmma_m64k16<NT>(d, a[j], desc[j]);
+      wgmma_commit();
+    };
+    // Two sets of A buffers, one a part each, so that three units are in
+    // flight while the next gathers: a buffer's registers are fenced once
+    // the wait that retires its last unit has passed, so the compiler keeps
+    // them to themselves until then (ptxas would serialize the products
+    // otherwise). Groups are (tap, box) pairs, tap-major; the group's tap
+    // lies toff bytes on.
+    uint32_t a_set[2][kParts][SPC][4] = {};
+    auto fence_a = [](uint32_t (&a)[SPC][4]) {
+#pragma unroll
+      for (int j = 0; j < SPC; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(a[j][k])::"memory");
+    };
+    uint32_t toff = 0;
+    int dw = 0, kc = 0;
+    const int n_groups = 9 * IC, hand_group = (kHandTap + 1) * IC - 1;
+    auto group = [&](uint32_t (&as)[kParts][SPC][4], int grp) {
+      const uint64_t dgrp = desc0 + (uint64_t)((grp * SPC * 2 * lbo) >> 4);
+#pragma unroll
+      for (int h = 0; h < kParts; ++h) {
+        fence_a(as[h]);
+        unit(as[h], acc[h], h, toff, kc, dgrp);
+        wgmma_wait<3>();
+      }
+      if (grp == hand_group && hand_mid) named_barrier_arrive(their_turn, 256);
+      if (++kc == IC) {
+        kc = 0;
+        toff += CB;
+        if (++dw == 3) {
+          dw = 0;
+          toff += (WP - 3) * CB;
+        }
+      }
+    };
+    // no branch between two groups: ptxas then sees which wait retires
+    // which buffer
+    int grp = 0;
+    for (; grp + 1 < n_groups; grp += 2) {
+      group(a_set[0], grp);
+      group(a_set[1], grp + 1);
+    }
+    if (grp < n_groups) group(a_set[0], grp);
+
+    // hand back, in ring order, what this warpgroup's next tile does not read
+    __syncwarp();
+    for (; u_rel < keep; ++u_rel)
+      if (lane == 0) mbar_arrive(&empty[u_rel & smask]);
+    wgmma_wait<0>();
+    if (next_fresh) named_barrier_arrive(their_turn, 256);
+#pragma unroll
+    for (int h = 0; h < kParts; ++h)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) asm volatile("" : "+f"(acc[h][n][v])::"memory");
+
+    // one rounding; the warpgroup's tile goes out by one TMA store, which
+    // its next epilogue waits for before it writes the tile again
+    if (issuer) bulk_wait_read<0>();
+    named_barrier(1 + cw, 128);
+#pragma unroll
+    for (int h = 0; h < kParts; ++h)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = h * 64 + warp * 16 + g + 8 * half;
+          const uint32_t off =
+              NP == 64 ? swizzle128(r, n) + 4 * t4 : r * NP * 2 + n * 16 + 4 * t4;
+          *reinterpret_cast<__nv_bfloat162*>(my_out + off) =
+              __floats2bfloat162_rn(acc[h][n][2 * half], acc[h][n][2 * half + 1]);
+        }
+    fence_proxy_async();
+    named_barrier(1 + cw, 128);
+    if (issuer) {
+      tma_store_3d(&map_y, my_out, cur.p * NP, cur.t * kTmaRows, cur.c);
+      bulk_commit();
+    }
+  }
+  if (issuer) bulk_wait<0>();
+}
+
 size_t taploop_smem_bytes(int W, int I, int O, int TH, size_t tsize) {
   const int IP = round_up4(I), OP = round_up4(O);
   return ((size_t)9 * IP * OP + (size_t)(TH + 2) * (W + 2) * IP) * tsize;
@@ -571,6 +958,62 @@ int launch_gemm_bf16(int route, const void* a, const void* b, void* out, int C, 
     default: return launch_gemm_staged_nt<8>(ab, bb, ob, C, M, K, N, rows, blocks, items_per_block, stream);
   }
 }
+template <int NT, int KC>
+int launch_taploop_tma_nt(const bf16* x, const bf16* w, bf16* y, int C, int B, int H, int W,
+                          int I, int O, int stages, int blocks, int items_per_block,
+                          cudaStream_t stream) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, taploop_tma_wgmma_kernel<NT, KC>);
+  if (e != cudaSuccess) return (int)e;
+  // as the GEMM's: refuse rather than wait on registers setmaxnreg cannot get
+  if (attr.numRegs * kTmaThreads < kProducerRegs * 128 + kConsumerRegs * 256)
+    return (int)cudaErrorInvalidConfiguration;
+  CUtensorMap map_x, map_y;
+  int rc = make_map_bf16_4d(&map_x, x, I, W, H, (uint64_t)C * B, KC, W + 2, H + 2);
+  if (rc) return rc;
+  rc = make_map_bf16_3d(&map_y, y, O, (uint64_t)B * H * W, C, 8 * NT, kTmaRows, NT == 8);
+  if (rc) return rc;
+  const size_t smem = taploop_tma_smem_bytes(H, W, I, O, stages);
+  e = cudaFuncSetAttribute(taploop_tma_wgmma_kernel<NT, KC>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  taploop_tma_wgmma_kernel<NT, KC><<<blocks, kTmaThreads, smem, stream>>>(
+      map_x, map_y, w, C, B, H, W, I, O, stages, items_per_block);
+  return (int)cudaGetLastError();
+}
+
+template <int NT>
+int launch_taploop_tma_kc(const bf16* x, const bf16* w, bf16* y, int C, int B, int H, int W,
+                          int I, int O, int stages, int blocks, int items_per_block,
+                          cudaStream_t stream) {
+  switch (taploop_chunk(I)) {
+    case 16: return launch_taploop_tma_nt<NT, 16>(x, w, y, C, B, H, W, I, O, stages, blocks, items_per_block, stream);
+    case 32: return launch_taploop_tma_nt<NT, 32>(x, w, y, C, B, H, W, I, O, stages, blocks, items_per_block, stream);
+    default: return launch_taploop_tma_nt<NT, 64>(x, w, y, C, B, H, W, I, O, stages, blocks, items_per_block, stream);
+  }
+}
+
+int launch_taploop_tma(const void* x, const void* w, void* y, int C, int B, int H, int W, int I,
+                       int O, int stages, int blocks, int items_per_block, cudaStream_t stream) {
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  // a ring shorter than a tile's images would wait forever
+  if (I % 8 || O % 8 || !aligned || W + 2 > 256 || H + 2 > 256 || stages < 2 ||
+      (stages & (stages - 1)) ||
+      stages < taploop_span(B, H * W) || (long long)B * H * W + kTmaRows >= (1 << 24) ||
+      blocks < 1 || items_per_block < 1)
+    return (int)cudaErrorInvalidValue;
+  const bf16 *xb = (const bf16*)x, *wb = (const bf16*)w;
+  bf16* yb = (bf16*)y;
+  switch (gemm_pass_tiles(O)) {
+    case 1: return launch_taploop_tma_kc<1>(xb, wb, yb, C, B, H, W, I, O, stages, blocks, items_per_block, stream);
+    case 2: return launch_taploop_tma_kc<2>(xb, wb, yb, C, B, H, W, I, O, stages, blocks, items_per_block, stream);
+    case 4: return launch_taploop_tma_kc<4>(xb, wb, yb, C, B, H, W, I, O, stages, blocks, items_per_block, stream);
+    default: return launch_taploop_tma_kc<8>(xb, wb, yb, C, B, H, W, I, O, stages, blocks, items_per_block, stream);
+  }
+}
+
 template <typename T>
 int launch_taploop(const void* x, const void* w, void* y, int C, int B, int H, int W, int I,
                    int O, int TH, int G, int threads, cudaStream_t stream) {
@@ -614,12 +1057,18 @@ extern "C" size_t fl_batched_gemm_smem_bytes(int route, int K, int N, int rows, 
 }
 
 // y (C, B, H, W, O) = conv3x3_same(x (C, B, H, W, I), w (C, 3, 3, I, O)), in
-// x's dtype; bands of TH image rows, G images a block.
-extern "C" int fl_taploop_conv(int dtype, const void* x, const void* w, void* y, int C, int B,
-                               int H, int W, int I, int O, int TH, int G, int threads,
+// x's dtype, on route 0 (the CUDA cores: bands of TH image rows, G images a
+// block, `threads` a block) or, for bfloat16, 1 (TMA + wgmma: a ring of
+// `stages` halo'd images, `blocks` persistent blocks of `items_per_block`
+// work items each); the other route's arguments are unused.
+extern "C" int fl_taploop_conv(int dtype, int route, const void* x, const void* w, void* y,
+                               int C, int B, int H, int W, int I, int O, int TH, int G,
+                               int threads, int stages, int blocks, int items_per_block,
                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (threads < 32 || threads > kMaxThreads || threads % 32 || TH < 1 || G < 1)
+  if (route == 1 && dtype == 1)
+    return launch_taploop_tma(x, w, y, C, B, H, W, I, O, stages, blocks, items_per_block, s);
+  if (route != 0 || threads < 32 || threads > kMaxThreads || threads % 32 || TH < 1 || G < 1)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_taploop<float>(x, w, y, C, B, H, W, I, O, TH, G, threads, s);
@@ -628,8 +1077,10 @@ extern "C" int fl_taploop_conv(int dtype, const void* x, const void* w, void* y,
   return (int)cudaErrorInvalidValue;
 }
 
-// Shared memory one block of the tap-loop convolution needs with bands of TH
-// rows.
-extern "C" size_t fl_taploop_smem_bytes(int dtype, int W, int I, int O, int TH) {
+// Shared memory one block of the tap-loop convolution needs: route 0 with
+// bands of TH rows, route 1 (bfloat16) with a ring of `stages` images.
+extern "C" size_t fl_taploop_smem_bytes(int route, int dtype, int H, int W, int I, int O, int TH,
+                                        int stages) {
+  if (route == 1) return taploop_tma_smem_bytes(H, W, I, O, stages);
   return taploop_smem_bytes(W, I, O, TH, dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16));
 }

@@ -9,10 +9,10 @@ from fl_tpu_torch.ops import conv_block, conv_patch, conv_probe, dp, quantize
 
 _COUNTS = (conv_block.LAUNCHES, dp.LAUNCHES, quantize.LAUNCHES,
            conv_patch.LAUNCHES, conv_probe.LAUNCHES)
-# the launches of K7, K8a and the fused conv kernels by route: reset with
-# the counts, not among them
+# the launches of K7, K8a, K8b and the fused conv kernels by route: reset
+# with the counts, not among them
 _ROUTE_COUNTS = (conv_patch.ROUTE_LAUNCHES, conv_probe.ROUTE_LAUNCHES,
-                 conv_block.ROUTE_LAUNCHES)
+                 conv_probe.TAPLOOP_ROUTE_LAUNCHES, conv_block.ROUTE_LAUNCHES)
 
 
 def launch_counts() -> dict:

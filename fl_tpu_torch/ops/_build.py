@@ -130,9 +130,9 @@ def load() -> ctypes.CDLL:
             lib.fl_batched_gemm.restype = i
             lib.fl_batched_gemm_smem_bytes.argtypes = [i] * 5
             lib.fl_batched_gemm_smem_bytes.restype = ctypes.c_size_t
-            lib.fl_taploop_conv.argtypes = [i] + [p] * 3 + [i] * 9 + [p]
+            lib.fl_taploop_conv.argtypes = [i, i] + [p] * 3 + [i] * 12 + [p]
             lib.fl_taploop_conv.restype = i
-            lib.fl_taploop_smem_bytes.argtypes = [i] * 5
+            lib.fl_taploop_smem_bytes.argtypes = [i] * 8
             lib.fl_taploop_smem_bytes.restype = ctypes.c_size_t
             lib.fl_cuda_error_string.argtypes = [i]
             lib.fl_cuda_error_string.restype = ctypes.c_char_p

@@ -38,6 +38,24 @@ the dtype and the shape alone, and ``ROUTE_LAUNCHES`` counts:
 - ``cuda_core``: float32, a 4x4 register tile a thread; TF32 would break the
   f32 contract.
 
+K8b takes one of two routes (``TAPLOOP_ROUTES``), which
+``taploop_launch_plan`` fixes from the dtype and the shape alone, and
+``TAPLOOP_ROUTE_LAUNCHES`` counts:
+
+- ``tma``: bfloat16 where a pixel's channels and outputs are whole 16-byte
+  pieces (I and O multiples of 8), the halo'd image is at most 256 pixels
+  a side and a ring of the images two tiles read fits in shared memory. A
+  persistent block an SM; one producer warp streams whole images with
+  their one-pixel halo by TMA (the zeros come from TMA's out-of-bounds
+  fill, no padded copy of x exists), two consumer warpgroups take 128-row
+  tiles in turn, gather each tap's rows by ``ldmatrix`` from the staged
+  images and multiply on ``wgmma`` against the client's nine taps in
+  shared memory; the rounded tile leaves by a TMA store while the other
+  warpgroup's products run.
+- ``cuda_core``: float32 (TF32 would break the f32 contract) and the bf16
+  shapes TMA cannot take (I = 3, 4 or 20, say): a block stages a band of an
+  image and its weights, a 4x4 register tile a thread.
+
 Nothing falls back: a CUDA tensor launches its route's kernel or the
 launcher raises (an operand that the TMA route cannot address raises).
 """
@@ -71,11 +89,14 @@ F32_TILE, F32_K_CHUNK, F32_THREADS = 64, 32, 256
 ROUTES = ("tma", "staged", "cuda_core")
 INSTRUCTIONS = {"tma": "wgmma", "staged": "wgmma", "cuda_core": "fma"}
 _ROUTE_CODE = {"cuda_core": 0, "tma": 1, "staged": 2}
+TAPLOOP_ROUTES = ("tma", "cuda_core")
+MAX_BOX_SIDE = 256   # TMA's largest box dimension
 
 # one count per kernel, raised where it is launched
 LAUNCHES = {"probe_batched_gemm": 0, "probe_taploop_conv": 0}
-# K8a's launches once more, by the route they took
+# K8a's and K8b's launches once more, by the route they took
 ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+TAPLOOP_ROUTE_LAUNCHES = dict.fromkeys(TAPLOOP_ROUTES, 0)
 
 
 def _up(n: int, m: int) -> int:
@@ -255,45 +276,217 @@ def batched_gemm_cuda(a, b):
     return out
 
 
-def _pick_band(lib, cdt, H, W, I, O) -> int:
-    """Image rows a block stages at once: the whole image where it leaves
-    room for two blocks on an SM, else the most rows that fit one block."""
-    def need(th):
-        return lib.fl_taploop_smem_bytes(_DTYPE_CODE[cdt], W, I, O, th)
+# ---------------------------------------------------------------------------
+# K8b's launch plan
+# ---------------------------------------------------------------------------
 
-    for limit in (SMEM_LIMIT // 2, SMEM_LIMIT):
-        for th in range(H, 0, -1):
-            if need(th) <= limit:
-                return th
-    raise ValueError(
-        f"taploop_conv: rows of width {W} with I={I}, O={O} in {cdt} need "
-        f"{need(1)} B of shared memory per block (limit {SMEM_LIMIT})")
+@dataclasses.dataclass(frozen=True)
+class TaploopPlan:
+    """How one K8b launch is cut. ``tma``: I padded to `k_pad` channels in
+    boxes of `k_chunk` (a staged pixel row of 2 * k_chunk bytes, the span of
+    its swizzle), O cut into `passes` column passes of `n_pass`, `tiles`
+    tiles of `rows` output rows a client, a ring of `stages` halo'd images,
+    `blocks` persistent blocks of `threads`, each walking `items_per_block`
+    (client, pass, tile) items. ``cuda_core``: bands of `band` image rows
+    (`rows` output rows), `tiles` groups of `items_per_block` images a
+    client, one block each."""
+    route: str
+    instruction: str
+    k_chunk: int
+    k_pad: int
+    n_pass: int
+    passes: int
+    rows: int
+    tiles: int
+    stages: int
+    band: int
+    threads: int
+    blocks: int
+    items_per_block: int
+    smem_bytes: int
+
+
+def taploop_chunk(I: int) -> int:
+    """Channels of one TMA box of the ``tma`` route: 16, 32 or 64."""
+    return 16 if I <= 16 else 32 if I <= 32 else 64
+
+
+def taploop_span(B: int, H: int, W: int) -> int:
+    """Images two tiles, 256 consecutive output rows, can touch: what the
+    two consumer warpgroups of the ``tma`` route hold at once."""
+    return min(B, (2 * TMA_ROWS - 2) // (H * W) + 2)
+
+
+def swizzle_span(off: int, span: int) -> int:
+    """Host twin of ``swizzle_span`` in csrc/common.cuh: where TMA puts
+    byte `off` (from a 1024-aligned base) of rows of `span` bytes under
+    CU_TENSOR_MAP_SWIZZLE_<span>B."""
+    return off ^ (((off >> 7) & (span // 16 - 1)) << 4)
+
+
+def taploop_smem_bytes(route: str, dtype, H: int, W: int, I: int, O: int,
+                       band: int, stages: int) -> int:
+    """Shared memory one block of `route` needs: the count
+    ``fl_taploop_smem_bytes`` of csrc/conv_probe.cu makes."""
+    if route == "cuda_core":
+        size = 4 if dtype == torch.float32 else 2
+        IP, OP = _up(I, 4), _up(O, 4)
+        return (9 * IP * OP + (band + 2) * (W + 2) * IP) * size
+    KC = taploop_chunk(I)
+    KP, NP = _up(I, KC), gemm_pass_columns(O)
+    box = _up((H + 2) * (W + 2) * KC * 2, 1024)
+    # alignment slack, the ring, two output tiles, the nine taps, the
+    # barriers
+    return (1024 + stages * (KP // KC) * box + 2 * TMA_ROWS * NP * 2
+            + 9 * KP * NP * 2 + 2 * 8 * stages)
+
+
+def _tma_stages(H, W, I, O) -> int:
+    """Stages of the ``tma`` route's ring: the largest power of two that
+    fits, at most MAX_STAGES (0 where not even one fits)."""
+    fixed = taploop_smem_bytes("tma", torch.bfloat16, H, W, I, O, 0, 0)
+    per = taploop_smem_bytes("tma", torch.bfloat16, H, W, I, O, 0, 1) - fixed
+    fit = min(MAX_STAGES, max(0, SMEM_LIMIT - fixed) // per)
+    return 1 << (fit.bit_length() - 1) if fit else 0
+
+
+def taploop_tma_takes(B, H, W, I, O) -> bool:
+    """TMA addresses the pixels and outputs (I * 2 and O * 2 multiples of
+    16), a halo'd image is one box (W + 2 and H + 2 at most 256), the ring
+    holds the images of two tiles, and a client's rows stay below 2^24 (the
+    kernel divides them through a float reciprocal)."""
+    return (tma_takes(I, O) and max(H, W) + 2 <= MAX_BOX_SIDE
+            and B * H * W + TMA_ROWS < 1 << 24
+            and _tma_stages(H, W, I, O) >= max(2, taploop_span(B, H, W)))
+
+
+def taploop_launch_plan(dtype, C: int, B: int, H: int, W: int, I: int,
+                        O: int) -> TaploopPlan:
+    """The launch of K8b for x (C, B, H, W, I) and w (C, 3, 3, I, O). A
+    pure function: the route follows from the dtype and the shape alone
+    (float32: the CUDA cores; bfloat16: TMA where ``taploop_tma_takes``,
+    else the CUDA cores; other dtypes raise), and so does the rest."""
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"taploop_conv: compute dtype must be float32 or "
+                         f"bfloat16, got {dtype}")
+    if dtype == torch.bfloat16 and taploop_tma_takes(B, H, W, I, O):
+        KC, NP = taploop_chunk(I), gemm_pass_columns(O)
+        stages = _tma_stages(H, W, I, O)
+        tiles, passes = -(-B * H * W // TMA_ROWS), -(-O // NP)
+        items = C * passes * tiles
+        per_block = -(-items // min(items, SMS))
+        return TaploopPlan(
+            "tma", "wgmma", KC, _up(I, KC), NP, passes, TMA_ROWS, tiles,
+            stages, H, TMA_THREADS, -(-items // per_block), per_block,
+            taploop_smem_bytes("tma", dtype, H, W, I, O, 0, stages))
+
+    def need(th):
+        return taploop_smem_bytes("cuda_core", dtype, H, W, I, O, th, 1)
+
+    # the whole image where it leaves room for two blocks on an SM, else
+    # the most rows that fit one block
+    band = next((th for limit in (SMEM_LIMIT // 2, SMEM_LIMIT)
+                 for th in range(H, 0, -1) if need(th) <= limit), None)
+    if band is None:
+        raise ValueError(
+            f"taploop_conv: rows of width {W} with I={I}, O={O} in {dtype} "
+            f"need {need(1)} B of shared memory per block (limit "
+            f"{SMEM_LIMIT})")
+    # 4 positions x 4 channels a thread; as few sweeps over a band's tasks
+    # as MAX_THREADS allows, then no more threads than they need
+    tasks = -(-band * W // 4) * (-(-O // 4))
+    sweeps = -(-tasks // MAX_THREADS)
+    threads = min(MAX_THREADS, (-(-tasks // sweeps) + 31) // 32 * 32)
+    groups = -(-B // IMAGES_PER_BLOCK)
+    return TaploopPlan("cuda_core", "fma", 4, _up(I, 4), _up(O, 4), 1,
+                       band * W, groups, 1, band, threads, C * groups,
+                       IMAGES_PER_BLOCK, need(band))
+
+
+def taploop_walk(plan: TaploopPlan, C: int, B: int, H: int, W: int,
+                 block: int):
+    """Host twin of the ``tma`` kernel's schedule for one block, its sides
+    walked apart as on the card. Returns the images the producer streams,
+    as (client, pass, image) in ring order; for each of the block's items
+    its (client, pass, tile), the ring positions of the images it reads and
+    whether it reloads the taps; and for each consumer warpgroup (items 0,
+    2, ... and 1, 3, ...) the ring positions it hands back after each of its
+    items."""
+    M, HW = B * H * W, H * W
+    first = block * plan.items_per_block
+    last = min(C * plan.passes * plan.tiles, first + plan.items_per_block)
+    walk = [divmod(it, plan.tiles) for it in range(first, last)]
+
+    def images(t):
+        return t * plan.rows // HW, (min(M, (t + 1) * plan.rows) - 1) // HW
+
+    loads, next_b = [], 0                      # the producer
+    for n, (key, t) in enumerate(walk):
+        b_lo, b_hi = images(t)
+        if n == 0 or t == 0:
+            next_b = b_lo
+        loads += [(*divmod(key, plan.passes), b)
+                  for b in range(next_b, b_hi + 1)]
+        next_b = max(next_b, b_hi + 1)
+
+    def ring_steps():
+        """(first, last) ring position of each item, as TapRing counts."""
+        u_key = b0_key = u_end = 0
+        for n, (_, t) in enumerate(walk):
+            b_lo, b_hi = images(t)
+            if n == 0 or t == 0:
+                u_key, b0_key = u_end, b_lo
+            u_end = u_key + b_hi - b0_key + 1
+            yield u_key + b_lo - b0_key, u_end - 1
+
+    spans = list(ring_steps())
+    items = [((*divmod(key, plan.passes), t), list(range(f, l + 1)),
+              n == 0 or t == 0)
+             for n, ((key, t), (f, l)) in enumerate(zip(walk, spans))]
+    releases = ([], [])                        # the consumers
+    u_rel = [0, 0]
+    for n in range(len(walk)):
+        cw = n & 1
+        keep = spans[n + 2][0] if n + 2 < len(walk) else spans[-1][1] + 1
+        releases[cw].append(list(range(u_rel[cw], keep)))
+        u_rel[cw] = max(u_rel[cw], keep)
+    return loads, items, releases
+
+
+def taploop_kernel_smem_bytes(plan: TaploopPlan, dtype, H: int, W: int,
+                              I: int, O: int) -> int:
+    """The kernel library's own count of the shared memory `plan` needs, to
+    hold ``taploop_smem_bytes`` to (needs the built library)."""
+    return _build.load().fl_taploop_smem_bytes(
+        _ROUTE_CODE[plan.route], _DTYPE_CODE[dtype], H, W, I, O, plan.band,
+        plan.stages)
 
 
 def taploop_conv_cuda(x, w):
-    """Launch ``taploop_conv_kernel`` (K8b): x (C, B, H, W, I) and
-    w (C, 3, 3, I, O) in the compute dtype."""
+    """Launch K8b on the route of ``taploop_launch_plan``: x (C, B, H, W, I)
+    and w (C, 3, 3, I, O) in the compute dtype."""
     name = "probe_taploop_conv"
     check_conv_shapes(x, w)
     _check_dtype(name, x)
     _check_cuda(name, (x, w), (x.dtype, x.dtype))
     C, B, H, W, I = x.shape
     O = w.shape[-1]
+    plan = taploop_launch_plan(x.dtype, C, B, H, W, I, O)
+    if plan.route == "tma" and (x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError(f"{name}: the TMA route needs 16-byte aligned "
+                         "operands")
     lib = _build.load()
-    band = _pick_band(lib, x.dtype, H, W, I, O)
-    # 4 positions x 4 channels a thread; as few sweeps over a band's tasks
-    # as MAX_THREADS allows, then no more threads than they need
-    tasks = -(-band * W // 4) * (-(-O // 4))
-    sweeps = -(-tasks // MAX_THREADS)
-    threads = min(MAX_THREADS, (-(-tasks // sweeps) + 31) // 32 * 32)
     y = torch.empty((C, B, H, W, O), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.fl_taploop_conv(
-            _DTYPE_CODE[x.dtype], _ptr(x), _ptr(w), _ptr(y), C, B, H, W, I,
-            O, band, IMAGES_PER_BLOCK, threads, ctypes.c_void_p(stream))
+            _DTYPE_CODE[x.dtype], _ROUTE_CODE[plan.route], _ptr(x), _ptr(w),
+            _ptr(y), C, B, H, W, I, O, plan.band, plan.items_per_block,
+            plan.threads, plan.stages, plan.blocks, plan.items_per_block,
+            ctypes.c_void_p(stream))
     _build.check(lib, rc, name)
     LAUNCHES[name] += 1
+    TAPLOOP_ROUTE_LAUNCHES[plan.route] += 1
     return y
 
 
@@ -322,8 +515,10 @@ def batched_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def taploop_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """3x3 stride-1 SAME conv forward over stacked clients as a loop over
     the nine taps: x (C, B, H, W, I), w (C, 3, 3, I, O) -> (C, B, H, W, O)
-    in x's dtype, f32 sums; w is cast to x's dtype."""
+    in x's dtype, f32 sums; w is cast to x's dtype. The TMA route reads the
+    operands from 16-byte boundaries, so a view that starts elsewhere is
+    copied first, as in ``batched_gemm``."""
     w = w.to(x.dtype)
     if x.is_cuda:
-        return taploop_conv_cuda(x.contiguous(), w.contiguous())
+        return taploop_conv_cuda(_aligned16(x), _aligned16(w))
     return taploop_conv_plain(x, w)

@@ -30,7 +30,10 @@ stochastic mode equal to the Philox oracle's decisions exactly and held by
 floor/ceil, mean, P(ceil) and the correlation of one call's quarters
 (5e-3); K7 and K8 (one f32 sum, one rounding) rtol 1e-4 / atol 1e-4 in f32,
 weight gradients atol 2e-4, and one bf16 ulp of the larger value plus 1e-4
-in bf16, whatever route K8a's plan takes.
+in bf16, whatever route K8a's or K8b's plan takes (K8b's TMA route also
+at the edges of its design: a tile over two images, a ragged last tile,
+three column passes, the 128-byte swizzle, two boxes a pixel, clients
+changing inside a block, a ring of two images, a misaligned view).
 """
 
 import numpy as np
@@ -98,18 +101,20 @@ def test_launch_counts_cover_every_kernel():
         "conv_stack_bwd", "clip_noise", "quantize_int8_blocks",
         "conv3x3_patch_gemm", "conv3x3_patch_wgrad", "probe_batched_gemm",
         "probe_taploop_conv"])
-    # K7's, K8a's and K4's backward's launches once more, by the route they
-    # took: reset with the counts
+    # K7's, K8a's, K8b's and K4's backward's launches once more, by the
+    # route they took: reset with the counts
     assert sorted(cp.ROUTE_LAUNCHES) == ["cuda_core", "tensor_core"]
     assert sorted(probe.ROUTE_LAUNCHES) == ["cuda_core", "staged", "tma"]
+    assert sorted(probe.TAPLOOP_ROUTE_LAUNCHES) == ["cuda_core", "tma"]
     assert sorted(cb.ROUTE_LAUNCHES) == sorted(
         (k, r) for k in cb.LAUNCHES for r in ("cuda_core", "tensor_core"))
     cp.ROUTE_LAUNCHES["tensor_core"] = 3
     probe.ROUTE_LAUNCHES["tma"] = 2
+    probe.TAPLOOP_ROUTE_LAUNCHES["tma"] = 4
     cb.ROUTE_LAUNCHES[("conv_block_bwd", "tensor_core")] = 1
     ops.reset_launch_counts()
     for counts in (cp.ROUTE_LAUNCHES, probe.ROUTE_LAUNCHES,
-                   cb.ROUTE_LAUNCHES):
+                   probe.TAPLOOP_ROUTE_LAUNCHES, cb.ROUTE_LAUNCHES):
         assert set(counts.values()) == {0}
 
 
@@ -402,6 +407,11 @@ def test_s2d_stem_kernels_match_plain_and_launch_no_input_gradient(cuda,
                          / ref.float().norm()) <= 2e-2
 
 
+# K8b's bf16 route at each of PATCH_SHAPES: TMA where I and O are multiples
+# of 8 (f32 always takes the CUDA cores)
+TAPLOOP_ROUTES = dict(zip(PATCH_SHAPES, (
+    "tma", "tma", "cuda_core", "cuda_core", "cuda_core", "cuda_core", "tma")))
+
 # (C, M, K, N) of K8a and the route its plan takes in bf16 (f32 always
 # takes the CUDA cores)
 GEMM_SHAPES = [((2, 128, 288, 64), "tma"), ((3, 70, 50, 37), "staged"),
@@ -425,13 +435,55 @@ def test_probe_kernels_match_plain(cuda, dtype):
         assert probe.launch_plan(dtype, C, M, K, N).route == want
         assert {k: v - before[k] for k, v in probe.ROUTE_LAUNCHES.items()
                 if v != before[k]} == {want: 1}
-    for B, H, W, I, O in PATCH_SHAPES:
-        x, w, _ = _patch_inputs(gen, 3, B, H, W, I, O, dtype, cuda)
+    for shape in PATCH_SHAPES:
+        x, w, _ = _patch_inputs(gen, 3, *shape, dtype, cuda)
         _assert_rounded_close(probe.taploop_conv(x, w),
                               probe.taploop_conv_plain(x, w), dtype)
+        want = TAPLOOP_ROUTES[shape] if dtype == torch.bfloat16 else (
+            "cuda_core")
+        assert probe.taploop_launch_plan(dtype, 3, *shape).route == want
     counts = ops.launch_counts()
     assert (counts["probe_batched_gemm"], counts["probe_taploop_conv"]) == (
         len(GEMM_SHAPES), len(PATCH_SHAPES))
+    took = [TAPLOOP_ROUTES[s] if dtype == torch.bfloat16 else "cuda_core"
+            for s in PATCH_SHAPES]
+    assert probe.TAPLOOP_ROUTE_LAUNCHES == {
+        r: took.count(r) for r in probe.TAPLOOP_ROUTES}
+
+
+# (C, B, H, W, I, O) of bf16 cases on K8b's TMA route at the edges of its
+# design, and the bytes a misaligned view starts past its allocation
+TAPLOOP_TMA_CASES = {
+    "tile_spans_two_images": ((2, 3, 14, 14, 32, 64), 0),
+    "ragged_last_tile": ((3, 3, 5, 7, 16, 8), 0),
+    "three_column_passes": ((2, 2, 8, 8, 32, 136), 0),
+    "swizzle_128B": ((2, 2, 14, 14, 64, 64), 0),
+    "two_boxes_a_pixel": ((2, 2, 8, 8, 96, 32), 0),
+    "clients_change_inside_a_block": ((8, 32, 14, 14, 32, 64), 0),
+    "ring_of_two_28x28_images": ((4, 8, 28, 28, 32, 64), 0),
+    "misaligned_view": ((2, 3, 14, 14, 32, 64), 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TAPLOOP_TMA_CASES))
+def test_taploop_tma_route_at_the_design_edges(cuda, case):
+    (C, B, H, W, I, O), offset = TAPLOOP_TMA_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x, w, _ = _patch_inputs(gen, C, B, H, W, I, O, torch.bfloat16, cuda)
+    if offset:
+        buf = torch.empty(offset // 2 + x.numel(), dtype=x.dtype,
+                          device=cuda)
+        buf[offset // 2:] = x.flatten()
+        x = buf[offset // 2:].view(x.shape)
+        assert x.data_ptr() % 16 == offset
+    assert probe.taploop_launch_plan(torch.bfloat16, C, B, H, W, I,
+                                     O).route == "tma"
+    ops.reset_launch_counts()
+    got = probe.taploop_conv(x, w)
+    assert probe.TAPLOOP_ROUTE_LAUNCHES == {"tma": 1, "cuda_core": 0}
+    _assert_rounded_close(got, probe.taploop_conv_plain(x, w),
+                          torch.bfloat16)
 
 
 def test_aligned16_copies_only_a_view_off_a_16_byte_boundary():

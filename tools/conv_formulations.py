@@ -4,6 +4,10 @@ quotes it.
     python3 tools/conv_formulations.py [--reps N]
     python3 tools/conv_formulations.py library
     python3 tools/conv_formulations.py k7
+    python3 tools/conv_formulations.py k8
+    python3 tools/conv_formulations.py k8b-parts
+    python3 tools/conv_formulations.py outputs FILE
+    python3 tools/conv_formulations.py same FILE FILE
     python3 tools/conv_formulations.py sweep
     python3 tools/conv_formulations.py limits
 
@@ -27,7 +31,19 @@ largest kernels.
 
 ``k7`` builds the kernels, prints what nvcc reports for K7's (registers,
 spills), runs ``chip_smoke.py``'s checks of K7 against its plain versions and
-prints its three directions' times, bounds and library times. ``sweep`` times
+prints its three directions' times, bounds and library times. ``k8`` does
+the same for K8 (``chip_smoke.py``'s probe phase: K8a and K8b against their
+plain versions, the routes their plans take, K8b against K7's forward) and
+prints both kernels' times, bounds and library times. ``k8b-parts`` times
+K8b's TMA kernel at the bench shape whole and with parts of it cut out of
+copies of its source (no products, no epilogue, no image loads, only the
+image stream), each built by ``nvcc`` under ``fl_tpu_torch/_build/``, 20
+calls each: what each part adds to the whole. ``outputs FILE`` saves the
+outputs of the K8 launches whose code a K8b change must leave alone (K8a on
+each route, K8b in float32 and on its bfloat16 CUDA-core route) on seeded
+inputs, and ``same A B`` holds two such files equal bit for bit: run
+``outputs`` from two checkouts (this script copied into the other one) to
+compare them. ``sweep`` times
 the bf16 tensor-core kernels of K7 at the bench shapes over the knobs of
 their launch plan (warps a block, tile buffers, blocks a launch; pixels a
 stage and slots of the weight gradient), ten calls each. ``limits`` measures
@@ -109,6 +125,153 @@ def k7(card: str) -> None:
     chip_smoke.phase_conv_patch(report)
     for name in ("conv3x3_patch_gemm", "conv3x3_patch_wgrad"):
         print(f"{name}: {report[name]} [{card}]")
+
+
+def k8(card: str) -> None:
+    """K8 alone: what nvcc reports for its kernels, chip_smoke's checks
+    against the plain versions, and both probes' times."""
+    from fl_tpu_torch.ops import _build
+
+    _build.load()
+    log = (_build.library_path().parent / "build.log").read_text()
+    lines = log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and (
+                "taploop" in ln or "gemm" in ln and "patch" not in ln):
+            print("build: " + " | ".join(t.strip() for t in lines[i:i + 4]))
+    report = chip_smoke.kernel_report()
+    chip_smoke.phase_conv_probe(report)
+    for name in ("probe_batched_gemm", "probe_taploop_conv"):
+        print(f"{name}: {report[name]} [{card}]")
+
+
+# Cuts of K8b's TMA kernel (csrc/conv_probe.cu), each (source text, what
+# takes its place); a cut whose text is no longer in the source fails.
+_K8B_NO_PRODUCTS = (
+    "      for (int j = 0; j < SPC; ++j) wgmma_m64k16<NT>(d, a[j], desc[j]);",
+    "      for (int j = 0; j < SPC; ++j) d[0][0] += __uint_as_float(a[j][0] ^ a[j][3] ^ "
+    "(uint32_t)desc[j]);")
+_K8B_NO_GATHERS = (
+    "      for (int j = 0; j < SPC; ++j) ldmatrix_x4(a[j], row + (chunk[j] ^ flip));",
+    "      for (int j = 0; j < SPC; ++j) a[j][0] = a[j][1] = a[j][2] = a[j][3] = "
+    "row + (chunk[j] ^ flip);")
+_K8B_NO_LOADS = (
+    "          mbar_arrive_expect_tx(&full[s], tx);\n"
+    "          for (int kc = 0; kc < IC; ++kc)\n"
+    "            tma_load_4d(s_x + (size_t)s * stage_bytes + kc * box_bytes, &map_x, &full[s],\n"
+    "                        kc * KC, -1, -1, q.c * B + ring.b_lo + u - ring.first);",
+    "          mbar_arrive(&full[s]);")
+_K8B_EPILOGUE = ("    // one rounding; the warpgroup's tile goes out by one TMA store",
+                 "      bulk_commit();\n    }\n  }\n")
+K8B_PARTS = (("whole", ()), ("no products", (_K8B_NO_PRODUCTS,)),
+             ("no epilogue (no y)", ("epilogue",)),
+             ("no image loads", (_K8B_NO_LOADS,)),
+             ("image stream only", (_K8B_NO_PRODUCTS, _K8B_NO_GATHERS,
+                                    "epilogue")))
+
+
+def _k8b_cut(text: str, cuts) -> str:
+    start = text.index("taploop_tma_wgmma_kernel(const __grid_constant__")
+    head, text = text[:start], text[start:]
+    for cut in cuts:
+        if cut == "epilogue":
+            i0 = text.index(_K8B_EPILOGUE[0])
+            i1 = text.index(_K8B_EPILOGUE[1], i0) + len(_K8B_EPILOGUE[1])
+            text = (text[:i0] + "    if (acc[0][0][0] == 12345.f) my_out[0] = 1;\n  }\n"
+                    + text[i1:])
+        else:
+            if cut[0] not in text:
+                raise chip_smoke.SmokeFailure(
+                    f"k8b-parts: the cut {cut[0][:60]!r} is no longer in "
+                    "csrc/conv_probe.cu")
+            text = text.replace(cut[0], cut[1])
+    return head + text
+
+
+def k8b_parts(card: str, reps: int = 20) -> None:
+    """K8b's TMA kernel at the bench shape, whole and with parts cut out of
+    copies of its source, each built by nvcc and timed (CUDA events, `reps`
+    calls after a warm one); the whole one is held to the plain version."""
+    import ctypes
+    import subprocess
+
+    from fl_tpu_torch.ops import _build
+    from fl_tpu_torch.ops import conv_probe as probe
+
+    src = _build.CSRC_DIR
+    text = (src / "conv_probe.cu").read_text()
+    procs = []
+    for n, (name, cuts) in enumerate(K8B_PARTS):
+        d = _build.BUILD_DIR / "k8b_parts" / str(n)
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "common.cuh").write_text((src / "common.cuh").read_text())
+        (d / "conv_probe.cu").write_text(_k8b_cut(text, cuts))
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+               str(d / "lib.so"), str(d / "conv_probe.cu"), "-ldl"]
+        procs.append((name, d, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+    C, B = chip_smoke.NUM_CLIENTS, chip_smoke.BATCH_SIZE
+    H, W, I, O = chip_smoke.CONV2_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x, w, _ = chip_smoke.patch_inputs(gen, C, B, chip_smoke.CONV2_SHAPE,
+                                      torch.bfloat16)
+    plan = probe.taploop_launch_plan(torch.bfloat16, C, B, H, W, I, O)
+    chip_smoke.require(plan.route == "tma", f"k8b-parts: plan {plan}")
+    y = torch.empty((C, B, H, W, O), dtype=torch.bfloat16, device="cuda")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    for name, d, proc in procs:
+        _, err = proc.communicate()
+        chip_smoke.require(proc.returncode == 0,
+                           f"k8b-parts: nvcc failed on {name}: {err[-2000:]}")
+        lib = ctypes.CDLL(str(d / "lib.so"))
+        p_, i_ = ctypes.c_void_p, ctypes.c_int
+        lib.fl_taploop_conv.argtypes = [i_, i_] + [p_] * 3 + [i_] * 12 + [p_]
+
+        def run():
+            rc = lib.fl_taploop_conv(
+                1, 1, x.data_ptr(), w.data_ptr(), y.data_ptr(), C, B, H, W, I,
+                O, plan.band, plan.items_per_block, plan.threads, plan.stages,
+                plan.blocks, plan.items_per_block, stream)
+            chip_smoke.require(rc == 0, f"k8b-parts: {name} returned {rc}")
+
+        ms = chip_smoke.time_ms(run, reps)
+        if name == "whole":
+            chip_smoke.check_rounded("K8b", "k8b-parts", y,
+                                     probe.taploop_conv_plain(x, w),
+                                     torch.bfloat16)
+        print(f"k8b-parts: {name}: {ms:.3f} ms ({plan.stages} stages x "
+              f"{plan.blocks} blocks) [{card}]", flush=True)
+
+
+def outputs(path: str) -> None:
+    """The K8 outputs a change to K8b's bfloat16 TMA route must leave bit
+    for bit as they were, on inputs drawn from a fixed seed."""
+    from fl_tpu_torch.ops import conv_probe as probe
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    got = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for C, M, K, N in ((4, 8192, 288, 64), (3, 70, 50, 37)):
+            a = torch.randn((C, M, K), generator=gen, device="cuda").to(dtype)
+            b = torch.randn((C, K, N), generator=gen, device="cuda").to(dtype)
+            got[f"K8a {dtype} {C}x{M}x{K}x{N}"] = probe.batched_gemm_cuda(a, b)
+    shapes = ((torch.float32, (16, 32) + chip_smoke.CONV2_SHAPE),
+              (torch.float32, (3, 3, 5, 7, 20, 12)),
+              (torch.bfloat16, (16, 32, 14, 14, 4, 128)),
+              (torch.bfloat16, (3, 3, 5, 7, 20, 12)))
+    for dtype, (C, B, *shape) in shapes:
+        x, w, _ = chip_smoke.patch_inputs(gen, C, B, tuple(shape), dtype)
+        got[f"K8b {dtype} {C}x{B}x{shape}"] = probe.taploop_conv_cuda(x, w)
+    torch.save({k: v.cpu() for k, v in got.items()}, path)
+    print(f"outputs: {len(got)} tensors to {path}")
+
+
+def same(path_a: str, path_b: str) -> int:
+    a, b = torch.load(path_a), torch.load(path_b)
+    differ = [k for k in a if k not in b or not torch.equal(a[k], b[k])]
+    print(f"same: {len(a) - len(differ)} of {len(a)} outputs bit for bit "
+          f"equal" + (f"; differ: {differ}" if differ else ""))
+    return 1 if differ or set(a) != set(b) else 0
 
 
 def sweep(card: str, reps: int) -> None:
@@ -324,6 +487,17 @@ def main(argv) -> int:
     if argv == ["k7"]:
         k7(card)
         return 0
+    if argv == ["k8"]:
+        k8(card)
+        return 0
+    if argv == ["k8b-parts"]:
+        k8b_parts(card)
+        return 0
+    if argv[:1] == ["outputs"] and len(argv) == 2:
+        outputs(argv[1])
+        return 0
+    if argv[:1] == ["same"] and len(argv) == 3:
+        return same(argv[1], argv[2])
     if argv == ["sweep"]:
         sweep(card, 10)
         return 0
