@@ -53,8 +53,18 @@ line each; any failure exits non-zero:
    rounds, and with ``fused_conv_block=False`` (cuDNN convolutions through
    autograd, no hand-written conv kernel), 2 pipelined rounds, launch
    counts checked; ``F.max_pool2d``'s backward is checked to route ties to
-   the first window member; then the entry points ``conv_stack_packed`` and
-   ``quantize_int8`` driven once at full width with their counts read;
+   the first window member; then the compression phase: the
+   ``"residual"`` configuration with uplink int8, top-k (1%) and PowerSGD
+   (rank 4), downlink bf16 and int8, and downlink int8 + uplink top-k, each
+   one warm-up and 2 pipelined rounds with K1/K2/K3's launches as on the
+   uncompressed path, finite results and a non-zero error-feedback norm
+   where an uplink is on; the uplink round trips on the card held to the
+   port's CPU functions on 8 rows of a real (512, 421,760) matrix (int8 bit
+   for bit, top-k the same kept set, PowerSGD within rtol 1e-5 and 1e-6 of
+   a row's largest value) and timed; the real global model through the
+   wire codecs (lz4 on the native codec, quantization, top-k) and back;
+   then the entry points ``conv_stack_packed`` and ``quantize_int8`` driven
+   once at full width with their counts read;
 6. learning check: 10 non-IID clients, 3 rounds, test accuracy > 0.5, with
    ``fused_conv_block="residual"`` and with ``True``;
 7. the conv-formulations measurement at the bench shapes (512 clients x 32
@@ -121,6 +131,21 @@ F32_FLOPS = 67e12    # on the CUDA cores
 # check_unfused
 UNFUSED_GRAD_TOL = 1e-2
 FORMULATION_GRAD_TOL = 0.2
+
+# the compressed bench rounds (phase_compression)
+TOPK_RATIO = 0.01
+POWERSGD_RANK = 4
+COMPRESSED_ENGINES = (
+    {"uplink_compression": "int8"},
+    {"uplink_compression": "topk", "uplink_topk_ratio": TOPK_RATIO},
+    {"uplink_compression": "powersgd", "uplink_powersgd_rank": POWERSGD_RANK},
+    {"downlink_compression": "bfloat16"},
+    {"downlink_compression": "int8"},
+    {"downlink_compression": "int8", "uplink_compression": "topk",
+     "uplink_topk_ratio": TOPK_RATIO},
+)
+COMPRESSED_ROUNDS = 2
+COMPRESSION_ROWS = slice(0, NUM_CLIENTS, NUM_CLIENTS // 8)  # 8 clients
 
 # the fused conv kernels' second geometry (H, C1, C2): widths that are no
 # multiples of 16, so the tensor-core route pads its channels
@@ -1427,9 +1452,10 @@ def check_pool_first_match():
                 "the first window member")
 
 
-def make_bench_engine(fused):
+def make_bench_engine(fused, **compression):
     """The engine of the 512-client bf16 delta-DP configuration (bench.py's
-    workload) with one conv formulation."""
+    workload) with one conv formulation; ``compression`` takes
+    RoundEngineConfig's uplink and downlink fields."""
     import torch
 
     from fl_tpu_torch.core.types import PrivacyConfig
@@ -1453,23 +1479,26 @@ def make_bench_engine(fused):
         dp_mode="delta",
         privacy=PrivacyConfig(epsilon=1.0, delta=1e-5, max_grad_norm=1.0),
         epsilon_per_round=EPS_R, delta_per_round=DELTA_R,
-        max_clients=NUM_CLIENTS, seed=0)
+        max_clients=NUM_CLIENTS, seed=0, **compression)
     model = create_model("simple_cnn", dtype=torch.bfloat16,
                          fused_conv_block=fused)
     return FederatedRoundEngine(model, arrays, cfg, device=DEVICE)
 
 
-def bench_engine(card, fused, rounds, conv_counts):
-    """The 512-client bf16 delta-DP round with one conv formulation: a
-    warm-up round, then `rounds` pipelined rounds whose launch counts must
-    be `conv_counts` per local step plus K3's 2 a round, and 0 elsewhere."""
+def bench_engine(card, fused, rounds, conv_counts, **compression):
+    """The 512-client bf16 delta-DP round with one conv formulation, and
+    with ``compression`` if given: a warm-up round, then `rounds` pipelined
+    rounds whose launch counts must be `conv_counts` per local step plus
+    K3's 2 a round, and 0 elsewhere. Where an uplink is on, every round's
+    error-feedback norm must be finite and non-zero. Returns the counts,
+    the engine's uplink state and its global parameters."""
     import numpy as np
     import torch
 
     from fl_tpu_torch import ops
     from fl_tpu_torch.ops import conv_block as cb
 
-    engine = make_bench_engine(fused)
+    engine = make_bench_engine(fused, **compression)
     t0 = time.perf_counter()
     warm = engine.run_round(evaluate=False)
     torch.cuda.synchronize()
@@ -1502,18 +1531,28 @@ def bench_engine(card, fused, rounds, conv_counts):
             "non-finite global parameters")
     require(np.isfinite(engine.last_client_losses).all(),
             "non-finite client losses")
+    ef_norms = [r.uplink_ef_norm for r in [warm] + results]
+    if compression.get("uplink_compression", "none") != "none":
+        require(all(v is not None and math.isfinite(v) and v > 0
+                     for v in ef_norms), f"{compression}: EF norms {ef_norms}")
+        ef_text = f", EF norm by round {[round(v, 2) for v in ef_norms]}"
+    else:
+        require(ef_norms == [None] * len(ef_norms), f"EF norms {ef_norms}")
+        ef_text = ""
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     used = {k: v for k, v in counts.items() if v}
-    print(f"slice fused_conv_block={fused!r}: {NUM_CLIENTS} clients bf16 "
-          f"delta-DP, warm-up round {warm_s:.2f}s, {rounds} pipelined rounds "
-          f"in {dt:.3f}s -> {rounds / dt:.3f} rounds/s, peak memory "
-          f"{peak:.2f} GiB, losses {[round(v, 4) for v in losses]}, "
-          f"launches {used} (0 elsewhere), eps spent "
+    label = "".join(f" {k}={v!r}" for k, v in compression.items())
+    print(f"slice fused_conv_block={fused!r}{label}: {NUM_CLIENTS} clients "
+          f"bf16 delta-DP, warm-up round {warm_s:.2f}s, {rounds} pipelined "
+          f"rounds in {dt:.3f}s -> {rounds / dt:.3f} rounds/s, peak memory "
+          f"{peak:.2f} GiB, losses {[round(v, 4) for v in losses]}"
+          f"{ef_text}, launches {used} (0 elsewhere), eps spent "
           f"{engine.budget_tracker.consumed_epsilon:.4f} [{card}]",
           flush=True)
+    out = (counts, engine.uplink_error, engine.global_variables["params"])
     del engine
     torch.cuda.empty_cache()
-    return counts
+    return out
 
 
 def entry_points(counts):
@@ -1561,6 +1600,151 @@ def entry_points(counts):
           f"{BATCH_SIZE} bf16 through K4 (fwd 1, bwd 1); quantize_int8 at "
           f"D={deltas.numel()} through K6, every error under one step",
           flush=True)
+
+
+def _host_rows(t):
+    return t[COMPRESSION_ROWS].cpu()
+
+
+def check_uplink_ops(card, mat, psgd_state, params):
+    """The uplink round trips on the card held to the port's CPU functions
+    on the same values: COMPRESSION_ROWS of a real (512, D_pad) matrix
+    copied to the host. int8 bit for bit; top-k the same kept set and
+    values, never a lane-padding column; PowerSGD's reconstruction and new Q
+    within rtol 1e-5 and atol 1e-6 times the row's largest magnitude (an
+    absolute 1e-6 is below one f32 ulp of these values; the CPU's own f32
+    error against f64 is printed beside the card's). Each op is timed on
+    the whole matrix."""
+    import torch
+
+    from fl_tpu_torch.fl import powersgd as ps
+    from fl_tpu_torch.fl import uplink as up
+
+    cpu = _host_rows(mat)
+    got = up.int8_roundtrip_matrix(mat)
+    require(torch.equal(_host_rows(got), up.int8_roundtrip_matrix(cpu)),
+            "int8 round trip: the card differs from the CPU")
+    k = round(N_PARAMS * TOPK_RATIO)
+    got = up.topk_roundtrip_matrix(mat, k)
+    want = up.topk_roundtrip_matrix(cpu, k)
+    kept = _host_rows(got) != 0
+    require(bool((kept == (want != 0)).all())
+            and int(kept.sum()) == k * len(cpu)
+            and torch.equal(_host_rows(got)[kept], want[kept]),
+            "top-k: the card keeps another set than the CPU")
+    require(not bool(got[:, N_PARAMS:].any()),
+            "top-k kept a lane-padding column")
+
+    plan = ps.make_powersgd_plan(params, POWERSGD_RANK)
+    q = psgd_state[:, plan.d_pad:]
+    out, qn = ps.powersgd_roundtrip(mat, q, plan)
+    want = ps.powersgd_roundtrip(cpu, _host_rows(q), plan)
+    exact = ps.powersgd_roundtrip(cpu.double(), _host_rows(q).double(), plan)
+    gaps = []
+    for name, g, w, x in (("reconstruction", out, want[0], exact[0]),
+                          ("new Q", qn, want[1], exact[1])):
+        g = _host_rows(g)
+        scale = w.abs().amax(1, keepdim=True)
+        require(bool(((g - w).abs() <= 1e-6 * scale + 1e-5 * w.abs()).all()),
+                f"PowerSGD {name}: the card differs from the CPU by "
+                f"{float(((g - w).abs() / scale).max()):.2e} of a row's "
+                "largest value")
+        # elements outside an absolute 1e-6 + rtol 1e-5: the card against
+        # the CPU, and the CPU's own f32 result against f64
+        x = x.float()
+        miss = [int(((a - b).abs() > 1e-6 + 1e-5 * b.abs()).sum())
+                for a, b in ((g, w), (w, x))]
+        gaps.append(f"{name}: card-CPU "
+                    f"{float(((g - w).abs() / scale).max()):.2e} and CPU-f64 "
+                    f"{float(((w - x).abs() / scale).max()):.2e} of a row's "
+                    f"largest value; outside 1e-6 + 1e-5|x|: card-CPU "
+                    f"{miss[0]}, CPU-f64 {miss[1]} of {w.numel()}")
+    del got, out, qn
+
+    alive = torch.ones(mat.shape[0], device=mat.device)
+    ms = {
+        "int8": time_ms(lambda: up.int8_roundtrip_matrix(mat)),
+        "topk": time_ms(lambda: up.topk_roundtrip_matrix(mat, k)),
+        "powersgd": time_ms(lambda: ps.powersgd_roundtrip(mat, q, plan)),
+        "int8 EF step": time_ms(lambda: up.apply_uplink_with_error_feedback(
+            mat, mat, alive, up.int8_roundtrip_matrix)),
+    }
+    print(f"uplink on the card vs the CPU ({len(cpu)} rows of the "
+          f"{tuple(mat.shape)} matrix): int8 bit-equal, top-k the same "
+          f"{k} kept a row, PowerSGD rank {POWERSGD_RANK} "
+          f"({' | '.join(gaps)}); ms on the whole "
+          "matrix: " + ", ".join(f"{n} {t:.3f}" for n, t in ms.items())
+          + f" [{card}]", flush=True)
+
+
+def check_wire(params):
+    """The real global model through the wire codecs and back, each within
+    its stated error: lz4 (the native codec) lossless, quantization within
+    0.51 of a step per tensor, top-k its kept entries exact and no dropped
+    |x| above a kept one."""
+    import numpy as np
+
+    from fl_tpu_torch.fl.compression import create_compression_service
+    from fl_tpu_torch.models import params_to_flax
+
+    weights = {f"{l}/{k}": v for l, leaves in params_to_flax(params).items()
+               for k, v in leaves.items()}
+    parts = []
+    for algo in ("lz4", "quantization", "top_k"):
+        svc = create_compression_service(algo)
+        t0 = time.perf_counter()
+        payload, meta = svc.compress_weights(weights)
+        back = svc.decompress_weights(payload, meta)
+        dt = time.perf_counter() - t0
+        for name, w in weights.items():
+            b = back[name]
+            require(b.shape == w.shape and b.dtype == w.dtype,
+                    f"{algo}: {name} came back as {b.shape} {b.dtype}")
+            if algo == "lz4":
+                require(meta["backend"] == "native" and np.array_equal(b, w),
+                        f"lz4 ({meta['backend']}): {name} not restored")
+            elif algo == "quantization":
+                step = meta["tensors"][name]["scale"]
+                require(float(np.abs(b - w).max()) <= 0.51 * step + 1e-7,
+                        f"quantization: {name} off by more than half a step")
+            else:
+                kept = b != 0
+                k = max(1, round(w.size * (1 - meta["sparsity_ratio"])))
+                require(int(kept.sum()) == k
+                        and np.array_equal(b[kept], w[kept])
+                        and np.abs(w[kept]).min() >= np.abs(w[~kept]).max(),
+                        f"top_k: {name} did not keep its {k} largest "
+                        "entries")
+        parts.append(f"{algo} ratio {meta['compression_ratio']:.4f} "
+                     f"({dt:.2f}s)")
+    print(f"wire: the global model ({N_PARAMS} values) through "
+          + ", ".join(parts) + "; lz4 on the native codec", flush=True)
+
+
+def phase_compression(card):
+    """The compressed bench rounds (uplink int8 / top-k / PowerSGD,
+    downlink bf16 / int8, downlink int8 + uplink top-k), each with K1/K2/K3
+    launched as on the uncompressed path; then the uplink ops on the card
+    held to the CPU, and the wire codecs on the real global model."""
+    import torch
+
+    states = {}
+    for compression in COMPRESSED_ENGINES:
+        _, state, params = bench_engine(
+            card, "residual", COMPRESSED_ROUNDS,
+            ("conv_block_fwd", "conv_block_bwd"), **compression)
+        # kept on the host, out of the next engines' peak memory
+        kind = compression.get("uplink_compression")
+        if kind in ("topk", "powersgd") and kind not in states:
+            states[kind] = state.cpu()
+        del state
+    # the top-k engine's error feedback: dense DP-noised deltas less what
+    # they sent, zero in the lane padding
+    check_uplink_ops(card, states["topk"].to(DEVICE),
+                     states["powersgd"].to(DEVICE), params)
+    del states
+    torch.cuda.empty_cache()
+    check_wire(params)
 
 
 def learning_check(fused):
@@ -1669,10 +1853,12 @@ def main() -> int:
              (False, 2, ()))
     check_pool_first_match()
     for fused, rounds, conv_counts in paths:
-        got = bench_engine(card, fused, rounds, conv_counts)
+        got, _, _ = bench_engine(card, fused, rounds, conv_counts)
         counts.update({k: got[k] for k in conv_counts})
         if fused == "residual":
             counts["clip_noise"] = got["clip_noise"]
+    # 5b. the compressed rounds, the uplink ops and the wire codecs
+    phase_compression(card)
     entry_points(counts)
 
     # 6. learning checks

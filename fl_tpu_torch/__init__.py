@@ -12,7 +12,11 @@ find, and imports torch and never JAX:
                                  segment (CUDA C++, ``csrc/``) and the DP
                                  clip+noise (Triton)
 - ``fl_tpu_torch.fl``            local training, delta DP, FedAvg,
-                                 convergence, partitioning
+                                 convergence, partitioning, uplink
+                                 compression with error feedback (int8,
+                                 top-k, PowerSGD), the wire codecs
+- ``fl_tpu_torch.native``        the LZ4 codec (C++, built by g++ at first
+                                 use, bound with ctypes)
 - ``fl_tpu_torch.orchestration`` the round engine
 
 Parameters keep the JAX layouts and flax names; client state is stacked

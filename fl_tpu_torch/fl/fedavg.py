@@ -24,12 +24,18 @@ def normalized_client_weights(num_samples: torch.Tensor,
                        uniform)
 
 
-def fedavg_delta(global_tree, stacked_tree, weights: torch.Tensor):
-    """global + Σₖ wₖ·(θₖ − global), leaf by leaf: non-participants
+def fedavg_delta(global_tree, stacked_tree, weights: torch.Tensor,
+                 ref_tree=None):
+    """global + Σₖ wₖ·(θₖ − θ̂), leaf by leaf, where θ̂ (``ref_tree``,
+    default the global model) is the model the clients received: with
+    downlink compression the deltas are measured against the compressed
+    broadcast and applied to the full-precision master. Non-participants
     (weight 0) leave the global model where it was."""
+    ref_tree = global_tree if ref_tree is None else ref_tree
     return {
-        l: {k: (g + torch.tensordot(weights, (stacked_tree[l][k] - g[None])
-                                    .float(), dims=1)).to(g.dtype)
+        l: {k: (g + torch.tensordot(
+                weights, (stacked_tree[l][k] - ref_tree[l][k][None]).float(),
+                dims=1)).to(g.dtype)
             for k, g in leaves.items()}
         for l, leaves in global_tree.items()
     }

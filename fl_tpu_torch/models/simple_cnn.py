@@ -209,6 +209,20 @@ def params_from_flax(tree, device="cpu") -> Params:
             for layer, leaves in tree.items()}
 
 
+def load_uplink_state(engine, state) -> None:
+    """Load an uplink state, a (C, W) numpy array such as the JAX engine's
+    ``uplink_error`` (the error feedback, then PowerSGD's Q factors), into
+    the port's engine. The two layouts agree column for column; the random
+    Q inits of the two packages differ by construction."""
+    t = torch.tensor(np.asarray(state, np.float32),
+                     device=engine.uplink_error.device)
+    if t.shape != engine.uplink_error.shape:
+        raise ValueError(f"uplink state of shape {tuple(t.shape)}, the "
+                         "engine's is "
+                         f"{tuple(engine.uplink_error.shape)}")
+    engine.uplink_error = t
+
+
 def params_to_flax(params: Params):
     """The inverse of :func:`params_from_flax`: numpy f32 arrays."""
     return {layer: {k: v.detach().cpu().numpy().astype(np.float32)

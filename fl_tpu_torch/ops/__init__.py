@@ -2,7 +2,8 @@
 
 A CUDA tensor launches the kernel (or the launcher raises); a CPU tensor
 takes the plain version. Each launcher adds one to its count in
-:func:`launch_counts` where it launches, and nowhere else.
+:func:`launch_counts` where it launches, and nowhere else. ``flatten`` and
+``topk`` hold no kernel: they are plain PyTorch, as the reference's are XLA.
 """
 
 from fl_tpu_torch.ops import conv_block, conv_patch, conv_probe, dp, quantize

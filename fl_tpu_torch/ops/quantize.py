@@ -76,13 +76,16 @@ def quantize_affine(x: torch.Tensor, bits: int = 8, symmetric: bool = False
     x = x.float()
     if symmetric:
         qmax = float(2 ** (bits - 1) - 1)
-        scale = x.abs().max().clamp(min=1e-12) / qmax
+        amax = x.abs().max().clamp(min=1e-12)
+        # a tensor divisor, as in _block_scales
+        scale = amax / torch.full_like(amax, qmax)
         q = torch.round(x / scale).clamp(-qmax - 1, qmax)
         zp = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
         lo, hi = x.min(), x.max()
         qmax = float(2 ** bits - 1)
-        scale = (hi - lo).clamp(min=1e-12) / qmax
+        span = (hi - lo).clamp(min=1e-12)
+        scale = span / torch.full_like(span, qmax)
         q = torch.round((x - lo) / scale).clamp(0, qmax)
         zp = lo
     return q.to(torch.int32), scale, zp

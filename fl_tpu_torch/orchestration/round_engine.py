@@ -3,8 +3,10 @@
 The port of ``fl_tpu.orchestration.round_engine`` for the slice. A round's
 superstep runs on the engine's device:
 
-    broadcast(θ_g) → local Adam over all C clients → delta clip + noise
-    (dp_mode="delta") → sample-weighted FedAvg → metrics
+    downlink θ̂ = compress(θ_g) → broadcast θ̂ → local Adam over all C
+    clients → delta clip + noise (dp_mode="delta") → uplink compression
+    with error feedback → sample-weighted FedAvg of the deltas against θ̂,
+    applied to the full-precision θ_g → metrics
 
 and the Python round loop stays on the host: participation masks from the
 same numpy generator as the reference (so masks are identical for a
@@ -17,8 +19,11 @@ for round r overlaps the device's work on round r+1, with the semantics of
 a ``run_round`` loop. Every dispatched round is finalized exactly once,
 also when a dispatch or a finalize raises, and zero rounds return ``[]``.
 
-Ported: ``dp_mode`` "none" and "delta". Every other feature of the
-reference's ``RoundEngineConfig`` raises ``ValueError`` naming it.
+Ported: ``dp_mode`` "none" and "delta"; ``uplink_compression`` (int8,
+topk, powersgd, with the error-feedback state ``uplink_error`` carried
+across rounds on the device) and ``downlink_compression`` (bfloat16,
+int8). Every other feature of the reference's ``RoundEngineConfig`` raises
+``ValueError`` naming it.
 """
 
 from __future__ import annotations
@@ -43,6 +48,23 @@ from fl_tpu_torch.fl.local_training import (
     evaluate_test_set,
     make_local_train_fn,
 )
+from fl_tpu_torch.fl.powersgd import (
+    apply_powersgd_with_error_feedback,
+    init_uplink_state,
+    make_powersgd_plan,
+)
+from fl_tpu_torch.fl.uplink import (
+    UPLINK_KINDS,
+    apply_uplink_with_error_feedback,
+    make_uplink_fn,
+)
+from fl_tpu_torch.ops.flatten import (
+    flat_dim,
+    padded_dim,
+    stack_flatten,
+    stack_unflatten,
+)
+from fl_tpu_torch.ops.quantize import dequantize_affine, quantize_affine
 
 logger = logging.getLogger(__name__)
 
@@ -51,11 +73,9 @@ logger = logging.getLogger(__name__)
 _NOT_PORTED = {
     "server_optimizer": "none",
     "secure_aggregation": False,
-    "uplink_compression": "none",
     "aggregation": "fedavg",
     "adaptive_clipping": False,
     "audit_injection": False,
-    "downlink_compression": "none",
     "fednova": False,
     "scaffold": False,
     "trainable_patterns": None,
@@ -81,10 +101,17 @@ class RoundEngineConfig:
     seed: int = 0
     server_optimizer: str = "none"
     secure_aggregation: bool = False
+    # lossy uplink with error feedback (fl.uplink, fl.powersgd):
+    # "none" | "int8" | "topk" | "powersgd"
     uplink_compression: str = "none"
+    uplink_topk_ratio: float = 0.01  # fraction of coords kept per client
+    uplink_powersgd_rank: int = 4
     aggregation: str = "fedavg"
     adaptive_clipping: bool = False
     audit_injection: bool = False
+    # the broadcast θ̂ the clients train from: "none" | "bfloat16" | "int8"
+    # (per-leaf symmetric); deltas are measured against θ̂ and applied to
+    # the full-precision master
     downlink_compression: str = "none"
     fednova: bool = False
     scaffold: bool = False
@@ -93,6 +120,16 @@ class RoundEngineConfig:
     qffl_q: Optional[float] = None
 
     def __post_init__(self) -> None:
+        # the reference's enum rules, messages verbatim
+        # (fl_tpu/orchestration/features.py)
+        if self.uplink_compression not in UPLINK_KINDS:
+            raise ValueError(f"uplink_compression="
+                             f"{self.uplink_compression!r} not in "
+                             f"{UPLINK_KINDS}")
+        if self.downlink_compression not in ("none", "bfloat16", "int8"):
+            raise ValueError(f"downlink_compression="
+                             f"{self.downlink_compression!r} not in "
+                             "('none', 'bfloat16', 'int8')")
         if self.dp_mode not in ("none", "delta"):
             raise ValueError(f"dp_mode={self.dp_mode!r} is not ported yet "
                              "(only 'none' and 'delta')")
@@ -113,6 +150,10 @@ class RoundResult:
     participating_clients: int
     round_time_s: float
     epsilon_spent: float = 0.0
+    # mean over clients of the error-feedback residual's norm (None when
+    # the uplink is uncompressed); the reference computes it on the device
+    # and reads it back with the round's metrics but does not keep it
+    uplink_ef_norm: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -130,7 +171,16 @@ class _PendingRound:
 
 # layout of the packed per-round metrics vector (one device→host copy)
 _SCALARS = ("train_loss", "train_accuracy", "weight_change_norm",
-            "weight_norm", "dp_sigma_mean")
+            "weight_norm", "dp_sigma_mean", "uplink_ef_norm")
+
+
+def downlink_roundtrip(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """θ̂ of one leaf, what the clients receive: per-leaf symmetric int8
+    quantize → dequantize, or a bfloat16 cast there and back."""
+    if kind == "int8":
+        q, s, zp = quantize_affine(x, bits=8, symmetric=True)
+        return dequantize_affine(q, s, zp, symmetric=True).to(x.dtype)
+    return x.to(torch.bfloat16).to(x.dtype)
 
 
 class FederatedRoundEngine:
@@ -186,19 +236,66 @@ class FederatedRoundEngine:
             prng.stream_seed(self._root, prng.Stream.INIT), self.device)
         self.global_variables: Dict[str, Any] = {
             "params": model.init(init_gen, self.device)}
+
+        # uplink state: (C, D_pad) f32 error feedback when compression is
+        # on, a (C, 1) zero dummy otherwise; PowerSGD appends its
+        # warm-started Q factors after the EF region (fl.powersgd)
+        params = self.global_variables["params"]
+        self._powersgd_plan = None
+        if config.uplink_compression == "powersgd":
+            self._powersgd_plan = make_powersgd_plan(
+                params, config.uplink_powersgd_rank)
+            q_gen = prng.generator(
+                prng.stream_seed(self._root, prng.Stream.UPLINK_Q),
+                self.device)
+            self.uplink_error = init_uplink_state(
+                q_gen, self._powersgd_plan, self.num_clients, self.device)
+        else:
+            ef_d = (padded_dim(flat_dim(params, batched=False))
+                    if config.uplink_compression != "none" else 1)
+            self.uplink_error = torch.zeros((self.num_clients, ef_d),
+                                            dtype=torch.float32,
+                                            device=self.device)
         self.history: List[RoundResult] = []
         self.detector = ConvergenceDetector()
 
     # ------------------------------------------------------------------
     # the superstep
     # ------------------------------------------------------------------
+    def _uplink(self, deltas, ef_state: torch.Tensor, mask: torch.Tensor):
+        """Compress every client's f32 delta with error feedback: returns
+        (transmitted deltas as a tree, new uplink state, EF norm)."""
+        cfg = self.config
+        mat, spec = stack_flatten(deltas)
+        if cfg.uplink_compression == "powersgd":
+            transmitted, ef_out = apply_powersgd_with_error_feedback(
+                mat, ef_state, mask, self._powersgd_plan)
+        else:
+            uplink_fn = make_uplink_fn(
+                cfg.uplink_compression, cfg.uplink_topk_ratio,
+                d_valid=flat_dim(deltas))  # top-k budget on the real dim
+            transmitted, ef_out = apply_uplink_with_error_feedback(
+                mat, ef_state, mask, uplink_fn)
+        # EF-residual norm over the EF region only (for powersgd the state
+        # also carries the Q factors)
+        ef_reg = ef_out[:, :mat.shape[1]]
+        ef_norm = torch.sqrt(torch.sum(ef_reg * ef_reg, dim=1)).sum() \
+            / self.num_clients
+        return stack_unflatten(transmitted, spec), ef_out, ef_norm
+
     def _superstep(self, global_params, round_idx: int,
-                   mask: torch.Tensor):
+                   mask: torch.Tensor, ef_state: torch.Tensor):
         cfg = self.config
         C = self.num_clients
         rseed = prng.round_seed(self._root, round_idx)
+        # θ̂: what clients actually receive; every delta below is measured
+        # against it, and the aggregate is applied to the master
+        ref_params = (tree_map(lambda g: downlink_roundtrip(
+                          g, cfg.downlink_compression), global_params)
+                      if cfg.downlink_compression != "none"
+                      else global_params)
         stacked = tree_map(lambda g: g[None].expand(C, *g.shape),
-                           global_params)
+                           ref_params)
         new_stacked, metrics = self._local_train(
             stacked, self.data.images, self.data.labels,
             self.data.num_samples, rseed)
@@ -206,28 +303,42 @@ class FederatedRoundEngine:
         sigma_mean = torch.zeros((), device=self.device)
         if cfg.dp_mode == "delta":
             # reference semantics (federated_trainer.py:428-469): noise
-            # the local-global delta and re-add it to the global model
+            # the local delta against θ̂ and re-add it to θ̂
             eps_r = cfg.epsilon_per_round or self.privacy.epsilon
             del_r = cfg.delta_per_round or self.privacy.delta
             deltas = tree_map(lambda c, g: c - g[None], new_stacked,
-                              global_params)
+                              ref_params)
             noisy, _, sigma = dp.dp_noise_client_deltas(
                 deltas, rseed, eps_r, del_r, self.privacy.max_grad_norm)
+            del deltas
             new_stacked = tree_map(lambda d, g: d + g[None], noisy,
-                                   global_params)
+                                   ref_params)
+            del noisy
             sigma_mean = sigma.sum() / C
 
+        ef_out = ef_state
+        ef_norm = torch.zeros((), device=self.device)
+        if cfg.uplink_compression != "none":
+            # the client's order: train → DP → compress → upload
+            hat, ef_out, ef_norm = self._uplink(
+                tree_map(lambda c, g: (c - g[None]).float(), new_stacked,
+                         ref_params), ef_state, mask)
+            new_stacked = tree_map(lambda g, d: (g[None] + d).to(g.dtype),
+                                   ref_params, hat)
+            del hat
+
         w = normalized_client_weights(self.data.num_samples, mask)
-        new_global = fedavg_delta(global_params, new_stacked, w)
+        new_global = fedavg_delta(global_params, new_stacked, w, ref_params)
         scalars = torch.stack([
             (metrics["loss"] * w).sum(),
             (metrics["accuracy"] * w).sum(),
             global_norm(tree_map(torch.sub, new_global, global_params)),
             global_norm(new_global),
             sigma_mean,
+            ef_norm,
         ])
         packed = torch.cat([scalars, metrics["loss"], metrics["accuracy"]])
-        return new_global, packed
+        return new_global, ef_out, packed
 
     # ------------------------------------------------------------------
     # host round loop
@@ -305,8 +416,9 @@ class FederatedRoundEngine:
                     "Privacy budget exhausted — cannot run another DP round")
 
         mask_t = torch.as_tensor(np.asarray(mask, np.float32)).to(self.device)
-        new_global, metrics = self._superstep(
-            self.global_variables["params"], self.round_number, mask_t)
+        new_global, self.uplink_error, metrics = self._superstep(
+            self.global_variables["params"], self.round_number, mask_t,
+            self.uplink_error)
         self.global_variables = {"params": new_global}
 
         eps_spent = 0.0
@@ -363,6 +475,9 @@ class FederatedRoundEngine:
             participating_clients=int(pending.mask.sum()),
             round_time_s=time.perf_counter() - pending.t0,
             epsilon_spent=pending.eps_spent,
+            uplink_ef_norm=(metrics["uplink_ef_norm"]
+                            if self.config.uplink_compression != "none"
+                            else None),
         )
         n = len(_SCALARS)
         self.last_client_losses = packed[n:n + C]

@@ -11,6 +11,13 @@ one-round tolerances for two formulations of the segment (params rtol
 2e-2 / atol 1e-3, train_loss rtol 5e-2, tests/test_conv_block_engine.py);
 in f32 at least 99.9% of parameter elements within 1e-5 and all within
 lr (f32 sums in another order can move an Adam step on a few elements).
+
+The compressed rounds (each uplink and downlink kind, and downlink int8 +
+uplink top-k together) start both engines from the same uplink state: the
+JAX engine's (its PowerSGD Q factors; the two packages' random inits
+differ by construction) with an error feedback drawn from a seed, loaded
+into the port by ``load_uplink_state``. The error feedback after the round
+is held like the parameters.
 """
 
 import subprocess
@@ -36,22 +43,29 @@ from fl_tpu_torch.data import load_dataset, make_federated_arrays
 from fl_tpu_torch.fl.local_training import FederatedTrainingConfig
 from fl_tpu_torch.fl.partition import partition_indices
 from fl_tpu_torch.fl.privacy import PrivacyError
-from fl_tpu_torch.models import create_model, params_from_flax, params_to_flax
+from fl_tpu_torch.models import (
+    create_model,
+    load_uplink_state,
+    params_from_flax,
+    params_to_flax,
+)
+from fl_tpu_torch.ops.flatten import padded_dim
 from fl_tpu_torch.orchestration import FederatedRoundEngine, RoundEngineConfig
 
 LR = 1e-3
+SIMPLE_CNN_D = 421_642
 
 
 FORMULATIONS = [False, True, "residual"]
 
 
 def _engines(dtype_name, participation_rate=1.0, num_clients=4,
-             fused="residual"):
+             fused="residual", **compression):
     jdt, tdt = {"bf16": (jnp.bfloat16, torch.bfloat16),
                 "f32": (jnp.float32, torch.float32)}[dtype_name]
     state = "bfloat16" if dtype_name == "bf16" else None
     common = dict(dp_mode="delta", min_clients=2, seed=0,
-                  participation_rate=participation_rate)
+                  participation_rate=participation_rate, **compression)
     jarr = jax_make_arrays(jax_load_dataset("mnist", n_train_synth=256,
                                             n_test_synth=64),
                            num_clients=num_clients, strategy="iid",
@@ -114,6 +128,95 @@ def test_round_matches_jax_f32():
     diff = np.concatenate([np.abs(ta[k] - ja[k]).ravel() for k in ja])
     assert (diff <= 1e-5).mean() >= 0.999
     assert diff.max() <= LR
+
+
+# ---------------------------------------------------------------------------
+# compressed rounds against the JAX engine
+# ---------------------------------------------------------------------------
+
+COMPRESSED = {
+    "uplink-int8": {"uplink_compression": "int8"},
+    "uplink-topk": {"uplink_compression": "topk"},
+    "uplink-powersgd": {"uplink_compression": "powersgd"},
+    "downlink-bfloat16": {"downlink_compression": "bfloat16"},
+    "downlink-int8": {"downlink_compression": "int8"},
+    "downlink-int8+uplink-topk": {"downlink_compression": "int8",
+                                  "uplink_compression": "topk"},
+}
+# the starting error feedback's scale. Top-k's is large beside a round's
+# deltas (about 2·lr), so its threshold sits far from the last-bit
+# differences of the two packages' local steps and both keep the same
+# coordinates; int8's and PowerSGD's are the size of the deltas.
+EF_SCALE = {"int8": 1e-3, "topk": 10.0, "powersgd": 1e-3}
+
+
+@pytest.fixture(scope="module",
+                params=[(k, d) for k in COMPRESSED for d in ("f32", "bf16")],
+                ids=lambda p: f"{p[0]}-{p[1]}")
+def compressed_round(request):
+    """Both engines of one compressed configuration, one round each on the
+    same participation mask (some of the 4 clients sit it out), built once
+    for the tests that read them."""
+    kind, dtype = request.param
+    jeng, teng = _engines(dtype, participation_rate=0.75,
+                          **COMPRESSED[kind])
+    up = COMPRESSED[kind].get("uplink_compression", "none")
+    state = np.array(jax.device_get(jeng.uplink_error), np.float32)
+    if up != "none":
+        state[:, :SIMPLE_CNN_D] = np.random.default_rng(5).normal(
+            0, EF_SCALE[up], (state.shape[0], SIMPLE_CNN_D))
+        jeng.uplink_error = jnp.asarray(state)
+    load_uplink_state(teng, state)
+    mask = jeng.sample_participation()
+    np.testing.assert_array_equal(teng.sample_participation(), mask)
+    jr = jeng.run_round(mask, evaluate=False)
+    tr = teng.run_round(mask, evaluate=False)
+    return dict(dtype=dtype, uplink=up, jeng=jeng, teng=teng, jr=jr, tr=tr,
+                state0=state, mask=mask)
+
+
+def _close(got, want, dtype, atol_bf16=1e-3):
+    """f32: at least 99.9% within 1e-5 and all within lr; bf16: rtol 2e-2,
+    atol 1e-3 (the module docstring's tolerances)."""
+    if dtype == "bf16":
+        np.testing.assert_allclose(got, want, rtol=2e-2, atol=atol_bf16)
+    else:
+        diff = np.abs(got - want)
+        assert (diff <= 1e-5).mean() >= 0.999 and diff.max() <= LR
+
+
+def test_compressed_round_matches_jax(compressed_round):
+    r = compressed_round
+    jr, tr = r["jr"], r["tr"]
+    assert tr.participating_clients == jr.participating_clients \
+        == r["mask"].sum() < 4
+    np.testing.assert_allclose(tr.train_loss, jr.train_loss,
+                               rtol=5e-2 if r["dtype"] == "bf16" else 1e-5)
+    ja, ta = _flat(r["jeng"], r["teng"])
+    assert sorted(ja) == sorted(ta)
+    _close(np.concatenate([ta[k].ravel() for k in sorted(ta)]),
+           np.concatenate([ja[k].ravel() for k in sorted(ja)]), r["dtype"])
+
+
+def test_compressed_round_carries_the_same_uplink_state(compressed_round):
+    r = compressed_round
+    want = np.asarray(jax.device_get(r["jeng"].uplink_error))
+    got = r["teng"].uplink_error.numpy()
+    assert got.shape == want.shape
+    if r["uplink"] == "none":
+        assert got.shape[1] == 1 and not got.any() and not want.any()
+        assert r["tr"].uplink_ef_norm is None
+        return
+    # a client's error feedback holds its own delta, where the parameters
+    # move by the participants' weighted mean of them: in bf16 its absolute
+    # tolerance is the parameters' times the number of participants
+    _close(got, want, r["dtype"], atol_bf16=1e-3 * r["mask"].sum())
+    # the clients that sat the round out kept their state bit for bit
+    out = r["mask"] == 0
+    np.testing.assert_array_equal(got[out], r["state0"][out])
+    ef = want[:, :padded_dim(SIMPLE_CNN_D)]
+    ef_norm = np.sqrt((ef.astype(np.float64) ** 2).sum(1)).sum() / len(ef)
+    np.testing.assert_allclose(r["tr"].uplink_ef_norm, ef_norm, rtol=1e-4)
 
 
 def test_participation_masks_match_jax():
@@ -215,13 +318,62 @@ def test_evaluate_and_run():
 
 @pytest.mark.parametrize("kwargs", [
     {"dp_mode": "dp_sgd"}, {"scaffold": True}, {"fednova": True},
-    {"server_optimizer": "fedadam"}, {"uplink_compression": "int8"},
+    {"server_optimizer": "fedadam"}, {"adaptive_clipping": True},
     {"secure_aggregation": True}, {"aggregation": "median"},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_features_are_refused(kwargs):
     name = next(iter(kwargs))
     with pytest.raises(ValueError, match=name):
         RoundEngineConfig(**kwargs)
+
+
+@pytest.mark.parametrize("kwargs,message", [
+    ({"uplink_compression": "gzip"},
+     "uplink_compression='gzip' not in ('none', 'int8', 'topk', "
+     "'powersgd')"),
+    ({"downlink_compression": "int4"},
+     "downlink_compression='int4' not in ('none', 'bfloat16', 'int8')"),
+], ids=["uplink", "downlink"])
+def test_compression_kinds_are_checked_with_the_reference_messages(
+        kwargs, message):
+    with pytest.raises(ValueError) as err:
+        RoundEngineConfig(**kwargs)
+    assert str(err.value) == message
+    with pytest.raises(ValueError) as jerr:
+        JaxEngine(jax_create_model("simple_cnn"), jax_make_arrays(
+            jax_load_dataset("mnist", n_train_synth=64, n_test_synth=8), 2,
+            "iid"), JaxConfig(**kwargs))
+    assert str(jerr.value) == message
+
+
+def test_powersgd_rank_below_one_is_refused():
+    arr = make_federated_arrays(load_dataset("mnist", n_train_synth=64,
+                                             n_test_synth=8), 2, "iid")
+    with pytest.raises(ValueError, match="powersgd rank must be ≥ 1"):
+        FederatedRoundEngine(create_model("simple_cnn"), arr,
+                             RoundEngineConfig(uplink_compression="powersgd",
+                                               uplink_powersgd_rank=0),
+                             device="cpu")
+
+
+def test_downlink_int8_round_with_no_local_work_leaves_the_master():
+    """lr = 0: every client returns θ̂ itself, every delta is zero, and the
+    full-precision master must come out bit for bit as it went in (θ̂'s
+    quantization error is never absorbed)."""
+    arr = make_federated_arrays(load_dataset("mnist", n_train_synth=128,
+                                             n_test_synth=8), 4, "iid",
+                                samples_per_client=16)
+    eng = FederatedRoundEngine(
+        create_model("simple_cnn", fused_conv_block="residual"), arr,
+        RoundEngineConfig(training=FederatedTrainingConfig(
+            local_epochs=1, batch_size=8, learning_rate=0.0),
+            downlink_compression="int8"), device="cpu")
+    before = {l: {k: v.clone() for k, v in d.items()}
+              for l, d in eng.global_variables["params"].items()}
+    eng.run_round(evaluate=False)
+    for l, leaves in before.items():
+        for k, v in leaves.items():
+            assert torch.equal(eng.global_variables["params"][l][k], v)
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -2,7 +2,8 @@
 
     python3 tools/profile_round.py sweep
     python3 tools/profile_round.py parts
-    python3 tools/profile_round.py profile [--out DIR] [residual|true|false ...]
+    python3 tools/profile_round.py profile [--out DIR] [residual|true|false|
+        up-int8|up-topk|up-powersgd|down-bf16|down-int8|down-int8+up-topk ...]
 
 ``sweep`` times the four conv kernels at the bench shapes (512 clients x 32
 images, bf16, C1=32, C2=64) for each thread count per block, CUDA events
@@ -18,7 +19,10 @@ at C2 = 16, 32, 48, 64 as ``sweep`` does and fits time = a + b * C2 by least
 squares; a is the C2-free part, a / time(64) its share at the bench width.
 
 ``profile`` runs the 512-client bf16 delta-DP round of ``bench.py``'s
-workload for each named value of ``fused_conv_block``: one warm-up round,
+workload for each named value of ``fused_conv_block``, or with
+``fused_conv_block="residual"`` and one of ``chip_smoke.py``'s compressed
+configurations (``up-*``: uplink int8, top-k 1%, PowerSGD rank 4;
+``down-*``: downlink bf16, int8; ``down-int8+up-topk``): one warm-up round,
 then 3 pipelined rounds under ``torch.profiler``, and prints the device
 time per round grouped by kernel family, the launches per round, the busy
 share of the profiled window, rounds/s without the profiler (3 pipelined
@@ -68,6 +72,8 @@ FAMILIES = (
     ("gemm", "fc1/fc2 GEMMs (torch.bmm, cuBLAS)"),
     ("cutlass", "fc1/fc2 GEMMs (torch.bmm, cuBLAS)"),
     ("reduce_kernel", "PyTorch reductions"),
+    ("mbtopk", "torch.topk (radix select)"),
+    ("_scatter_gather", "scatter and gather"),
     ("Memcpy", "copies and casts"),
     ("copy_kernel", "copies and casts"),
     ("elementwise", "PyTorch elementwise"),
@@ -156,11 +162,12 @@ def _device_us(ev) -> float:
     return ev.self_cuda_time_total
 
 
-def profile(card: str, fused, out_dir: Optional[Path]) -> None:
+def profile(card: str, name: str, fused, compression,
+            out_dir: Optional[Path]) -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    engine = chip_smoke.make_bench_engine(fused)
+    engine = chip_smoke.make_bench_engine(fused, **compression)
     engine.run_round(evaluate=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -186,13 +193,15 @@ def profile(card: str, fused, out_dir: Optional[Path]) -> None:
     if out_dir is not None:
         # the kernels by their own names, for checking the grouping above
         out_dir.mkdir(parents=True, exist_ok=True)
-        (out_dir / f"profile_{fused}.txt").write_text("".join(
+        (out_dir / f"profile_{name}.txt").write_text("".join(
             f"{t / 1e3 / ROUNDS:10.2f} ms/round  {_family(n):44s} {n}\n"
             for n, t in sorted(by_name.items(), key=lambda kv: -kv[1])))
     total = sum(us.values())
     if total == 0:
         raise RuntimeError("the profiler recorded no device time")
-    print(f"profile fused_conv_block={fused!r}: {rate:.3f} rounds/s without "
+    label = "".join(f" {k}={v!r}" for k, v in compression.items())
+    print(f"profile fused_conv_block={fused!r}{label}: {rate:.3f} rounds/s "
+          "without "
           f"the profiler, peak memory {peak:.2f} GiB; under it {ROUNDS} "
           f"rounds in {window:.3f}s, device kernel time "
           f"{total / 1e3 / ROUNDS:.1f} ms/round, busy share "
@@ -210,7 +219,12 @@ def main(argv) -> int:
         print("no CUDA device: these measurements need one GPU",
               file=sys.stderr)
         return 1
-    modes = {"residual": "residual", "true": True, "false": False}
+    modes = {"residual": ("residual", {}), "true": (True, {}),
+             "false": (False, {})}
+    # chip_smoke.COMPRESSED_ENGINES, in its order
+    modes.update(zip(("up-int8", "up-topk", "up-powersgd", "down-bf16",
+                      "down-int8", "down-int8+up-topk"),
+                     (("residual", c) for c in chip_smoke.COMPRESSED_ENGINES)))
     out_dir = None
     if argv[1:2] == ["--out"] and len(argv) > 2:
         out_dir, argv = Path(argv[2]), argv[:1] + argv[3:]
@@ -227,8 +241,8 @@ def main(argv) -> int:
     elif argv[0] == "parts":
         parts(card)
     else:
-        for name in argv[1:] or list(modes):
-            profile(card, modes[name], out_dir)
+        for name in argv[1:] or ["residual", "true", "false"]:
+            profile(card, name, *modes[name], out_dir)
     return 0
 
 
