@@ -64,7 +64,27 @@ line each; any failure exits non-zero:
    a row's largest value) and timed; the real global model through the
    wire codecs (lz4 on the native codec, quantization, top-k) and back;
    then the entry points ``conv_stack_packed`` and ``quantize_int8`` driven
-   once at full width with their counts read;
+   once at full width with their counts read; then the central-DP phase
+   (``phase_central_dp``): the ``"residual"`` configuration under
+   ``dp_mode="client_dp"`` (DP-FedAvg of McMahan et al. 2018: q = 0.1,
+   so m̄ = 51.2, z = 1, C = 1, (ε, δ) = (8, 1e-5)), one warm-up and 3
+   pipelined rounds under the RDP accountant with K1/K2 launched 10 times a
+   round on the tensor cores and K3 never, each round's participants the
+   pure Poisson draw of the engine's numpy stream, σ = z·C/m̄ and ε by
+   round equal to a fresh RDP accountant's (one ``central_dp client_dp``
+   line with rounds/s, peak memory and the host's accounting ms a
+   dispatch); the PLD gate's step budget at first use (its host seconds)
+   and one round (a ``central_dp pld`` line); adaptive clipping with the
+   default σ_b = m̄/20 over 3 ``run_round`` rounds, with
+   ``run_rounds_pipelined`` refused (the clip norm and the noisy clipped
+   fraction by round on a ``central_dp adaptive`` line); the update-canary
+   audit with 16 canaries over 10 rounds, its ε lower bound at or below
+   the certified ε (``central_dp audit``); ``clip_client_deltas`` and the
+   fixed-m̄ masked mean, literal and folded into the weights, on a (512 x
+   SimpleCNN) stacked tree against f64 on the host, and
+   ``central_noise_tree`` on the model's leaves by mean, variance, a
+   Kolmogorov–Smirnov test and the correlation across leaves
+   (``central_dp functions``);
 6. learning check: 10 non-IID clients, 3 rounds, test accuracy > 0.5, with
    ``fused_conv_block="residual"`` and with ``True``;
 7. the conv-formulations measurement at the bench shapes (512 clients x 32
@@ -146,6 +166,20 @@ COMPRESSED_ENGINES = (
 )
 COMPRESSED_ROUNDS = 2
 COMPRESSION_ROWS = slice(0, NUM_CLIENTS, NUM_CLIENTS // 8)  # 8 clients
+
+# the central-DP rounds (phase_central_dp): McMahan et al. 2018's DP-FedAvg
+# at client level on the bench workload
+CDP_RATE = 0.1          # q: Poisson participation, m̄ = q·N = 51.2
+CDP_Z = 1.0             # noise multiplier
+CDP_CLIP = 1.0          # C
+CDP_EPSILON = 8.0
+CDP_DELTA = 1e-5
+CDP_ROUNDS = 3
+AUDIT_CANARIES = 16
+AUDIT_ROUNDS = 10
+# clip_client_deltas + the fixed-m̄ mean against f64 on the host, relative
+# Frobenius norm per leaf (f32 sums of 51 clients' rows)
+CDP_MEAN_TOL = 1e-6
 
 # the fused conv kernels' second geometry (H, C1, C2): widths that are no
 # multiples of 16, so the tensor-core route pads its channels
@@ -1452,37 +1486,52 @@ def check_pool_first_match():
                 "the first window member")
 
 
-def make_bench_engine(fused, **compression):
-    """The engine of the 512-client bf16 delta-DP configuration (bench.py's
-    workload) with one conv formulation; ``compression`` takes
-    RoundEngineConfig's uplink and downlink fields."""
-    import torch
-
-    from fl_tpu_torch.core.types import PrivacyConfig
+def bench_arrays():
+    """The bench's 512 IID shards of 64 synthetic MNIST images (host)."""
     from fl_tpu_torch.data import load_dataset, make_federated_arrays
-    from fl_tpu_torch.fl.local_training import FederatedTrainingConfig
-    from fl_tpu_torch.models import create_model
-    from fl_tpu_torch.orchestration import (FederatedRoundEngine,
-                                            RoundEngineConfig)
 
     splits = load_dataset("mnist",
                           n_train_synth=NUM_CLIENTS * SAMPLES_PER_CLIENT,
                           n_test_synth=1024)
-    arrays = make_federated_arrays(splits, num_clients=NUM_CLIENTS,
-                                   strategy="iid",
-                                   samples_per_client=SAMPLES_PER_CLIENT,
-                                   seed=0)
+    return make_federated_arrays(splits, num_clients=NUM_CLIENTS,
+                                 strategy="iid",
+                                 samples_per_client=SAMPLES_PER_CLIENT,
+                                 seed=0)
+
+
+def bench_training():
+    from fl_tpu_torch.fl.local_training import FederatedTrainingConfig
+
+    return FederatedTrainingConfig(
+        local_epochs=LOCAL_EPOCHS, batch_size=BATCH_SIZE,
+        learning_rate=0.001, optimizer_state_dtype="bfloat16")
+
+
+def bench_model(fused="residual"):
+    import torch
+
+    from fl_tpu_torch.models import create_model
+
+    return create_model("simple_cnn", dtype=torch.bfloat16,
+                        fused_conv_block=fused)
+
+
+def make_bench_engine(fused, **compression):
+    """The engine of the 512-client bf16 delta-DP configuration (bench.py's
+    workload) with one conv formulation; ``compression`` takes
+    RoundEngineConfig's uplink and downlink fields."""
+    from fl_tpu_torch.core.types import PrivacyConfig
+    from fl_tpu_torch.orchestration import (FederatedRoundEngine,
+                                            RoundEngineConfig)
+
     cfg = RoundEngineConfig(
-        training=FederatedTrainingConfig(
-            local_epochs=LOCAL_EPOCHS, batch_size=BATCH_SIZE,
-            learning_rate=0.001, optimizer_state_dtype="bfloat16"),
+        training=bench_training(),
         dp_mode="delta",
         privacy=PrivacyConfig(epsilon=1.0, delta=1e-5, max_grad_norm=1.0),
         epsilon_per_round=EPS_R, delta_per_round=DELTA_R,
         max_clients=NUM_CLIENTS, seed=0, **compression)
-    model = create_model("simple_cnn", dtype=torch.bfloat16,
-                         fused_conv_block=fused)
-    return FederatedRoundEngine(model, arrays, cfg, device=DEVICE)
+    return FederatedRoundEngine(bench_model(fused), bench_arrays(), cfg,
+                                device=DEVICE)
 
 
 def bench_engine(card, fused, rounds, conv_counts, **compression):
@@ -1747,6 +1796,305 @@ def phase_compression(card):
     check_wire(params)
 
 
+def central_dp_config(**overrides):
+    """RoundEngineConfig of the client_dp bench rounds."""
+    from fl_tpu_torch.core.types import PrivacyConfig
+    from fl_tpu_torch.orchestration import RoundEngineConfig
+
+    return RoundEngineConfig(
+        training=bench_training(), dp_mode="client_dp",
+        privacy=PrivacyConfig(epsilon=CDP_EPSILON, delta=CDP_DELTA,
+                              max_grad_norm=CDP_CLIP,
+                              noise_multiplier=CDP_Z),
+        participation_rate=CDP_RATE, max_clients=NUM_CLIENTS, seed=0,
+        **overrides)
+
+
+def central_dp_engine(**overrides):
+    from fl_tpu_torch.orchestration import FederatedRoundEngine
+
+    return FederatedRoundEngine(bench_model(), bench_arrays(),
+                                central_dp_config(**overrides),
+                                device=DEVICE)
+
+
+def check_cdp_launches(label, counts, rounds):
+    """K1/K2 on the tensor cores 10 times a round, nothing else (no K3:
+    client_dp adds no per-client noise)."""
+    from fl_tpu_torch.ops import conv_block as cb
+
+    steps = LOCAL_EPOCHS * (SAMPLES_PER_CLIENT // BATCH_SIZE)
+    want = dict.fromkeys(counts, 0)
+    want.update(conv_block_fwd=steps * rounds, conv_block_bwd=steps * rounds)
+    require(counts == want, f"{label}: launch counts {counts}, expected "
+                            f"{want}")
+    require(all(cb.ROUTE_LAUNCHES[(k, "tensor_core")] == want[k]
+                for k in ("conv_block_fwd", "conv_block_bwd")),
+            f"{label}: launches by route "
+            f"{ {k: v for k, v in cb.ROUTE_LAUNCHES.items() if v} }")
+
+
+def check_cdp_rounds(label, engine, results, clips=None):
+    """Each round's participants are the pure Poisson draw of the engine's
+    numpy stream, its σ is z·C/m̄ (z_Δ when adaptive), and its ε is a fresh
+    RDP accountant's stepped at (q, z) once a round, bit for bit."""
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch.fl.accounting import RDPAccountant
+
+    rng = np.random.default_rng(1)   # the engine's stream, seed + 1
+    fresh = RDPAccountant()
+    ledger = engine.accountant.get_privacy_ledger()
+    require(len(ledger) == len(results), f"{label}: ledger {len(ledger)}")
+    m_bar = CDP_RATE * NUM_CLIENTS
+    z = engine._z_delta if engine.config.adaptive_clipping else CDP_Z
+    eps = []
+    for i, (r, entry) in enumerate(zip(results, ledger)):
+        drawn = int((rng.random(NUM_CLIENTS) < CDP_RATE).sum())
+        require(r.participating_clients == drawn,
+                f"{label}: round {i} had {r.participating_clients} "
+                f"participants, the Poisson draw {drawn}")
+        c = CDP_CLIP if clips is None else clips[i]
+        require(abs(entry["noise_scale"] / (z * c / m_bar) - 1) < 1e-6,
+                f"{label}: round {i} σ {entry['noise_scale']}, expected "
+                f"{z * c / m_bar}")
+        fresh.step(CDP_RATE, CDP_Z)
+        want = fresh.get_epsilon(CDP_DELTA)
+        require(entry["metadata"]["total_epsilon"] == want,
+                f"{label}: ε after round {i} "
+                f"{entry['metadata']['total_epsilon']}, the RDP "
+                f"accountant's {want}")
+        eps.append(want)
+    require(all(math.isfinite(r.train_loss) for r in results),
+            f"{label}: losses {[r.train_loss for r in results]}")
+    params = engine.global_variables["params"]
+    require(all(bool(torch.isfinite(t).all())
+                for d in params.values() for t in d.values()),
+            f"{label}: non-finite global parameters")
+    return ([r.participating_clients for r in results],
+            [entry["noise_scale"] for entry in ledger], eps)
+
+
+def check_cdp_functions(card):
+    """clip_client_deltas + the fixed-m̄ masked mean, and the engine's
+    fused form of it, on a (512 x SimpleCNN) stacked tree held to f64 on
+    the host; central_noise_tree on the global model's leaves by its
+    distribution."""
+    import numpy as np
+    import torch
+    from scipy import stats
+
+    from fl_tpu_torch.core import prng
+    from fl_tpu_torch.core.pytree import tree_map, tree_paths
+    from fl_tpu_torch.fl import privacy as dp
+
+    engine_params = bench_model().init(
+        prng.generator(prng.root_seed(2), DEVICE), DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    # norms spread over 0.1..10 x C, so about half the clients are clipped
+    spread = torch.logspace(-1, 1, NUM_CLIENTS, device=DEVICE)
+    tree = tree_map(lambda p: torch.randn(
+        (NUM_CLIENTS,) + tuple(p.shape), generator=gen, device=DEVICE),
+        engine_params)
+    norms0 = dp.client_norms(tree)
+    tree = tree_map(lambda d: d * (spread / norms0).reshape(
+        (-1,) + (1,) * (d.dim() - 1)), tree)
+    mask = (torch.rand(NUM_CLIENTS, generator=gen, device=DEVICE)
+            < CDP_RATE).float()
+    m_bar = CDP_RATE * NUM_CLIENTS
+
+    clipped, norms = dp.clip_client_deltas(tree, CDP_CLIP)
+    literal = tree_map(lambda d: torch.tensordot(mask, d, dims=1) / m_bar,
+                       clipped)
+    del clipped
+    fused, norms_f = dp.clipped_masked_mean(tree, CDP_CLIP, mask, m_bar)
+    mask64 = mask.double().cpu()
+    norms64 = torch.sqrt(sum(tree[l][k].double().cpu().reshape(
+        NUM_CLIENTS, -1).square().sum(1) for l, k in tree_paths(tree)))
+    scale64 = torch.clamp(CDP_CLIP / norms64, max=1.0)
+    worst = {"norms": float(((norms.double().cpu() - norms64).abs()
+                             / norms64).max()),
+             "fused norms": float(((norms_f.double().cpu() - norms64).abs()
+                                   / norms64).max())}
+    for l, k in tree_paths(tree):
+        want = torch.tensordot(mask64 * scale64,
+                               tree[l][k].double().cpu(), dims=1) / m_bar
+        for name, got in (("literal", literal), ("fused", fused)):
+            err = float(torch.linalg.vector_norm(
+                got[l][k].double().cpu() - want)
+                / torch.linalg.vector_norm(want))
+            worst[name] = max(worst.get(name, 0.0), err)
+    require(all(v <= CDP_MEAN_TOL for v in worst.values()),
+            f"client_dp clip + mean against f64: {worst}")
+    ms_literal = time_ms(lambda: dp.clip_client_deltas(tree, CDP_CLIP))
+    ms_fused = time_ms(lambda: dp.clipped_masked_mean(tree, CDP_CLIP, mask,
+                                                      m_bar))
+    del tree, literal, fused
+
+    sigma = CDP_Z * CDP_CLIP / m_bar
+    noisy = dp.central_noise_tree(engine_params, 12345, sigma)
+    res = {f"{l}/{k}": ((noisy[l][k] - engine_params[l][k]).double()
+                        / sigma).cpu().numpy().ravel()
+           for l, k in tree_paths(engine_params)}
+    z = np.concatenate(list(res.values()))
+    n = z.size
+    ks = stats.kstest(z, "norm").pvalue
+    a, b = res["fc1/kernel"], res["conv2/kernel"]
+    r = float(np.corrcoef(a[:b.size], b)[0, 1])
+    require(abs(z.mean()) < 5 / math.sqrt(n)
+            and abs(z.var() - 1) < 5 * math.sqrt(2 / n) and ks > 1e-3
+            and abs(r) < 5 / math.sqrt(b.size),
+            f"central noise at σ={sigma}: mean {z.mean()}, var {z.var()}, "
+            f"KS p {ks}, corr(fc1, conv2) {r}")
+    print(f"central_dp functions: clip_client_deltas + fixed-m̄ mean on "
+          f"({NUM_CLIENTS} x {N_PARAMS}) f32 against f64, worst relative "
+          f"error {', '.join(f'{k} {v:.2e}' for k, v in worst.items())} "
+          f"(tol {CDP_MEAN_TOL}); clip_client_deltas {ms_literal:.3f} ms, "
+          f"clipped_masked_mean {ms_fused:.3f} ms; central_noise_tree at "
+          f"σ={sigma:.6f} over {n} values: mean {z.mean():.2e}, var "
+          f"{z.var():.5f}, KS p {ks:.3f}, corr(fc1, conv2) {r:.2e} "
+          f"[{card}]", flush=True)
+
+
+def phase_central_dp(card):
+    """Client-level DP-FedAvg on the 512-client bench round: pipelined
+    rounds under the RDP accountant, the PLD gate, adaptive clipping, the
+    update-canary audit at full width, and the plain functions of the path
+    held on the card. Returns the launch counts of the pipelined rounds."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.fl.accounting import rdp_subsampled_gaussian
+    from fl_tpu_torch.fl.pld import compute_epsilon_pld
+    from fl_tpu_torch.validation.audit import run_client_membership_audit
+
+    # client_dp, pipelined, RDP
+    engine = central_dp_engine()
+    t0 = time.perf_counter()
+    warm = engine.run_round(evaluate=False)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = engine.run_rounds_pipelined(CDP_ROUNDS, evaluate=False)
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_cdp_launches("client_dp", counts, CDP_ROUNDS)
+    parts, sigmas, eps = check_cdp_rounds("client_dp", engine,
+                                          [warm] + results)
+    # host accounting of a dispatch: the gate's projection and the charge,
+    # with the per-round RDP vector computed once at init
+    reps = 200
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        engine._client_dp_gate()
+    gate_ms = (time.perf_counter() - t1) * 1e3 / reps
+    acc = copy.deepcopy(engine.rdp_accountant)
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        acc.get_epsilon(CDP_DELTA)
+        acc.accumulate(engine._round_rdp)
+        acc.get_epsilon(CDP_DELTA)
+    charge_ms = (time.perf_counter() - t1) * 1e3 / reps
+    t1 = time.perf_counter()
+    for _ in range(20):
+        rdp_subsampled_gaussian(CDP_RATE, CDP_Z)
+    rdp_ms = (time.perf_counter() - t1) * 1e3 / 20
+    print(f"central_dp client_dp pipelined: {NUM_CLIENTS} clients bf16 "
+          f"q={CDP_RATE} z={CDP_Z} C={CDP_CLIP} (ε, δ)=({CDP_EPSILON}, "
+          f"{CDP_DELTA}) rdp, warm-up round {warm_s:.2f}s, {CDP_ROUNDS} "
+          f"pipelined rounds in {dt:.3f}s -> {CDP_ROUNDS / dt:.3f} "
+          f"rounds/s, peak memory {peak:.2f} GiB, participants by round "
+          f"{parts}, σ by round {[round(v, 6) for v in sigmas]}, ε by "
+          f"round {[round(v, 4) for v in eps]} (= the RDP accountant's), "
+          f"launches K1/K2 "
+          f"{counts['conv_block_fwd']}/{counts['conv_block_bwd']}, K3 "
+          f"{counts['clip_noise']}; host accounting a dispatch: gate "
+          f"{gate_ms:.3f} ms + charge {charge_ms:.3f} ms (one "
+          f"rdp_subsampled_gaussian call {rdp_ms:.3f} ms) [{card}]",
+          flush=True)
+    del engine, results
+    torch.cuda.empty_cache()
+
+    # the PLD gate: its step budget at first use, then one round
+    engine = central_dp_engine(accountant="pld")
+    t1 = time.perf_counter()
+    budget = engine._pld_step_budget()
+    pld_s = time.perf_counter() - t1
+    r = engine.run_round(evaluate=False)
+    cert = engine.certified_epsilon()
+    want = compute_epsilon_pld(1, CDP_RATE, CDP_Z, CDP_DELTA)
+    require(budget > 1 and cert == want and cert <= CDP_EPSILON
+            and math.isfinite(r.train_loss),
+            f"pld: budget {budget}, certified {cert} (want {want})")
+    print(f"central_dp pld: step budget {budget} rounds at ε={CDP_EPSILON} "
+          f"(doubling + bisection, {pld_s:.1f}s on the host), ε after one "
+          f"round {cert:.4f} (rdp {eps[0]:.4f}) [{card}]", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+
+    # adaptive clipping, run_round only
+    engine = central_dp_engine(adaptive_clipping=True)
+    require(abs(engine._clip_count_stddev - CDP_RATE * NUM_CLIENTS / 20)
+            < 1e-12, f"σ_b {engine._clip_count_stddev}")
+    try:
+        engine.run_rounds_pipelined(1)
+        require(False, "run_rounds_pipelined took adaptive clipping")
+    except ValueError:
+        pass
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = [engine.run_round(evaluate=False) for _ in range(CDP_ROUNDS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check_cdp_launches("adaptive", ops.launch_counts(), CDP_ROUNDS)
+    clips = [r.clip_norm for r in results] + [engine.clip_norm]
+    check_cdp_rounds("adaptive", engine, results, clips)
+    cfg = engine.config
+    fracs = [cfg.clip_quantile - math.log(b / a) / cfg.clip_lr
+             for a, b in zip(clips, clips[1:])]
+    require(all(math.isfinite(c) and c > 0 for c in clips)
+            and all(-1.0 < f < 2.0 for f in fracs),
+            f"adaptive: clip norms {clips}, fractions {fracs}")
+    print(f"central_dp adaptive: σ_b={engine._clip_count_stddev} "
+          f"z_Δ={engine._z_delta:.5f}, {CDP_ROUNDS} run_round rounds in "
+          f"{dt:.3f}s, clip norm by round {[round(c, 5) for c in clips]}, "
+          f"noisy clipped fraction by round {[round(f, 4) for f in fracs]};"
+          f" run_rounds_pipelined refused [{card}]", flush=True)
+    del engine, results
+    torch.cuda.empty_cache()
+
+    # the update-canary membership audit at full width
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run_client_membership_audit(
+        bench_model(), bench_arrays(), central_dp_config(),
+        num_canaries=AUDIT_CANARIES, num_rounds=AUDIT_ROUNDS, seed=0)
+    dt = time.perf_counter() - t0
+    check_cdp_launches("audit", ops.launch_counts(), AUDIT_ROUNDS)
+    require(np.isfinite(out["scores"]).all() and out["consistent"]
+            and out["empirical_epsilon_lower_bound"]
+            <= out["certified_epsilon"],
+            f"audit: lower bound {out['empirical_epsilon_lower_bound']} "
+            f"against certified {out['certified_epsilon']}")
+    print(f"central_dp audit: {AUDIT_CANARIES} update canaries "
+          f"({NUM_CLIENTS + AUDIT_CANARIES} clients), {AUDIT_ROUNDS} rounds "
+          f"in {dt:.1f}s, {out['num_correct']}/{out['num_guesses']} "
+          f"guesses right, ε lower bound "
+          f"{out['empirical_epsilon_lower_bound']:.4f} <= certified "
+          f"{out['certified_epsilon']:.4f} [{card}]", flush=True)
+    torch.cuda.empty_cache()
+
+    check_cdp_functions(card)
+    return counts
+
+
 def learning_check(fused):
     import torch
 
@@ -1860,6 +2208,8 @@ def main() -> int:
     # 5b. the compressed rounds, the uplink ops and the wire codecs
     phase_compression(card)
     entry_points(counts)
+    # 5c. client-level DP-FedAvg
+    phase_central_dp(card)
 
     # 6. learning checks
     learning_check("residual")

@@ -11,13 +11,16 @@ find, and imports torch and never JAX:
                                  plain PyTorch versions: the fused conv
                                  segment (CUDA C++, ``csrc/``) and the DP
                                  clip+noise (Triton)
-- ``fl_tpu_torch.fl``            local training, delta DP, FedAvg,
-                                 convergence, partitioning, uplink
-                                 compression with error feedback (int8,
-                                 top-k, PowerSGD), the wire codecs
+- ``fl_tpu_torch.fl``            local training, delta DP, client-level
+                                 DP with the RDP and PLD accountants and
+                                 adaptive clipping, FedAvg, convergence,
+                                 partitioning, uplink compression with
+                                 error feedback (int8, top-k, PowerSGD),
+                                 the wire codecs
 - ``fl_tpu_torch.native``        the LZ4 codec (C++, built by g++ at first
                                  use, bound with ctypes)
 - ``fl_tpu_torch.orchestration`` the round engine
+- ``fl_tpu_torch.validation``    the client-level membership audit
 
 Parameters keep the JAX layouts and flax names; client state is stacked
 ``(C, ...)`` tensors with the client axis written out.

@@ -1,2 +1,3 @@
-"""Federated core: local training, delta DP, FedAvg, convergence,
-partitioning (port of fl_tpu.fl)."""
+"""Federated core: local training, delta and client-level DP with their
+accountants, FedAvg, convergence, partitioning, compression (port of
+fl_tpu.fl)."""

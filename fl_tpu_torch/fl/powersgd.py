@@ -100,9 +100,11 @@ def make_powersgd_plan(template, rank: int) -> PowerSGDPlan:
 
 
 def init_uplink_state(generator: torch.Generator, plan: PowerSGDPlan,
-                      num_clients: int, device="cpu") -> torch.Tensor:
-    """(C, d_pad + dq_pad) initial state: zero EF, standard-normal Q drawn
-    from ``generator`` (the engine's ``Stream.UPLINK_Q``)."""
+                      num_clients: int) -> torch.Tensor:
+    """(C, d_pad + dq_pad) initial state on ``generator``'s device: zero EF,
+    standard-normal Q drawn from ``generator`` (the engine's
+    ``Stream.UPLINK_Q``)."""
+    device = generator.device
     state = torch.zeros((num_clients, plan.state_width), dtype=torch.float32,
                         device=device)
     state[:, plan.d_pad:] = torch.randn(

@@ -8,10 +8,19 @@ superstep runs on the engine's device:
     with error feedback → sample-weighted FedAvg of the deltas against θ̂,
     applied to the full-precision θ_g → metrics
 
-and the Python round loop stays on the host: participation masks from the
+or, under dp_mode="client_dp" (client-level DP-FedAvg, McMahan et al.
+2018), after local training: Δ = θ_client − θ̂ (audit canaries' Δ replaced
+here) → each Δ clipped to C → masked sum over the FIXED expected
+participant count m̄ = max(1, q·N) → central N(0, σ²), σ = z·C/m̄ → θ_g +
+noisy mean; with adaptive clipping (Andrew et al. 2021) also the noisy
+clipped fraction and the next C.
+
+The Python round loop stays on the host: participation masks from the
 same numpy generator as the reference (so masks are identical for a
-seed), the (ε, δ) budget charged when a round is dispatched, one host copy
-of the round's metrics when it is finalized, convergence bookkeeping.
+seed; pure Poisson under client_dp), the budget checked and charged when a
+round is dispatched (the (ε, δ) ledger under "delta", the RDP accountant
+or the PLD step budget under "client_dp"), one host copy of the round's
+metrics when it is finalized, convergence bookkeeping.
 
 ``run_rounds_pipelined`` dispatches round r+1 before it reads round r's
 metrics back: CUDA launches are asynchronous, so the host's bookkeeping
@@ -19,19 +28,22 @@ for round r overlaps the device's work on round r+1, with the semantics of
 a ``run_round`` loop. Every dispatched round is finalized exactly once,
 also when a dispatch or a finalize raises, and zero rounds return ``[]``.
 
-Ported: ``dp_mode`` "none" and "delta"; ``uplink_compression`` (int8,
-topk, powersgd, with the error-feedback state ``uplink_error`` carried
-across rounds on the device) and ``downlink_compression`` (bfloat16,
-int8). Every other feature of the reference's ``RoundEngineConfig`` raises
-``ValueError`` naming it.
+Ported: ``dp_mode`` "none", "delta" and "client_dp" (with ``accountant``
+"rdp" or "pld", ``adaptive_clipping`` and ``audit_injection``);
+``uplink_compression`` (int8, topk, powersgd, with the error-feedback state
+``uplink_error`` carried across rounds on the device) and
+``downlink_compression`` (bfloat16, int8). The reference's feature rules
+for these raise its messages verbatim; every other feature of the
+reference's ``RoundEngineConfig`` raises ``ValueError`` naming it.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +53,7 @@ from fl_tpu_torch.core.pytree import global_norm, tree_map
 from fl_tpu_torch.core.types import PrivacyConfig
 from fl_tpu_torch.data.federated import FederatedArrays
 from fl_tpu_torch.fl import privacy as dp
+from fl_tpu_torch.fl.accounting import RDPAccountant, rdp_subsampled_gaussian
 from fl_tpu_torch.fl.convergence import ConvergenceDetector, RoundObservation
 from fl_tpu_torch.fl.fedavg import fedavg_delta, normalized_client_weights
 from fl_tpu_torch.fl.local_training import (
@@ -74,14 +87,19 @@ _NOT_PORTED = {
     "server_optimizer": "none",
     "secure_aggregation": False,
     "aggregation": "fedavg",
-    "adaptive_clipping": False,
-    "audit_injection": False,
     "fednova": False,
     "scaffold": False,
     "trainable_patterns": None,
     "feddyn_alpha": 0.0,
     "qffl_q": None,
 }
+
+
+_DP_MODES = ("none", "delta", "dp_sgd", "client_dp", "dp_ftrl",
+             "distributed")
+_PORTED_DP_MODES = ("none", "delta", "client_dp")
+# the modes that own their aggregation (clipped sum + central noise)
+_CENTRAL_DP = ("client_dp", "dp_ftrl", "distributed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,13 +110,20 @@ class RoundEngineConfig:
         default_factory=FederatedTrainingConfig)
     min_clients: int = 2
     max_clients: int = 50
-    dp_mode: str = "none"              # "none" | "delta"
+    # "none" | "delta" (per-client clip + noise, the reference semantics)
+    # | "client_dp" (clip each client's delta to C, masked sum over the
+    # fixed m̄ = q·N, central noise σ = z·C/m̄, RDP-accounted at q)
+    dp_mode: str = "none"
     privacy: Optional[PrivacyConfig] = None
     epsilon_per_round: Optional[float] = None  # default: privacy.epsilon
     delta_per_round: Optional[float] = None
     participation_rate: float = 1.0
     straggler_dropout_rate: float = 0.0
     seed: int = 0
+    # ε accountant of client_dp: "rdp" | "pld" (the gate then enforces the
+    # PLD-certified step count; the RDP ledger keeps running)
+    accountant: str = "rdp"
+    pld_dt: Optional[float] = None  # PLD grid; None = fl.pld's auto size
     server_optimizer: str = "none"
     secure_aggregation: bool = False
     # lossy uplink with error feedback (fl.uplink, fl.powersgd):
@@ -107,7 +132,15 @@ class RoundEngineConfig:
     uplink_topk_ratio: float = 0.01  # fraction of coords kept per client
     uplink_powersgd_rank: int = 4
     aggregation: str = "fedavg"
+    # client_dp only: track C to the clip_quantile-quantile of the client
+    # delta norms (Andrew et al. 2021); privacy.max_grad_norm is the
+    # initial C; σ_b defaults to m̄/20
     adaptive_clipping: bool = False
+    clip_quantile: float = 0.5
+    clip_lr: float = 0.2
+    clip_count_stddev: Optional[float] = None
+    # client_dp only: run_round's inject_flags / inject_deltas replace the
+    # flagged clients' deltas ahead of the clip (validation.audit)
     audit_injection: bool = False
     # the broadcast θ̂ the clients train from: "none" | "bfloat16" | "int8"
     # (per-leaf symmetric); deltas are measured against θ̂ and applied to
@@ -120,19 +153,57 @@ class RoundEngineConfig:
     qffl_q: Optional[float] = None
 
     def __post_init__(self) -> None:
-        # the reference's enum rules, messages verbatim
-        # (fl_tpu/orchestration/features.py)
+        # the reference's rules for the ported features, in its order and
+        # with its messages verbatim (fl_tpu/orchestration/features.py);
+        # none of them needs num_clients
+        central = self.dp_mode in _CENTRAL_DP
         if self.uplink_compression not in UPLINK_KINDS:
             raise ValueError(f"uplink_compression="
                              f"{self.uplink_compression!r} not in "
                              f"{UPLINK_KINDS}")
+        if self.dp_mode not in _DP_MODES:
+            raise ValueError(f"dp_mode={self.dp_mode!r} not in ('none', "
+                             "'delta', 'dp_sgd', 'client_dp', 'dp_ftrl', "
+                             "'distributed')")
+        if self.uplink_compression != "none" and central:
+            raise ValueError(
+                "uplink compression cannot compose with client_dp/dp_ftrl/"
+                "distributed: the "
+                "central clip runs after reconstruction, so clipped-off "
+                "mass would never return to the error-feedback residual "
+                "(breaking EF's nothing-lost-only-delayed guarantee)")
+        if self.aggregation != "fedavg" and central:
+            raise ValueError(
+                "client_dp/dp_ftrl/distributed own their aggregation "
+                "(clipped sum + calibrated noise); robust aggregation "
+                "applies to the other dp modes")
         if self.downlink_compression not in ("none", "bfloat16", "int8"):
             raise ValueError(f"downlink_compression="
                              f"{self.downlink_compression!r} not in "
                              "('none', 'bfloat16', 'int8')")
-        if self.dp_mode not in ("none", "delta"):
+        if self.accountant not in ("rdp", "pld"):
+            raise ValueError(f"accountant={self.accountant!r}: expected "
+                             "'rdp' or 'pld'")
+        if (self.accountant == "pld"
+                and self.dp_mode not in ("dp_sgd", "client_dp")):
+            raise ValueError(
+                "accountant='pld' applies to the subsampled-Gaussian modes "
+                "(dp_sgd, client_dp); distributed uses the Skellam RDP "
+                "bound and dp_ftrl the exact analytic Gaussian curve")
+        if self.adaptive_clipping and self.dp_mode != "client_dp":
+            raise ValueError(
+                "adaptive_clipping tracks the client-level central clip "
+                "norm and requires dp_mode='client_dp' (delta mode "
+                "noises locally per client; dp_sgd clips per example)")
+        if self.audit_injection and self.dp_mode != "client_dp":
+            raise ValueError(
+                "audit_injection replaces client deltas ahead of the "
+                "central clip and requires dp_mode='client_dp'")
+        # what the port does not run yet
+        if self.dp_mode not in _PORTED_DP_MODES:
+            ported = ", ".join(map(repr, _PORTED_DP_MODES))
             raise ValueError(f"dp_mode={self.dp_mode!r} is not ported yet "
-                             "(only 'none' and 'delta')")
+                             f"(only {ported})")
         for name, off in _NOT_PORTED.items():
             if getattr(self, name) != off:
                 raise ValueError(f"{name}={getattr(self, name)!r} is not "
@@ -150,6 +221,7 @@ class RoundResult:
     participating_clients: int
     round_time_s: float
     epsilon_spent: float = 0.0
+    clip_norm: Optional[float] = None  # adaptive clipping: C used this round
     # mean over clients of the error-feedback residual's norm (None when
     # the uplink is uncompressed); the reference computes it on the device
     # and reads it back with the round's metrics but does not keep it
@@ -166,12 +238,14 @@ class _PendingRound:
     metrics: torch.Tensor
     variables: Dict[str, Any]
     eps_spent: float
+    round_clip: Optional[float]
     ledger: Optional[Callable[[Dict[str, float]], None]]
 
 
 # layout of the packed per-round metrics vector (one device→host copy)
 _SCALARS = ("train_loss", "train_accuracy", "weight_change_norm",
-            "weight_norm", "dp_sigma_mean", "uplink_ef_norm")
+            "weight_norm", "dp_sigma_mean", "uplink_ef_norm",
+            "next_clip_norm", "clip_fraction")
 
 
 def downlink_roundtrip(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -220,6 +294,39 @@ class FederatedRoundEngine:
             if self.privacy else None)
         self.accountant = dp.PrivacyAccountant()
 
+        # client_dp: the RDP accountant, charged once a round at q = the
+        # participation rate. q and z are fixed for the engine's life, so
+        # one round's RDP vector is computed here once and accumulated
+        # (the same values as stepping the accountant each round).
+        self.rdp_accountant = None
+        self._round_rdp = None
+        if config.dp_mode == "client_dp":
+            self.rdp_accountant = RDPAccountant()
+            q, steps = self._rdp_round_params()
+            self._round_rdp = steps * rdp_subsampled_gaussian(
+                q, self.privacy.noise_multiplier,
+                self.rdp_accountant.alphas)
+        # PLD budget gate state: max steps certified under ε, steps taken
+        self._pld_max_steps: Optional[int] = None
+        self._pld_steps_taken: int = 0
+        # client_dp's fixed denominator m̄ = max(1, q·N)
+        self._expected_count = max(
+            1.0, config.participation_rate * self.num_clients)
+
+        # adaptive clipping: σ_b, the feasibility check (2σ_b > z, else
+        # PrivacyError) and the inflated aggregate multiplier z_Δ
+        self.clip_norm: Optional[float] = None
+        self._clip_count_stddev: Optional[float] = None
+        self._z_delta: Optional[float] = None
+        if config.adaptive_clipping:
+            self._clip_count_stddev = (
+                config.clip_count_stddev
+                if config.clip_count_stddev is not None
+                else self._expected_count / 20.0)
+            self._z_delta = dp.adaptive_clip_delta_multiplier(
+                self.privacy.noise_multiplier, self._clip_count_stddev)
+            self.clip_norm = float(self.privacy.max_grad_norm)
+
         self._local_train = make_local_train_fn(
             model, config.training, self.data.samples_per_client,
             self.data.mean, self.data.std)
@@ -249,7 +356,7 @@ class FederatedRoundEngine:
                 prng.stream_seed(self._root, prng.Stream.UPLINK_Q),
                 self.device)
             self.uplink_error = init_uplink_state(
-                q_gen, self._powersgd_plan, self.num_clients, self.device)
+                q_gen, self._powersgd_plan, self.num_clients)
         else:
             ef_d = (padded_dim(flat_dim(params, batched=False))
                     if config.uplink_compression != "none" else 1)
@@ -284,7 +391,12 @@ class FederatedRoundEngine:
         return stack_unflatten(transmitted, spec), ef_out, ef_norm
 
     def _superstep(self, global_params, round_idx: int,
-                   mask: torch.Tensor, ef_state: torch.Tensor):
+                   mask: torch.Tensor, ef_state: torch.Tensor,
+                   clip_norm: Optional[float] = None,
+                   inject: Optional[Tuple[torch.Tensor, Any]] = None):
+        """One round on the device: returns (new global params, new uplink
+        state, packed metrics). ``clip_norm`` is adaptive clipping's C for
+        this round; ``inject`` the audit's (flags, stacked deltas)."""
         cfg = self.config
         C = self.num_clients
         rseed = prng.round_seed(self._root, round_idx)
@@ -316,8 +428,15 @@ class FederatedRoundEngine:
             del noisy
             sigma_mean = sigma.sum() / C
 
+        zero = torch.zeros((), device=self.device)
+        next_cn = frac = zero
         ef_out = ef_state
-        ef_norm = torch.zeros((), device=self.device)
+        ef_norm = zero
+        if cfg.dp_mode == "client_dp":
+            new_global, sigma_mean, next_cn, frac = self._client_dp(
+                global_params, ref_params, new_stacked, rseed, mask,
+                clip_norm, inject)
+            del new_stacked
         if cfg.uplink_compression != "none":
             # the client's order: train → DP → compress → upload
             hat, ef_out, ef_norm = self._uplink(
@@ -328,7 +447,9 @@ class FederatedRoundEngine:
             del hat
 
         w = normalized_client_weights(self.data.num_samples, mask)
-        new_global = fedavg_delta(global_params, new_stacked, w, ref_params)
+        if cfg.dp_mode != "client_dp":
+            new_global = fedavg_delta(global_params, new_stacked, w,
+                                      ref_params)
         scalars = torch.stack([
             (metrics["loss"] * w).sum(),
             (metrics["accuracy"] * w).sum(),
@@ -336,9 +457,63 @@ class FederatedRoundEngine:
             global_norm(new_global),
             sigma_mean,
             ef_norm,
+            next_cn,
+            frac,
         ])
         packed = torch.cat([scalars, metrics["loss"], metrics["accuracy"]])
         return new_global, ef_out, packed
+
+    def _client_dp(self, global_params, ref_params, new_stacked, rseed: int,
+                   mask: torch.Tensor, clip_norm: Optional[float],
+                   inject: Optional[Tuple[torch.Tensor, Any]]):
+        """Client-level DP-FedAvg (``fl_tpu/orchestration/round_engine.py
+        :1030-1096``): returns (new global params, σ, next C, noisy clipped
+        fraction), the last two 0 unless clipping is adaptive.
+
+        The mean divides by the FIXED expected participant count m̄ =
+        max(1, q·N), never by the realized mask.sum(): with a
+        data-dependent denominator the add/remove sensitivity would be
+        ~2C/m and the certified ε understated ~2×; fixed, each client
+        moves the mean by at most C/m̄, and σ = z·C/m̄ is noise multiplier z
+        against that sensitivity, as the Poisson-subsampled RDP accounting
+        at rate q assumes."""
+        cfg = self.config
+        C = self.num_clients
+        deltas = tree_map(lambda c, g: c - g[None], new_stacked, ref_params)
+        if inject is not None:
+            # audit canaries replace the flagged clients' deltas BEFORE the
+            # clip: to the mechanism a canary is a client like any other
+            flags, inj = inject
+            deltas = tree_map(
+                lambda d, i: torch.where(
+                    flags.reshape((C,) + (1,) * (d.dim() - 1)) > 0,
+                    i.to(d.dtype), d), deltas, inj)
+        adaptive = cfg.adaptive_clipping
+        cn = (torch.tensor(clip_norm, dtype=torch.float32, device=self.device)
+              if adaptive else self.privacy.max_grad_norm)
+        m = self._expected_count
+        avg, pre_norms = dp.clipped_masked_mean(deltas, cn, mask, m)
+        del deltas
+        z_eff = self._z_delta if adaptive else self.privacy.noise_multiplier
+        sigma = z_eff * cn / m
+        nseed = prng.stream_seed(rseed, prng.Stream.DP_NOISE)
+        next_cn = frac = torch.zeros((), device=self.device)
+        if adaptive:
+            # the noised clipped fraction drives the geometric update;
+            # the aggregate and the count draw from distinct sub-streams
+            b = (pre_norms <= cn).float()
+            centered = (mask.float() * (b - 0.5)).sum()
+            frac = dp.noisy_clipped_fraction(
+                centered, m, self._clip_count_stddev, prng.fold(nseed, 1))
+            next_cn = dp.geometric_clip_update(
+                cn, frac, cfg.clip_quantile, cfg.clip_lr)
+        noisy = dp.central_noise_tree(avg, prng.fold(nseed, 0), sigma)
+        del avg
+        new_global = tree_map(lambda g, d: (g + d.float()).to(g.dtype),
+                              global_params, noisy)
+        sigma_t = torch.as_tensor(sigma, dtype=torch.float32,
+                                  device=self.device)
+        return new_global, sigma_t, next_cn, frac
 
     # ------------------------------------------------------------------
     # host round loop
@@ -349,7 +524,14 @@ class FederatedRoundEngine:
         """Per-round participation mask: Bernoulli participation ×
         straggler dropout × exclusions, min_clients enforced (largest
         shards first) and max_clients capped by sample count — the
-        reference's rule and random stream."""
+        reference's rule and random stream.
+
+        Under client_dp the mask is PURE Poisson sampling at
+        ``participation_rate`` (less dropout and exclusions, which only
+        lower a client's inclusion probability): forcing and capping are
+        data-dependent selections that would void the subsampling
+        amplification the RDP accountant relies on, and the fixed
+        denominator keeps an under-full round well defined."""
         cfg = self.config
         mask = (self._np_rng.random(self.num_clients)
                 < cfg.participation_rate).astype(np.float32)
@@ -358,6 +540,8 @@ class FederatedRoundEngine:
                      >= cfg.straggler_dropout_rate).astype(np.float32)
         if exclude:
             mask[np.asarray(exclude, int)] = 0.0
+        if cfg.dp_mode == "client_dp":
+            return mask
         active_count = int(mask.sum())
         if active_count < cfg.min_clients:
             excluded = set(int(e) for e in exclude) if exclude else ()
@@ -376,16 +560,29 @@ class FederatedRoundEngine:
         return mask
 
     def run_round(self, mask: Optional[np.ndarray] = None,
-                  evaluate: bool = True) -> RoundResult:
-        """Execute one FedAvg round (superstep + host bookkeeping)."""
-        return self._finalize_round(self._dispatch_round(mask),
-                                    evaluate=evaluate)
+                  evaluate: bool = True,
+                  inject_flags: Optional[np.ndarray] = None,
+                  inject_deltas=None) -> RoundResult:
+        """Execute one FedAvg round (superstep + host bookkeeping). With
+        ``audit_injection``, clients whose ``inject_flags`` (C,) entry is
+        positive submit their entry of ``inject_deltas`` (a tree like
+        ``global_variables`` whose leaves are stacked over C) in place of
+        their trained delta."""
+        return self._finalize_round(
+            self._dispatch_round(mask, inject_flags, inject_deltas),
+            evaluate=evaluate)
 
     def run_rounds_pipelined(self, num_rounds: int, evaluate: bool = False,
                              masks: Optional[np.ndarray] = None
                              ) -> List[RoundResult]:
         """``num_rounds`` rounds with depth-1 dispatch pipelining (see the
-        module docstring)."""
+        module docstring). Adaptive clipping cannot pipeline: round r+1's
+        clip norm comes from round r's metrics."""
+        if self.config.adaptive_clipping:
+            raise ValueError(
+                "run_rounds_pipelined cannot pipeline adaptive_clipping "
+                "(round r+1's clip norm comes from round r's metrics); "
+                "use run_round / run")
         results: List[RoundResult] = []
         pending: Optional[_PendingRound] = None
         try:
@@ -399,32 +596,60 @@ class FederatedRoundEngine:
                 results.append(self._finalize_round(pending, evaluate))
         return results
 
-    def _dispatch_round(self, mask: Optional[np.ndarray] = None
-                        ) -> _PendingRound:
+    def _dispatch_round(self, mask: Optional[np.ndarray] = None,
+                        inject_flags: Optional[np.ndarray] = None,
+                        inject_deltas=None) -> _PendingRound:
         """Budget check and charge, then enqueue the superstep; does not
         wait for the device."""
         cfg = self.config
         t0 = time.perf_counter()
         if mask is None:
             mask = self.sample_participation()
-        charge = self.budget_tracker is not None and cfg.dp_mode != "none"
-        if charge:
+        client_dp = cfg.dp_mode == "client_dp"
+        charge = (self.budget_tracker is not None
+                  and cfg.dp_mode == "delta")
+        if client_dp:
+            self._client_dp_gate()
+        elif charge:
             eps_r = cfg.epsilon_per_round or self.privacy.epsilon
             del_r = cfg.delta_per_round or self.privacy.delta
             if self.budget_tracker.is_budget_exhausted(eps_r, del_r):
                 raise dp.PrivacyError(
                     "Privacy budget exhausted — cannot run another DP round")
 
+        inject = None
+        if cfg.audit_injection:
+            # no flags: nothing is replaced (the reference passes an
+            # all-zero (C, ...) tree instead, a no-op at 0.86 GB)
+            if inject_flags is not None:
+                if inject_deltas is None:
+                    raise ValueError("inject_flags passed without "
+                                     "inject_deltas")
+                inject = (
+                    torch.as_tensor(np.asarray(inject_flags, np.float32)
+                                    ).to(self.device),
+                    tree_map(lambda t: torch.as_tensor(t).to(self.device),
+                             inject_deltas["params"]))
+        elif inject_flags is not None:
+            raise ValueError(
+                "inject_flags passed but config.audit_injection is off")
+        elif inject_deltas is not None:
+            raise ValueError(
+                "inject_deltas passed but config.audit_injection is off")
+
+        round_clip = self.clip_norm  # the C this round uses (adaptive)
         mask_t = torch.as_tensor(np.asarray(mask, np.float32)).to(self.device)
         new_global, self.uplink_error, metrics = self._superstep(
             self.global_variables["params"], self.round_number, mask_t,
-            self.uplink_error)
+            self.uplink_error, round_clip, inject)
         self.global_variables = {"params": new_global}
 
         eps_spent = 0.0
         ledger = None
         rn = self.round_number
-        if charge:
+        if client_dp:
+            eps_spent, ledger = self._client_dp_charge(rn, round_clip)
+        elif charge:
             self.budget_tracker.consume_budget(eps_r, del_r, f"round_{rn}")
             eps_spent = eps_r
 
@@ -438,7 +663,112 @@ class FederatedRoundEngine:
         self.round_number += 1
         return _PendingRound(round_number=rn, mask=np.asarray(mask), t0=t0,
                              metrics=metrics, variables=self.global_variables,
-                             eps_spent=eps_spent, ledger=ledger)
+                             eps_spent=eps_spent, round_clip=round_clip,
+                             ledger=ledger)
+
+    # ------------------------------------------------------------------
+    # client_dp accounting (host)
+    # ------------------------------------------------------------------
+    def _rdp_round_params(self) -> Tuple[float, int]:
+        """(sampling rate q, mechanism invocations) of one client_dp round:
+        client level, q = the participation rate, ONE invocation a round
+        (the central noised aggregate)."""
+        return min(1.0, self.config.participation_rate), 1
+
+    def _pld_step_budget(self) -> int:
+        """Max mechanism invocations the PLD curve certifies under
+        (privacy.epsilon, privacy.delta) at this engine's (q, z): doubling
+        + bisection on the pessimistic bound at the configured grid,
+        computed at first use and cached."""
+        if self._pld_max_steps is not None:
+            return self._pld_max_steps
+        from fl_tpu_torch.fl.pld import compute_epsilon_pld
+
+        q, _ = self._rdp_round_params()
+        z = self.privacy.noise_multiplier
+        eps, delt, dt = (self.privacy.epsilon, self.privacy.delta,
+                         self.config.pld_dt)
+        if compute_epsilon_pld(1, q, z, delt, dt) > eps:
+            self._pld_max_steps = 0
+            return 0
+        lo, hi = 1, 2
+        while compute_epsilon_pld(hi, q, z, delt, dt) <= eps:
+            lo, hi = hi, hi * 2
+            if hi > 1 << 24:
+                break
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            if compute_epsilon_pld(mid, q, z, delt, dt) <= eps:
+                lo = mid
+            else:
+                hi = mid
+        self._pld_max_steps = lo
+        return lo
+
+    def certified_epsilon(self, delta: Optional[float] = None,
+                          dt: Optional[float] = None) -> float:
+        """ε certified for everything released so far, by the configured
+        accountant: under 'pld' the tight PLD of the steps taken (on the
+        gate's grid unless ``dt`` is given), under 'rdp' the moments
+        accountant's value, else the additive ledger's total."""
+        delta = self.privacy.delta if delta is None else delta
+        if self.config.accountant == "pld":
+            from fl_tpu_torch.fl.pld import compute_epsilon_pld
+
+            dt = self.config.pld_dt if dt is None else dt
+            q, _ = self._rdp_round_params()
+            return compute_epsilon_pld(
+                self._pld_steps_taken, q,
+                self.privacy.noise_multiplier, delta, dt)
+        if self.rdp_accountant is not None:
+            return self.rdp_accountant.get_epsilon(delta)
+        return self.accountant.get_total_privacy_cost()[0]
+
+    def _client_dp_gate(self) -> None:
+        """Refuse a round that would overdraw ε: the PLD step budget under
+        'pld', else the RDP ε projected on a copy of the accountant."""
+        cfg = self.config
+        _, steps = self._rdp_round_params()
+        if cfg.accountant == "pld":
+            if self._pld_steps_taken + steps > self._pld_step_budget():
+                raise dp.PrivacyError(
+                    f"Privacy budget exhausted — the next {cfg.dp_mode} "
+                    f"round would exceed ε={self.privacy.epsilon} "
+                    "(PLD accounting: "
+                    f"{self._pld_steps_taken}+{steps} steps > "
+                    f"{self._pld_step_budget()} certified)")
+            return
+        projected = copy.deepcopy(self.rdp_accountant)
+        projected.accumulate(self._round_rdp)
+        if projected.get_epsilon(self.privacy.delta) > self.privacy.epsilon:
+            raise dp.PrivacyError(
+                f"Privacy budget exhausted — the next {cfg.dp_mode} "
+                f"round would exceed ε={self.privacy.epsilon} "
+                "(RDP accounting)")
+
+    def _client_dp_charge(self, rn: int, round_clip: Optional[float]):
+        """Charge one round to the RDP accountant and the PLD step count;
+        returns (ε spent, the deferred ledger entry, which records the
+        round's measured σ once its metrics are on the host)."""
+        cfg = self.config
+        q, steps = self._rdp_round_params()
+        self._pld_steps_taken += steps
+        before = (self.rdp_accountant.get_epsilon(self.privacy.delta)
+                  if rn > 0 else 0.0)
+        self.rdp_accountant.accumulate(self._round_rdp)
+        total_eps = self.rdp_accountant.get_epsilon(self.privacy.delta)
+        eps_spent = total_eps - before
+
+        def ledger(m, _eps=eps_spent, _tot=total_eps):
+            self.accountant.add_mechanism(
+                "subsampled_gaussian", _eps, 0.0,
+                sensitivity=(round_clip if round_clip is not None
+                             else self.privacy.max_grad_norm),
+                noise_scale=m["dp_sigma_mean"],
+                metadata={"round": rn, "mode": cfg.dp_mode,
+                          "total_epsilon": _tot, "q": q, "steps": steps})
+
+        return eps_spent, ledger
 
     def _finalize_round(self, pending: _PendingRound,
                         evaluate: bool = True) -> RoundResult:
@@ -447,6 +777,8 @@ class FederatedRoundEngine:
         packed = pending.metrics.cpu().numpy()
         C = self.num_clients
         metrics = {k: float(v) for k, v in zip(_SCALARS, packed)}
+        if self.config.adaptive_clipping:
+            self.clip_norm = metrics["next_clip_norm"]
         if pending.ledger is not None:
             pending.ledger(metrics)
 
@@ -475,6 +807,7 @@ class FederatedRoundEngine:
             participating_clients=int(pending.mask.sum()),
             round_time_s=time.perf_counter() - pending.t0,
             epsilon_spent=pending.eps_spent,
+            clip_norm=pending.round_clip,
             uplink_ef_norm=(metrics["uplink_ef_norm"]
                             if self.config.uplink_compression != "none"
                             else None),

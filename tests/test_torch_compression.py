@@ -263,6 +263,19 @@ def test_powersgd_roundtrip_transmits_low_rank_exactly():
     np.testing.assert_allclose(out.numpy(), carried, atol=2e-4)
 
 
+def test_powersgd_state_lies_on_its_generators_device():
+    """The initial state is drawn on the generator's device, with no
+    device argument that could disagree with it."""
+    plan, _ = _plans(2)
+    gen = torch.Generator().manual_seed(1)
+    state = ps.init_uplink_state(gen, plan, 3)
+    assert state.device == gen.device
+    again = ps.init_uplink_state(torch.Generator().manual_seed(1), plan, 3)
+    assert torch.equal(state, again)
+    with pytest.raises(TypeError):
+        ps.init_uplink_state(gen, plan, 3, "cpu")
+
+
 def test_powersgd_error_feedback_matches_jax_and_respects_mask():
     plan, jplan = _plans(4)
     C = 4

@@ -3,7 +3,8 @@
     python3 tools/profile_round.py sweep
     python3 tools/profile_round.py parts
     python3 tools/profile_round.py profile [--out DIR] [residual|true|false|
-        up-int8|up-topk|up-powersgd|down-bf16|down-int8|down-int8+up-topk ...]
+        up-int8|up-topk|up-powersgd|down-bf16|down-int8|down-int8+up-topk|
+        client-dp ...]
 
 ``sweep`` times the four conv kernels at the bench shapes (512 clients x 32
 images, bf16, C1=32, C2=64) for each thread count per block, CUDA events
@@ -22,7 +23,9 @@ squares; a is the C2-free part, a / time(64) its share at the bench width.
 workload for each named value of ``fused_conv_block``, or with
 ``fused_conv_block="residual"`` and one of ``chip_smoke.py``'s compressed
 configurations (``up-*``: uplink int8, top-k 1%, PowerSGD rank 4;
-``down-*``: downlink bf16, int8; ``down-int8+up-topk``): one warm-up round,
+``down-*``: downlink bf16, int8; ``down-int8+up-topk``), or
+``client-dp``, the same round under ``dp_mode="client_dp"`` as
+``chip_smoke.py``'s central-DP phase runs it: one warm-up round,
 then 3 pipelined rounds under ``torch.profiler``, and prints the device
 time per round grouped by kernel family, the launches per round, the busy
 share of the profiled window, rounds/s without the profiler (3 pipelined
@@ -167,7 +170,8 @@ def profile(card: str, name: str, fused, compression,
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    engine = chip_smoke.make_bench_engine(fused, **compression)
+    engine = (chip_smoke.central_dp_engine() if compression is None
+              else chip_smoke.make_bench_engine(fused, **compression))
     engine.run_round(evaluate=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -199,7 +203,8 @@ def profile(card: str, name: str, fused, compression,
     total = sum(us.values())
     if total == 0:
         raise RuntimeError("the profiler recorded no device time")
-    label = "".join(f" {k}={v!r}" for k, v in compression.items())
+    label = ("".join(f" {k}={v!r}" for k, v in compression.items())
+             if compression is not None else " dp_mode='client_dp'")
     print(f"profile fused_conv_block={fused!r}{label}: {rate:.3f} rounds/s "
           "without "
           f"the profiler, peak memory {peak:.2f} GiB; under it {ROUNDS} "
@@ -225,6 +230,7 @@ def main(argv) -> int:
     modes.update(zip(("up-int8", "up-topk", "up-powersgd", "down-bf16",
                       "down-int8", "down-int8+up-topk"),
                      (("residual", c) for c in chip_smoke.COMPRESSED_ENGINES)))
+    modes["client-dp"] = ("residual", None)
     out_dir = None
     if argv[1:2] == ["--out"] and len(argv) > 2:
         out_dir, argv = Path(argv[2]), argv[:1] + argv[3:]
