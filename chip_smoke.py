@@ -85,8 +85,29 @@ line each; any failure exits non-zero:
    ``central_noise_tree`` on the model's leaves by mean, variance, a
    Kolmogorov–Smirnov test and the correlation across leaves
    (``central_dp functions``);
+   then the slice's local-training options and first server-side features
+   (``phase_fl_variants``), each cell the ``"residual"`` bf16 round at 512
+   clients, one warm-up and 2 pipelined rounds with K1/K2 launched 10
+   times a round on the tensor cores (masked epochs included) and K3 twice
+   a round where delta DP is on, finite losses and parameters, rounds/s
+   and peak memory on one ``fl_variants`` line each: V1 SGD (momentum 0.9)
+   + FedNova on epoch budgets 1 + (i mod 5) of 5 under delta DP at ε_r = 8
+   (at the bench's 1/28 SGD overflows, see ``V1_EPS_R``); V2 AdamW + FedProx
+   + bf16 parameter storage + coordinate median under the bench's delta
+   DP; V3 SCAFFOLD (SGD lr 0.05, no DP) with |c| by round; V4 FedAdam on
+   the server + secure aggregation under the bench's delta DP; then on one
+   round's (512, 421,760) delta matrix with 10% of the clients out: the
+   trimmed mean (k = 25), the median and multi-Krum (f = 1, m = 1 and 8)
+   timed and held to f64 on the host (4096 sampled columns; Krum's whole
+   selection against f64 scores), Krum's Gram product unchanged by the
+   TF32 switch, the secure sum against the plain weighted sum at full
+   width, and the stochastic bf16 rounding by its bias over 64 seeds on
+   fc1's kernel and on the card equal to the CPU bit for bit (a
+   ``fl_variants functions`` line);
 6. learning check: 10 non-IID clients, 3 rounds, test accuracy > 0.5, with
-   ``fused_conv_block="residual"`` and with ``True``;
+   ``fused_conv_block="residual"`` and with ``True``, and with
+   ``"residual"`` under SCAFFOLD (SGD lr 0.05) and under FedNova (SGD lr
+   0.05, momentum 0.9, epoch budgets 1 + (i mod 3) of 3);
 7. the conv-formulations measurement at the bench shapes (512 clients x 32
    images, bf16): conv2 14x14 32->64 as library convolution, shift-GEMM
    (``conv3x3_same``) and patch GEMM (``conv3x3_patch``), forward and
@@ -180,6 +201,30 @@ AUDIT_ROUNDS = 10
 # clip_client_deltas + the fixed-m̄ mean against f64 on the host, relative
 # Frobenius norm per leaf (f32 sums of 51 clients' rows)
 CDP_MEAN_TOL = 1e-6
+
+# the slice's local-training and server-side rounds (phase_fl_variants):
+# V1 SGD + FedNova on heterogeneous budgets, V2 AdamW + FedProx + bf16
+# parameter storage + median, V3 SCAFFOLD, V4 FedAdam + secure aggregation
+VARIANTS = ("V1", "V2", "V3", "V4")
+VARIANT_ROUNDS = 2
+# V1's per-round ε: at the bench's ε_r = 1/28 the global model carries
+# σ/√512 ≈ 6.8 of noise an element after one round, and SGD's steps, which
+# scale with the gradient (Adam's do not), overflow to inf within the next
+# round's 10 steps; at ε_r = 8 (σ ≈ 0.61 a client) SGD stays finite
+V1_EPS_R = 8.0
+V1_DELTA_R = 1e-5 / 8
+TRIM_K = 25
+KRUM_F = 1
+KRUM_M = (1, 8)
+AGG_COLUMNS = 4096       # columns sampled for the f64 reference
+AGG_DROP = 0.1           # share of clients out of the aggregator checks
+ROUNDING_SEEDS = 64
+# f32 against the host's f64 on the sampled columns, relative to the
+# largest |value| (a trimmed mean sums ~460 f32 values)
+AGG_TOL = 1e-5
+# Krum: the selection must be one that f64 scores allow, up to this share
+# of a score (the Gram product's f32 rounding)
+KRUM_SCORE_TOL = 1e-5
 
 # the fused conv kernels' second geometry (H, C1, C2): widths that are no
 # multiples of 16, so the tensor-core route pads its channels
@@ -2095,7 +2140,315 @@ def phase_central_dp(card):
     return counts
 
 
-def learning_check(fused):
+def variant_engine(name, **overrides):
+    """The 512-client bf16 engine of cell ``name`` (V1..V4) of the slice's
+    local-training and server-side rounds; V1 with its epoch budgets.
+    ``overrides`` replace fields of the cell's FederatedTrainingConfig."""
+    import dataclasses
+
+    import numpy as np
+
+    from fl_tpu_torch.core.types import PrivacyConfig
+    from fl_tpu_torch.fl.local_training import FederatedTrainingConfig
+    from fl_tpu_torch.orchestration import (FederatedRoundEngine,
+                                            RoundEngineConfig)
+
+    base = dict(local_epochs=LOCAL_EPOCHS, batch_size=BATCH_SIZE)
+    bench_dp = dict(dp_mode="delta", epsilon_per_round=EPS_R,
+                    delta_per_round=DELTA_R,
+                    privacy=PrivacyConfig(epsilon=1.0, delta=1e-5,
+                                          max_grad_norm=1.0))
+    if name == "V1":
+        training = FederatedTrainingConfig(
+            **base, learning_rate=0.001, optimizer_type="sgd", momentum=0.9)
+        cfg = dict(fednova=True, dp_mode="delta", epsilon_per_round=V1_EPS_R,
+                   delta_per_round=V1_DELTA_R,
+                   privacy=PrivacyConfig(epsilon=28 * V1_EPS_R, delta=1e-5,
+                                         max_grad_norm=1.0))
+    elif name == "V2":
+        training = FederatedTrainingConfig(
+            **base, learning_rate=0.001, optimizer_type="adamw",
+            weight_decay=1e-4, proximal_mu=0.01,
+            param_storage_dtype="bfloat16",
+            optimizer_state_dtype="bfloat16")
+        cfg = dict(aggregation="median", **bench_dp)
+    elif name == "V3":
+        training = FederatedTrainingConfig(
+            **base, learning_rate=0.05, optimizer_type="sgd", momentum=0.0)
+        cfg = dict(scaffold=True)
+    else:
+        training = bench_training()
+        cfg = dict(server_optimizer="fedadam", server_lr=0.01,
+                   secure_aggregation=True, **bench_dp)
+    engine = FederatedRoundEngine(
+        bench_model(), bench_arrays(),
+        RoundEngineConfig(training=dataclasses.replace(training, **overrides),
+                          max_clients=NUM_CLIENTS,
+                          seed=0, **cfg), device=DEVICE)
+    if name == "V1":
+        engine.epochs_per_client = 1 + np.arange(NUM_CLIENTS) % LOCAL_EPOCHS
+    return engine
+
+
+VARIANT_LABELS = {
+    "V1": "sgd momentum 0.9 + fednova, epochs 1 + (i mod 5) of 5, delta DP "
+          f"at eps_r={V1_EPS_R}",
+    "V2": "adamw wd 1e-4 + fedprox mu 0.01 + bf16 param storage + median, "
+          "delta DP at the bench's eps_r=1/28",
+    "V3": "scaffold, sgd lr 0.05 momentum 0, no DP",
+    "V4": "fedadam server_lr 0.01 + secure aggregation, delta DP at the "
+          "bench's eps_r=1/28",
+}
+
+
+def run_variant(card, name):
+    """One warm-up and VARIANT_ROUNDS pipelined rounds of cell ``name``:
+    K1/K2 10 times a round on the tensor cores (the masked epochs of V1
+    included), K3 twice a round under delta DP, nothing else; finite
+    losses and parameters. Returns the engine."""
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.ops import conv_block as cb
+
+    engine = variant_engine(name)
+    t0 = time.perf_counter()
+    warm = engine.run_round(evaluate=False)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    c_norms = []
+    if engine.config.scaffold:   # |c| after each round, kept on the device
+        dispatch = engine._dispatch_round
+
+        def dispatch_and_note_c(*args, **kwargs):
+            pending = dispatch(*args, **kwargs)
+            c_norms.append(torch.linalg.vector_norm(engine.scaffold_c))
+            return pending
+
+        c_norms.append(torch.linalg.vector_norm(engine.scaffold_c))
+        engine._dispatch_round = dispatch_and_note_c
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = engine.run_rounds_pipelined(VARIANT_ROUNDS, evaluate=False)
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    engine.__dict__.pop("_dispatch_round", None)
+
+    steps = LOCAL_EPOCHS * (SAMPLES_PER_CLIENT // BATCH_SIZE)
+    dp = engine.config.dp_mode == "delta"
+    want = dict.fromkeys(counts, 0)
+    want.update(conv_block_fwd=steps * VARIANT_ROUNDS,
+                conv_block_bwd=steps * VARIANT_ROUNDS,
+                clip_noise=2 * VARIANT_ROUNDS if dp else 0)
+    require(counts == want, f"{name}: launch counts {counts}, expected "
+                            f"{want}")
+    require(all(cb.ROUTE_LAUNCHES[(k, "tensor_core")] == want[k]
+                for k in ("conv_block_fwd", "conv_block_bwd")),
+            f"{name}: launches by route "
+            f"{ {k: v for k, v in cb.ROUTE_LAUNCHES.items() if v} }")
+    losses = [warm.train_loss] + [r.train_loss for r in results]
+    require(len(results) == VARIANT_ROUNDS
+            and all(math.isfinite(v) for v in losses),
+            f"{name}: losses {losses}")
+    params = engine.global_variables["params"]
+    require(all(bool(torch.isfinite(t).all())
+                for d in params.values() for t in d.values()),
+            f"{name}: non-finite global parameters")
+    require(np.isfinite(engine.last_client_losses).all(),
+            f"{name}: non-finite client losses")
+    extra = ""
+    if engine.config.scaffold:
+        norms = [float(v) for v in c_norms]
+        require(len(norms) == VARIANT_ROUNDS + 1
+                and all(math.isfinite(v) and v > 0 for v in norms),
+                f"{name}: |c| by round {norms}")
+        extra = f", |c| by round {[round(v, 5) for v in norms]}"
+    if engine.server_opt_state is not None:
+        require(engine.server_opt_state["count"] == VARIANT_ROUNDS + 1,
+                f"{name}: server steps {engine.server_opt_state['count']}")
+        extra = f", server steps {engine.server_opt_state['count']}"
+    per_round = {k: v // VARIANT_ROUNDS for k, v in counts.items() if v}
+    print(f"fl_variants {name} ({VARIANT_LABELS[name]}): {NUM_CLIENTS} "
+          f"clients bf16, warm-up round {warm_s:.2f}s, {VARIANT_ROUNDS} "
+          f"pipelined rounds in {dt:.3f}s -> {VARIANT_ROUNDS / dt:.3f} "
+          f"rounds/s, peak memory {peak:.2f} GiB, losses "
+          f"{[round(v, 4) for v in losses]}{extra}, launches a round "
+          f"{per_round} (0 elsewhere) [{card}]", flush=True)
+    return engine
+
+
+def round_delta_matrix(engine):
+    """One round's (C, D_pad) f32 matrix of the clients' local-training
+    deltas against the global model (before any DP), and its spec."""
+    from fl_tpu_torch.core import prng
+    from fl_tpu_torch.core.pytree import tree_map
+    from fl_tpu_torch.ops.flatten import stack_flatten
+
+    g = engine.global_variables["params"]
+    C = engine.num_clients
+    new, _ = engine._local_train(
+        tree_map(lambda t: t[None].expand(C, *t.shape), g),
+        engine.data.images, engine.data.labels, engine.data.num_samples,
+        prng.round_seed(engine._root, engine.round_number))
+    return stack_flatten(tree_map(lambda c, t: (c - t[None]).float(), new,
+                                  g))
+
+
+def check_aggregators(card, engine):
+    """The server-side functions on one round's (512, 421,760) delta
+    matrix: trimmed mean (k = TRIM_K), median and multi-Krum (f = KRUM_F,
+    m in KRUM_M) over 90% of the clients, timed and held to f64 on the
+    host (AGG_COLUMNS sampled columns; Krum's whole selection); the secure
+    sum against the plain weighted sum at full width; the stochastic bf16
+    rounding by its bias over ROUNDING_SEEDS seeds on fc1's kernel, and on
+    the card equal to the CPU bit for bit on 8 clients' rows."""
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch.core import prng
+    from fl_tpu_torch.fl import robust_agg as ra
+    from fl_tpu_torch.fl.fedavg import fedavg_delta, normalized_client_weights
+    from fl_tpu_torch.fl.secure_agg import secure_fedavg_delta
+    from fl_tpu_torch.ops import rounding
+    from fl_tpu_torch.ops.flatten import stack_unflatten
+
+    mat, spec = round_delta_matrix(engine)
+    C, D = mat.shape[0], spec[2]
+    rng = np.random.default_rng(5)
+    mask_np = (rng.random(C) >= AGG_DROP).astype(np.float32)
+    mask = torch.as_tensor(mask_np, device=DEVICE)
+    m = int(mask_np.sum())
+    cols = np.sort(rng.choice(D, AGG_COLUMNS, replace=False))
+    sub = mat[:, torch.as_tensor(cols, device=DEVICE)].double().cpu().numpy()
+    alive = np.flatnonzero(mask_np > 0)
+    srt = np.sort(sub[alive], axis=0)
+    ref = {"trimmed_mean": srt[TRIM_K:m - TRIM_K].mean(0),
+           "median": np.median(sub[alive], axis=0)}
+    funcs = {"trimmed_mean": lambda: ra.trimmed_mean_matrix(mat, mask,
+                                                           TRIM_K),
+             "median": lambda: ra.median_matrix(mat, mask)}
+    parts = []
+    for key, fn in funcs.items():
+        got = fn()[torch.as_tensor(cols, device=DEVICE)].double().cpu()
+        err = float(np.abs(got.numpy() - ref[key]).max()
+                    / np.abs(ref[key]).max())
+        require(err <= AGG_TOL, f"{key}: {err:.2e} of the largest value "
+                                "from f64")
+        parts.append(f"{key} {time_ms(fn):.2f} ms (err {err:.1e})")
+
+    # Krum against f64 scores of the whole matrix on the host
+    full = mat[:, :D].double().cpu()
+    sq = (full * full).sum(1)
+    d2 = (sq[:, None] + sq[None, :] - 2.0 * (full @ full.T)).clamp(min=0)
+    del full
+    d2 = d2.numpy()
+    for mk in KRUM_M:
+        picked = ra.krum_select(mat, mask, KRUM_F, mk).cpu().numpy()
+        k_near = max(m - KRUM_F - 2, 1)
+        sub_d2 = d2[np.ix_(alive, alive)]
+        np.fill_diagonal(sub_d2, np.inf)
+        scores = dict(zip(alive, np.sort(sub_d2, 1)[:, :k_near].sum(1)))
+        best = sorted(alive, key=lambda i: (scores[i], i))[:mk]
+        worst_in = max(scores[i] for i in picked)
+        best_out = min(scores[i] for i in alive if i not in set(picked))
+        require(len(set(picked)) == mk and set(picked) <= set(alive)
+                and worst_in <= best_out * (1 + KRUM_SCORE_TOL),
+                f"krum m={mk}: picked {sorted(picked)}, f64 picks "
+                f"{sorted(best)}")
+        avg = ra.krum_matrix(mat, mask, KRUM_F, mk)
+        want = mat[torch.as_tensor(sorted(best), device=DEVICE)].double(
+            ).mean(0)
+        err = float((avg.double() - want).abs().max() / want.abs().max())
+        same = sorted(picked) == sorted(best)
+        require(err <= AGG_TOL or not same, f"krum m={mk}: {err:.2e}")
+        ms = time_ms(lambda: ra.krum_matrix(mat, mask, KRUM_F, mk))
+        how = "equal to" if same else "within the score tolerance of"
+        parts.append(f"krum f={KRUM_F} m={mk} {ms:.2f} ms (picks {how} "
+                     f"f64's, err {err:.1e})")
+    # the Gram product stays off TF32 whatever the global switch says
+    torch.backends.cuda.matmul.allow_tf32 = True
+    d2_tf32_on = ra.pairwise_sq_distances(mat)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    require(torch.equal(d2_tf32_on, ra.pairwise_sq_distances(mat)),
+            "krum's Gram product changed with the TF32 switch")
+
+    # the secure sum against the plain weighted sum, at full width
+    g = engine.global_variables["params"]
+    deltas = stack_unflatten(mat, spec)
+    stacked = {l: {k: g[l][k][None] + deltas[l][k] for k in g[l]} for l in g}
+    del deltas
+    n = engine.data.num_samples
+    w = normalized_client_weights(n, mask)
+    rseed = prng.round_seed(engine._root, engine.round_number)
+    plain = fedavg_delta(g, stacked, w)
+    secure = secure_fedavg_delta(g, stacked, n, mask, rseed)
+    worst = max(float(((secure[l][k] - plain[l][k]).abs()
+                       - 1e-4 * plain[l][k].abs()).max()) for l in g
+                for k in g[l])
+    require(worst <= 1e-5, f"secure sum off the plain sum by {worst:.2e}")
+    plain_ms = time_ms(lambda: fedavg_delta(g, stacked, w))
+    secure_ms = time_ms(lambda: secure_fedavg_delta(g, stacked, n, mask,
+                                                    rseed))
+    parts.append(f"secure sum {secure_ms:.2f} ms vs plain weighted sum "
+                 f"{plain_ms:.2f} ms (within rtol 1e-4 / atol 1e-5)")
+    del stacked, plain, secure
+
+    # stochastic rounding: unbiased over seeds; the card equals the CPU
+    x = g["fc1"]["kernel"].float().reshape(-1)
+    acc = torch.zeros_like(x, dtype=torch.float64)
+    # the spacing of bf16 in x's binade [2^(e-1), 2^e): 2^(e-8)
+    ulp = torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 8)
+    for seed in range(ROUNDING_SEEDS):
+        r = rounding.stochastic_round_bf16(x, seed).float()
+        require(bool(((r - x).abs() <= ulp * 1.0001).all()),
+                "stochastic rounding left the two bf16 neighbours")
+        acc += r.double()
+    bias = ((acc / ROUNDING_SEEDS - x.double()) / ulp.double())
+    mean_bias, mean_abs = float(bias.mean()), float(bias.abs().mean())
+    require(abs(mean_bias) < 5e-3 and mean_abs < 0.1,
+            f"rounding bias {mean_bias:.2e} ulp, mean |bias| {mean_abs:.3f}")
+    rows = mat[COMPRESSION_ROWS]
+    seeds = torch.arange(rows.shape[0], device=DEVICE) * 2654435761 % 2 ** 32
+    on_card = rounding.stochastic_round_bf16(rows, seeds)
+    on_cpu = rounding.stochastic_round_bf16(rows.cpu(), seeds.cpu())
+    require(torch.equal(on_card.cpu().view(torch.int16),
+                        on_cpu.view(torch.int16)),
+            "stochastic rounding on the card differs from the CPU")
+    leaf = mat[:, :x.numel()].contiguous()
+    sr_ms = time_ms(lambda: rounding.stochastic_round_bf16(
+        leaf, torch.arange(C, device=DEVICE)))
+    parts.append(f"stochastic_round_bf16 bias over {ROUNDING_SEEDS} seeds "
+                 f"{mean_bias:.1e} ulp (mean |bias| {mean_abs:.3f} ulp), "
+                 f"card = CPU bit for bit on 8 clients' rows, "
+                 f"{sr_ms:.2f} ms on the stacked fc1 kernel "
+                 f"({C} x {x.numel()})")
+    print(f"fl_variants functions on one round's ({C}, {mat.shape[1]}) "
+          f"delta matrix, {m} participants: " + "; ".join(parts)
+          + f" [{card}]", flush=True)
+
+
+def phase_fl_variants(card):
+    """The slice's local-training options and first server-side features
+    on the 512-client bf16 round (V1..V4), then the aggregator and
+    rounding functions on one round's delta matrix."""
+    import torch
+
+    for name in VARIANTS:
+        engine = run_variant(card, name)
+        if name == "V3":
+            check_aggregators(card, engine)
+        del engine
+        torch.cuda.empty_cache()
+
+
+def learning_check(fused, label=None, engine_cfg=None, budgets=None,
+                   **training):
+    """10 non-IID clients, 3 rounds, test accuracy above 0.5: with Adam
+    (the default), or with ``training`` and ``engine_cfg`` for the
+    configuration ``label`` names; ``budgets`` sets epochs_per_client."""
     import torch
 
     from fl_tpu_torch.data import load_dataset, make_federated_arrays
@@ -2109,14 +2462,17 @@ def learning_check(fused):
     engine = FederatedRoundEngine(
         create_model("simple_cnn", dtype=torch.bfloat16,
                      fused_conv_block=fused), arrays,
-        RoundEngineConfig(training=FederatedTrainingConfig(local_epochs=2)),
+        RoundEngineConfig(training=FederatedTrainingConfig(
+            **dict(dict(local_epochs=2), **training)), **(engine_cfg or {})),
         device=DEVICE, test_images=splits.normalized(splits.test_images),
         test_labels=splits.test_labels)
+    if budgets is not None:
+        engine.epochs_per_client = budgets
+    label = label or f"fused_conv_block={fused!r}"
     accs = [r.test_accuracy for r in engine.run(num_rounds=3)]
-    require(accs[-1] > 0.5, f"fused_conv_block={fused!r}: test accuracy "
-                            f"after 3 rounds {accs}")
-    print(f"learning fused_conv_block={fused!r}: 10 non-IID clients, test "
-          f"accuracy by round {[round(a, 4) for a in accs]}", flush=True)
+    require(accs[-1] > 0.5, f"{label}: test accuracy after 3 rounds {accs}")
+    print(f"learning {label}: 10 non-IID clients, test accuracy by round "
+          f"{[round(a, 4) for a in accs]}", flush=True)
 
 
 def kernel_report():
@@ -2211,9 +2567,19 @@ def main() -> int:
     # 5c. client-level DP-FedAvg
     phase_central_dp(card)
 
+    # 5d. the local-training options and the first server-side features
+    phase_fl_variants(card)
+
     # 6. learning checks
     learning_check("residual")
     learning_check(True)
+    learning_check("residual", "scaffold (sgd lr 0.05)",
+                   dict(scaffold=True), optimizer_type="sgd", momentum=0.0,
+                   learning_rate=0.05)
+    learning_check("residual", "fednova (sgd lr 0.05 momentum 0.9, epochs "
+                   "1 + (i mod 3) of 3)", dict(fednova=True),
+                   budgets=[1 + i % 3 for i in range(10)], local_epochs=3,
+                   optimizer_type="sgd", momentum=0.9, learning_rate=0.05)
 
     # 7. the conv formulations at full width
     from fl_tpu_torch import ops

@@ -1,6 +1,6 @@
 """Sample-weighted FedAvg over the stacked client axis (port of the device
-path of ``fl_tpu.fl.fedavg`` and the non-FedNova combine of the round
-engine)."""
+path of ``fl_tpu.fl.fedavg`` and the round engine's combine), and FedNova's
+effective step counts, by which the engine reweights it."""
 
 from __future__ import annotations
 
@@ -39,3 +39,18 @@ def fedavg_delta(global_tree, stacked_tree, weights: torch.Tensor,
             for k, g in leaves.items()}
         for l, leaves in global_tree.items()
     }
+
+
+def fednova_effective_steps(tau: torch.Tensor, momentum: float
+                            ) -> torch.Tensor:
+    """FedNova's per-client effective step count a_i (Wang et al. 2020,
+    Table 1, local SGD with heavy-ball momentum ρ):
+
+        a_i = [τ_i − ρ(1−ρ^{τ_i})/(1−ρ)] / (1−ρ),    a_i = τ_i at ρ = 0,
+
+    the ℓ1 norm of the trajectory's accumulated update coefficients."""
+    tau = tau.float()
+    if momentum <= 0.0:
+        return tau
+    rho = torch.tensor(momentum, dtype=torch.float32, device=tau.device)
+    return (tau - rho * (1.0 - rho ** tau) / (1.0 - rho)) / (1.0 - rho)

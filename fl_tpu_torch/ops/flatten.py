@@ -53,6 +53,15 @@ def stack_flatten(tree) -> Tuple[torch.Tensor, Any]:
     return mat, spec
 
 
+def stacked_spec(tree, num_rows: int) -> Any:
+    """The :func:`stack_flatten` spec of an unstacked tree stacked
+    ``num_rows`` times in f32, without building the matrix."""
+    paths = tree_paths(tree)
+    shapes = [((num_rows,) + tuple(tree[l][k].shape), torch.float32)
+              for l, k in paths]
+    return (paths, shapes, flat_dim(tree, batched=False))
+
+
 def stack_unflatten(mat: torch.Tensor, spec: Any):
     """The inverse of :func:`stack_flatten`. A leaf whose dtype is f32 is a
     view of ``mat``."""

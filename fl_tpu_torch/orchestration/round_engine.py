@@ -32,9 +32,16 @@ Ported: ``dp_mode`` "none", "delta" and "client_dp" (with ``accountant``
 "rdp" or "pld", ``adaptive_clipping`` and ``audit_injection``);
 ``uplink_compression`` (int8, topk, powersgd, with the error-feedback state
 ``uplink_error`` carried across rounds on the device) and
-``downlink_compression`` (bfloat16, int8). The reference's feature rules
-for these raise its messages verbatim; every other feature of the
-reference's ``RoundEngineConfig`` raises ``ValueError`` naming it.
+``downlink_compression`` (bfloat16, int8); the local-training options of
+``FederatedTrainingConfig`` and per-client epoch budgets
+(``epochs_per_client``); the server side's ``aggregation`` (trimmed mean,
+median, Krum), ``secure_aggregation``, ``server_optimizer`` (FedAvgM,
+FedAdam, FedYogi, stepped at dispatch on the pseudo-gradient), ``fednova``
+and ``scaffold`` (the variates ``scaffold_c`` / ``scaffold_ci`` carried on
+the device). The reference's feature rules for these raise its messages
+verbatim in its order (the trimmed-mean rule, which needs the client count,
+when the engine is built); every other feature of the reference's
+``RoundEngineConfig`` raises ``ValueError`` naming it.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import logging
+import math
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -55,12 +63,23 @@ from fl_tpu_torch.data.federated import FederatedArrays
 from fl_tpu_torch.fl import privacy as dp
 from fl_tpu_torch.fl.accounting import RDPAccountant, rdp_subsampled_gaussian
 from fl_tpu_torch.fl.convergence import ConvergenceDetector, RoundObservation
-from fl_tpu_torch.fl.fedavg import fedavg_delta, normalized_client_weights
+from fl_tpu_torch.fl.fedavg import (
+    fedavg_delta,
+    fednova_effective_steps,
+    normalized_client_weights,
+)
 from fl_tpu_torch.fl.local_training import (
     FederatedTrainingConfig,
     evaluate_test_set,
     make_local_train_fn,
 )
+from fl_tpu_torch.fl.robust_agg import (
+    ROBUST_AGGREGATORS,
+    robust_combine_deltas,
+)
+from fl_tpu_torch.fl.scaffold import scaffold_correction, scaffold_update
+from fl_tpu_torch.fl.secure_agg import secure_fedavg_delta
+from fl_tpu_torch.fl.server_optimizer import make_server_optimizer
 from fl_tpu_torch.fl.powersgd import (
     apply_powersgd_with_error_feedback,
     init_uplink_state,
@@ -76,6 +95,7 @@ from fl_tpu_torch.ops.flatten import (
     padded_dim,
     stack_flatten,
     stack_unflatten,
+    stacked_spec,
 )
 from fl_tpu_torch.ops.quantize import dequantize_affine, quantize_affine
 
@@ -84,11 +104,6 @@ logger = logging.getLogger(__name__)
 # features of fl_tpu's RoundEngineConfig that the port refuses, with the
 # value that means "off"
 _NOT_PORTED = {
-    "server_optimizer": "none",
-    "secure_aggregation": False,
-    "aggregation": "fedavg",
-    "fednova": False,
-    "scaffold": False,
     "trainable_patterns": None,
     "feddyn_alpha": 0.0,
     "qffl_q": None,
@@ -124,14 +139,30 @@ class RoundEngineConfig:
     # PLD-certified step count; the RDP ledger keeps running)
     accountant: str = "rdp"
     pld_dt: Optional[float] = None  # PLD grid; None = fl.pld's auto size
+    # server-side optimizer on the FedAvg pseudo-gradient (Reddi et al.
+    # 2021): "none" | "fedavgm" | "fedadam" | "fedyogi"
     server_optimizer: str = "none"
+    server_lr: float = 1.0
+    server_momentum: float = 0.9
+    server_b1: float = 0.9
+    server_b2: float = 0.99
+    server_eps: float = 1e-3
+    # pairwise additive masking over a ring of secure_agg_neighbors
+    # offsets (fl.secure_agg)
     secure_aggregation: bool = False
+    secure_agg_neighbors: int = 8
+    secure_agg_scale: float = 1.0
     # lossy uplink with error feedback (fl.uplink, fl.powersgd):
     # "none" | "int8" | "topk" | "powersgd"
     uplink_compression: str = "none"
     uplink_topk_ratio: float = 0.01  # fraction of coords kept per client
     uplink_powersgd_rank: int = 4
+    # Byzantine-robust aggregation (fl.robust_agg): "fedavg" |
+    # "trimmed_mean" | "median" | "krum", over participants, unweighted
     aggregation: str = "fedavg"
+    trim_k: int = 1       # trimmed_mean: drop k highest + k lowest per coord
+    krum_f: int = 1       # krum: tolerated Byzantine count
+    krum_m: int = 1       # multi-krum: how many lowest-score updates to avg
     # client_dp only: track C to the clip_quantile-quantile of the client
     # delta norms (Andrew et al. 2021); privacy.max_grad_norm is the
     # initial C; σ_b defaults to m̄/20
@@ -146,7 +177,10 @@ class RoundEngineConfig:
     # (per-leaf symmetric); deltas are measured against θ̂ and applied to
     # the full-precision master
     downlink_compression: str = "none"
+    # FedNova normalized averaging (Wang et al. 2020): each delta divided
+    # by its effective step count a_i, rescaled by Σ p_i a_i
     fednova: bool = False
+    # SCAFFOLD control variates (Karimireddy et al. 2020, Option II)
     scaffold: bool = False
     trainable_patterns: Optional[tuple] = None
     feddyn_alpha: float = 0.0
@@ -155,50 +189,10 @@ class RoundEngineConfig:
     def __post_init__(self) -> None:
         # the reference's rules for the ported features, in its order and
         # with its messages verbatim (fl_tpu/orchestration/features.py);
-        # none of them needs num_clients
-        central = self.dp_mode in _CENTRAL_DP
-        if self.uplink_compression not in UPLINK_KINDS:
-            raise ValueError(f"uplink_compression="
-                             f"{self.uplink_compression!r} not in "
-                             f"{UPLINK_KINDS}")
-        if self.dp_mode not in _DP_MODES:
-            raise ValueError(f"dp_mode={self.dp_mode!r} not in ('none', "
-                             "'delta', 'dp_sgd', 'client_dp', 'dp_ftrl', "
-                             "'distributed')")
-        if self.uplink_compression != "none" and central:
-            raise ValueError(
-                "uplink compression cannot compose with client_dp/dp_ftrl/"
-                "distributed: the "
-                "central clip runs after reconstruction, so clipped-off "
-                "mass would never return to the error-feedback residual "
-                "(breaking EF's nothing-lost-only-delayed guarantee)")
-        if self.aggregation != "fedavg" and central:
-            raise ValueError(
-                "client_dp/dp_ftrl/distributed own their aggregation "
-                "(clipped sum + calibrated noise); robust aggregation "
-                "applies to the other dp modes")
-        if self.downlink_compression not in ("none", "bfloat16", "int8"):
-            raise ValueError(f"downlink_compression="
-                             f"{self.downlink_compression!r} not in "
-                             "('none', 'bfloat16', 'int8')")
-        if self.accountant not in ("rdp", "pld"):
-            raise ValueError(f"accountant={self.accountant!r}: expected "
-                             "'rdp' or 'pld'")
-        if (self.accountant == "pld"
-                and self.dp_mode not in ("dp_sgd", "client_dp")):
-            raise ValueError(
-                "accountant='pld' applies to the subsampled-Gaussian modes "
-                "(dp_sgd, client_dp); distributed uses the Skellam RDP "
-                "bound and dp_ftrl the exact analytic Gaussian curve")
-        if self.adaptive_clipping and self.dp_mode != "client_dp":
-            raise ValueError(
-                "adaptive_clipping tracks the client-level central clip "
-                "norm and requires dp_mode='client_dp' (delta mode "
-                "noises locally per client; dp_sgd clips per example)")
-        if self.audit_injection and self.dp_mode != "client_dp":
-            raise ValueError(
-                "audit_injection replaces client deltas ahead of the "
-                "central clip and requires dp_mode='client_dp'")
+        # the trimmed-mean rule needs num_clients and runs in the engine
+        for message in _rule_messages(self):
+            if message:
+                raise ValueError(message)
         # what the port does not run yet
         if self.dp_mode not in _PORTED_DP_MODES:
             ported = ", ".join(map(repr, _PORTED_DP_MODES))
@@ -208,6 +202,131 @@ class RoundEngineConfig:
             if getattr(self, name) != off:
                 raise ValueError(f"{name}={getattr(self, name)!r} is not "
                                  "ported yet")
+
+
+def _rule_messages(cfg: RoundEngineConfig):
+    """The reference's refusal messages for ``cfg``, in its order, lazily:
+    None where a rule does not refuse."""
+    central = cfg.dp_mode in _CENTRAL_DP
+    robust = cfg.aggregation != "fedavg"
+    train = cfg.training
+    yield (cfg.uplink_compression not in UPLINK_KINDS
+           and f"uplink_compression={cfg.uplink_compression!r} not in "
+               f"{UPLINK_KINDS}")
+    yield (cfg.dp_mode not in _DP_MODES
+           and f"dp_mode={cfg.dp_mode!r} not in ('none', 'delta', "
+               "'dp_sgd', 'client_dp', 'dp_ftrl', 'distributed')")
+    yield (cfg.uplink_compression != "none" and central
+           and "uplink compression cannot compose with client_dp/dp_ftrl/"
+               "distributed: the "
+               "central clip runs after reconstruction, so clipped-off "
+               "mass would never return to the error-feedback residual "
+               "(breaking EF's nothing-lost-only-delayed guarantee)")
+    yield (cfg.aggregation not in ROBUST_AGGREGATORS
+           and f"aggregation={cfg.aggregation!r} not in "
+               f"{ROBUST_AGGREGATORS}")
+    yield (robust and cfg.secure_aggregation
+           and "robust aggregation needs the server to see real "
+               "updates; it cannot compose with secure_aggregation")
+    yield (robust and central
+           and "client_dp/dp_ftrl/distributed own their aggregation "
+               "(clipped sum + calibrated noise); robust aggregation "
+               "applies to the other dp modes")
+    yield (cfg.downlink_compression not in ("none", "bfloat16", "int8")
+           and f"downlink_compression={cfg.downlink_compression!r} "
+               "not in ('none', 'bfloat16', 'int8')")
+    yield (cfg.downlink_compression != "none"
+           and (robust or cfg.secure_aggregation)
+           and "downlink_compression composes only with plain FedAvg "
+               "aggregation (robust/secure paths compute deltas "
+               "against the uncompressed master)")
+    yield (cfg.downlink_compression != "none"
+           and (cfg.dp_mode == "dp_ftrl" or cfg.scaffold)
+           and "downlink_compression cannot compose with dp_ftrl/"
+               "scaffold: both carry server-side state defined "
+               "against the exact broadcast")
+    yield (cfg.fednova and robust
+           and "fednova is a reweighting of the FedAvg reduction; "
+               f"it cannot compose with aggregation="
+               f"{cfg.aggregation!r}")
+    yield (cfg.fednova and cfg.secure_aggregation
+           and "fednova cannot compose with secure_aggregation: the "
+               "pairwise masks cancel only under the FedAvg sample "
+               "weights, and the server cannot reweight masked "
+               "payloads per client")
+    yield (cfg.fednova and cfg.dp_mode not in ("none", "delta")
+           and "fednova composes only with dp_mode in ('none', "
+               "'delta'): delta noise is a per-client local release "
+               "(reweighting is post-processing), but dp_sgd/"
+               "client_dp/dp_ftrl calibrate central noise to FIXED "
+               "aggregation weights")
+    yield (cfg.fednova and train.optimizer_type != "sgd"
+           and "fednova's effective-step normalization a_i is an "
+               "SGD(-momentum) trajectory identity; set "
+               "training.optimizer_type='sgd' (Wang et al. 2020 §4)")
+    yield (cfg.fednova and not 0.0 <= train.momentum < 1.0
+           and "fednova needs momentum in [0, 1): a_i = "
+               "[τ − ρ(1−ρ^τ)/(1−ρ)]/(1−ρ) diverges at ρ=1 "
+               f"(got momentum={train.momentum})")
+    yield (cfg.fednova and bool(train.proximal_mu)
+           and "fednova with a FedProx proximal term needs the "
+               "proximal a_i correction (Wang et al. 2020 Table 1), "
+               "which is not wired; use one or the other")
+    yield (cfg.fednova and cfg.scaffold
+           and "fednova and scaffold both correct client drift; "
+               "compose at most one")
+    yield (cfg.accountant not in ("rdp", "pld")
+           and f"accountant={cfg.accountant!r}: expected 'rdp' or 'pld'")
+    yield (cfg.accountant == "pld"
+           and cfg.dp_mode not in ("dp_sgd", "client_dp")
+           and "accountant='pld' applies to the subsampled-Gaussian modes "
+               "(dp_sgd, client_dp); distributed uses the Skellam RDP "
+               "bound and dp_ftrl the exact analytic Gaussian curve")
+    yield (cfg.dp_mode == "distributed" and cfg.secure_aggregation
+           and "dp_mode='distributed' already aggregates over the "
+               "integer ring mod 2^32 (where masking composes "
+               "bit-exactly); the float pairwise-masking path "
+               "(secure_aggregation=True) does not apply — see "
+               "fl_tpu.fl.distributed_dp.masked_integer_payloads")
+    yield (cfg.adaptive_clipping and cfg.dp_mode != "client_dp"
+           and "adaptive_clipping tracks the client-level central clip "
+               "norm and requires dp_mode='client_dp' (delta mode "
+               "noises locally per client; dp_sgd clips per example)")
+    yield (cfg.audit_injection and cfg.dp_mode != "client_dp"
+           and "audit_injection replaces client deltas ahead of the "
+               "central clip and requires dp_mode='client_dp'")
+    yield (cfg.scaffold and (train.optimizer_type != "sgd"
+                             or train.momentum != 0.0)
+           and "scaffold requires plain SGD local steps "
+               "(optimizer_type='sgd', momentum=0.0): Option II "
+               "recovers c_i+ from the exact SGD trajectory identity "
+               "(w_g - w_local)/(K*lr) = avg corrected gradient")
+    yield (cfg.scaffold and cfg.dp_mode != "none"
+           and "scaffold control variates are exact functions of raw "
+               "local trajectories and are not privatized; composing "
+               "SCAFFOLD with DP would require privatizing the c_i "
+               "updates too (not implemented) — use dp_mode='none'")
+    yield (cfg.scaffold and cfg.secure_aggregation
+           and "scaffold forms per-client c_i from individual deltas, "
+               "which secure aggregation is designed to hide from the "
+               "server")
+    yield (cfg.scaffold and train.param_storage_dtype is not None
+           and "scaffold cannot compose with param_storage_dtype: "
+               "the Option II recovery divides the trajectory by "
+               "K*lr, amplifying the stochastic-rounding noise in "
+               "the stored params by 1/(K*lr) into the control "
+               "variates")
+
+
+def trimmed_mean_message(cfg: RoundEngineConfig, num_clients: int):
+    """The reference's trimmed-mean rule, which needs the client count:
+    its message, or None."""
+    if (cfg.aggregation == "trimmed_mean"
+            and math.floor(cfg.participation_rate * num_clients)
+            - 2 * cfg.trim_k < 1):
+        return (f"trimmed_mean with trim_k={cfg.trim_k} needs more "
+                f"than {2 * cfg.trim_k} expected participants")
+    return None
 
 
 @dataclasses.dataclass
@@ -279,8 +398,14 @@ class FederatedRoundEngine:
                 "CUDA device is available; pass device=\"cpu\" to run on "
                 "the CPU")
         self.num_clients = data.num_clients
+        message = trimmed_mean_message(config, self.num_clients)
+        if message:
+            raise ValueError(message)
         self._num_samples = np.asarray(data.num_samples)
         self.data = data.to_device(self.device)
+        # per-client epoch budgets (capability adaptation; default flat)
+        self._epochs_per_client = np.full(
+            (self.num_clients,), config.training.local_epochs, np.int32)
 
         self._root = prng.root_seed(config.seed)
         self._np_rng = np.random.default_rng(config.seed + 1)
@@ -330,6 +455,12 @@ class FederatedRoundEngine:
         self._local_train = make_local_train_fn(
             model, config.training, self.data.samples_per_client,
             self.data.mean, self.data.std)
+        # the server optimizer's state is built at its first step
+        self._server_opt = make_server_optimizer(
+            config.server_optimizer, learning_rate=config.server_lr,
+            momentum=config.server_momentum, b1=config.server_b1,
+            b2=config.server_b2, eps=config.server_eps)
+        self.server_opt_state = None
         if test_images is not None:
             self.test_images = torch.as_tensor(
                 np.asarray(test_images, np.float32)).to(self.device)
@@ -363,8 +494,45 @@ class FederatedRoundEngine:
             self.uplink_error = torch.zeros((self.num_clients, ef_d),
                                             dtype=torch.float32,
                                             device=self.device)
+        # SCAFFOLD's variates: server c (D_pad,) and clients' c_i (C,
+        # D_pad), zero at the start (so mean(c_i) == c holds from round 0)
+        self.scaffold_c = self.scaffold_ci = self._scaffold_spec = None
+        if config.scaffold:
+            sc_d = padded_dim(flat_dim(params, batched=False))
+            self.scaffold_c = torch.zeros((sc_d,), dtype=torch.float32,
+                                          device=self.device)
+            self.scaffold_ci = torch.zeros((self.num_clients, sc_d),
+                                           dtype=torch.float32,
+                                           device=self.device)
+            self._scaffold_spec = stacked_spec(params, self.num_clients)
         self.history: List[RoundResult] = []
         self.detector = ConvergenceDetector()
+
+    @property
+    def epochs_per_client(self) -> np.ndarray:
+        """Per-client epoch budgets (capability adaptation), read-only:
+        assign a whole array. Budgets that differ take the masked path of
+        local training; flat ones the path without masks."""
+        view = self._epochs_per_client.view()
+        view.flags.writeable = False
+        return view
+
+    @epochs_per_client.setter
+    def epochs_per_client(self, value) -> None:
+        value = np.asarray(value, np.int32)
+        if value.shape != (self.num_clients,):
+            raise ValueError(
+                f"epochs_per_client must have shape ({self.num_clients},), "
+                f"got {value.shape}")
+        if np.any(value > self.config.training.local_epochs):
+            raise ValueError(
+                "per-client epoch budgets cannot exceed "
+                f"training.local_epochs={self.config.training.local_epochs}")
+        self._epochs_per_client = value
+
+    def _is_homogeneous(self) -> bool:
+        return bool(np.all(self._epochs_per_client
+                           == self.config.training.local_epochs))
 
     # ------------------------------------------------------------------
     # the superstep
@@ -392,11 +560,14 @@ class FederatedRoundEngine:
 
     def _superstep(self, global_params, round_idx: int,
                    mask: torch.Tensor, ef_state: torch.Tensor,
+                   epochs: Optional[torch.Tensor] = None,
                    clip_norm: Optional[float] = None,
                    inject: Optional[Tuple[torch.Tensor, Any]] = None):
         """One round on the device: returns (new global params, new uplink
-        state, packed metrics). ``clip_norm`` is adaptive clipping's C for
-        this round; ``inject`` the audit's (flags, stacked deltas)."""
+        state, new SCAFFOLD (c, c_i) or None, packed metrics). ``epochs``
+        is the (C,) epoch budget where SCAFFOLD or FedNova reads it or the
+        budgets differ; ``clip_norm`` adaptive clipping's C for this round;
+        ``inject`` the audit's (flags, stacked deltas)."""
         cfg = self.config
         C = self.num_clients
         rseed = prng.round_seed(self._root, round_idx)
@@ -408,9 +579,26 @@ class FederatedRoundEngine:
                       else global_params)
         stacked = tree_map(lambda g: g[None].expand(C, *g.shape),
                            ref_params)
+        corr = (scaffold_correction(self.scaffold_c, self.scaffold_ci,
+                                    self._scaffold_spec)
+                if cfg.scaffold else None)
         new_stacked, metrics = self._local_train(
             stacked, self.data.images, self.data.labels,
-            self.data.num_samples, rseed)
+            self.data.num_samples, rseed,
+            epochs=None if self._is_homogeneous() else epochs,
+            correction=corr)
+        del corr
+        sc_out = None
+        if cfg.scaffold:
+            # from the raw local trajectories, k = the steps each took
+            d_mat, _ = stack_flatten(tree_map(
+                lambda c, g: (c - g[None]).float(), new_stacked,
+                global_params))
+            k_steps = epochs.float() * self._local_train.steps_per_epoch
+            sc_out = scaffold_update(
+                self.scaffold_c, self.scaffold_ci, d_mat, mask, k_steps,
+                cfg.training.learning_rate, C)
+            del d_mat
 
         sigma_mean = torch.zeros((), device=self.device)
         if cfg.dp_mode == "delta":
@@ -447,8 +635,28 @@ class FederatedRoundEngine:
             del hat
 
         w = normalized_client_weights(self.data.num_samples, mask)
-        if cfg.dp_mode != "client_dp":
-            new_global = fedavg_delta(global_params, new_stacked, w,
+        if cfg.dp_mode == "client_dp":
+            pass  # new_global is the central-DP release above
+        elif cfg.aggregation != "fedavg":
+            new_global = robust_combine_deltas(
+                global_params, new_stacked, mask, cfg.aggregation,
+                trim_k=cfg.trim_k, krum_f=cfg.krum_f, krum_m=cfg.krum_m)
+        elif cfg.secure_aggregation:
+            new_global = secure_fedavg_delta(
+                global_params, new_stacked, self.data.num_samples, mask,
+                rseed, neighbors=cfg.secure_agg_neighbors,
+                scale=cfg.secure_agg_scale)
+        else:
+            w_params = w
+            if cfg.fednova:
+                # normalized averaging (Wang et al. 2020 eq. 6): θ + τ_eff
+                # Σ p_i Δ_i / a_i; FedAvg itself when every a_i is equal
+                a_i = fednova_effective_steps(
+                    epochs.float() * self._local_train.steps_per_epoch,
+                    cfg.training.momentum)
+                tau_eff = (w * a_i).sum()
+                w_params = tau_eff * w / torch.clamp(a_i, min=1e-12)
+            new_global = fedavg_delta(global_params, new_stacked, w_params,
                                       ref_params)
         scalars = torch.stack([
             (metrics["loss"] * w).sum(),
@@ -461,7 +669,7 @@ class FederatedRoundEngine:
             frac,
         ])
         packed = torch.cat([scalars, metrics["loss"], metrics["accuracy"]])
-        return new_global, ef_out, packed
+        return new_global, ef_out, sc_out, packed
 
     def _client_dp(self, global_params, ref_params, new_stacked, rseed: int,
                    mask: torch.Tensor, clip_norm: Optional[float],
@@ -605,6 +813,22 @@ class FederatedRoundEngine:
         t0 = time.perf_counter()
         if mask is None:
             mask = self.sample_participation()
+        # robust aggregators need enough REALIZED participants (the config
+        # check covers the expected count only)
+        if cfg.aggregation == "trimmed_mean":
+            m = int(np.sum(np.asarray(mask) > 0))
+            if m - 2 * cfg.trim_k < 1:
+                raise ValueError(
+                    f"trimmed_mean(trim_k={cfg.trim_k}) needs more than "
+                    f"{2 * cfg.trim_k} participants; this round realized {m}")
+        elif cfg.aggregation == "krum":
+            m = int(np.sum(np.asarray(mask) > 0))
+            if m < 2 * cfg.krum_f + 3:
+                # Blanchard et al. 2017: resilience to f needs n ≥ 2f+3
+                raise ValueError(
+                    f"krum(f={cfg.krum_f}) needs at least 2f+3="
+                    f"{2 * cfg.krum_f + 3} participants; this round "
+                    f"realized {m}")
         client_dp = cfg.dp_mode == "client_dp"
         charge = (self.budget_tracker is not None
                   and cfg.dp_mode == "delta")
@@ -639,9 +863,22 @@ class FederatedRoundEngine:
 
         round_clip = self.clip_norm  # the C this round uses (adaptive)
         mask_t = torch.as_tensor(np.asarray(mask, np.float32)).to(self.device)
-        new_global, self.uplink_error, metrics = self._superstep(
-            self.global_variables["params"], self.round_number, mask_t,
-            self.uplink_error, round_clip, inject)
+        epochs_t = (None if self._is_homogeneous()
+                    and not (cfg.scaffold or cfg.fednova)
+                    else torch.as_tensor(self._epochs_per_client).to(
+                        self.device))
+        old_params = self.global_variables["params"]
+        new_global, self.uplink_error, sc_out, metrics = self._superstep(
+            old_params, self.round_number, mask_t, self.uplink_error,
+            epochs_t, round_clip, inject)
+        if sc_out is not None:
+            self.scaffold_c, self.scaffold_ci = sc_out
+        if self._server_opt is not None:
+            # a server step on the pseudo-gradient θ − θ_fedavg
+            if self.server_opt_state is None:
+                self.server_opt_state = self._server_opt.init(old_params)
+            new_global, self.server_opt_state = self._server_opt.update(
+                old_params, new_global, self.server_opt_state)
         self.global_variables = {"params": new_global}
 
         eps_spent = 0.0

@@ -339,6 +339,11 @@ RULE_CASES = {
     "uplink-x-client_dp": {"dp_mode": "client_dp",
                            "uplink_compression": "int8"},
     "robust-x-client_dp": {"dp_mode": "client_dp", "aggregation": "median"},
+    "aggregation-enum-x-client_dp": {"aggregation": "bogus",
+                                     "dp_mode": "client_dp"},
+    "robust-x-secure-x-client_dp": {"aggregation": "median",
+                                    "secure_aggregation": True,
+                                    "dp_mode": "client_dp"},
     "accountant-enum": {"accountant": "moments"},
     "pld-x-delta": {"dp_mode": "delta", "accountant": "pld"},
     "pld-x-none": {"accountant": "pld"},

@@ -34,6 +34,11 @@ in bf16, whatever route K8a's or K8b's plan takes (K8b's TMA route also
 at the edges of its design: a tile over two images, a ragged last tile,
 three column passes, the 128-byte swizzle, two boxes a pixel, clients
 changing inside a block, a ring of two images, a misaligned view).
+
+Two plain functions of the port's device path are held on the card too:
+the stacked stochastic bf16 rounding equals the CPU's bit for bit, and
+Krum's Gram product stays in full f32 with the TF32 switch on (equal to
+itself with the switch off, within f32 of f64).
 """
 
 import numpy as np
@@ -49,6 +54,7 @@ from fl_tpu_torch.ops import conv_patch as cp
 from fl_tpu_torch.ops import conv_probe as probe
 from fl_tpu_torch.ops import dp as dpo
 from fl_tpu_torch.ops import quantize as qz
+from fl_tpu_torch.ops import rounding
 
 
 def _conv_inputs(gen, C, B, H, C1, C2, dtype, device, ones=False):
@@ -740,3 +746,69 @@ def test_engine_round_runs_through_the_kernels(cuda, fused, conv_counts):
     want.update(dict.fromkeys(conv_counts, 8), clip_noise=4)
     assert ops.launch_counts() == want
     assert all(torch.isfinite(torch.tensor(r.train_loss)) for r in res)
+
+
+# ---------------------------------------------------------------------------
+# plain functions of the slice's device path
+# ---------------------------------------------------------------------------
+
+def _krum_matrix(device):
+    gen = torch.Generator().manual_seed(12)
+    # a common part much larger than the spread: sq_i + sq_j − 2<x_i, x_j>
+    # cancels, which TF32's 10-bit products would not survive; row i's
+    # spread grows with i, so the Krum scores stand apart by more than
+    # the f32 cancellation error
+    spread = 0.01 * (1.0 + torch.arange(48.0) / 4.0)[:, None]
+    mat = 1.0 + spread * torch.randn((48, 4096), generator=gen)
+    return mat.to(device)
+
+
+def test_krum_gram_product_leaves_the_tf32_switch_as_it_was():
+    from fl_tpu_torch.fl import robust_agg as ra
+
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            ra.pairwise_sq_distances(_krum_matrix("cpu"))
+            assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+@pytest.mark.cuda
+def test_krum_gram_product_is_off_tf32(cuda):
+    from fl_tpu_torch.fl import robust_agg as ra
+
+    mat = _krum_matrix(cuda)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = ra.pairwise_sq_distances(mat)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(on, ra.pairwise_sq_distances(mat))
+    m64 = mat.double()
+    want = ((m64[:, None] - m64[None]) ** 2).sum(-1)
+    torch.testing.assert_close(on.double(), want, rtol=0, atol=2e-2)
+    # the selection is the one f64 scores make
+    d2 = want.clone()
+    d2.fill_diagonal_(float("inf"))
+    scores = torch.sort(d2, 1).values[:, :48 - 1 - 2].sum(1)
+    picked = ra.krum_select(mat, torch.ones(48, device=cuda), 1, 8)
+    assert picked.tolist() == torch.argsort(scores)[:8].tolist()
+
+
+@pytest.mark.cuda
+def test_stacked_rounding_on_the_card_equals_the_cpu(cuda):
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((6, 3, 1001), generator=gen) * 10.0 ** torch.randint(
+        -30, 30, (6, 3, 1001), generator=gen).float()
+    x.view(-1)[:5] = torch.tensor([float("nan"), float("inf"),
+                                   -float("inf"), -0.0, 3.0e38])
+    seeds = torch.randint(0, 1 << 32, (6,), generator=gen, dtype=torch.int64)
+    cpu = rounding.stochastic_round_bf16(x, seeds)
+    card = rounding.stochastic_round_bf16(x.to(cuda), seeds.to(cuda))
+    assert torch.equal(card.cpu().view(torch.int16), cpu.view(torch.int16))
+    one = rounding.stochastic_round_bf16(x[0].to(cuda), int(seeds[0]))
+    assert torch.equal(one.cpu().view(torch.int16), card[0].cpu().view(
+        torch.int16))

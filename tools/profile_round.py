@@ -4,7 +4,7 @@
     python3 tools/profile_round.py parts
     python3 tools/profile_round.py profile [--out DIR] [residual|true|false|
         up-int8|up-topk|up-powersgd|down-bf16|down-int8|down-int8+up-topk|
-        client-dp ...]
+        client-dp|v1|v2|v2-f32|v3|v4 ...]
 
 ``sweep`` times the four conv kernels at the bench shapes (512 clients x 32
 images, bf16, C1=32, C2=64) for each thread count per block, CUDA events
@@ -25,7 +25,9 @@ workload for each named value of ``fused_conv_block``, or with
 configurations (``up-*``: uplink int8, top-k 1%, PowerSGD rank 4;
 ``down-*``: downlink bf16, int8; ``down-int8+up-topk``), or
 ``client-dp``, the same round under ``dp_mode="client_dp"`` as
-``chip_smoke.py``'s central-DP phase runs it: one warm-up round,
+``chip_smoke.py``'s central-DP phase runs it, or ``v1`` .. ``v4``, the
+cells of its ``phase_fl_variants`` (``chip_smoke.variant_engine``), or
+``v2-f32``, V2 with its parameters stored in f32: one warm-up round,
 then 3 pipelined rounds under ``torch.profiler``, and prints the device
 time per round grouped by kernel family, the launches per round, the busy
 share of the profiled window, rounds/s without the profiler (3 pipelined
@@ -76,6 +78,8 @@ FAMILIES = (
     ("cutlass", "fc1/fc2 GEMMs (torch.bmm, cuBLAS)"),
     ("reduce_kernel", "PyTorch reductions"),
     ("mbtopk", "torch.topk (radix select)"),
+    ("Sort", "torch.sort (robust aggregation)"),
+    ("roll_cuda_kernel", "torch.roll (secure aggregation's masks)"),
     ("_scatter_gather", "scatter and gather"),
     ("Memcpy", "copies and casts"),
     ("copy_kernel", "copies and casts"),
@@ -165,13 +169,12 @@ def _device_us(ev) -> float:
     return ev.self_cuda_time_total
 
 
-def profile(card: str, name: str, fused, compression,
+def profile(card: str, name: str, label: str, make_engine,
             out_dir: Optional[Path]) -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    engine = (chip_smoke.central_dp_engine() if compression is None
-              else chip_smoke.make_bench_engine(fused, **compression))
+    engine = make_engine()
     engine.run_round(evaluate=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -203,9 +206,7 @@ def profile(card: str, name: str, fused, compression,
     total = sum(us.values())
     if total == 0:
         raise RuntimeError("the profiler recorded no device time")
-    label = ("".join(f" {k}={v!r}" for k, v in compression.items())
-             if compression is not None else " dp_mode='client_dp'")
-    print(f"profile fused_conv_block={fused!r}{label}: {rate:.3f} rounds/s "
+    print(f"profile {label}: {rate:.3f} rounds/s "
           "without "
           f"the profiler, peak memory {peak:.2f} GiB; under it {ROUNDS} "
           f"rounds in {window:.3f}s, device kernel time "
@@ -224,13 +225,28 @@ def main(argv) -> int:
         print("no CUDA device: these measurements need one GPU",
               file=sys.stderr)
         return 1
-    modes = {"residual": ("residual", {}), "true": (True, {}),
-             "false": (False, {})}
+    def bench(fused, compression):
+        label = f"fused_conv_block={fused!r}" + "".join(
+            f" {k}={v!r}" for k, v in compression.items())
+        return label, lambda: chip_smoke.make_bench_engine(fused,
+                                                           **compression)
+
+    modes = {"residual": bench("residual", {}), "true": bench(True, {}),
+             "false": bench(False, {})}
     # chip_smoke.COMPRESSED_ENGINES, in its order
     modes.update(zip(("up-int8", "up-topk", "up-powersgd", "down-bf16",
                       "down-int8", "down-int8+up-topk"),
-                     (("residual", c) for c in chip_smoke.COMPRESSED_ENGINES)))
-    modes["client-dp"] = ("residual", None)
+                     (bench("residual", c)
+                      for c in chip_smoke.COMPRESSED_ENGINES)))
+    modes["client-dp"] = ("fused_conv_block='residual' dp_mode='client_dp'",
+                          chip_smoke.central_dp_engine)
+    for v in chip_smoke.VARIANTS:
+        modes[v.lower()] = (f"{v} ({chip_smoke.VARIANT_LABELS[v]})",
+                            lambda v=v: chip_smoke.variant_engine(v))
+    # V2 with its parameters stored in f32: what bf16 storage costs
+    modes["v2-f32"] = ("V2 with f32 parameter storage", lambda:
+                       chip_smoke.variant_engine("V2",
+                                                 param_storage_dtype=None))
     out_dir = None
     if argv[1:2] == ["--out"] and len(argv) > 2:
         out_dir, argv = Path(argv[2]), argv[:1] + argv[3:]
