@@ -103,11 +103,31 @@ line each; any failure exits non-zero:
    TF32 switch, the secure sum against the plain weighted sum at full
    width, and the stochastic bf16 rounding by its bias over 64 seeds on
    fc1's kernel and on the card equal to the CPU bit for bit (a
-   ``fl_variants functions`` line);
+   ``fl_variants functions`` line); then the server side's second half and
+   the engine's other entry points (``phase_engine_api``), each cell the
+   ``"residual"`` bf16 round at 512 clients, one warm-up and 2 pipelined
+   rounds, one ``engine_api`` line each with rounds/s, peak memory and the
+   launches a round: V5 FedDyn (α = 0.01, Adam, no DP; the pipelined rounds
+   leave every 8th client out, whose g_i keep their bits while every other
+   g_i moves; h and g finite), V6 q-FFL (q = 1, Adam, no DP; K1 11 times a
+   round, the 11th F_k(θ̂) over each client's 64 images; the pre-losses
+   finite), V7 PEFT (the conv layers trainable) under the bench's delta DP
+   (K1, K2, K3), and a 10-client, 2-round engine without DP whose fc1 and
+   fc2 keep their initial bits; on V5's engine ``evaluate_federated`` (one
+   K1 launch) and ``evaluate_personalized`` at 512 clients, timed, a
+   checkpoint saved and restored into a fresh engine whose next round
+   equals the uninterrupted engine's bit for bit (params, h, g), and one
+   ``profile_round`` whose Chrome trace must exist; V8, the bench round
+   through ``run_rounds_fused(3)`` against ``run_rounds_pipelined(3)`` on
+   two engines in the same run, with the host syncs each made (torch's
+   synchronizing-call warnings; the fused runner must make exactly one,
+   its device→host copy of the stacked metrics) and both rates;
 6. learning check: 10 non-IID clients, 3 rounds, test accuracy > 0.5, with
    ``fused_conv_block="residual"`` and with ``True``, and with
-   ``"residual"`` under SCAFFOLD (SGD lr 0.05) and under FedNova (SGD lr
-   0.05, momentum 0.9, epoch budgets 1 + (i mod 3) of 3);
+   ``"residual"`` under SCAFFOLD (SGD lr 0.05), under FedNova (SGD lr
+   0.05, momentum 0.9, epoch budgets 1 + (i mod 3) of 3), under FedDyn
+   (α = 0.01, Adam) and under q-FFL at q = 0.05 (SGD lr 0.1), with q = 1
+   and q = 0 printed beside it and each one's per-client accuracy spread;
 7. the conv-formulations measurement at the bench shapes (512 clients x 32
    images, bf16): conv2 14x14 32->64 as library convolution, shift-GEMM
    (``conv3x3_same``) and patch GEMM (``conv3x3_patch``), forward and
@@ -225,6 +245,23 @@ AGG_TOL = 1e-5
 # Krum: the selection must be one that f64 scores allow, up to this share
 # of a score (the Gram product's f32 rounding)
 KRUM_SCORE_TOL = 1e-5
+
+# the server side's second half and the engine's other entry points
+# (phase_engine_api): V5 FedDyn at α = 0.01 (Acar et al. 2021 sweep α in
+# {0.1, 0.01, 0.001}), V6 q-FFL at q = 1, V7 PEFT (the conv layers train)
+# under the bench's delta DP, V8 the bench round through run_rounds_fused
+API_CELLS = ("V5", "V6", "V7")
+API_ROUNDS = 2
+FEDDYN_ALPHA = 0.01
+QFFL_Q = 1.0
+# the learning check's q: at q = 1 a round's step is far shorter than
+# FedAvg's on 10 non-IID clients (qffl_learning_check)
+QFFL_LEARN_Q = 0.05
+PEFT_PATTERNS = (r".*conv.*",)
+FUSED_ROUNDS = 3
+# V5's pipelined rounds leave every 8th client out, whose g_i must keep
+# their bits
+FEDDYN_OUT = slice(0, NUM_CLIENTS, 8)
 
 # the fused conv kernels' second geometry (H, C1, C2): widths that are no
 # multiples of 16, so the tensor-core route pads its channels
@@ -2444,11 +2481,363 @@ def phase_fl_variants(card):
         torch.cuda.empty_cache()
 
 
+def api_engine(name, num_clients=NUM_CLIENTS):
+    """The 512-client bf16 engine of cell ``name`` of the server side's
+    second half: V5 FedDyn (α = 0.01) and V6 q-FFL (q = 1) with the bench's
+    Adam and no DP, V7 PEFT (``.*conv.*`` trainable) under the bench's
+    delta DP, V8 the bench round itself."""
+    from fl_tpu_torch.core.types import PrivacyConfig
+    from fl_tpu_torch.orchestration import (FederatedRoundEngine,
+                                            RoundEngineConfig)
+
+    if name == "V8":
+        return make_bench_engine("residual")
+    cfg = {"V5": dict(feddyn_alpha=FEDDYN_ALPHA),
+           "V6": dict(qffl_q=QFFL_Q),
+           "V7": dict(trainable_patterns=PEFT_PATTERNS, dp_mode="delta",
+                      privacy=PrivacyConfig(epsilon=1.0, delta=1e-5,
+                                            max_grad_norm=1.0),
+                      epsilon_per_round=EPS_R,
+                      delta_per_round=DELTA_R)}[name]
+    return FederatedRoundEngine(
+        bench_model(), bench_arrays(),
+        RoundEngineConfig(training=bench_training(), max_clients=NUM_CLIENTS,
+                          seed=0, **cfg), device=DEVICE)
+
+
+API_LABELS = {
+    "V5": f"feddyn alpha={FEDDYN_ALPHA}, adam, no DP",
+    "V6": f"q-ffl q={QFFL_Q}, adam, no DP",
+    "V7": "peft conv layers trainable, delta DP at the bench's eps_r=1/28",
+    "V8": "the bench round (delta DP) through run_rounds_fused",
+}
+
+
+def check_finite_params(label, engine):
+    import torch
+
+    params = engine.global_variables["params"]
+    require(all(bool(torch.isfinite(t).all())
+                for d in params.values() for t in d.values()),
+            f"{label}: non-finite global parameters")
+
+
+def run_api_cell(card, name, counts):
+    """One warm-up and API_ROUNDS pipelined rounds of cell ``name``, the
+    counts set to 0 just before the pipelined rounds and read just after
+    (added to ``counts``): K1/K2 10 times a round on the tensor cores, K1
+    once more under q-FFL (F_k(θ̂), one chunk of 64 images a client), K3
+    twice under delta DP. V5's pipelined rounds leave every 8th client out:
+    h and g finite, the absent clients' g_i unchanged bit for bit, every
+    other g_i moved. V6's pre-losses finite. Returns the engine."""
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.ops import conv_block as cb
+
+    engine = api_engine(name)
+    t0 = time.perf_counter()
+    warm = engine.run_round(evaluate=False)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    masks = None
+    if name == "V5":
+        masks = np.ones((API_ROUNDS, NUM_CLIENTS), np.float32)
+        masks[:, FEDDYN_OUT] = 0.0
+        g_before = engine.feddyn_grads.cpu()   # off the card's peak
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = engine.run_rounds_pipelined(API_ROUNDS, evaluate=False,
+                                          masks=masks)
+    dt = time.perf_counter() - t0
+    got = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    steps = LOCAL_EPOCHS * (SAMPLES_PER_CLIENT // BATCH_SIZE)
+    qffl = engine.config.qffl_q is not None
+    dp = engine.config.dp_mode == "delta"
+    want = dict.fromkeys(got, 0)
+    want.update(conv_block_fwd=(steps + qffl) * API_ROUNDS,
+                conv_block_bwd=steps * API_ROUNDS,
+                clip_noise=2 * API_ROUNDS if dp else 0)
+    require(got == want, f"{name}: launch counts {got}, expected {want}")
+    require(all(cb.ROUTE_LAUNCHES[(k, "tensor_core")] == want[k]
+                for k in ("conv_block_fwd", "conv_block_bwd")),
+            f"{name}: launches by route "
+            f"{ {k: v for k, v in cb.ROUTE_LAUNCHES.items() if v} }")
+    for k in ("conv_block_fwd", "conv_block_bwd", "clip_noise"):
+        counts[k] = counts.get(k, 0) + got[k]
+    losses = [warm.train_loss] + [r.train_loss for r in results]
+    require(all(math.isfinite(v) for v in losses), f"{name}: losses {losses}")
+    check_finite_params(name, engine)
+    extra = ""
+    if name == "V5":
+        h, g = engine.feddyn_h, engine.feddyn_grads
+        require(bool(torch.isfinite(h).all() and torch.isfinite(g).all()),
+                "V5: non-finite FedDyn state")
+        out = torch.zeros(NUM_CLIENTS, dtype=torch.bool)
+        out[FEDDYN_OUT] = True
+        same = (g.cpu() == g_before).all(1)
+        require(bool(same[out].all()) and not bool(same[~out].any()),
+                f"V5: g_i changed for {int((~same[out]).sum())} absent "
+                f"clients, kept for {int(same[~out].sum())} participants")
+        extra = (f", |h| {float(torch.linalg.vector_norm(h)):.5f}, "
+                 f"|g| {float(torch.linalg.vector_norm(g)):.4f}, g_i of the "
+                 f"{int(out.sum())} absent clients unchanged")
+        del g_before
+    if qffl:
+        pre = engine.last_client_pre_losses
+        require(pre.shape == (NUM_CLIENTS,) and np.isfinite(pre).all(),
+                "V6: non-finite pre-losses")
+        extra = (f", F_k(theta^) mean {pre.mean():.4f} min {pre.min():.4f}"
+                 f" max {pre.max():.4f}")
+    per_round = {k: v // API_ROUNDS for k, v in got.items() if v}
+    print(f"engine_api {name} ({API_LABELS[name]}): {NUM_CLIENTS} clients "
+          f"bf16, warm-up round {warm_s:.2f}s, {API_ROUNDS} pipelined rounds "
+          f"in {dt:.3f}s -> {API_ROUNDS / dt:.3f} rounds/s, peak memory "
+          f"{peak:.2f} GiB, losses {[round(v, 4) for v in losses]}{extra}, "
+          f"launches a round {per_round} (0 elsewhere) [{card}]", flush=True)
+    return engine
+
+
+def peft_frozen_check(card):
+    """10 clients, 2 rounds, no DP: fc1 and fc2 keep their initial bits."""
+    import torch
+
+    from fl_tpu_torch.data import load_dataset, make_federated_arrays
+    from fl_tpu_torch.orchestration import (FederatedRoundEngine,
+                                            RoundEngineConfig)
+
+    splits = load_dataset("mnist", n_train_synth=1024, n_test_synth=64)
+    engine = FederatedRoundEngine(
+        bench_model(), make_federated_arrays(splits, 10, "iid", seed=0),
+        RoundEngineConfig(training=bench_training(),
+                          trainable_patterns=PEFT_PATTERNS, seed=0),
+        device=DEVICE)
+    init = {l: {k: v.clone() for k, v in d.items()}
+            for l, d in engine.global_variables["params"].items()}
+    engine.run_rounds_pipelined(2)
+    p = engine.global_variables["params"]
+    frozen = all(torch.equal(p[l][k], init[l][k]) for l in ("fc1", "fc2")
+                 for k in p[l])
+    moved = not torch.equal(p["conv2"]["kernel"], init["conv2"]["kernel"])
+    require(frozen and moved, f"V7: fc1/fc2 bit-equal {frozen}, conv2 "
+                              f"moved {moved}")
+    print(f"engine_api V7 frozen: 10 clients, 2 rounds, no DP: fc1 and fc2 "
+          f"equal their initial values bit for bit, conv1/conv2 trained "
+          f"[{card}]", flush=True)
+
+
+def count_syncs(fn):
+    """``fn()`` with torch's synchronizing-call warnings on: its result and
+    the (file:line) of every synchronizing CUDA call it made."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sites = [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+             for w in caught if "synchroniz" in str(w.message)]
+    return out, sites
+
+
+def fused_runner(card, counts):
+    """V8: the bench round, FUSED_ROUNDS rounds through run_rounds_fused
+    against run_rounds_pipelined on two engines in the same call, after a
+    warm-up round each: the host syncs of each runner counted (the fused
+    one must make one, its device→host copy of the stacked metrics), both
+    rates, K1/K2/K3's launches of the fused rounds (added to ``counts``)."""
+    import torch
+
+    from fl_tpu_torch import ops
+
+    rates, syncs = {}, {}
+    for runner in ("fused", "pipelined"):
+        engine = api_engine("V8")
+        engine.run_round(evaluate=False)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        if runner == "fused":
+            results, sites = count_syncs(lambda: engine.run_rounds_fused(
+                FUSED_ROUNDS, evaluate=False))
+        else:
+            results, sites = count_syncs(lambda: engine.run_rounds_pipelined(
+                FUSED_ROUNDS, evaluate=False))
+        dt = time.perf_counter() - t0
+        got = ops.launch_counts()
+        steps = LOCAL_EPOCHS * (SAMPLES_PER_CLIENT // BATCH_SIZE)
+        want = dict.fromkeys(got, 0)
+        want.update(conv_block_fwd=steps * FUSED_ROUNDS,
+                    conv_block_bwd=steps * FUSED_ROUNDS,
+                    clip_noise=2 * FUSED_ROUNDS)
+        require(got == want, f"V8 {runner}: launch counts {got}, expected "
+                             f"{want}")
+        require(len(results) == FUSED_ROUNDS
+                and all(math.isfinite(r.train_loss) for r in results),
+                f"V8 {runner}: losses {[r.train_loss for r in results]}")
+        check_finite_params(f"V8 {runner}", engine)
+        spent = engine.budget_tracker.consumed_epsilon
+        require(math.isclose(spent, (FUSED_ROUNDS + 1) * EPS_R,
+                             rel_tol=1e-12),
+                f"V8 {runner}: eps spent {spent}")
+        if runner == "fused":
+            for k in ("conv_block_fwd", "conv_block_bwd", "clip_noise"):
+                counts[k] = counts.get(k, 0) + got[k]
+        rates[runner], syncs[runner] = FUSED_ROUNDS / dt, sites
+        del engine
+        torch.cuda.empty_cache()
+    require(len(syncs["fused"]) == 1,
+            f"V8: run_rounds_fused made {len(syncs['fused'])} host syncs, "
+            f"at {syncs['fused']}")
+    print(f"engine_api V8 ({API_LABELS['V8']}): {NUM_CLIENTS} clients bf16, "
+          f"{FUSED_ROUNDS} rounds: fused {rates['fused']:.3f} rounds/s with "
+          f"{len(syncs['fused'])} host sync ({', '.join(syncs['fused'])}), "
+          f"pipelined {rates['pipelined']:.3f} rounds/s with "
+          f"{len(syncs['pipelined'])} host syncs; launches a round "
+          f"conv_block_fwd/bwd {LOCAL_EPOCHS * SAMPLES_PER_CLIENT // BATCH_SIZE}"
+          f", clip_noise 2 [{card}]", flush=True)
+
+
+def entry_points_on(card, engine):
+    """On V5's engine: federated and personalized evaluation at 512
+    clients (timed, K1 launched), a checkpoint saved and restored into a
+    fresh engine whose next round must equal the uninterrupted engine's
+    bit for bit, and one profiled round's Chrome trace."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.orchestration.checkpoint import (
+        restore_engine_checkpoint, save_engine_checkpoint)
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    fed = engine.evaluate_federated()
+    fed_s = time.perf_counter() - t0
+    fed_launch = ops.launch_counts()["conv_block_fwd"]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pers = engine.evaluate_personalized()
+    pers_s = time.perf_counter() - t0
+    pers_launch = ops.launch_counts()
+    require(fed_launch == 1 and np.isfinite(fed["per_client"]["loss"]).all(),
+            f"evaluate_federated: K1 launches {fed_launch}, losses finite "
+            f"{np.isfinite(fed['per_client']['loss']).all()}")
+    require(pers_launch["conv_block_fwd"] > 0
+            and np.isfinite(pers["per_client"]["personalized_loss"]).all(),
+            f"evaluate_personalized: launches {pers_launch}")
+    print(f"engine_api V5 evaluate_federated: {NUM_CLIENTS} clients in "
+          f"{fed_s:.3f}s (K1 x{fed_launch}), accuracy "
+          f"{fed['accuracy']:.4f} (min {fed['accuracy_min']:.4f}, max "
+          f"{fed['accuracy_max']:.4f}, std {fed['accuracy_std']:.4f}); "
+          f"evaluate_personalized: {pers_s:.3f}s (K1 x"
+          f"{pers_launch['conv_block_fwd']}, K2 x"
+          f"{pers_launch['conv_block_bwd']}), global "
+          f"{pers['mean_global_accuracy']:.4f} -> personalized "
+          f"{pers['mean_personalized_accuracy']:.4f} [{card}]", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_engine_checkpoint(engine, tmp)
+        save_s = time.perf_counter() - t0
+        fresh = api_engine("V5")
+        t0 = time.perf_counter()
+        step = restore_engine_checkpoint(fresh, tmp)
+        restore_s = time.perf_counter() - t0
+        engine.run_round(evaluate=False)
+        fresh.run_round(evaluate=False)
+        a, b = engine.global_variables["params"], fresh.global_variables[
+            "params"]
+        same = (all(torch.equal(a[l][k], b[l][k]) for l in a for k in a[l])
+                and torch.equal(engine.feddyn_h, fresh.feddyn_h)
+                and torch.equal(engine.feddyn_grads, fresh.feddyn_grads))
+        require(same, "V5: the restored engine's next round differs from "
+                      "the uninterrupted engine's")
+        del fresh
+        torch.cuda.empty_cache()
+        result = engine.profile_round(os.path.join(tmp, "trace"))
+        trace = engine.last_trace_path
+        require(os.path.isfile(trace) and os.path.getsize(trace) > 0,
+                f"profile_round wrote no trace ({trace})")
+        trace_mb = os.path.getsize(trace) / 2 ** 20
+    print(f"engine_api V5 checkpoint: saved in {save_s:.2f}s, restored at "
+          f"round {step} in {restore_s:.2f}s into a fresh engine, its next "
+          f"round equal to the uninterrupted engine's bit for bit (params, "
+          f"h, g); profile_round: round {result.round_number}, "
+          f"{trace_mb:.1f} MiB Chrome trace [{card}]", flush=True)
+
+
+def check_eval_forward(card, report):
+    """K1 as the evaluation paths launch it (V6's F_k(θ̂), federated
+    evaluation, personalization's holdout): ``conv_stack_res`` under
+    ``torch.no_grad`` on a whole 64-image shard for each of the 512
+    clients in bf16, one launch and nothing else, held to the plain
+    version within one bf16 ulp (check_pooled). Its error joins K1's
+    ``max_abs_err``."""
+    import torch
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.ops import conv_block as cb
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    args = conv_inputs(gen, NUM_CLIENTS, SAMPLES_PER_CLIENT, torch.bfloat16)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        pooled = cb.conv_stack_res(*args)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in ops.launch_counts().items() if v}
+    require(got == {"conv_block_fwd": 1} and not pooled.requires_grad,
+            f"K1 under no_grad: launches {got}")
+    p_ref, _ = cb.conv_stack_res_plain(*args)
+    tag = f"eval bf16 C={NUM_CLIENTS} B={SAMPLES_PER_CLIENT} no_grad"
+    err = check_pooled("K1", tag, pooled, p_ref, torch.bfloat16)
+    entry = report["conv_block_fwd"]
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    print(f"engine_api K1 forward-only ({tag}): one launch, max abs error "
+          f"{err:.3e} against the plain version (tol 1 bf16 ulp) [{card}]",
+          flush=True)
+    del args, pooled, p_ref
+    torch.cuda.empty_cache()
+
+
+def phase_engine_api(card, counts, report):
+    """The server side's second half and the engine's other entry points
+    on the 512-client bf16 round: K1 at the evaluation paths' shape
+    against its plain version; V5 FedDyn and, on its engine, the
+    evaluations, checkpoint and resume, and the profiler; V6 q-FFL; V7
+    PEFT and its 10-client frozen-leaf check; V8 the fused runner. One
+    512-client engine is resident at a time."""
+    import torch
+
+    check_eval_forward(card, report)
+    for name in API_CELLS:
+        engine = run_api_cell(card, name, counts)
+        if name == "V5":
+            entry_points_on(card, engine)
+        del engine
+        torch.cuda.empty_cache()
+    peft_frozen_check(card)
+    fused_runner(card, counts)
+
+
 def learning_check(fused, label=None, engine_cfg=None, budgets=None,
-                   **training):
-    """10 non-IID clients, 3 rounds, test accuracy above 0.5: with Adam
-    (the default), or with ``training`` and ``engine_cfg`` for the
-    configuration ``label`` names; ``budgets`` sets epochs_per_client."""
+                   above=0.5, **training):
+    """10 non-IID clients, 3 rounds, test accuracy above ``above`` (None:
+    printed only): with Adam (the default), or with ``training`` and
+    ``engine_cfg`` for the configuration ``label`` names; ``budgets`` sets
+    epochs_per_client. Returns the engine."""
     import torch
 
     from fl_tpu_torch.data import load_dataset, make_federated_arrays
@@ -2470,9 +2859,84 @@ def learning_check(fused, label=None, engine_cfg=None, budgets=None,
         engine.epochs_per_client = budgets
     label = label or f"fused_conv_block={fused!r}"
     accs = [r.test_accuracy for r in engine.run(num_rounds=3)]
-    require(accs[-1] > 0.5, f"{label}: test accuracy after 3 rounds {accs}")
+    require(all(math.isfinite(a) for a in accs)
+            and (above is None or accs[-1] > above),
+            f"{label}: test accuracy after 3 rounds {accs}")
     print(f"learning {label}: 10 non-IID clients, test accuracy by round "
           f"{[round(a, 4) for a in accs]}", flush=True)
+    return engine
+
+
+def qffl_spread_check():
+    """The reference's fairness check (tests/test_qffl.py
+    test_qffl_reduces_loss_spread) on the card with the bf16 "residual"
+    SimpleCNN: 4 clients of 32 images, the last a minority population
+    (inverted images, labels shifted by 5), 8 rounds of 2 local SGD epochs
+    (lr 0.1, batch 16). q = 3 must narrow the final per-client loss
+    spread on the clients' own shards against q = 0."""
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch.data.federated import FederatedArrays
+    from fl_tpu_torch.data.synthetic import synthetic_mnist
+    from fl_tpu_torch.fl.local_training import FederatedTrainingConfig
+    from fl_tpu_torch.models import create_model
+    from fl_tpu_torch.orchestration import (FederatedRoundEngine,
+                                            RoundEngineConfig)
+
+    C, n = 4, 32
+    xtr, ytr, _, _ = synthetic_mnist(n_train=C * n, n_test=1, seed=0)
+    images = xtr.reshape(C, n, 28, 28, 1).copy()
+    labels = ytr.reshape(C, n).astype(np.int32).copy()
+    images[-1] = 255 - images[-1]
+    labels[-1] = (labels[-1] + 5) % 10
+    losses = {}
+    for q in (0.0, 3.0):
+        engine = FederatedRoundEngine(
+            create_model("simple_cnn", dtype=torch.bfloat16,
+                         fused_conv_block="residual"),
+            FederatedArrays(images=images, labels=labels,
+                            num_samples=np.full(C, n, np.int32),
+                            mean=np.asarray([0.1307], np.float32),
+                            std=np.asarray([0.3081], np.float32),
+                            num_classes=10),
+            RoundEngineConfig(training=FederatedTrainingConfig(
+                local_epochs=2, batch_size=16, learning_rate=0.1,
+                optimizer_type="sgd", momentum=0.0), qffl_q=q, seed=0),
+            device=DEVICE)
+        engine.run_rounds_pipelined(8)
+        losses[q] = engine.evaluate_federated()["per_client"]["loss"]
+    spread = {q: float(v.max() - v.min()) for q, v in losses.items()}
+    require(all(np.isfinite(v).all() for v in losses.values())
+            and spread[3.0] < spread[0.0],
+            f"q-ffl spread: {spread} (q=3 must be below q=0)")
+    print("learning q-ffl spread: 4 clients, the last a minority, 8 rounds: "
+          "per-client loss " + "; ".join(
+              f"q={q}: {np.round(v, 4).tolist()} spread {spread[q]:.4f}"
+              for q, v in losses.items()), flush=True)
+
+
+def qffl_learning_check():
+    """q-FFL with local SGD (lr 0.1, the reference's q-FFL tests' rate) on
+    the 10 non-IID clients: at q = QFFL_LEARN_Q test accuracy above 0.5
+    after 3 rounds; q = 1 and q = 0 (uniform FedAvg) beside it, printed
+    with each one's per-client accuracy spread on the clients' own shards.
+    At q = 1 the step Σ F_k Δw_k / Σ h_k is about F/‖Δw‖ long when
+    ‖Δw_k‖² = ‖Σ local gradients‖² outweighs L·F_k (24 local steps
+    here), far shorter than FedAvg's (the port's q-FFL round equals the
+    reference's on the CPU; the reference was not run at this size). Then
+    the reference's spread check (qffl_spread_check)."""
+    sgd = dict(optimizer_type="sgd", momentum=0.0, learning_rate=0.1)
+    fed = {}
+    for q in (QFFL_LEARN_Q, QFFL_Q, 0.0):
+        engine = learning_check(
+            "residual", f"q-ffl q={q} (sgd lr 0.1)", dict(qffl_q=q),
+            above=0.5 if q == QFFL_LEARN_Q else None, **sgd)
+        fed[q] = engine.evaluate_federated()
+    print("learning q-ffl: per-client accuracy on own shards, " + "; ".join(
+        f"q={q}: mean {f['accuracy']:.4f} min {f['accuracy_min']:.4f} std "
+        f"{f['accuracy_std']:.4f}" for q, f in fed.items()), flush=True)
+    qffl_spread_check()
 
 
 def kernel_report():
@@ -2569,6 +3033,8 @@ def main() -> int:
 
     # 5d. the local-training options and the first server-side features
     phase_fl_variants(card)
+    # 5e. the server side's second half and the engine's other entry points
+    phase_engine_api(card, counts, report)
 
     # 6. learning checks
     learning_check("residual")
@@ -2580,6 +3046,9 @@ def main() -> int:
                    "1 + (i mod 3) of 3)", dict(fednova=True),
                    budgets=[1 + i % 3 for i in range(10)], local_epochs=3,
                    optimizer_type="sgd", momentum=0.9, learning_rate=0.05)
+    learning_check("residual", f"feddyn alpha={FEDDYN_ALPHA}",
+                   dict(feddyn_alpha=FEDDYN_ALPHA))
+    qffl_learning_check()
 
     # 7. the conv formulations at full width
     from fl_tpu_torch import ops

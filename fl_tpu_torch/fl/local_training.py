@@ -44,6 +44,7 @@ import torch.nn.functional as F
 
 from fl_tpu_torch.core import prng
 from fl_tpu_torch.core.pytree import tree_paths
+from fl_tpu_torch.core.transfer import to_device
 from fl_tpu_torch.ops import rounding
 
 _STATE_DTYPES = {None: torch.float32, "bfloat16": torch.bfloat16}
@@ -209,7 +210,7 @@ def rounding_seeds(rseed: int, num_clients: int, device) -> torch.Tensor:
     the two halves of fold(fold(round, c), ROUNDING) xor-ed."""
     s = prng.client_stream_seeds(rseed, num_clients, prng.Stream.ROUNDING)
     s = (s ^ (s >> np.uint64(32))) & np.uint64(0xFFFFFFFF)
-    return torch.as_tensor(s.astype(np.int64)).to(device)
+    return to_device(s.astype(np.int64), device)
 
 
 def make_local_train_fn(model, cfg: FederatedTrainingConfig,

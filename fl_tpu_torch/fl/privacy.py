@@ -39,6 +39,7 @@ import torch
 
 from fl_tpu_torch.core import prng
 from fl_tpu_torch.core.pytree import clip_by_global_norm, tree_map, tree_paths
+from fl_tpu_torch.core.transfer import to_device
 from fl_tpu_torch.ops import dp as dp_ops
 
 STANDALONE_MIN = 1 << 16
@@ -83,8 +84,8 @@ def dp_noise_client_deltas(stacked_deltas, rseed: int, epsilon: float,
         C = leaves[0].shape[0]
         flats = [t.reshape(C, -1).float() for t in leaves]
         x = flats[0] if len(flats) == 1 else torch.cat(flats, 1)
-        seeds = torch.as_tensor(prng.as_int64(prng.client_stream_seeds(
-            rseed, C, prng.Stream.DP_NOISE, gi))).to(x.device)
+        seeds = to_device(prng.as_int64(prng.client_stream_seeds(
+            rseed, C, prng.Stream.DP_NOISE, gi)), x.device)
         out = dp_ops.clip_noise(x, scale, sigma, seeds)
         parts = torch.split(out, [f.shape[1] for f in flats], 1)
         for (l, k), t, part in zip(group, leaves, parts):
@@ -206,6 +207,21 @@ class PrivacyBudgetTracker:
         tol_e = 1e-9 * max(self.initial_epsilon, 1.0)
         tol_d = 1e-9 * max(self.initial_delta, 1e-12)
         return rem_e < required_epsilon - tol_e or rem_d < required_delta - tol_d
+
+    # state for checkpoint/resume (the checkpoint's meta.json holds it)
+    def state_dict(self) -> Dict[str, Any]:
+        return {
+            "initial_epsilon": self.initial_epsilon,
+            "initial_delta": self.initial_delta,
+            "consumed_epsilon": self.consumed_epsilon,
+            "consumed_delta": self.consumed_delta,
+        }
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.initial_epsilon = state["initial_epsilon"]
+        self.initial_delta = state["initial_delta"]
+        self.consumed_epsilon = state["consumed_epsilon"]
+        self.consumed_delta = state["consumed_delta"]
 
 
 class PrivacyAccountant:

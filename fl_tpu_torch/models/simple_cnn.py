@@ -223,6 +223,22 @@ def load_uplink_state(engine, state) -> None:
     engine.uplink_error = t
 
 
+def load_feddyn_state(engine, h, g) -> None:
+    """Load FedDyn's state, numpy arrays such as the JAX engine's
+    ``feddyn_h`` (D_pad,) and ``feddyn_grads`` (C, D_pad), into the port's
+    engine: the same flat layout, column for column."""
+    ht = torch.tensor(np.asarray(h, np.float32), device=engine.device)
+    gt = torch.tensor(np.asarray(g, np.float32), device=engine.device)
+    if (engine.feddyn_h is None or ht.shape != engine.feddyn_h.shape
+            or gt.shape != engine.feddyn_grads.shape):
+        want = (None if engine.feddyn_h is None else
+                (tuple(engine.feddyn_h.shape),
+                 tuple(engine.feddyn_grads.shape)))
+        raise ValueError(f"FedDyn state of shapes {tuple(ht.shape)}, "
+                         f"{tuple(gt.shape)}; the engine's is {want}")
+    engine.feddyn_h, engine.feddyn_grads = ht, gt
+
+
 def params_to_flax(params: Params):
     """The inverse of :func:`params_from_flax`: numpy f32 arrays."""
     return {layer: {k: v.detach().cpu().numpy().astype(np.float32)

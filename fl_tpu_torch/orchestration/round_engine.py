@@ -36,12 +36,23 @@ Ported: ``dp_mode`` "none", "delta" and "client_dp" (with ``accountant``
 ``FederatedTrainingConfig`` and per-client epoch budgets
 (``epochs_per_client``); the server side's ``aggregation`` (trimmed mean,
 median, Krum), ``secure_aggregation``, ``server_optimizer`` (FedAvgM,
-FedAdam, FedYogi, stepped at dispatch on the pseudo-gradient), ``fednova``
-and ``scaffold`` (the variates ``scaffold_c`` / ``scaffold_ci`` carried on
-the device). The reference's feature rules for these raise its messages
-verbatim in its order (the trimmed-mean rule, which needs the client count,
-when the engine is built); every other feature of the reference's
-``RoundEngineConfig`` raises ``ValueError`` naming it.
+FedAdam, FedYogi, stepped at dispatch on the pseudo-gradient), ``fednova``,
+``scaffold`` (the variates ``scaffold_c`` / ``scaffold_ci`` carried on the
+device), ``feddyn_alpha`` (FedDyn's ``feddyn_h`` / ``feddyn_grads``
+carried on the device), ``qffl_q`` (q-FFL, with F_k(θ̂) evaluated inside
+the superstep before local training) and ``trainable_patterns`` (parameter
+freezing through the trainer's gradient mask). The reference's feature
+rules for these raise its messages verbatim in its order (the trimmed-mean
+rule, which needs the client count, when the engine is built); the
+``dp_mode`` values "dp_sgd", "dp_ftrl" and "distributed" raise
+``ValueError`` naming them.
+
+Other entry points: ``run_rounds_fused`` (R rounds dispatched back to back
+with one device→host copy of the stacked per-round metrics at the end),
+``profile_round`` (one round under ``torch.profiler``, a Chrome trace),
+``evaluate_federated`` / ``evaluate_personalized`` (``fl.federated_eval``,
+``fl.personalization``), ``get_model_weights`` / ``set_model_weights``; and
+``orchestration.checkpoint``'s save and restore.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ import copy
 import dataclasses
 import logging
 import math
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -57,12 +69,22 @@ import numpy as np
 import torch
 
 from fl_tpu_torch.core import prng
-from fl_tpu_torch.core.pytree import global_norm, tree_map
+from fl_tpu_torch.core.pytree import (
+    assert_same_structure,
+    flatten_dict,
+    global_norm,
+    tree_map,
+    unflatten_dict,
+)
+from fl_tpu_torch.core.transfer import to_device
 from fl_tpu_torch.core.types import PrivacyConfig
 from fl_tpu_torch.data.federated import FederatedArrays
 from fl_tpu_torch.fl import privacy as dp
 from fl_tpu_torch.fl.accounting import RDPAccountant, rdp_subsampled_gaussian
 from fl_tpu_torch.fl.convergence import ConvergenceDetector, RoundObservation
+from fl_tpu_torch.fl.federated_eval import (
+    evaluate_federated, make_federated_eval_fn)
+from fl_tpu_torch.fl.feddyn import feddyn_server_update
 from fl_tpu_torch.fl.fedavg import (
     fedavg_delta,
     fednova_effective_steps,
@@ -73,6 +95,9 @@ from fl_tpu_torch.fl.local_training import (
     evaluate_test_set,
     make_local_train_fn,
 )
+from fl_tpu_torch.fl.peft import count_trainable, trainable_mask
+from fl_tpu_torch.fl.personalization import evaluate_personalization
+from fl_tpu_torch.fl.qffl import qffl_combine
 from fl_tpu_torch.fl.robust_agg import (
     ROBUST_AGGREGATORS,
     robust_combine_deltas,
@@ -100,15 +125,6 @@ from fl_tpu_torch.ops.flatten import (
 from fl_tpu_torch.ops.quantize import dequantize_affine, quantize_affine
 
 logger = logging.getLogger(__name__)
-
-# features of fl_tpu's RoundEngineConfig that the port refuses, with the
-# value that means "off"
-_NOT_PORTED = {
-    "trainable_patterns": None,
-    "feddyn_alpha": 0.0,
-    "qffl_q": None,
-}
-
 
 _DP_MODES = ("none", "delta", "dp_sgd", "client_dp", "dp_ftrl",
              "distributed")
@@ -182,8 +198,19 @@ class RoundEngineConfig:
     fednova: bool = False
     # SCAFFOLD control variates (Karimireddy et al. 2020, Option II)
     scaffold: bool = False
-    trainable_patterns: Optional[tuple] = None
+    # parameter freezing (fl.peft): regex patterns over the "/"-joined
+    # param paths; only matching leaves train, the others get exactly-zero
+    # updates. Drift correctors (scaffold/fednova/feddyn) are refused.
+    trainable_patterns: Optional[Tuple[str, ...]] = None
+    # FedDyn dynamic regularization (Acar et al. 2021, fl.feddyn): the
+    # linear term −g_i rides the trainer's correction operand, the
+    # quadratic term is FedProx's proximal_mu = α (keep proximal_mu 0);
+    # state h (D_pad,) and g (C, D_pad) carried on the device. 0.0 = off
     feddyn_alpha: float = 0.0
+    # q-FFL (Li et al. 2020, fl.qffl): each delta weighted by F_k(θ̂)^q,
+    # the client's loss at the received model, and the step normalized by
+    # Σ h_k; 0.0 is uniform FedAvg, [1, 5] the paper's fairness range.
+    # None = off; dp_mode must be "none"
     qffl_q: Optional[float] = None
 
     def __post_init__(self) -> None:
@@ -198,10 +225,6 @@ class RoundEngineConfig:
             ported = ", ".join(map(repr, _PORTED_DP_MODES))
             raise ValueError(f"dp_mode={self.dp_mode!r} is not ported yet "
                              f"(only {ported})")
-        for name, off in _NOT_PORTED.items():
-            if getattr(self, name) != off:
-                raise ValueError(f"{name}={getattr(self, name)!r} is not "
-                                 "ported yet")
 
 
 def _rule_messages(cfg: RoundEngineConfig):
@@ -316,6 +339,62 @@ def _rule_messages(cfg: RoundEngineConfig):
                "K*lr, amplifying the stochastic-rounding noise in "
                "the stored params by 1/(K*lr) into the control "
                "variates")
+    feddyn = cfg.feddyn_alpha > 0
+    yield cfg.feddyn_alpha < 0 and "feddyn_alpha must be >= 0"
+    yield (feddyn and (cfg.scaffold or cfg.fednova)
+           and "feddyn, scaffold, and fednova all correct client "
+               "drift; compose at most one")
+    yield (feddyn and cfg.dp_mode != "none"
+           and "feddyn's g_i states are exact functions of raw local "
+               "deltas and are not privatized; use dp_mode='none'")
+    yield (feddyn and (cfg.secure_aggregation or robust)
+           and "feddyn owns the server update (participant mean − "
+               "h/α); it cannot compose with secure/robust "
+               "aggregation")
+    yield (feddyn and (cfg.uplink_compression != "none"
+                       or cfg.downlink_compression != "none")
+           and "feddyn's state updates g_i ← g_i − α(θ_i − θ_g) "
+               "assume the exact broadcast and exact deltas; lossy "
+               "uplink/downlink compression breaks the first-order "
+               "identity")
+    yield (feddyn and bool(train.proximal_mu)
+           and "feddyn injects its own (α/2)-proximal term; leave "
+               "training.proximal_mu at 0")
+    yield (feddyn and train.param_storage_dtype is not None
+           and "feddyn cannot compose with param_storage_dtype: the "
+               "g_i state accumulates −αΔ from the stored params, "
+               "folding stochastic-rounding noise into carried state")
+    yield (feddyn and cfg.server_optimizer != "none"
+           and "feddyn owns the server step (θ ← mean θ_i − h/α); "
+               "server_optimizer must be 'none'")
+    qffl = cfg.qffl_q is not None
+    yield (qffl and cfg.qffl_q < 0
+           and f"qffl_q={cfg.qffl_q} must be >= 0 (0 is uniform "
+               "FedAvg; the paper's fairness range is q in [1, 5])")
+    yield (qffl and cfg.dp_mode != "none"
+           and "q-FFL's aggregation weights F_k(θ̂)^q are computed "
+               "from raw local losses — an unprivatized data-dependent "
+               "release; composing with DP would require privatizing "
+               "F_k too. Use dp_mode='none'")
+    yield (qffl and (robust or cfg.secure_aggregation)
+           and "q-FFL is a reweighting of the FedAvg reduction; it "
+               "cannot compose with robust or secure aggregation "
+               "(the server must apply per-client loss weights)")
+    yield (qffl and cfg.server_optimizer != "none"
+           and "q-FFL owns the server step (Δ/h normalization, Li et "
+               "al. 2020 Alg. 2); server_optimizer must be 'none'")
+    yield (qffl and (cfg.fednova or cfg.scaffold or feddyn)
+           and "q-FFL replaces the round objective; compose with at "
+               "most one of fednova/scaffold/feddyn — none here")
+    yield (qffl and cfg.uplink_compression != "none"
+           and "q-FFL's h_k normalization is defined on the exact "
+               "local deltas; lossy uplink compression would distort "
+               "‖Δw_k‖² and the EF residual interplay is unstudied")
+    yield (bool(cfg.trainable_patterns)
+           and (cfg.scaffold or cfg.fednova or feddyn)
+           and "trainable_patterns (parameter freezing) cannot "
+               "compose with scaffold/fednova/feddyn: drift "
+               "correctors assume full-dimension local trajectories")
 
 
 def trimmed_mean_message(cfg: RoundEngineConfig, num_clients: int):
@@ -452,9 +531,48 @@ class FederatedRoundEngine:
                 self.privacy.noise_multiplier, self._clip_count_stddev)
             self.clip_norm = float(self.privacy.max_grad_norm)
 
+        self.round_number = 0
+        init_gen = prng.generator(
+            prng.stream_seed(self._root, prng.Stream.INIT), self.device)
+        self.global_variables: Dict[str, Any] = {
+            "params": model.init(init_gen, self.device)}
+        params = self.global_variables["params"]
+        # parameter freezing (fl.peft): the mask of the initial params
+        self._grad_mask = None
+        if config.trainable_patterns:
+            self._grad_mask = trainable_mask(params,
+                                             config.trainable_patterns)
+            tr, tot = count_trainable(self._grad_mask)
+            logger.info("parameter freezing: %d/%d params trainable "
+                        "(%.1f%%)", tr, tot, 100.0 * tr / max(tot, 1))
+        # the models the port runs carry no batch_stats; these are the
+        # reference's refusals for a model that does
+        if config.feddyn_alpha > 0 and "batch_stats" in self.global_variables:
+            raise ValueError(
+                "feddyn's server model θ ← mean θ_i − h/α is defined on "
+                "params only (Acar et al. 2021 has no BN treatment); use "
+                "a stats-free model, e.g. create_model('cifar10_cnn', "
+                "norm='group').")
+        if config.qffl_q is not None and "batch_stats" in self.global_variables:
+            raise ValueError(
+                "q-FFL's server step θ ← θ − ΣΔ_k/Σh_k is defined on "
+                "params only (Li et al. 2020 has no BN treatment); use "
+                "a stats-free model, e.g. create_model('cifar10_cnn', "
+                "norm='group').")
+
+        train_cfg = config.training
+        if config.feddyn_alpha > 0:
+            # FedDyn's (α/2)‖θ − θ_g‖² term IS the FedProx proximal hook
+            train_cfg = dataclasses.replace(
+                train_cfg, proximal_mu=config.feddyn_alpha)
         self._local_train = make_local_train_fn(
-            model, config.training, self.data.samples_per_client,
-            self.data.mean, self.data.std)
+            model, train_cfg, self.data.samples_per_client,
+            self.data.mean, self.data.std, grad_mask=self._grad_mask)
+        # q-FFL's F_k(θ̂): the masked eval-mode loss over each client's
+        # shard at the model it received, inside the superstep
+        self._qffl_eval = (make_federated_eval_fn(
+            model, self.data.samples_per_client, self.data.mean,
+            self.data.std) if config.qffl_q is not None else None)
         # the server optimizer's state is built at its first step
         self._server_opt = make_server_optimizer(
             config.server_optimizer, learning_rate=config.server_lr,
@@ -469,16 +587,9 @@ class FederatedRoundEngine:
         else:
             self.test_images = self.test_labels = None
 
-        self.round_number = 0
-        init_gen = prng.generator(
-            prng.stream_seed(self._root, prng.Stream.INIT), self.device)
-        self.global_variables: Dict[str, Any] = {
-            "params": model.init(init_gen, self.device)}
-
         # uplink state: (C, D_pad) f32 error feedback when compression is
         # on, a (C, 1) zero dummy otherwise; PowerSGD appends its
         # warm-started Q factors after the EF region (fl.powersgd)
-        params = self.global_variables["params"]
         self._powersgd_plan = None
         if config.uplink_compression == "powersgd":
             self._powersgd_plan = make_powersgd_plan(
@@ -495,16 +606,23 @@ class FederatedRoundEngine:
                                             dtype=torch.float32,
                                             device=self.device)
         # SCAFFOLD's variates: server c (D_pad,) and clients' c_i (C,
-        # D_pad), zero at the start (so mean(c_i) == c holds from round 0)
-        self.scaffold_c = self.scaffold_ci = self._scaffold_spec = None
-        if config.scaffold:
-            sc_d = padded_dim(flat_dim(params, batched=False))
-            self.scaffold_c = torch.zeros((sc_d,), dtype=torch.float32,
-                                          device=self.device)
-            self.scaffold_ci = torch.zeros((self.num_clients, sc_d),
-                                           dtype=torch.float32,
-                                           device=self.device)
-            self._scaffold_spec = stacked_spec(params, self.num_clients)
+        # D_pad), zero at the start (so mean(c_i) == c holds from round 0);
+        # FedDyn's server h (D_pad,) and clients' g_i (C, D_pad), zero at
+        # the start (Alg. 1); both in the flat spec of the stacked params
+        self.scaffold_c = self.scaffold_ci = None
+        self.feddyn_h = self.feddyn_grads = None
+        self._flat_spec = None
+        if config.scaffold or config.feddyn_alpha > 0:
+            d_pad = padded_dim(flat_dim(params, batched=False))
+            server = torch.zeros((d_pad,), dtype=torch.float32,
+                                 device=self.device)
+            clients = torch.zeros((self.num_clients, d_pad),
+                                  dtype=torch.float32, device=self.device)
+            if config.scaffold:
+                self.scaffold_c, self.scaffold_ci = server, clients
+            else:
+                self.feddyn_h, self.feddyn_grads = server, clients
+            self._flat_spec = stacked_spec(params, self.num_clients)
         self.history: List[RoundResult] = []
         self.detector = ConvergenceDetector()
 
@@ -564,12 +682,14 @@ class FederatedRoundEngine:
                    clip_norm: Optional[float] = None,
                    inject: Optional[Tuple[torch.Tensor, Any]] = None):
         """One round on the device: returns (new global params, new uplink
-        state, new SCAFFOLD (c, c_i) or None, packed metrics). ``epochs``
-        is the (C,) epoch budget where SCAFFOLD or FedNova reads it or the
-        budgets differ; ``clip_norm`` adaptive clipping's C for this round;
-        ``inject`` the audit's (flags, stacked deltas)."""
+        state, the new carried state (SCAFFOLD's (c, c_i) or FedDyn's (h,
+        g)) or None, packed metrics). ``epochs`` is the (C,) epoch budget
+        where SCAFFOLD or FedNova reads it or the budgets differ;
+        ``clip_norm`` adaptive clipping's C for this round; ``inject`` the
+        audit's (flags, stacked deltas)."""
         cfg = self.config
         C = self.num_clients
+        feddyn = cfg.feddyn_alpha > 0
         rseed = prng.round_seed(self._root, round_idx)
         # θ̂: what clients actually receive; every delta below is measured
         # against it, and the aggregate is applied to the master
@@ -579,26 +699,39 @@ class FederatedRoundEngine:
                       else global_params)
         stacked = tree_map(lambda g: g[None].expand(C, *g.shape),
                            ref_params)
-        corr = (scaffold_correction(self.scaffold_c, self.scaffold_ci,
-                                    self._scaffold_spec)
-                if cfg.scaffold else None)
+        pre_losses = None
+        if self._qffl_eval is not None:
+            # q-FFL's F_k(θ̂), before local training
+            pre_losses = self._qffl_eval(
+                stacked, self.data.images, self.data.labels,
+                self.data.num_samples)["loss"]
+        corr = None
+        if cfg.scaffold:
+            corr = scaffold_correction(self.scaffold_c, self.scaffold_ci,
+                                       self._flat_spec)
+        elif feddyn:
+            # FedDyn's −⟨g_i, θ⟩ term: the constant gradient addend −g_i
+            # (the α-proximal term is the trainer's proximal_mu)
+            corr = stack_unflatten(-self.feddyn_grads, self._flat_spec)
         new_stacked, metrics = self._local_train(
             stacked, self.data.images, self.data.labels,
             self.data.num_samples, rseed,
             epochs=None if self._is_homogeneous() else epochs,
             correction=corr)
         del corr
-        sc_out = None
-        if cfg.scaffold:
-            # from the raw local trajectories, k = the steps each took
+        state_out = d_mat = None
+        if cfg.scaffold or feddyn:
+            # from the raw local trajectories
             d_mat, _ = stack_flatten(tree_map(
                 lambda c, g: (c - g[None]).float(), new_stacked,
                 global_params))
+        if cfg.scaffold:
+            # k = the steps each client took
             k_steps = epochs.float() * self._local_train.steps_per_epoch
-            sc_out = scaffold_update(
+            state_out = scaffold_update(
                 self.scaffold_c, self.scaffold_ci, d_mat, mask, k_steps,
                 cfg.training.learning_rate, C)
-            del d_mat
+            d_mat = None
 
         sigma_mean = torch.zeros((), device=self.device)
         if cfg.dp_mode == "delta":
@@ -637,6 +770,25 @@ class FederatedRoundEngine:
         w = normalized_client_weights(self.data.num_samples, mask)
         if cfg.dp_mode == "client_dp":
             pass  # new_global is the central-DP release above
+        elif feddyn:
+            # FedDyn owns the server update: θ ← mean_P(θ_i) − h/α with
+            # h ← h − (α/N)Σ_P Δ_i (Acar et al. 2021 Alg. 1)
+            pmat, pspec = stack_flatten(tree_map(lambda g: g[None].float(),
+                                                 global_params))
+            new_pflat, h_out, g_out = feddyn_server_update(
+                pmat[0], self.feddyn_h, self.feddyn_grads, d_mat, mask,
+                cfg.feddyn_alpha, C)
+            del pmat, d_mat
+            state_out = (h_out, g_out)
+            new_global = tree_map(lambda t, g: t[0].to(g.dtype),
+                                  stack_unflatten(new_pflat[None], pspec),
+                                  global_params)
+        elif cfg.qffl_q is not None:
+            # loss-weighted, h-normalized step; deltas against θ̂, applied
+            # to the full-precision master
+            new_global = qffl_combine(
+                global_params, ref_params, new_stacked, pre_losses, mask,
+                cfg.qffl_q, cfg.training.learning_rate)
         elif cfg.aggregation != "fedavg":
             new_global = robust_combine_deltas(
                 global_params, new_stacked, mask, cfg.aggregation,
@@ -668,8 +820,11 @@ class FederatedRoundEngine:
             next_cn,
             frac,
         ])
-        packed = torch.cat([scalars, metrics["loss"], metrics["accuracy"]])
-        return new_global, ef_out, sc_out, packed
+        per_client = [metrics["loss"], metrics["accuracy"]]
+        if pre_losses is not None:
+            per_client.append(pre_losses)
+        packed = torch.cat([scalars] + per_client)
+        return new_global, ef_out, state_out, packed
 
     def _client_dp(self, global_params, ref_params, new_stacked, rseed: int,
                    mask: torch.Tensor, clip_norm: Optional[float],
@@ -804,6 +959,39 @@ class FederatedRoundEngine:
                 results.append(self._finalize_round(pending, evaluate))
         return results
 
+    def _check_realized(self, mask: np.ndarray) -> None:
+        """Robust aggregators need enough REALIZED participants (the
+        config check covers the expected count only)."""
+        cfg = self.config
+        m = int(np.sum(np.asarray(mask) > 0))
+        if cfg.aggregation == "trimmed_mean" and m - 2 * cfg.trim_k < 1:
+            raise ValueError(
+                f"trimmed_mean(trim_k={cfg.trim_k}) needs more than "
+                f"{2 * cfg.trim_k} participants; this round realized {m}")
+        if cfg.aggregation == "krum" and m < 2 * cfg.krum_f + 3:
+            # Blanchard et al. 2017: resilience to f needs n ≥ 2f+3
+            raise ValueError(
+                f"krum(f={cfg.krum_f}) needs at least 2f+3="
+                f"{2 * cfg.krum_f + 3} participants; this round "
+                f"realized {m}")
+
+    def _epochs_tensor(self) -> Optional[torch.Tensor]:
+        """The (C,) epoch budgets on the device where the superstep reads
+        them (SCAFFOLD, FedNova, budgets that differ), else None."""
+        cfg = self.config
+        if self._is_homogeneous() and not (cfg.scaffold or cfg.fednova):
+            return None
+        return to_device(self._epochs_per_client, self.device)
+
+    def _carry_state(self, state_out) -> None:
+        """Keep the superstep's carried state: SCAFFOLD's (c, c_i) or
+        FedDyn's (h, g). The next round's superstep reads it on the
+        device, so a pipelined round r+1 sees round r's."""
+        if self.config.scaffold:
+            self.scaffold_c, self.scaffold_ci = state_out
+        elif self.config.feddyn_alpha > 0:
+            self.feddyn_h, self.feddyn_grads = state_out
+
     def _dispatch_round(self, mask: Optional[np.ndarray] = None,
                         inject_flags: Optional[np.ndarray] = None,
                         inject_deltas=None) -> _PendingRound:
@@ -813,22 +1001,7 @@ class FederatedRoundEngine:
         t0 = time.perf_counter()
         if mask is None:
             mask = self.sample_participation()
-        # robust aggregators need enough REALIZED participants (the config
-        # check covers the expected count only)
-        if cfg.aggregation == "trimmed_mean":
-            m = int(np.sum(np.asarray(mask) > 0))
-            if m - 2 * cfg.trim_k < 1:
-                raise ValueError(
-                    f"trimmed_mean(trim_k={cfg.trim_k}) needs more than "
-                    f"{2 * cfg.trim_k} participants; this round realized {m}")
-        elif cfg.aggregation == "krum":
-            m = int(np.sum(np.asarray(mask) > 0))
-            if m < 2 * cfg.krum_f + 3:
-                # Blanchard et al. 2017: resilience to f needs n ≥ 2f+3
-                raise ValueError(
-                    f"krum(f={cfg.krum_f}) needs at least 2f+3="
-                    f"{2 * cfg.krum_f + 3} participants; this round "
-                    f"realized {m}")
+        self._check_realized(mask)
         client_dp = cfg.dp_mode == "client_dp"
         charge = (self.budget_tracker is not None
                   and cfg.dp_mode == "delta")
@@ -862,17 +1035,12 @@ class FederatedRoundEngine:
                 "inject_deltas passed but config.audit_injection is off")
 
         round_clip = self.clip_norm  # the C this round uses (adaptive)
-        mask_t = torch.as_tensor(np.asarray(mask, np.float32)).to(self.device)
-        epochs_t = (None if self._is_homogeneous()
-                    and not (cfg.scaffold or cfg.fednova)
-                    else torch.as_tensor(self._epochs_per_client).to(
-                        self.device))
+        mask_t = to_device(np.asarray(mask, np.float32), self.device)
         old_params = self.global_variables["params"]
-        new_global, self.uplink_error, sc_out, metrics = self._superstep(
+        new_global, self.uplink_error, state_out, metrics = self._superstep(
             old_params, self.round_number, mask_t, self.uplink_error,
-            epochs_t, round_clip, inject)
-        if sc_out is not None:
-            self.scaffold_c, self.scaffold_ci = sc_out
+            self._epochs_tensor(), round_clip, inject)
+        self._carry_state(state_out)
         if self._server_opt is not None:
             # a server step on the pseudo-gradient θ − θ_fedavg
             if self.server_opt_state is None:
@@ -1008,11 +1176,13 @@ class FederatedRoundEngine:
         return eps_spent, ledger
 
     def _finalize_round(self, pending: _PendingRound,
-                        evaluate: bool = True) -> RoundResult:
-        """Blocking half of a round: one host copy of the packed metrics,
-        then the bookkeeping that needs them."""
-        packed = pending.metrics.cpu().numpy()
-        C = self.num_clients
+                        evaluate: bool = True,
+                        packed: Optional[np.ndarray] = None) -> RoundResult:
+        """Blocking half of a round: one host copy of the packed metrics
+        (unless ``packed`` holds them already), then the bookkeeping that
+        needs them."""
+        if packed is None:
+            packed = pending.metrics.cpu().numpy()
         metrics = {k: float(v) for k, v in zip(_SCALARS, packed)}
         if self.config.adaptive_clipping:
             self.clip_norm = metrics["next_clip_norm"]
@@ -1049,11 +1219,19 @@ class FederatedRoundEngine:
                             if self.config.uplink_compression != "none"
                             else None),
         )
-        n = len(_SCALARS)
-        self.last_client_losses = packed[n:n + C]
-        self.last_client_accuracies = packed[n + C:n + 2 * C]
+        self._keep_client_metrics(packed)
         self.history.append(result)
         return result
+
+    def _keep_client_metrics(self, packed: np.ndarray) -> None:
+        """The per-client series of one round's packed metrics: losses and
+        accuracies (only participants' are meaningful) and, under q-FFL,
+        F_k(θ̂) at the received model (valid for every client)."""
+        n, C = len(_SCALARS), self.num_clients
+        self.last_client_losses = packed[n:n + C]
+        self.last_client_accuracies = packed[n + C:n + 2 * C]
+        if self.config.qffl_q is not None:
+            self.last_client_pre_losses = packed[n + 2 * C:n + 3 * C]
 
     def run(self, num_rounds: int, target_accuracy: Optional[float] = None,
             early_stopping: bool = False, evaluate_every: int = 1,
@@ -1076,8 +1254,175 @@ class FederatedRoundEngine:
                 break
         return self.history
 
+    # ------------------------------------------------------------------
+    # fused multi-round execution
+    # ------------------------------------------------------------------
+    def run_rounds_fused(self, num_rounds: int,
+                         masks: Optional[np.ndarray] = None,
+                         evaluate: bool = True,
+                         evaluate_every: Optional[int] = None
+                         ) -> List[RoundResult]:
+        """``num_rounds`` rounds dispatched back to back with ONE
+        device→host copy, of the stacked per-round metrics, at the end: no
+        host round trip between rounds.
+
+        The (R, C) masks are sampled first (or given), the realized-
+        participant checks run on each, and the budget for all R rounds is
+        checked before anything is dispatched (the (ε, δ) ledger under
+        "delta"; the RDP projection under "client_dp", and the PLD step
+        budget under accountant "pld"). Then each round is dispatched and
+        charged as ``run_round`` does, each round's ε the RDP marginal at
+        its composition depth, and finalized from its row of the one copy;
+        the test set is evaluated once, after the last round. With
+        ``evaluate_every`` < R the rounds run in chunks of that many.
+        Refuses the configurations whose round state the host carries
+        between rounds."""
+        cfg = self.config
+        if cfg.scaffold:
+            raise ValueError(
+                "run_rounds_fused does not support scaffold (the control-"
+                "variate state is carried on the host between rounds); "
+                "use run_round / run")
+        if cfg.feddyn_alpha > 0:
+            raise ValueError(
+                "run_rounds_fused does not support feddyn (the g_i/h "
+                "state is carried on the host between rounds); use "
+                "run_round / run")
+        if self._server_opt is not None:
+            raise ValueError(
+                "run_rounds_fused does not support a server optimizer "
+                "(its state lives on the host between rounds); use "
+                "run_round / run")
+        if cfg.adaptive_clipping:
+            raise ValueError(
+                "run_rounds_fused does not support adaptive_clipping (the "
+                "clip norm is host-carried round state); use run_round / "
+                "run")
+        if cfg.audit_injection:
+            raise ValueError(
+                "run_rounds_fused does not support audit_injection (canary "
+                "deltas are per-round host inputs); use run_round / run")
+        if masks is None:
+            masks = np.stack([self.sample_participation()
+                              for _ in range(num_rounds)])
+        masks = np.asarray(masks, np.float32)
+        if masks.shape != (num_rounds, self.num_clients):
+            raise ValueError(
+                f"masks must have shape ({num_rounds}, {self.num_clients}), "
+                f"got {masks.shape}")
+        if evaluate_every is not None and evaluate_every < 1:
+            raise ValueError(
+                f"evaluate_every must be >= 1, got {evaluate_every}")
+        if evaluate_every is not None and evaluate_every < num_rounds:
+            results: List[RoundResult] = []
+            for start in range(0, num_rounds, evaluate_every):
+                chunk = masks[start:start + evaluate_every]
+                results.extend(self.run_rounds_fused(
+                    len(chunk), masks=chunk, evaluate=evaluate))
+            return results
+        if num_rounds == 0:
+            return []
+        for mask in masks:
+            self._check_realized(mask)
+
+        # the budget for all R rounds, before anything is dispatched
+        if cfg.dp_mode == "client_dp":
+            _, steps = self._rdp_round_params()
+            projected = copy.deepcopy(self.rdp_accountant)
+            for _ in range(num_rounds):
+                projected.accumulate(self._round_rdp)
+            if projected.get_epsilon(self.privacy.delta) > self.privacy.epsilon:
+                raise dp.PrivacyError(
+                    f"{num_rounds} {cfg.dp_mode} rounds would exceed "
+                    f"ε={self.privacy.epsilon} (RDP accounting)")
+            if (cfg.accountant == "pld" and self._pld_steps_taken
+                    + steps * num_rounds > self._pld_step_budget()):
+                raise dp.PrivacyError(
+                    f"{num_rounds} {cfg.dp_mode} rounds would exceed "
+                    f"ε={self.privacy.epsilon} (PLD accounting: "
+                    f"{self._pld_steps_taken}+{steps * num_rounds} steps > "
+                    f"{self._pld_step_budget()} certified)")
+        elif self.budget_tracker is not None and cfg.dp_mode == "delta":
+            eps_r = cfg.epsilon_per_round or self.privacy.epsilon
+            del_r = cfg.delta_per_round or self.privacy.delta
+            if self.budget_tracker.is_budget_exhausted(eps_r * num_rounds,
+                                                       del_r * num_rounds):
+                raise dp.PrivacyError(
+                    f"{num_rounds} DP rounds would exhaust the privacy "
+                    "budget")
+
+        pending = [self._dispatch_round(m) for m in masks]
+        packed = torch.stack([p.metrics for p in pending]).cpu().numpy()
+        results = [self._finalize_round(p, evaluate=False, packed=row)
+                   for p, row in zip(pending, packed)]
+        if evaluate and self.test_images is not None:
+            ev = self.evaluate()
+            results[-1].test_loss = ev["loss"]
+            results[-1].test_accuracy = ev["accuracy"]
+        return results
+
+    # ------------------------------------------------------------------
+    def profile_round(self, trace_dir: str,
+                      mask: Optional[np.ndarray] = None) -> RoundResult:
+        """Run one round under ``torch.profiler`` (host and, on a GPU, the
+        device's activity) and write its Chrome trace into ``trace_dir``
+        as ``round_<n>.trace.json`` (Perfetto or chrome://tracing read
+        it); the path is kept in ``last_trace_path``."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(trace_dir, exist_ok=True)
+        with profile(activities=activities) as prof:
+            result = self.run_round(mask=mask, evaluate=False)
+        path = os.path.join(trace_dir,
+                            f"round_{result.round_number:08d}.trace.json")
+        prof.export_chrome_trace(path)
+        self.last_trace_path = path
+        logger.info("profiler trace for round %d written to %s",
+                    result.round_number, path)
+        return result
+
+    # ------------------------------------------------------------------
     def evaluate(self) -> Dict[str, float]:
         if self.test_images is None:
             raise ValueError("No test set configured")
         return evaluate_test_set(self.model, self.global_variables["params"],
                                  self.test_images, self.test_labels)
+
+    def evaluate_federated(self) -> Dict[str, Any]:
+        """Score the current global model on every client's own shard:
+        per-client loss / accuracy, the sample-weighted aggregate and the
+        fairness spread (see fl_tpu_torch.fl.federated_eval)."""
+        return evaluate_federated(self)
+
+    def evaluate_personalized(self, finetune_epochs: int = 1,
+                              finetune_fraction: float = 0.8
+                              ) -> Dict[str, Any]:
+        """Per-client fine-tune gain on held-out shard tails, all clients
+        at once (see fl_tpu_torch.fl.personalization)."""
+        return evaluate_personalization(
+            self, finetune_epochs=finetune_epochs,
+            finetune_fraction=finetune_fraction)
+
+    def get_model_weights(self) -> Dict[str, torch.Tensor]:
+        """The global model as a flat ``{"params/conv1/kernel": tensor}``
+        dict, the keys of the reference's ``FLModel.get_model_weights``
+        (copies: the engine's own tensors stay its own)."""
+        return {k: v.detach().clone() for k, v in
+                flatten_dict({"params": self.global_variables["params"]}
+                             ).items()}
+
+    def set_model_weights(self, weights: Dict[str, Any]) -> None:
+        """Replace the global model from a flat weight dict of the same
+        keys and shapes (numpy arrays or tensors); a mismatch raises."""
+        current = flatten_dict({"params": self.global_variables["params"]})
+        assert_same_structure(current, weights)
+        def leaf(v, like):
+            t = v if isinstance(v, torch.Tensor) else torch.tensor(
+                np.asarray(v))
+            return t.to(device=self.device, dtype=like.dtype).clone()
+
+        self.global_variables = unflatten_dict(
+            {k: leaf(v, current[k]) for k, v in weights.items()})

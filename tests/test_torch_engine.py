@@ -318,13 +318,27 @@ def test_evaluate_and_run():
 
 @pytest.mark.parametrize("kwargs", [
     {"dp_mode": "dp_sgd"}, {"adaptive_clipping": True},
-    {"feddyn_alpha": 0.1}, {"qffl_q": 1.0},
-    {"trainable_patterns": (r".*conv.*",)},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_features_are_refused(kwargs):
     name = next(iter(kwargs))
     with pytest.raises(ValueError, match=name):
         RoundEngineConfig(**kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"feddyn_alpha": 0.1}, {"qffl_q": 1.0},
+    {"trainable_patterns": (r".*conv.*",)},
+], ids=lambda kw: next(iter(kw)))
+def test_formerly_unported_features_are_accepted(kwargs):
+    """Refused until FedDyn, q-FFL and PEFT were ported; now each is taken
+    and builds an engine (their rounds are held to the JAX engine in
+    tests/test_torch_feddyn_qffl_peft.py)."""
+    arr = make_federated_arrays(load_dataset("mnist", n_train_synth=64,
+                                             n_test_synth=8), 2, "iid")
+    eng = FederatedRoundEngine(create_model("simple_cnn"), arr,
+                               RoundEngineConfig(**kwargs), device="cpu")
+    name = next(iter(kwargs))
+    assert getattr(eng.config, name) == kwargs[name]
 
 
 @pytest.mark.parametrize("kwargs,message", [

@@ -263,6 +263,42 @@ RULE_CASES = {
                           SGD0),
     "scaffold-x-bf16-storage": ({"scaffold": True},
                                 dict(SGD0, param_storage_dtype="bfloat16")),
+    # FedDyn, q-FFL and PEFT (fl_tpu/orchestration/features.py:340-435)
+    "feddyn-negative": ({"feddyn_alpha": -0.1}, {}),
+    "feddyn-x-scaffold": ({"feddyn_alpha": 0.1, "scaffold": True}, SGD0),
+    "feddyn-x-fednova": ({"feddyn_alpha": 0.1, "fednova": True}, SGD0),
+    "feddyn-x-delta": ({"feddyn_alpha": 0.1, "dp_mode": "delta"}, {}),
+    "feddyn-x-client_dp": ({"feddyn_alpha": 0.1, "dp_mode": "client_dp"},
+                           {}),
+    "feddyn-x-secure": ({"feddyn_alpha": 0.1, "secure_aggregation": True},
+                        {}),
+    "feddyn-x-robust": ({"feddyn_alpha": 0.1, "aggregation": "median"}, {}),
+    "feddyn-x-uplink": ({"feddyn_alpha": 0.1, "uplink_compression": "int8"},
+                        {}),
+    "feddyn-x-downlink": ({"feddyn_alpha": 0.1,
+                           "downlink_compression": "bfloat16"}, {}),
+    "feddyn-x-fedprox": ({"feddyn_alpha": 0.1}, {"proximal_mu": 0.1}),
+    "feddyn-x-bf16-storage": ({"feddyn_alpha": 0.1},
+                              {"param_storage_dtype": "bfloat16"}),
+    "feddyn-x-server-optimizer": ({"feddyn_alpha": 0.1,
+                                   "server_optimizer": "fedadam"}, {}),
+    "qffl-negative": ({"qffl_q": -1.0}, {}),
+    "qffl-x-delta": ({"qffl_q": 1.0, "dp_mode": "delta"}, {}),
+    "qffl-x-client_dp": ({"qffl_q": 1.0, "dp_mode": "client_dp"}, {}),
+    "qffl-x-robust": ({"qffl_q": 1.0, "aggregation": "krum"}, {}),
+    "qffl-x-secure": ({"qffl_q": 1.0, "secure_aggregation": True}, {}),
+    "qffl-x-server-optimizer": ({"qffl_q": 1.0,
+                                 "server_optimizer": "fedyogi"}, {}),
+    "qffl-x-fednova": ({"qffl_q": 1.0, "fednova": True}, SGD0),
+    "qffl-x-scaffold": ({"qffl_q": 1.0, "scaffold": True}, SGD0),
+    "qffl-x-feddyn": ({"qffl_q": 1.0, "feddyn_alpha": 0.1}, {}),
+    "qffl-x-uplink": ({"qffl_q": 0.0, "uplink_compression": "topk"}, {}),
+    "peft-x-scaffold": ({"trainable_patterns": ("conv",), "scaffold": True},
+                        SGD0),
+    "peft-x-fednova": ({"trainable_patterns": ("conv",), "fednova": True},
+                       SGD0),
+    "peft-x-feddyn": ({"trainable_patterns": ("conv",),
+                       "feddyn_alpha": 0.1}, {}),
 }
 
 
@@ -280,6 +316,48 @@ def test_feature_rules_raise_the_reference_messages(case):
     with pytest.raises(ValueError) as got:
         make()
     assert str(got.value) == str(want.value)
+
+
+# run_rounds_fused's refusals, in the reference's order
+# (fl_tpu/orchestration/round_engine.py:1956-2000)
+CLIENT_DP = {"dp_mode": "client_dp", "participation_rate": 0.5}
+FUSED_CASES = {
+    "scaffold": ({"scaffold": True}, SGD0),
+    "feddyn": ({"feddyn_alpha": 0.1}, {}),
+    "server-optimizer": ({"server_optimizer": "fedavgm"}, {}),
+    "adaptive-clipping": (dict(CLIENT_DP, adaptive_clipping=True,
+                               clip_count_stddev=4.0), {}),
+    "audit-injection": (dict(CLIENT_DP, audit_injection=True), {}),
+    # a budget that does not cover all R rounds, before any dispatch
+    "budget-delta": ({"dp_mode": "delta", "epsilon_per_round": 0.6,
+                      "delta_per_round": 1e-7}, {}),
+    "budget-client_dp": (CLIENT_DP, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(FUSED_CASES), ids=list(FUSED_CASES))
+def test_fused_runner_refusals_raise_the_reference_messages(case):
+    kwargs, train = FUSED_CASES[case]
+    priv = dict(epsilon=1.0, delta=1e-5, noise_multiplier=1.0)
+    jarr, tarr = _arrays()
+    jeng = JaxEngine(
+        jax_create_model("simple_cnn"), jarr,
+        JaxConfig(training=JaxTrainingConfig(**train),
+                  privacy=JaxPrivacyConfig(**priv), **kwargs))
+    teng = FederatedRoundEngine(
+        create_model("simple_cnn"), tarr,
+        RoundEngineConfig(training=FederatedTrainingConfig(**train),
+                          privacy=PrivacyConfig(**priv), **kwargs),
+        device="cpu")
+    masks = np.ones((3, C), np.float32)
+    # ValueError, or PrivacyError for the budget
+    with pytest.raises(Exception) as want:
+        jeng.run_rounds_fused(3, masks=masks, evaluate=False)
+    with pytest.raises(Exception) as got:
+        teng.run_rounds_fused(3, masks=masks, evaluate=False)
+    assert type(got.value).__name__ == type(want.value).__name__
+    assert str(got.value) == str(want.value)
+    assert teng.round_number == 0 and teng.history == []
 
 
 @pytest.mark.parametrize("name", list(VARIANTS))

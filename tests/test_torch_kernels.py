@@ -183,6 +183,72 @@ def test_conv_kernels_match_plain(cuda, dtype, ones):
             assert float((a - b).norm() / b.norm().clamp(min=1e-30)) <= 1e-2
 
 
+def _assert_k1_close(pooled, want, dtype):
+    pk, pr = pooled.float(), want.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(pk, pr, rtol=1e-5, atol=1e-5)
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            torch.maximum(pk.abs(), pr.abs()).clamp(min=2.0 ** -126))) - 7)
+        assert bool(((pk - pr).abs() <= ulp + 1e-5).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eval_forward_launches_k1_alone_under_no_grad(cuda, dtype):
+    """The evaluation path (federated evaluation, q-FFL's F_k(θ̂),
+    personalization's holdout): ``conv_stack_res`` under ``torch.no_grad``
+    at the eval shape (a whole 64-image shard a client) launches K1's
+    forward once and nothing else, within K1's tolerance of the plain
+    version."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x, w1, b1, w2, b2 = _conv_inputs(gen, 4, 64, 28, 32, 64, dtype, cuda)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        pooled = cb.conv_stack_res(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["conv_block_fwd"] == 1 and sum(counts.values()) == 1
+    assert not pooled.requires_grad
+    want, _ = cb.conv_stack_res_plain(x, w1, b1, w2, b2)
+    _assert_k1_close(pooled, want, dtype)
+
+
+@pytest.mark.cuda
+def test_federated_eval_launches_k1_once_a_chunk(cuda):
+    """``make_federated_eval_fn`` over 4 clients' 64-image shards in chunks
+    of 32: one K1 launch a chunk, no backward; per-client loss and
+    accuracy equal to the same function on the CPU (the plain version) in
+    f32 to 1e-5."""
+    from fl_tpu_torch.fl.federated_eval import make_federated_eval_fn
+    from fl_tpu_torch.models import create_model
+
+    model = create_model("simple_cnn", fused_conv_block="residual")
+    g = torch.Generator().manual_seed(6)
+    params = {l: {k: v[None].expand(4, *v.shape).contiguous()
+                  for k, v in d.items()}
+              for l, d in model.init(g, "cpu").items()}
+    images = torch.randint(0, 256, (4, 64, 28, 28, 1), generator=g,
+                           dtype=torch.uint8)
+    labels = torch.randint(0, 10, (4, 64), generator=g)
+    n = torch.tensor([64, 50, 33, 1], dtype=torch.int32)
+    mean, std = torch.tensor([0.1307]), torch.tensor([0.3081])
+    want = make_federated_eval_fn(model, 64, mean, std, chunk_size=32)(
+        params, images, labels, n)
+    on = {l: {k: v.to(cuda) for k, v in d.items()}
+          for l, d in params.items()}
+    ops.reset_launch_counts()
+    got = make_federated_eval_fn(model, 64, mean.to(cuda), std.to(cuda),
+                                 chunk_size=32)(
+        on, images.to(cuda), labels.to(cuda), n.to(cuda))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["conv_block_fwd"] == 2 and sum(counts.values()) == 2
+    for k in ("loss", "accuracy"):
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-5,
+                                   atol=1e-5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ones", [False, True], ids=["random", "all_ties"])

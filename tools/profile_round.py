@@ -4,7 +4,7 @@
     python3 tools/profile_round.py parts
     python3 tools/profile_round.py profile [--out DIR] [residual|true|false|
         up-int8|up-topk|up-powersgd|down-bf16|down-int8|down-int8+up-topk|
-        client-dp|v1|v2|v2-f32|v3|v4 ...]
+        client-dp|v1|v2|v2-f32|v3|v4|v5|v6|v7 ...]
 
 ``sweep`` times the four conv kernels at the bench shapes (512 clients x 32
 images, bf16, C1=32, C2=64) for each thread count per block, CUDA events
@@ -27,7 +27,9 @@ configurations (``up-*``: uplink int8, top-k 1%, PowerSGD rank 4;
 ``client-dp``, the same round under ``dp_mode="client_dp"`` as
 ``chip_smoke.py``'s central-DP phase runs it, or ``v1`` .. ``v4``, the
 cells of its ``phase_fl_variants`` (``chip_smoke.variant_engine``), or
-``v2-f32``, V2 with its parameters stored in f32: one warm-up round,
+``v2-f32``, V2 with its parameters stored in f32, or ``v5`` .. ``v7``,
+FedDyn, q-FFL and PEFT as its ``phase_engine_api`` runs them
+(``chip_smoke.api_engine``): one warm-up round,
 then 3 pipelined rounds under ``torch.profiler``, and prints the device
 time per round grouped by kernel family, the launches per round, the busy
 share of the profiled window, rounds/s without the profiler (3 pipelined
@@ -247,6 +249,9 @@ def main(argv) -> int:
     modes["v2-f32"] = ("V2 with f32 parameter storage", lambda:
                        chip_smoke.variant_engine("V2",
                                                  param_storage_dtype=None))
+    for v in chip_smoke.API_CELLS:
+        modes[v.lower()] = (f"{v} ({chip_smoke.API_LABELS[v]})",
+                            lambda v=v: chip_smoke.api_engine(v))
     out_dir = None
     if argv[1:2] == ["--out"] and len(argv) > 2:
         out_dir, argv = Path(argv[2]), argv[:1] + argv[3:]
