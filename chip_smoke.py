@@ -121,13 +121,35 @@ line each; any failure exits non-zero:
    through ``run_rounds_fused(3)`` against ``run_rounds_pipelined(3)`` on
    two engines in the same run, with the host syncs each made (torch's
    synchronizing-call warnings; the fused runner must make exactly one,
-   its device→host copy of the stacked metrics) and both rates;
+   its device→host copy of the stacked metrics) and both rates; then the
+   other DP mechanisms (``phase_dp_mechanisms``): K1/K2 (and K4) at DP-SGD's
+   microbatch fold, 512 clients x 16 examples as (8192, 1), against their
+   plain versions in bf16 and f32 and timed; each cell the 512-client
+   bf16 bench round, one warm-up and 2 pipelined rounds, one
+   ``dp_mechanisms`` line with rounds/s, peak memory, the launches a round
+   and ε by round beside a fresh accountant's: dp_sgd microbatch on
+   ``"residual"`` (q = 0.5, z = 2, C = 1, m = 16: K1 30 and K2 20 times a
+   round, one K1 a step for the metrics' forward and one K1 / K2 a chunk),
+   dp_sgd ghost on ``False`` (no conv kernel), the PLD step budget under
+   dp_sgd on a 1e-3 grid with its host seconds, dp_ftrl on ``"residual"``
+   (z = 1, T = 8, cohorts of m̄ = 51 in rotation, ε charged once) and its
+   checkpoint restored into a fresh engine whose next round is bit-equal,
+   distributed DP with fused and with per-client Skellam noise (z = 1,
+   q = 0.1, 14 bits); then on the card: ghost against microbatch (f32,
+   rtol 2e-4 / atol 2e-5, the microbatch also on K1/K2), the DP-FTRL tree's
+   node reuse bit for bit, ``torch.poisson``'s Skellam draws by mean and
+   variance at the bench plan's per-client and aggregate rates, the modular
+   sum against the int64 sum mod 2^32 (a ``dp_mechanisms functions``
+   line);
 6. learning check: 10 non-IID clients, 3 rounds, test accuracy > 0.5, with
    ``fused_conv_block="residual"`` and with ``True``, and with
    ``"residual"`` under SCAFFOLD (SGD lr 0.05), under FedNova (SGD lr
    0.05, momentum 0.9, epoch budgets 1 + (i mod 3) of 3), under FedDyn
    (α = 0.01, Adam) and under q-FFL at q = 0.05 (SGD lr 0.1), with q = 1
    and q = 0 printed beside it and each one's per-client accuracy spread;
+   and at a weak budget under dp_sgd (the microbatch fold on K1/K2, z =
+   0.005), dp_ftrl (z = 1e-3, every client in each cohort, momentum 0)
+   and distributed DP (z = 1e-3);
 7. the conv-formulations measurement at the bench shapes (512 clients x 32
    images, bf16): conv2 14x14 32->64 as library convolution, shift-GEMM
    (``conv3x3_same``) and patch GEMM (``conv3x3_patch``), forward and
@@ -271,6 +293,20 @@ CONV2_SHAPE = (14, 14, 32, 64)
 S2D_STEM_SHAPE = (14, 14, 4, 128)
 # the probe's bare GEMM: conv2's patch matrix with the padded 16x16 grid's
 # rows, (M, K, N) per client
+# the other DP mechanisms on the bench round (phase_dp_mechanisms)
+MECH_DELTA = 1e-5
+MECH_ROUNDS = 2         # pipelined, after a warm-up round
+DPSGD_Z = 2.0           # σ = z·C/B a step
+DPSGD_CLIP = 1.0
+DPSGD_EPSILON = 16.0    # ε after 3 rounds (30 steps at q = 0.5): 8.56
+DPSGD_MICRO = 16        # dp_microbatch: 2 chunks a step, (8192, 1) folds
+DPSGD_PLD_DT = 1e-3
+FTRL_Z = 1.0            # ε = 4.38 for the whole tree (analytic Gaussian)
+FTRL_EPSILON = 8.0
+FTRL_T = 8              # tree height 4; rotation allows 10 rounds at k = 1
+DIST_Z = 1.0
+DIST_CLIP = 1.0
+DIST_EPSILON = 64.0
 PROBE_GEMM_SHAPE = (BATCH_SIZE * 16 * 16, 9 * 32, 64)
 # K8a's small cases: whole tiles, edges ragged in every dimension (no
 # 16-byte rows: the staged route); in bf16 also one client of the bench
@@ -2832,6 +2868,418 @@ def phase_engine_api(card, counts, report):
     fused_runner(card, counts)
 
 
+def mechanism_cells():
+    """The other DP mechanisms' bench cells: name -> mechanism_engine's
+    keywords (``tools/profile_round.py`` profiles the same cells)."""
+    dpsgd = dict(epsilon=DPSGD_EPSILON, z=DPSGD_Z, clip=DPSGD_CLIP,
+                 dp_mode="dp_sgd", dp_microbatch=DPSGD_MICRO)
+    dist = dict(epsilon=DIST_EPSILON, z=DIST_Z, clip=DIST_CLIP,
+                dp_mode="distributed", participation_rate=CDP_RATE)
+    return {
+        "dp-sgd-microbatch": dict(dpsgd, fused="residual",
+                                  dp_sgd_impl="microbatch"),
+        "dp-sgd-ghost": dict(dpsgd, fused=False, dp_sgd_impl="ghost"),
+        "dp-ftrl": dict(epsilon=FTRL_EPSILON, z=FTRL_Z, dp_mode="dp_ftrl",
+                        ftrl_rounds=FTRL_T, participation_rate=CDP_RATE),
+        "distributed-fused": dict(dist, dist_fuse_noise=True),
+        "distributed-per-client": dict(dist, dist_fuse_noise=False),
+    }
+
+
+def mechanism_engine(fused="residual", epsilon=64.0, z=1.0, clip=1.0,
+                     **cfg):
+    """The 512-client bf16 bench engine under one of the other DP
+    mechanisms (``cfg`` holds dp_mode and its fields)."""
+    from fl_tpu_torch.core.types import PrivacyConfig
+    from fl_tpu_torch.orchestration import (FederatedRoundEngine,
+                                            RoundEngineConfig)
+
+    return FederatedRoundEngine(
+        bench_model(fused), bench_arrays(),
+        RoundEngineConfig(training=bench_training(),
+                          privacy=PrivacyConfig(
+                              epsilon=epsilon, delta=MECH_DELTA,
+                              max_grad_norm=clip, noise_multiplier=z),
+                          max_clients=NUM_CLIENTS, seed=0, **cfg),
+        device=DEVICE)
+
+
+def run_mechanism_cell(card, label, engine, per_round, rounds=MECH_ROUNDS):
+    """A warm-up round, then ``rounds`` pipelined ones whose launches must
+    be ``per_round`` a round (the conv ones on the tensor cores) and 0
+    elsewhere; finite losses and parameters. Prints rounds/s and peak
+    memory; returns (the round results with the warm-up first, counts,
+    the line's text so far)."""
+    import torch
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.ops import conv_block as cb
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = engine.run_round(evaluate=False)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = engine.run_rounds_pipelined(rounds, evaluate=False)
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = dict.fromkeys(counts, 0)
+    want.update({k: v * rounds for k, v in per_round.items()})
+    require(counts == want, f"{label}: launch counts {counts}, expected "
+                            f"{want}")
+    require(all(cb.ROUTE_LAUNCHES[(k, "tensor_core")] == want[k]
+                for k in ("conv_block_fwd", "conv_block_bwd")),
+            f"{label}: launches by route "
+            f"{ {k: v for k, v in cb.ROUTE_LAUNCHES.items() if v} }")
+    results = [warm] + results
+    losses = [r.train_loss for r in results]
+    params = engine.global_variables["params"]
+    require(all(math.isfinite(v) for v in losses)
+            and all(bool(torch.isfinite(t).all())
+                    for d in params.values() for t in d.values()),
+            f"{label}: losses {losses} or the parameters not finite")
+    used = {k: v // rounds for k, v in counts.items() if v}
+    text = (f"{label}: {NUM_CLIENTS} clients bf16, warm-up round "
+            f"{warm_s:.2f}s (peak memory over it and the pipelined rounds "
+            f"{peak:.2f} GiB), {rounds} pipelined rounds in {dt:.3f}s -> "
+            f"{rounds / dt:.3f} rounds/s, launches a round {used} (0 "
+            f"elsewhere), losses {[round(v, 4) for v in losses]}")
+    return results, counts, text
+
+
+def check_dp_sgd_epsilon(label, engine, results):
+    """ε after each round: the engine's RDP accountant against a fresh one
+    stepped at (q = batch/shard, z) 10 times a round, bit for bit."""
+    from fl_tpu_torch.fl.accounting import RDPAccountant
+
+    fresh = RDPAccountant()
+    q = BATCH_SIZE / SAMPLES_PER_CLIENT
+    steps = LOCAL_EPOCHS * (SAMPLES_PER_CLIENT // BATCH_SIZE)
+    eps = []
+    for i, entry in enumerate(engine.accountant.get_privacy_ledger()):
+        fresh.step(q, DPSGD_Z, steps)
+        want = fresh.get_epsilon(MECH_DELTA)
+        require(entry["metadata"]["total_epsilon"] == want
+                and entry["noise_scale"] == DPSGD_Z * DPSGD_CLIP / BATCH_SIZE,
+                f"{label}: round {i} ledger {entry}, ε {want}")
+        eps.append(want)
+    require(len(eps) == len(results)
+            and engine.certified_epsilon() == eps[-1],
+            f"{label}: certified {engine.certified_epsilon()}, ε {eps}")
+    return eps
+
+
+def check_fold_kernels(card, report):
+    """K1/K2 (and K4) at the microbatch fold's shape, 512 clients x 16
+    examples folded into 8192 clients of one image, bf16 and f32, against
+    their plain versions (check_conv's tolerances), and timed. The errors
+    join K1's and K2's ``max_abs_err``."""
+    import torch
+
+    from fl_tpu_torch.ops import conv_block as cb
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    C = NUM_CLIENTS * DPSGD_MICRO
+    parts = []
+    for dtype in (torch.bfloat16, torch.float32):
+        got = check_conv(cb, gen, C, 1, dtype)
+        for k in ("conv_block_fwd", "conv_block_bwd"):
+            entry = report[k]
+            entry["max_abs_err"] = max(entry["max_abs_err"], got["err"][k])
+        x, w1, b1, w2, b2 = got["args"]
+        fwd = time_ms(lambda: cb.conv_block_fwd_cuda(*got["args"]))
+        bwd = time_ms(lambda: cb.conv_block_bwd_cuda(
+            got["g"], got["idx"], x, w1, b1, w2))
+        text = (f"{str(dtype)[6:]}: K1 err "
+                f"{got['err']['conv_block_fwd']:.2e} {fwd:.3f} ms, K2 err "
+                f"{got['err']['conv_block_bwd']:.2e} {bwd:.3f} ms")
+        if dtype == torch.bfloat16:
+            bounds, _ = conv_work(got["args"], got["g"])
+            text += ", bound " + ", ".join(
+                f"{k} {bounds[k][0]:.3f} ms ({bounds[k][1]})"
+                for k in ("conv_block_fwd", "conv_block_bwd"))
+        parts.append(text)
+        del got
+    torch.cuda.empty_cache()
+    print(f"dp_mechanisms fold kernels at (C·m, B) = ({C}, 1): "
+          + "; ".join(parts) + f" [{card}]", flush=True)
+
+
+def check_mechanism_functions(card):
+    """On the card: ghost against microbatch at a small size (f32, the
+    reference's rtol 2e-4 / atol 2e-5; microbatch also on K1/K2); the
+    DP-FTRL tree's node reuse bit for bit; the Skellam draws by mean and
+    variance at the bench plan's per-client and aggregate rates; the
+    modular sum against the int64 sum mod 2^32."""
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.core import prng
+    from fl_tpu_torch.fl import distributed_dp as ddp
+    from fl_tpu_torch.fl import dp_ftrl as ftrl
+    from fl_tpu_torch.fl import privacy as dp
+    from fl_tpu_torch.models import create_model
+
+    # ghost = microbatch
+    C, B = 4, 8
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+    xb = torch.randn((C, B, 28, 28, 1), generator=gen, device=DEVICE)
+    yb = torch.randint(0, 10, (C, B), generator=gen, device=DEVICE)
+    wmask = torch.ones((C, B), device=DEVICE)
+    wmask[1, 5] = 0.0
+    unfused = create_model("simple_cnn", dropout_rate=0.0)
+    init = unfused.init(torch.Generator(device=DEVICE).manual_seed(0),
+                        DEVICE)
+    params = {l: {k: torch.stack([v * (1 + 0.1 * c) for c in range(C)])
+                  for k, v in d.items()} for l, d in init.items()}
+    args = (params, xb, yb, wmask, 1, 2)
+    ghost = dp.make_ghost_dp_sgd_grad_fn(unfused, 0.7, 1.1)(*args)
+    worst = {}
+    ops.reset_launch_counts()
+    for fused in (False, "residual"):
+        model = create_model("simple_cnn", dropout_rate=0.0,
+                             fused_conv_block=fused)
+        micro = dp.make_dp_sgd_grad_fn(model, 0.7, 1.1, 4)(*args)
+        gap = 0.0
+        for l in ghost:
+            for k in ghost[l]:
+                a, b = ghost[l][k], micro[l][k]
+                require(torch.allclose(a, b, rtol=2e-4, atol=2e-5),
+                        f"ghost vs microbatch ({fused!r}) {l}/{k}: "
+                        f"{float((a - b).abs().max())}")
+                gap = max(gap, float((a - b).abs().max()))
+        worst[repr(fused)] = gap
+    folded = ops.launch_counts()
+    require(folded["conv_block_fwd"] == folded["conv_block_bwd"] == B // 4,
+            f"microbatch on K1/K2: launches {folded}")
+
+    # the tree's node reuse
+    seed, dim, sigma = 77, 1 << 16, 0.5
+
+    def node(level, index):
+        g = prng.generator(ftrl.node_seed(seed, level, index), DEVICE)
+        return sigma * torch.randn((dim,), generator=g, device=DEVICE)
+
+    zero = torch.zeros(dim, device=DEVICE)
+    n2 = ftrl.tree_noise_prefix(seed, 2, dim, sigma, 4, DEVICE)
+    n3 = ftrl.tree_noise_prefix(seed, 3, dim, sigma, 4, DEVICE)
+    n7 = ftrl.tree_noise_prefix(seed, 7, dim, sigma, 4, DEVICE)
+    require(torch.equal(n2, zero + node(1, 0))
+            and torch.equal(n3, zero + node(0, 2) + node(1, 0))
+            and torch.equal(n7, zero + node(0, 6) + node(1, 2)
+                            + node(2, 0)),
+            "tree noise: a reused node is not the same draw")
+    v7 = float(n7.double().var()) / (3 * sigma ** 2)
+    require(abs(v7 - 1) < 5 * math.sqrt(2 / dim), f"tree noise t=7: {v7}")
+
+    # Skellam at the bench plan's rates; the modular sum
+    plan = ddp.DistributedDPPlan(DIST_CLIP, 14, N_PARAMS, round(
+        CDP_RATE * NUM_CLIENTS), DIST_Z)
+    n = 1 << 20
+    moments = []
+    for lam in (plan.mu_local / 2, plan.expected_clients
+                * plan.mu_local / 2):
+        draw = ddp.aggregate_skellam_noise(5, lam, n, DEVICE).double()
+        mean, var = float(draw.mean()), float(draw.var())
+        require(abs(mean) < 5 * math.sqrt(2 * lam / n)
+                and abs(var / (2 * lam) - 1) < 5 * math.sqrt(2 / n),
+                f"Skellam at λ={lam}: mean {mean}, var {var}")
+        moments.append((lam, mean, var / (2 * lam)))
+    share = ddp.skellam_noise(6, plan.mu_local / 2, (64, 4096),
+                              DEVICE).double()
+    require(abs(float(share.var()) / plan.mu_local - 1)
+            < 5 * math.sqrt(2 / share.numel()), "Skellam shares")
+    ints = torch.randint(-2 ** 31, 2 ** 31, (NUM_CLIENTS, 1 << 16),
+                         generator=gen, device=DEVICE, dtype=torch.int64)
+    got = ddp.modular_sum(ints.to(torch.int32)).cpu().numpy()
+    want = ((ints.sum(0).cpu().numpy() + 2 ** 31) % 2 ** 32
+            - 2 ** 31).astype(np.int32)
+    require(np.array_equal(got, want), "modular sum differs from the int64 "
+                                       "sum mod 2^32")
+    print(f"dp_mechanisms functions: ghost vs microbatch (f32, {C} clients "
+          f"x {B}) largest gap {worst} (tol rtol 2e-4 / atol 2e-5; the "
+          f"microbatch fold on K1/K2 x{B // 4}); tree noise: nodes reused "
+          f"bit for bit at t = 2, 3, 7, Var(t=7)/(3σ²) {v7:.4f}; Skellam "
+          f"(λ, mean, var/2λ) {[(f'{l:.4g}', round(m, 2), round(v, 5)) for l, m, v in moments]}"
+          f" over {n} draws; modular sum of ({NUM_CLIENTS}, {1 << 16}) "
+          f"random int32 equal to the int64 sum mod 2^32 [{card}]",
+          flush=True)
+    torch.cuda.empty_cache()
+
+
+def ftrl_resume_check(card, engine):
+    """On the dp_ftrl cell's engine: a checkpoint saved and restored into a
+    fresh engine (another nonce, drawn from OS entropy, replaced by the
+    checkpoint's) whose next round equals the uninterrupted engine's bit
+    for bit: params, the prefix sums, the momentum, the ledger."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch.orchestration.checkpoint import (
+        restore_engine_checkpoint, save_engine_checkpoint)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save_engine_checkpoint(engine, tmp)
+        fresh = mechanism_engine(**mechanism_cells()["dp-ftrl"])
+        other = fresh._ftrl_nonce != engine._ftrl_nonce
+        step = restore_engine_checkpoint(fresh, tmp)
+    engine.run_round(evaluate=False)
+    fresh.run_round(evaluate=False)
+    a, b = engine.global_variables["params"], fresh.global_variables["params"]
+    same = (all(torch.equal(a[l][k], b[l][k]) for l in a for k in a[l])
+            and all(torch.equal(getattr(engine, k), getattr(fresh, k))
+                    for k in ("ftrl_cumsum", "ftrl_prev_noisy",
+                              "ftrl_momentum_buf"))
+            and np.array_equal(engine.ftrl_participations,
+                               fresh.ftrl_participations)
+            and fresh._ftrl_nonce == engine._ftrl_nonce)
+    require(other and same, f"dp_ftrl resume: fresh nonce {other}, the next "
+                            f"round bit-equal {same}")
+    print(f"dp_mechanisms dp_ftrl checkpoint: restored at round {step} into "
+          f"a fresh engine (its own nonce replaced by the checkpoint's), "
+          f"the next round equal to the uninterrupted engine's bit for bit "
+          f"(params, prefix, noisy prefix, momentum, ledger "
+          f"{engine.ftrl_participations.sum()} participations) [{card}]",
+          flush=True)
+    del fresh
+    torch.cuda.empty_cache()
+
+
+def phase_dp_mechanisms(card, report):
+    """DP-SGD (microbatch fold on K1/K2, ghost norms on the unfused chain),
+    DP-FTRL and distributed DP (fused and per-client Skellam noise) on the
+    512-client bench round, each with rounds/s, peak memory and ε after
+    the rounds beside the accountant's value; then the fold's kernels,
+    the mechanisms' functions and the dp_ftrl resume on the card, and the
+    PLD step budget under dp_sgd. Learning checks run with the others."""
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch.fl import dp_ftrl as ftrl
+    from fl_tpu_torch.fl.accounting import RDPAccountant
+
+    steps = LOCAL_EPOCHS * (SAMPLES_PER_CLIENT // BATCH_SIZE)
+    chunks = BATCH_SIZE // DPSGD_MICRO
+    cells = mechanism_cells()
+    check_fold_kernels(card, report)
+
+    # DP-SGD: the microbatch fold on "residual" (K1 once a step for the
+    # metrics' forward and once a chunk, K2 once a chunk), ghost on False
+    for name, per_round in (
+            ("dp-sgd-microbatch", dict(conv_block_fwd=steps * (1 + chunks),
+                                       conv_block_bwd=steps * chunks)),
+            ("dp-sgd-ghost", {})):
+        cell = cells[name]
+        impl, fused = cell["dp_sgd_impl"], cell["fused"]
+        label = f"dp_mechanisms dp_sgd {impl} fused_conv_block={fused!r}"
+        engine = mechanism_engine(**cell)
+        results, _, text = run_mechanism_cell(card, label, engine, per_round)
+        eps = check_dp_sgd_epsilon(label, engine, results)
+        fold = (f", fold (C·m, 1) = ({NUM_CLIENTS * DPSGD_MICRO}, 1), "
+                f"{chunks} chunks a step" if impl == "microbatch" else "")
+        print(f"{text}; q={BATCH_SIZE / SAMPLES_PER_CLIENT} z={DPSGD_Z} "
+              f"C={DPSGD_CLIP} m={DPSGD_MICRO}{fold}, ε by round "
+              f"{[round(v, 4) for v in eps]} (= a fresh RDP accountant's) "
+              f"[{card}]", flush=True)
+        del engine, results
+        torch.cuda.empty_cache()
+    engine = mechanism_engine(accountant="pld", pld_dt=DPSGD_PLD_DT,
+                              **cells["dp-sgd-ghost"])
+    t0 = time.perf_counter()
+    budget = engine._pld_step_budget()
+    pld_s = time.perf_counter() - t0
+    require(budget >= steps, f"dp_sgd pld: budget {budget} steps")
+    print(f"dp_mechanisms dp_sgd pld: step budget {budget} local steps "
+          f"({budget // steps} rounds) at ε={DPSGD_EPSILON}, q="
+          f"{BATCH_SIZE / SAMPLES_PER_CLIENT}, z={DPSGD_Z}, grid "
+          f"{DPSGD_PLD_DT} ({pld_s:.1f}s on the host) [{card}]", flush=True)
+    del engine
+
+    # DP-FTRL: round-robin cohorts of m̄ = q·N, k = 1
+    engine = mechanism_engine(**cells["dp-ftrl"])
+    label = "dp_mechanisms dp_ftrl fused_conv_block='residual'"
+    results, _, text = run_mechanism_cell(
+        card, label, engine, dict(conv_block_fwd=steps,
+                                  conv_block_bwd=steps))
+    eps = [r.epsilon_spent for r in results]
+    want = ftrl.gaussian_epsilon(FTRL_Z, MECH_DELTA)
+    cohort = engine._ftrl_cohort
+    require(eps == [want] + [0.0] * (len(results) - 1)
+            and engine.budget_tracker.consumed_epsilon == want
+            and all(r.participating_clients == cohort for r in results)
+            and engine.ftrl_participations.max() == 1,
+            f"{label}: ε by round {eps} (want {want} once), participants "
+            f"{[r.participating_clients for r in results]}")
+    print(f"{text}; z={FTRL_Z} C={CDP_CLIP} T={FTRL_T} (height "
+          f"{engine._ftrl_height}, σ_node {engine._ftrl_sigma_node:.4f}), "
+          f"cohort {cohort}, ε charged once {eps[0]:.4f} (= the analytic "
+          f"Gaussian's), by round {[round(v, 4) for v in eps]} [{card}]",
+          flush=True)
+    ftrl_resume_check(card, engine)
+    del engine, results
+    torch.cuda.empty_cache()
+
+    # distributed DP, fused and per-client Skellam noise
+    for name in ("distributed-fused", "distributed-per-client"):
+        engine = mechanism_engine(**cells[name])
+        label = ("dp_mechanisms distributed dist_fuse_noise="
+                 f"{cells[name]['dist_fuse_noise']}")
+        results, _, text = run_mechanism_cell(
+            card, label, engine, dict(conv_block_fwd=steps,
+                                      conv_block_bwd=steps))
+        fresh = RDPAccountant()
+        plan = engine._dist_plan
+        eps = []
+        for r in results:
+            fresh.accumulate(plan.round_rdp(r.participating_clients))
+            eps.append(fresh.get_epsilon(MECH_DELTA))
+        require(engine.rdp_accountant.get_epsilon(MECH_DELTA) == eps[-1]
+                and np.allclose(np.cumsum([r.epsilon_spent
+                                           for r in results]), eps,
+                                rtol=1e-12),
+                f"{label}: ε {eps} against the engine's "
+                f"{engine.rdp_accountant.get_epsilon(MECH_DELTA)}")
+        print(f"{text}; z={DIST_Z} C={DIST_CLIP} bits={plan.bits} "
+              f"m̄={plan.expected_clients}, participants "
+              f"{[r.participating_clients for r in results]}, σ of the "
+              f"decoded mean {plan.central_sigma_float(plan.expected_clients):.3e}"
+              f" at m̄, ε by round {[round(v, 4) for v in eps]} (= the "
+              f"Skellam RDP at each realized count) [{card}]", flush=True)
+        del engine, results
+        torch.cuda.empty_cache()
+    check_mechanism_functions(card)
+
+
+def mechanism_learning_checks():
+    """One learning check a mechanism at a weak budget on the 10 non-IID
+    clients (3 rounds, test accuracy above 0.5): DP-SGD's microbatch fold
+    on K1/K2, DP-FTRL with every client in each cohort, distributed DP."""
+    from fl_tpu_torch.core.types import PrivacyConfig
+
+    def weak(z, clip, epsilon):
+        return PrivacyConfig(epsilon=epsilon, delta=MECH_DELTA,
+                             max_grad_norm=clip, noise_multiplier=z)
+
+    learning_check("residual", "dp_sgd microbatch (z=0.005, C=1)",
+                   dict(dp_mode="dp_sgd", dp_sgd_impl="microbatch",
+                        privacy=weak(0.005, 1.0, 1e9)))
+    learning_check("residual", "dp_ftrl (z=1e-3, C=10, cohort 10, k=3, "
+                   "momentum 0)",
+                   dict(dp_mode="dp_ftrl", ftrl_rounds=3,
+                        ftrl_max_participations=3, ftrl_momentum=0.0,
+                        privacy=weak(1e-3, 10.0, 1e9)))
+    learning_check("residual", "distributed (z=1e-3, C=10)",
+                   dict(dp_mode="distributed",
+                        privacy=weak(1e-3, 10.0, 1e12)))
+
+
 def learning_check(fused, label=None, engine_cfg=None, budgets=None,
                    above=0.5, **training):
     """10 non-IID clients, 3 rounds, test accuracy above ``above`` (None:
@@ -3036,6 +3484,9 @@ def main() -> int:
     # 5e. the server side's second half and the engine's other entry points
     phase_engine_api(card, counts, report)
 
+    # 5f. DP-SGD, DP-FTRL and distributed DP
+    phase_dp_mechanisms(card, report)
+
     # 6. learning checks
     learning_check("residual")
     learning_check(True)
@@ -3049,6 +3500,7 @@ def main() -> int:
     learning_check("residual", f"feddyn alpha={FEDDYN_ALPHA}",
                    dict(feddyn_alpha=FEDDYN_ALPHA))
     qffl_learning_check()
+    mechanism_learning_checks()
 
     # 7. the conv formulations at full width
     from fl_tpu_torch import ops

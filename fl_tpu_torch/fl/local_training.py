@@ -29,6 +29,17 @@ for all clients: a budget only ever stops a client, so every client still
 active has taken every step so far. The metrics are those of each
 client's last active epoch.
 
+DP-SGD: with ``dp_sgd_fn`` (``fl.privacy``'s microbatch or ghost
+gradient) every step's gradient is the per-example-clipped, noised one;
+the step's metrics come from a forward pass only (the plain backward is
+not run). Padded shard slots are not remapped for it: ``wmask =
+perm_raw < n`` gives them weight 0, so each real example sits in exactly
+one slot an epoch and its inclusion probability a step is exactly
+batch/shard, the q the accountant uses (the batch itself is gathered
+through the remapped permutation, as in the reference, and the masked
+slots' values never count). Its noise seed is fold(fold(round, DP_NOISE),
+epoch·steps + step), its dropout seed the step's dropout seed.
+
 Parameters are updated in place inside the step loop where they are
 stored in f32, which keeps one copy of the (C, params) tree.
 """
@@ -195,14 +206,19 @@ class LocalOptimizer:
         return u
 
 
+def per_example_losses(logits: torch.Tensor, labels: torch.Tensor
+                       ) -> torch.Tensor:
+    """Softmax cross-entropy of each example: (C, B, K), (C, B) → (C, B)."""
+    C, B, K = logits.shape
+    return F.cross_entropy(logits.reshape(C * B, K), labels.reshape(C * B),
+                           reduction="none").reshape(C, B)
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor
                        ) -> torch.Tensor:
     """Per-client mean softmax cross-entropy: logits (C, B, K), labels
     (C, B) → (C,)."""
-    C, B, K = logits.shape
-    per = F.cross_entropy(logits.reshape(C * B, K), labels.reshape(C * B),
-                          reduction="none")
-    return per.reshape(C, B).mean(1)
+    return per_example_losses(logits, labels).mean(1)
 
 
 def rounding_seeds(rseed: int, num_clients: int, device) -> torch.Tensor:
@@ -215,7 +231,8 @@ def rounding_seeds(rseed: int, num_clients: int, device) -> torch.Tensor:
 
 def make_local_train_fn(model, cfg: FederatedTrainingConfig,
                         samples_per_client: int, mean: torch.Tensor,
-                        std: torch.Tensor, grad_mask=None) -> Callable:
+                        std: torch.Tensor, grad_mask=None,
+                        dp_sgd_fn: Optional[Callable] = None) -> Callable:
     """Build ``local_train(params, images_u8, labels, n_valid, rseed,
     epochs=None, correction=None, lr=None) -> (new_params, metrics)``.
 
@@ -227,7 +244,9 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
     ``correction`` an optional tree like ``params`` added to every step's
     gradient (SCAFFOLD's c − c_i); ``lr`` an optional (C,) learning rate
     in place of ``learning_rate``. ``grad_mask`` is a tree of unstacked
-    leaf masks multiplied into every gradient last. ``metrics`` holds (C,)
+    leaf masks multiplied into every gradient last. ``dp_sgd_fn(params,
+    xb, yb, wmask, dropout_seed, noise_seed)`` replaces every step's
+    gradient (module docstring). ``metrics`` holds (C,)
     tensors ``loss`` and ``accuracy`` of each client's last active epoch,
     ``epochs_completed`` and ``samples_processed``.
     """
@@ -268,6 +287,7 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
         rows = torch.arange(C, device=device)[:, None]
         shuffle_seed = prng.stream_seed(rseed, prng.Stream.SHUFFLE)
         dropout_seed = prng.stream_seed(rseed, prng.Stream.DROPOUT)
+        noise_seed = prng.stream_seed(rseed, prng.Stream.DP_NOISE)
 
         def per_leaf(v):
             """A (C,) vector shaped to broadcast over each leaf."""
@@ -298,9 +318,21 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
                 tree: Dict = {}
                 for (l, k), t in zip(paths, p32):
                     tree.setdefault(l, {})[k] = t
-                logits = model(tree, xb, train=True, generator=dgen)
-                loss = cross_entropy_loss(logits, yb)
-                grads = list(torch.autograd.grad(loss.sum(), p32))
+                if dp_sgd_fn is None:
+                    logits = model(tree, xb, train=True, generator=dgen)
+                    loss = cross_entropy_loss(logits, yb)
+                    grads = list(torch.autograd.grad(loss.sum(), p32))
+                else:
+                    with torch.no_grad():
+                        logits = model(tree, xb, train=True, generator=dgen)
+                        loss = cross_entropy_loss(logits, yb)
+                    raw = perm_raw[:, step * batch:(step + 1) * batch]
+                    g_tree = dp_sgd_fn(
+                        tree, xb, yb, (raw < n).float(),
+                        prng.fold(dropout_seed, ctr),
+                        prng.fold(noise_seed, ctr))
+                    grads = [g_tree[l][k] for l, k in paths]
+                    del g_tree
                 if store_bf16:
                     step_seed = sr_seed0 + ((ctr * rounding.STEP_STRIDE)
                                             & 0xFFFFFFFF)

@@ -25,6 +25,19 @@ that no clipped copy of the (C, D) deltas is made),
 ``torch.Generator``s seeded by derived seeds (``core.prng``) where the
 reference takes keys.
 
+Example-level DP-SGD (``dp_mode="dp_sgd"``) is the port of
+``make_dp_sgd_grad_fn``, ``make_ghost_dp_sgd_grad_fn`` and
+``model_supports_ghost_dp`` (``privacy.py:350-610``): each example's
+gradient clipped to C, padded slots masked to zero, the sum over the FIXED
+batch B, N(0, (z·C/B)²) added. The microbatch form gets per-example
+gradients without ``vmap`` (the fused conv segment is an
+``autograd.Function`` with no vmap rule): a (C, m) chunk of examples is
+folded into the client axis as a (C·m, 1) batch, each example with its own
+copy of its client's parameters, so the model's stacked forward and
+backward (K1/K2 on ``fused_conv_block="residual"``) return per-example
+weight gradients directly. The ghost form takes two batched backwards on
+the unfused formulation and never forms a per-example gradient.
+
 :class:`PrivacyBudgetTracker` and :class:`PrivacyAccountant` are host-side
 copies of the reference's ledgers, with the methods the round engine uses
 (status reports, export and checkpoint state come with checkpointing).
@@ -33,13 +46,15 @@ copies of the reference's ledgers, with the methods the round engine uses
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from fl_tpu_torch.core import prng
 from fl_tpu_torch.core.pytree import clip_by_global_norm, tree_map, tree_paths
 from fl_tpu_torch.core.transfer import to_device
+from fl_tpu_torch.fl.local_training import per_example_losses
 from fl_tpu_torch.ops import dp as dp_ops
 
 STANDALONE_MIN = 1 << 16
@@ -167,6 +182,233 @@ def geometric_clip_update(clip_norm, noisy_fraction: torch.Tensor,
     point is the γ-quantile of the client delta norms."""
     return clip_norm * torch.exp(
         -learning_rate * (noisy_fraction - target_quantile))
+
+
+# ---------------------------------------------------------------------------
+# per-example DP-SGD
+# ---------------------------------------------------------------------------
+
+_SQ_COLUMNS = 1 << 15  # column block of the f32 passes over bf16 gradients
+
+
+def _rows_sq(g: torch.Tensor) -> torch.Tensor:
+    """Σ g² over every dim but the first, in f32, a column block at a time
+    (no f32 copy of a whole bf16 gradient)."""
+    g = g.reshape(g.shape[0], -1)
+    return sum(g[:, i:i + _SQ_COLUMNS].float().square().sum(1)
+               for i in range(0, g.shape[1], _SQ_COLUMNS))
+
+
+def _weighted_rows(w: torch.Tensor, g: torch.Tensor, m: int
+                   ) -> torch.Tensor:
+    """(C·m, ...) per-example rows g and (C·m,) f32 weights w → Σ over each
+    client's m rows of w·g, (C, ...) in f32, a column block at a time."""
+    shape = g.shape[1:]
+    C = g.shape[0] // m
+    g = g.reshape(C, m, -1)
+    w = w.reshape(C, 1, m)
+    out = torch.empty((C, g.shape[2]), dtype=torch.float32, device=g.device)
+    for i in range(0, g.shape[2], _SQ_COLUMNS):
+        out[:, i:i + _SQ_COLUMNS] = torch.bmm(
+            w, g[:, :, i:i + _SQ_COLUMNS].float())[:, 0]
+    return out.reshape((C,) + tuple(shape))
+
+
+def _noisy_mean(total, batch: int, sigma: float, noise_seed: int):
+    """total / B + N(0, σ²) leaf by leaf, leaf i of ``tree_paths`` order
+    from the sub-stream fold(noise_seed, i), drawing every client's rows at
+    once: the one noise rule of both DP-SGD forms."""
+    out: Dict = {}
+    for i, (l, k) in enumerate(tree_paths(total)):
+        g = total[l][k] / batch
+        gen = prng.generator(prng.fold(noise_seed, i), g.device)
+        noise = torch.randn(g.shape, generator=gen, device=g.device,
+                            dtype=torch.float32)
+        out.setdefault(l, {})[k] = g + sigma * noise
+    return out
+
+
+def _clip_scale(sq: torch.Tensor, max_grad_norm: float,
+                wmask: torch.Tensor) -> torch.Tensor:
+    norms = torch.sqrt(sq)
+    scale = torch.clamp(max_grad_norm / torch.clamp(norms, min=1e-12),
+                        max=1.0)
+    return scale * wmask.float()
+
+
+def make_dp_sgd_grad_fn(model, max_grad_norm: float,
+                        noise_multiplier: float,
+                        microbatch_size: int = 16) -> Callable:
+    """Per-example-clipped, noised gradients of the mean cross-entropy over
+    stacked clients (the reference's ``make_dp_sgd_grad_fn`` with its
+    loss_fn the model's training loss). Returns
+
+        dp_grad(params, xb, yb, wmask, dropout_seed, noise_seed) -> grads
+
+    with ``params`` a tree of (C, ...) tensors, ``xb`` (C, B, ...)
+    normalized images, ``yb`` (C, B) labels and ``wmask`` (C, B) weights
+    (0 on padded shard slots); ``grads`` is a tree of (C, ...) f32
+    gradients, Σ_i min(1, C/‖g_i‖)·wmask_i·g_i / B + N(0, (z·C/B)²).
+
+    The batch goes in chunks of m = min(microbatch_size, B) examples. A
+    chunk is folded into the client axis: client c's examples become m
+    clients of one example each, every one with its own copy of client c's
+    parameters (made contiguous: the fused kernels need it), so one
+    forward and one backward over the (C·m, 1) batch give each example's
+    gradient of every leaf. The leaves of the model's "dense"
+    ``DP_LAYERS`` are folded in the compute dtype (the gradient through
+    their cast is the compute-dtype gradient upcast, so nothing changes
+    but the memory); the others in f32, so that a fused segment returns
+    their gradients unrounded as it does for a whole batch. Peak memory is about
+    C·m·|params| gradient values plus as many parameter copies. Dropout:
+    one single-example mask a client per step (``dropout_seed``), shared by
+    all its examples, as the reference applies one key to every example.
+    """
+    cdt = getattr(model, "dtype", torch.float32)
+    dense = {name for name, kind in getattr(model, "DP_LAYERS", ())
+             if kind == "dense"}
+
+    def dp_grad(params, xb, yb, wmask, dropout_seed, noise_seed):
+        C, B = yb.shape
+        m = min(microbatch_size, B)
+        if B % m:
+            raise ValueError(f"batch {B} must be divisible by microbatch "
+                             f"{m}")
+        paths = tree_paths(params)
+        device = xb.device
+        keep = None
+        if hasattr(model, "dropout_keep"):
+            keep = model.dropout_keep(
+                C, 1, prng.generator(dropout_seed, device), device)
+        if keep is not None:
+            keep = keep.repeat_interleave(m, 0)
+
+        def fold(p, layer):
+            dt = cdt if layer in dense else torch.float32
+            return (p.detach().to(dt).repeat_interleave(m, 0)
+                    .requires_grad_(True))
+
+        total = {l: {k: torch.zeros(params[l][k].shape, dtype=torch.float32,
+                                    device=device) for k in params[l]}
+                 for l in params}
+        for j in range(B // m):
+            sl = slice(j * m, (j + 1) * m)
+            folded = {l: {k: fold(params[l][k], l) for k in params[l]}
+                      for l in params}
+            xc = xb[:, sl].reshape((C * m, 1) + tuple(xb.shape[2:]))
+            yc = yb[:, sl].reshape(C * m, 1)
+            logits = model(folded, xc, train=True, dropout_mask=keep)
+            loss = per_example_losses(logits, yc).sum()
+            leaves = [folded[l][k] for l, k in paths]
+            grads = torch.autograd.grad(loss, leaves)
+            del logits, loss, folded, leaves
+            sq = sum(_rows_sq(g) for g in grads)
+            scale = _clip_scale(sq, max_grad_norm,
+                                wmask[:, sl].reshape(C * m))
+            for (l, k), g in zip(paths, grads):
+                total[l][k] += _weighted_rows(scale, g, m)
+            del grads
+        return _noisy_mean(total, B, noise_multiplier * max_grad_norm / B,
+                           noise_seed)
+
+    return dp_grad
+
+
+def _conv_sq(a: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """(n, H, W, I), (n, H, W, O) f32 → (n,) per-example squared norm of a
+    SAME 3x3 conv's kernel and bias gradient: the bias's ‖Σ_s dy‖², then
+    tap by tap the (n, I, O) kernel gradient of the tap as one batched
+    product over the shifted input (the reference's nine-tap form)."""
+    n, H, W, I = a.shape
+    O = dy.shape[-1]
+    ap = F.pad(a, (0, 0, 1, 1, 1, 1))
+    dyf = dy.reshape(n, H * W, O)
+    s = dy.sum((1, 2)).square().sum(-1)
+    for ky in range(3):
+        for kx in range(3):
+            xt = ap[:, ky:ky + H, kx:kx + W, :].reshape(n, H * W, I)
+            g = torch.bmm(xt.transpose(1, 2), dyf)
+            s = s + g.square().sum((1, 2))
+    return s
+
+
+def make_ghost_dp_sgd_grad_fn(model, max_grad_norm: float,
+                              noise_multiplier: float,
+                              norm_chunk: Optional[int] = None) -> Callable:
+    """Ghost-norm (two-pass) DP-SGD: the mechanism of
+    :func:`make_dp_sgd_grad_fn` without per-example gradients (Goodfellow
+    2015; Li et al. 2021), the same ``dp_grad`` signature.
+
+    - pass 1: the tapped forward (``dp_capture``: each layer's input;
+      ``dp_perturb``: zeros at each pre-activation) and one backward with
+      respect to the perturbations, whose gradient is every example's
+      layer-output gradient dy_i (examples are independent in a summed
+      loss);
+    - per-example norms in f32: a dense layer's kernel ‖x_i‖²·‖dy_i‖² and
+      bias ‖dy_i‖²; a 3x3 conv's nine-tap form (``_conv_sq``; with
+      ``norm_chunk`` dividing B, over chunks of that many examples);
+    - pass 2: the backward of Σ_i s_i·loss_i, s_i = min(1, C/‖g_i‖)·mask_i,
+      is the clipped masked sum.
+
+    The noise is :func:`make_dp_sgd_grad_fn`'s, leaf for leaf, so both
+    forms give the same noisy gradient for the same seeds. Dropout: one
+    batch mask from ``dropout_seed``, the same in both passes. Needs a
+    model declaring ``DP_LAYERS`` and the taps (SimpleCNN on the unfused
+    formulation; a fused one raises)."""
+    layers = model.DP_LAYERS
+
+    def dp_grad(params, xb, yb, wmask, dropout_seed, noise_seed):
+        C, B = yb.shape
+        device = xb.device
+        keep = model.dropout_keep(C, B, prng.generator(dropout_seed, device),
+                                  device)
+        p = {l: {k: v.detach() for k, v in d.items()}
+             for l, d in params.items()}
+        shapes = model.dp_preactivation_shapes(C, B)
+        zeros = {name: torch.zeros(shapes[name], dtype=torch.float32,
+                                   device=device, requires_grad=True)
+                 for name, _ in layers}
+        logits, caps = model(p, xb, train=True, dropout_mask=keep,
+                             dp_perturb=zeros, dp_capture=True)
+        dys = dict(zip(zeros, torch.autograd.grad(
+            per_example_losses(logits, yb).sum(), list(zeros.values()))))
+        del logits, zeros
+        sq = torch.zeros((C * B,), dtype=torch.float32, device=device)
+        for name, kind in layers:
+            a = caps[name].float().reshape((C * B,) + caps[name].shape[2:])
+            dy = dys[name].float().reshape((C * B,) + dys[name].shape[2:])
+            if kind == "dense":
+                dy_sq = dy.square().sum(1)
+                sq += a.square().sum(1) * dy_sq + dy_sq
+            elif kind == "conv3x3":
+                n = (C * norm_chunk if norm_chunk and B % norm_chunk == 0
+                     else C * B)
+                sq += torch.cat([_conv_sq(a[i:i + n], dy[i:i + n])
+                                 for i in range(0, C * B, n)])
+            else:
+                raise ValueError(f"unknown DP layer kind: {kind}")
+        del caps, dys
+        scale = _clip_scale(sq.reshape(C, B), max_grad_norm, wmask)
+
+        p2 = {l: {k: v.detach().requires_grad_(True)
+                  for k, v in d.items()} for l, d in params.items()}
+        logits = model(p2, xb, train=True, dropout_mask=keep)
+        loss = (per_example_losses(logits, yb) * scale.detach()).sum()
+        paths = tree_paths(p2)
+        grads = torch.autograd.grad(loss, [p2[l][k] for l, k in paths])
+        total: Dict = {}
+        for (l, k), g in zip(paths, grads):
+            total.setdefault(l, {})[k] = g.float()
+        return _noisy_mean(total, B, noise_multiplier * max_grad_norm / B,
+                           noise_seed)
+
+    return dp_grad
+
+
+def model_supports_ghost_dp(model) -> bool:
+    """True when the model declares the ghost-norm instrumentation contract
+    (``DP_LAYERS`` and the ``dp_capture`` / ``dp_perturb`` keywords)."""
+    return bool(getattr(model, "DP_LAYERS", None))
 
 
 class PrivacyBudgetTracker:

@@ -36,10 +36,22 @@ parameter tree and the values (up to rounding) are the same for all three:
 The fused ops add the biases in f32 before one rounding, the unfused chain
 after it: they agree to the compute dtype's rounding, not bit for bit.
 
+DP instrumentation (ghost-norm clipping, ``fl_tpu_torch.fl.privacy.
+make_ghost_dp_sgd_grad_fn``), the reference's contract on the unfused
+formulation: ``dp_capture=True`` also returns each parameterized layer's
+*input* (``DP_LAYERS`` names them), and ``dp_perturb`` (zero tensors shaped
+like each layer's pre-activation, :meth:`SimpleCNN.dp_preactivation_shapes`)
+is added at each pre-activation, so one backward with respect to the
+perturbations gives every example's layer-output gradient. Neither changes
+the parameters or the forward values. A fused segment is one opaque
+kernel and refuses both. ``dropout_mask`` takes a keep mask drawn by
+:meth:`SimpleCNN.dropout_keep` in place of the forward's own draw (DP-SGD
+shares one mask between its passes, or one example's mask across a
+client's examples).
+
 Not ported from the reference's model: ``fast_ops``, ``fast_pool_bwd``,
 ``fast_conv2_bwd`` and ``fast_stem_wgrad`` select among XLA lowerings of
-the same values and mean nothing here (the factory refuses them by name);
-the ghost-DP taps ``dp_capture`` / ``dp_perturb`` come with DP-SGD.
+the same values and mean nothing here (the factory refuses them by name).
 """
 
 from __future__ import annotations
@@ -105,7 +117,20 @@ class _Conv3x3(torch.autograd.Function):
         return dh, dw, None
 
 
-def conv_segment_unfused(x, w1, b1, w2, b2) -> torch.Tensor:
+def _planes_to_nhwc(h: torch.Tensor, C: int) -> torch.Tensor:
+    """(B, C*K, H, W) grouped planes -> (C, B, H, W, K) stacked NHWC."""
+    B, CK, H, W = h.shape
+    return h.reshape(B, C, CK // C, H, W).permute(1, 0, 3, 4, 2)
+
+
+def _nhwc_to_planes(t: torch.Tensor) -> torch.Tensor:
+    """(C, B, H, W, K) stacked NHWC -> (B, C*K, H, W) grouped planes."""
+    C, B, H, W, K = t.shape
+    return t.permute(1, 0, 4, 2, 3).reshape(B, C * K, H, W)
+
+
+def conv_segment_unfused(x, w1, b1, w2, b2, dp_perturb=None,
+                         captures=None) -> torch.Tensor:
     """The conv segment as the unfused flax chain, over stacked clients
     through autograd: same shapes as ``conv_stack``. Clients become channel
     groups of one grouped convolution; kernels and biases are cast to x's
@@ -113,7 +138,11 @@ def conv_segment_unfused(x, w1, b1, w2, b2) -> torch.Tensor:
     was rounded to the compute dtype (a separate op, as flax's ``nn.Conv``
     adds it, not ``F.conv2d``'s ``bias=``). ``F.max_pool2d`` sends the
     gradient to the first maximal window member, like XLA's
-    select-and-scatter."""
+    select-and-scatter.
+
+    The ghost-DP taps: ``dp_perturb["conv1"]`` / ``["conv2"]`` ((C, B, H,
+    W, O) tensors) are added to each conv's pre-activation, in x's dtype;
+    ``captures`` (a dict) receives each conv's (C, B, H, W, I) input."""
     cdt = x.dtype
     C, B, H, W, _ = x.shape
 
@@ -121,12 +150,14 @@ def conv_segment_unfused(x, w1, b1, w2, b2) -> torch.Tensor:
         return w.to(cdt).permute(0, 4, 3, 1, 2).reshape(-1, w.shape[3], 3, 3)
 
     h = x.reshape(C, B, H, W).permute(1, 0, 2, 3)
-    for w, b in ((w1, b1), (w2, b2)):
-        h = _Conv3x3.apply(h, grouped(w), C)
-        h = torch.relu(h + b.to(cdt).reshape(1, -1, 1, 1))
-        h = F.max_pool2d(h, 2)
-    return h.reshape(B, C, w2.shape[-1], H // 4, W // 4).permute(
-        1, 0, 3, 4, 2)
+    for name, w, b in (("conv1", w1, b1), ("conv2", w2, b2)):
+        if captures is not None:
+            captures[name] = _planes_to_nhwc(h, C)
+        h = _Conv3x3.apply(h, grouped(w), C) + b.to(cdt).reshape(1, -1, 1, 1)
+        if dp_perturb is not None:
+            h = h + _nhwc_to_planes(dp_perturb[name].to(cdt))
+        h = F.max_pool2d(torch.relu(h), 2)
+    return _planes_to_nhwc(h, C)
 
 
 def _lecun_normal(shape, generator, device) -> torch.Tensor:
@@ -140,10 +171,21 @@ def _lecun_normal(shape, generator, device) -> torch.Tensor:
                                  generator=generator)
 
 
+_FUSED_TAPS_MESSAGE = (
+    "fused_conv_block replaces the conv segment with one "
+    "opaque Pallas program and cannot expose the ghost-DP "
+    "activation taps (dp_capture/dp_perturb); build the model "
+    "with fused_conv_block=False for dp_sgd ghost mode")
+
+
 class SimpleCNN(nn.Module):
     """Functional SimpleCNN; see the module docstring."""
 
     input_shape = (28, 28, 1)
+    name = "simple_cnn"
+    # the instrumented layers of ghost-norm DP-SGD: name -> kind
+    DP_LAYERS = (("conv1", "conv3x3"), ("conv2", "conv3x3"),
+                 ("fc1", "dense"), ("fc2", "dense"))
 
     def __init__(self, num_classes: int = 10, dropout_rate: float = 0.25,
                  dtype: torch.dtype = torch.float32,
@@ -175,30 +217,75 @@ class SimpleCNN(nn.Module):
             for name, s in self.param_shapes().items()
         }
 
+    def dp_preactivation_shapes(self, num_clients: int, batch: int
+                                ) -> Dict[str, tuple]:
+        """The (C, B, ...) shape of each ``DP_LAYERS`` pre-activation."""
+        H, W, _ = self.input_shape
+        C, B = num_clients, batch
+        return {"conv1": (C, B, H, W, _SHAPES["conv1"][-1]),
+                "conv2": (C, B, H // 2, W // 2, _SHAPES["conv2"][-1]),
+                "fc1": (C, B, _SHAPES["fc1"][-1]),
+                "fc2": (C, B, self.num_classes)}
+
+    def dropout_keep(self, num_clients: int, batch: int,
+                     generator: Optional[torch.Generator], device
+                     ) -> Optional[torch.Tensor]:
+        """The (C, B, 128) bool keep mask of a training forward, the draw
+        :meth:`forward` makes itself; None without dropout."""
+        if self.dropout_rate <= 0.0:
+            return None
+        return torch.rand((num_clients, batch, _SHAPES["fc1"][-1]),
+                          generator=generator, device=device) \
+            < 1.0 - self.dropout_rate
+
     def forward(self, params: Params, x: torch.Tensor, *, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                dropout_mask: Optional[torch.Tensor] = None,
+                dp_perturb: Optional[Dict[str, torch.Tensor]] = None,
+                dp_capture: bool = False):
         """params: tree of (C, ...) tensors; x: (C, B, 28, 28, 1) normalized
         f32 images → (C, B, num_classes) f32 logits. ``generator`` draws the
-        whole (C, B, 128) dropout mask when training."""
+        whole (C, B, 128) dropout mask when training, unless
+        ``dropout_mask`` (a keep mask broadcastable to it) is given.
+        ``dp_perturb`` / ``dp_capture``: the ghost-DP taps (module
+        docstring); with ``dp_capture`` the result is (logits, captures)."""
+        if self.fused_conv_block and (dp_capture or dp_perturb is not None):
+            raise ValueError(_FUSED_TAPS_MESSAGE)
         cdt = self.dtype
         C, B = x.shape[:2]
-        segment = {False: conv_segment_unfused, True: conv_stack,
-                   "residual": conv_stack_res}[self.fused_conv_block]
-        h = segment(x.to(cdt), params["conv1"]["kernel"],
-                    params["conv1"]["bias"], params["conv2"]["kernel"],
-                    params["conv2"]["bias"])
+        captures: Dict[str, torch.Tensor] = {}
+
+        def pert(name, t):
+            if dp_perturb is not None:
+                t = t + dp_perturb[name].to(t.dtype)
+            return t
+
+        x = x.to(cdt)
+        w1, b1 = params["conv1"]["kernel"], params["conv1"]["bias"]
+        w2, b2 = params["conv2"]["kernel"], params["conv2"]["bias"]
+        if self.fused_conv_block:
+            op = (conv_stack_res if self.fused_conv_block == "residual"
+                  else conv_stack)
+            h = op(x, w1, b1, w2, b2)
+        else:
+            h = conv_segment_unfused(
+                x, w1, b1, w2, b2, dp_perturb,
+                captures if dp_capture else None)
         h = h.reshape(C, B, -1)
-        h = torch.bmm(h, params["fc1"]["kernel"].to(cdt)) \
-            + params["fc1"]["bias"].to(cdt)[:, None, :]
+        captures["fc1"] = h
+        h = pert("fc1", torch.bmm(h, params["fc1"]["kernel"].to(cdt))
+                 + params["fc1"]["bias"].to(cdt)[:, None, :])
         h = torch.relu(h)
         if train and self.dropout_rate > 0.0:
             keep_prob = 1.0 - self.dropout_rate
-            keep = torch.rand(h.shape, generator=generator,
-                              device=h.device) < keep_prob
+            keep = (dropout_mask if dropout_mask is not None else
+                    self.dropout_keep(C, B, generator, h.device))
             h = torch.where(keep, h / keep_prob, torch.zeros_like(h))
-        h = torch.bmm(h, params["fc2"]["kernel"].to(cdt)) \
-            + params["fc2"]["bias"].to(cdt)[:, None, :]
-        return h.float()
+        captures["fc2"] = h
+        h = pert("fc2", torch.bmm(h, params["fc2"]["kernel"].to(cdt))
+                 + params["fc2"]["bias"].to(cdt)[:, None, :])
+        out = h.float()
+        return (out, captures) if dp_capture else out
 
 
 def params_from_flax(tree, device="cpu") -> Params:

@@ -5,17 +5,20 @@ The reference's layout, with ``torch.save`` in place of orbax: one
 directory a checkpoint, ``round_{step:08d}/``, holding ``variables.pt``
 (the global model), a ``meta.json`` with ``version`` / ``round_number`` /
 ``host_state`` (the seed, the convergence detector, the (ε, δ) ledger, the
-RDP accountant, the PLD steps taken, the adaptive clip norm), and one
-``.pt`` file a piece of carried device state: ``server_opt_state``,
-``uplink_error``, ``scaffold`` (c, c_i) and ``feddyn`` (h, g). Arrays load
-onto the engine's device. A restored engine continues bit for bit as the
+RDP accountant of dp_sgd / client_dp / distributed, the PLD steps taken,
+the adaptive clip norm), and one ``.pt`` file a piece of carried state:
+``server_opt_state``, ``uplink_error``, ``scaffold`` (c, c_i), ``feddyn``
+(h, g) and ``dp_ftrl`` (the true prefix sum, the last released noisy
+prefix, the momentum, the per-client participation ledger and the tree
+nonce as two u32 words, the reference's keys). Arrays load onto the
+engine's device. A restored engine continues bit for bit as the
 uninterrupted one: every per-round random stream is a pure function of
 (seed, round, client), and the participation sampler's numpy state is in
 ``host_state`` too (the reference leaves it out, so its continuation
 draws other masks unless they are given).
 
-Not ported yet: the ``dp_ftrl`` block (with DP-FTRL) and the clustered,
-Ditto and async engines' checkpoints (with those engines).
+Not ported yet: the clustered, Ditto and async engines' checkpoints (with
+those engines).
 """
 
 from __future__ import annotations
@@ -162,6 +165,19 @@ def save_engine_checkpoint(engine, directory: str,
     if cfg.feddyn_alpha > 0:
         mgr.save_arrays(step, "feddyn", {"h": engine.feddyn_h,
                                          "g": engine.feddyn_grads})
+    if cfg.dp_mode == "dp_ftrl":
+        # the mechanism state, and the ledger that enforces k: losing
+        # either breaks the guarantee or the trajectory; the nonce keys
+        # the regenerated node noise, so a resume must keep this tree's
+        nonce = engine._ftrl_nonce
+        mgr.save_arrays(step, "dp_ftrl", {
+            "cumsum": engine.ftrl_cumsum,
+            "prev_noisy": engine.ftrl_prev_noisy,
+            "momentum": engine.ftrl_momentum_buf,
+            "participations": torch.from_numpy(
+                engine.ftrl_participations.copy()),
+            "tree_nonce": torch.tensor([nonce & 0xFFFFFFFF, nonce >> 32],
+                                       dtype=torch.int64)})
     return path
 
 
@@ -213,6 +229,14 @@ def restore_engine_checkpoint(engine, directory: str,
     fd = mgr.load_arrays(step, "feddyn", dev)
     if fd is not None and cfg.feddyn_alpha > 0:
         engine.feddyn_h, engine.feddyn_grads = fd["h"], fd["g"]
+    st = mgr.load_arrays(step, "dp_ftrl", dev)
+    if st is not None and cfg.dp_mode == "dp_ftrl":
+        engine.ftrl_cumsum = st["cumsum"]
+        engine.ftrl_prev_noisy = st["prev_noisy"]
+        engine.ftrl_momentum_buf = st["momentum"]
+        engine.ftrl_participations = st["participations"].cpu().numpy()
+        lo, hi = (int(w) for w in st["tree_nonce"])
+        engine._set_ftrl_nonce(lo | (hi << 32))
     load_host_state(engine, state["host_state"])
     logger.info("engine restored at round %d from %s", engine.round_number,
                 directory)

@@ -13,14 +13,29 @@ or, under dp_mode="client_dp" (client-level DP-FedAvg, McMahan et al.
 here) → each Δ clipped to C → masked sum over the FIXED expected
 participant count m̄ = max(1, q·N) → central N(0, σ²), σ = z·C/m̄ → θ_g +
 noisy mean; with adaptive clipping (Andrew et al. 2021) also the noisy
-clipped fraction and the next C.
+clipped fraction and the next C. The other DP mechanisms:
+
+- "dp_sgd" (example level): every local step's gradient is clipped per
+  example and noised inside the trainer (``fl.privacy``'s microbatch fold
+  or ghost norms, ``dp_sgd_impl``); FedAvg as without DP; RDP- or
+  PLD-accounted at q = batch/shard, one invocation a local step;
+- "dp_ftrl" (Kairouz et al. 2021, ``fl.dp_ftrl``): each participant's Δ
+  clipped to C, their masked SUM pushed into the carried prefix sum, and
+  the FTRL(M) server step against the tree-noised prefix; round-robin
+  cohorts, the per-client participation budget k, ε certified once;
+- "distributed" (``fl.distributed_dp``): each clipped Δ stochastically
+  rounded to the γ grid, Skellam noise (one aggregate draw, or one share
+  a client with ``dist_fuse_noise=False``), only the int32 modular sum
+  decoded over m̄; Skellam-RDP-accounted at the realized count.
 
 The Python round loop stays on the host: participation masks from the
 same numpy generator as the reference (so masks are identical for a
-seed; pure Poisson under client_dp), the budget checked and charged when a
-round is dispatched (the (ε, δ) ledger under "delta", the RDP accountant
-or the PLD step budget under "client_dp"), one host copy of the round's
-metrics when it is finalized, convergence bookkeeping.
+seed; pure Poisson under client_dp, rotation under dp_ftrl), the budget
+checked and charged when a round is dispatched (the (ε, δ) ledger under
+"delta", the RDP accountant or the PLD step budget under "client_dp" and
+"dp_sgd", the Skellam RDP under "distributed", the tree's one-off charge
+and the participation ledger under "dp_ftrl"), one host copy of the
+round's metrics when it is finalized, convergence bookkeeping.
 
 ``run_rounds_pipelined`` dispatches round r+1 before it reads round r's
 metrics back: CUDA launches are asynchronous, so the host's bookkeeping
@@ -28,8 +43,9 @@ for round r overlaps the device's work on round r+1, with the semantics of
 a ``run_round`` loop. Every dispatched round is finalized exactly once,
 also when a dispatch or a finalize raises, and zero rounds return ``[]``.
 
-Ported: ``dp_mode`` "none", "delta" and "client_dp" (with ``accountant``
-"rdp" or "pld", ``adaptive_clipping`` and ``audit_injection``);
+Ported: every ``dp_mode`` ("none", "delta", "dp_sgd", "client_dp",
+"dp_ftrl", "distributed"; ``accountant`` "rdp" or "pld",
+``adaptive_clipping`` and ``audit_injection``);
 ``uplink_compression`` (int8, topk, powersgd, with the error-feedback state
 ``uplink_error`` carried across rounds on the device) and
 ``downlink_compression`` (bfloat16, int8); the local-training options of
@@ -43,9 +59,7 @@ carried on the device), ``qffl_q`` (q-FFL, with F_k(θ̂) evaluated inside
 the superstep before local training) and ``trainable_patterns`` (parameter
 freezing through the trainer's gradient mask). The reference's feature
 rules for these raise its messages verbatim in its order (the trimmed-mean
-rule, which needs the client count, when the engine is built); the
-``dp_mode`` values "dp_sgd", "dp_ftrl" and "distributed" raise
-``ValueError`` naming them.
+rule, which needs the client count, when the engine is built).
 
 Other entry points: ``run_rounds_fused`` (R rounds dispatched back to back
 with one device→host copy of the stacked per-round metrics at the end),
@@ -79,6 +93,8 @@ from fl_tpu_torch.core.pytree import (
 from fl_tpu_torch.core.transfer import to_device
 from fl_tpu_torch.core.types import PrivacyConfig
 from fl_tpu_torch.data.federated import FederatedArrays
+from fl_tpu_torch.fl import distributed_dp as ddp
+from fl_tpu_torch.fl import dp_ftrl as ftrl
 from fl_tpu_torch.fl import privacy as dp
 from fl_tpu_torch.fl.accounting import RDPAccountant, rdp_subsampled_gaussian
 from fl_tpu_torch.fl.convergence import ConvergenceDetector, RoundObservation
@@ -128,9 +144,10 @@ logger = logging.getLogger(__name__)
 
 _DP_MODES = ("none", "delta", "dp_sgd", "client_dp", "dp_ftrl",
              "distributed")
-_PORTED_DP_MODES = ("none", "delta", "client_dp")
 # the modes that own their aggregation (clipped sum + central noise)
 _CENTRAL_DP = ("client_dp", "dp_ftrl", "distributed")
+# the modes accounted as a subsampled Gaussian (RDP, or PLD's step budget)
+_SUBSAMPLED_GAUSSIAN = ("dp_sgd", "client_dp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,8 +159,11 @@ class RoundEngineConfig:
     min_clients: int = 2
     max_clients: int = 50
     # "none" | "delta" (per-client clip + noise, the reference semantics)
+    # | "dp_sgd" (per-example clipping inside every local step)
     # | "client_dp" (clip each client's delta to C, masked sum over the
     # fixed m̄ = q·N, central noise σ = z·C/m̄, RDP-accounted at q)
+    # | "dp_ftrl" (tree-noised prefix sums, no sampling assumption)
+    # | "distributed" (Skellam shares over the int32 modular sum)
     dp_mode: str = "none"
     privacy: Optional[PrivacyConfig] = None
     epsilon_per_round: Optional[float] = None  # default: privacy.epsilon
@@ -151,8 +171,13 @@ class RoundEngineConfig:
     participation_rate: float = 1.0
     straggler_dropout_rate: float = 0.0
     seed: int = 0
-    # ε accountant of client_dp: "rdp" | "pld" (the gate then enforces the
-    # PLD-certified step count; the RDP ledger keeps running)
+    # DP-SGD: examples a per-example chunk (peak memory ≈ clients ×
+    # dp_microbatch × |params|), and the form: "auto" (ghost norms where
+    # the model declares the taps), "ghost" or "microbatch"
+    dp_microbatch: int = 16
+    dp_sgd_impl: str = "auto"
+    # ε accountant of dp_sgd / client_dp: "rdp" | "pld" (the gate then
+    # enforces the PLD-certified step count; the RDP ledger keeps running)
     accountant: str = "rdp"
     pld_dt: Optional[float] = None  # PLD grid; None = fl.pld's auto size
     # server-side optimizer on the FedAvg pseudo-gradient (Reddi et al.
@@ -189,6 +214,21 @@ class RoundEngineConfig:
     # client_dp only: run_round's inject_flags / inject_deltas replace the
     # flagged clients' deltas ahead of the clip (validation.audit)
     audit_injection: bool = False
+    # DP-FTRL (fl.dp_ftrl): privacy.noise_multiplier is the whole
+    # transcript's z; T_max (required) fixes the tree height. The nonce
+    # keys the node noise: None draws fresh OS entropy an engine; set it
+    # only to reproduce one run, never to continue a finished tree
+    ftrl_rounds: Optional[int] = None
+    ftrl_tree_nonce: Optional[int] = None
+    ftrl_max_participations: int = 1      # k: per-client round budget
+    ftrl_momentum: float = 0.9            # β of DP-FTRLM (0 = plain)
+    ftrl_cohort_size: Optional[int] = None  # m̄; default q·N rounded
+    ftrl_server_lr: float = 1.0
+    # distributed DP (fl.distributed_dp): grid γ = max_grad_norm /
+    # 2^dist_bits; dist_fuse_noise draws the summed Skellam noise once on
+    # the aggregate (the same distribution), False one share a client
+    dist_bits: int = 14
+    dist_fuse_noise: bool = True
     # the broadcast θ̂ the clients train from: "none" | "bfloat16" | "int8"
     # (per-leaf symmetric); deltas are measured against θ̂ and applied to
     # the full-precision master
@@ -220,11 +260,6 @@ class RoundEngineConfig:
         for message in _rule_messages(self):
             if message:
                 raise ValueError(message)
-        # what the port does not run yet
-        if self.dp_mode not in _PORTED_DP_MODES:
-            ported = ", ".join(map(repr, _PORTED_DP_MODES))
-            raise ValueError(f"dp_mode={self.dp_mode!r} is not ported yet "
-                             f"(only {ported})")
 
 
 def _rule_messages(cfg: RoundEngineConfig):
@@ -311,6 +346,23 @@ def _rule_messages(cfg: RoundEngineConfig):
                "bit-exactly); the float pairwise-masking path "
                "(secure_aggregation=True) does not apply — see "
                "fl_tpu.fl.distributed_dp.masked_integer_payloads")
+    yield (cfg.dp_mode == "distributed"
+           and (cfg.dist_bits < 4 or cfg.dist_bits > 20)
+           and f"dist_bits={cfg.dist_bits} outside [4, 20]: below, "
+               "quantization error dominates; above, int32 headroom "
+               "for the modular sum disappears")
+    yield (cfg.dp_mode == "dp_ftrl"
+           and (cfg.ftrl_rounds is None or cfg.ftrl_rounds < 1)
+           and "dp_mode='dp_ftrl' requires ftrl_rounds (T_max): the "
+               "tree height — and with it the calibrated node noise "
+               "— is fixed before round 0")
+    yield (cfg.dp_mode == "dp_ftrl" and cfg.server_optimizer != "none"
+           and "dp_ftrl owns the server update (FTRL on noisy prefix "
+               "sums); server_optimizer must be 'none'")
+    yield (cfg.dp_mode == "dp_ftrl" and cfg.secure_aggregation
+           and "dp_ftrl + on-chip secure aggregation is not wired "
+               "yet; use dp_ftrl alone (the wire secagg path is "
+               "independent)")
     yield (cfg.adaptive_clipping and cfg.dp_mode != "client_dp"
            and "adaptive_clipping tracks the client-level central clip "
                "norm and requires dp_mode='client_dp' (delta mode "
@@ -498,24 +550,50 @@ class FederatedRoundEngine:
             if self.privacy else None)
         self.accountant = dp.PrivacyAccountant()
 
-        # client_dp: the RDP accountant, charged once a round at q = the
-        # participation rate. q and z are fixed for the engine's life, so
-        # one round's RDP vector is computed here once and accumulated
-        # (the same values as stepping the accountant each round).
+        # the RDP accountant of dp_sgd, client_dp and distributed. Under
+        # the subsampled-Gaussian modes q, z and the invocations a round
+        # are fixed for the engine's life, so one round's RDP vector is
+        # computed once, at first use, and accumulated (the same values as
+        # stepping the accountant each round); distributed charges the
+        # Skellam bound at each round's realized count.
         self.rdp_accountant = None
-        self._round_rdp = None
-        if config.dp_mode == "client_dp":
+        self._round_rdp_vec = None
+        if config.dp_mode in _SUBSAMPLED_GAUSSIAN + ("distributed",):
             self.rdp_accountant = RDPAccountant()
-            q, steps = self._rdp_round_params()
-            self._round_rdp = steps * rdp_subsampled_gaussian(
-                q, self.privacy.noise_multiplier,
-                self.rdp_accountant.alphas)
         # PLD budget gate state: max steps certified under ε, steps taken
         self._pld_max_steps: Optional[int] = None
         self._pld_steps_taken: int = 0
         # client_dp's fixed denominator m̄ = max(1, q·N)
         self._expected_count = max(
             1.0, config.participation_rate * self.num_clients)
+
+        # DP-FTRL: certify the whole transcript's ε up front and freeze
+        # the tree's geometry (the sensitivity depends on T_max and k)
+        self._ftrl_eps_total = None
+        if config.dp_mode == "dp_ftrl":
+            z = self.privacy.noise_multiplier
+            eps_total = ftrl.gaussian_epsilon(z, self.privacy.delta)
+            if eps_total > self.privacy.epsilon + 1e-9:
+                raise dp.PrivacyError(
+                    f"dp_ftrl at z={z} certifies ε={eps_total:.3f} > "
+                    f"budget ε={self.privacy.epsilon}; raise "
+                    "noise_multiplier (fl_tpu.fl.dp_ftrl."
+                    "calibrate_noise_multiplier gives the smallest "
+                    "sufficient z)")
+            self._ftrl_eps_total = eps_total
+            self._ftrl_height = ftrl.tree_height(config.ftrl_rounds)
+            k = config.ftrl_max_participations
+            self._ftrl_sigma_node = (z * self.privacy.max_grad_norm
+                                     * math.sqrt(k * self._ftrl_height))
+            self._ftrl_cohort = (
+                config.ftrl_cohort_size
+                if config.ftrl_cohort_size is not None
+                else max(1, round(config.participation_rate
+                                  * self.num_clients)))
+            nonce = config.ftrl_tree_nonce
+            if nonce is None:
+                nonce = int.from_bytes(os.urandom(8), "little")
+            self._set_ftrl_nonce(int(nonce) & 0xFFFFFFFFFFFFFFFF)
 
         # adaptive clipping: σ_b, the feasibility check (2σ_b > z, else
         # PrivacyError) and the inflated aggregate multiplier z_Δ
@@ -565,9 +643,16 @@ class FederatedRoundEngine:
             # FedDyn's (α/2)‖θ − θ_g‖² term IS the FedProx proximal hook
             train_cfg = dataclasses.replace(
                 train_cfg, proximal_mu=config.feddyn_alpha)
+        if config.dp_mode == "dp_sgd" and "batch_stats" in self.global_variables:
+            raise ValueError(
+                "dp_sgd with BatchNorm is unsound: batch statistics couple "
+                "examples, so the per-example gradients DP-SGD clips are "
+                "ill-defined. Use a per-example normalization, e.g. "
+                "create_model('cifar10_cnn', norm='group').")
         self._local_train = make_local_train_fn(
             model, train_cfg, self.data.samples_per_client,
-            self.data.mean, self.data.std, grad_mask=self._grad_mask)
+            self.data.mean, self.data.std, grad_mask=self._grad_mask,
+            dp_sgd_fn=self._make_dp_sgd_fn())
         # q-FFL's F_k(θ̂): the masked eval-mode loss over each client's
         # shard at the model it received, inside the superstep
         self._qffl_eval = (make_federated_eval_fn(
@@ -623,8 +708,72 @@ class FederatedRoundEngine:
             else:
                 self.feddyn_h, self.feddyn_grads = server, clients
             self._flat_spec = stacked_spec(params, self.num_clients)
+        # distributed DP: the plan's sensitivity and noise from the model's
+        # real flat dim, certified against int32 wraparound up front
+        self._dist_plan = None
+        if config.dp_mode == "distributed":
+            self._dist_plan = ddp.DistributedDPPlan(
+                clip_norm=float(self.privacy.max_grad_norm),
+                bits=config.dist_bits,
+                dim=flat_dim(params, batched=False),
+                expected_clients=max(1, round(config.participation_rate
+                                              * self.num_clients)),
+                noise_multiplier=float(self.privacy.noise_multiplier))
+            ddp.check_no_wraparound(self._dist_plan, self.num_clients)
+        # DP-FTRL's mechanism state: the true clipped-sum prefix, the last
+        # released noisy prefix and the momentum, (D_pad,) on the device,
+        # and the host's per-client participation ledger enforcing k
+        if config.dp_mode == "dp_ftrl":
+            d_pad = padded_dim(flat_dim(params, batched=False))
+            self.ftrl_cumsum, self.ftrl_prev_noisy, self.ftrl_momentum_buf = (
+                torch.zeros((d_pad,), dtype=torch.float32, device=self.device)
+                for _ in range(3))
+            self.ftrl_participations = np.zeros((self.num_clients,),
+                                                np.int64)
+            self._ftrl_spec = stacked_spec(params, 1)
         self.history: List[RoundResult] = []
         self.detector = ConvergenceDetector()
+
+    @property
+    def _round_rdp(self) -> np.ndarray:
+        """One subsampled-Gaussian round's RDP vector (dp_sgd, client_dp),
+        computed at first use."""
+        if self._round_rdp_vec is None:
+            q, steps = self._rdp_round_params()
+            self._round_rdp_vec = steps * rdp_subsampled_gaussian(
+                q, self.privacy.noise_multiplier,
+                self.rdp_accountant.alphas)
+        return self._round_rdp_vec
+
+    def _make_dp_sgd_fn(self) -> Optional[Callable]:
+        """DP-SGD's per-step gradient (``fl.privacy``) under dp_sgd, with
+        the reference's choice of form and its messages; else None."""
+        cfg, model = self.config, self.model
+        if cfg.dp_mode != "dp_sgd":
+            return None
+        impl = cfg.dp_sgd_impl
+        if impl not in ("auto", "ghost", "microbatch"):
+            raise ValueError(f"dp_sgd_impl={impl!r} not in "
+                             "('auto', 'ghost', 'microbatch')")
+        if impl == "ghost" and not dp.model_supports_ghost_dp(model):
+            name = getattr(model, "name", type(model).__name__)
+            raise ValueError(
+                f"dp_sgd_impl='ghost' but model {name!r} lacks the "
+                "DP_LAYERS instrumentation contract")
+        clip, z = self.privacy.max_grad_norm, self.privacy.noise_multiplier
+        if impl == "ghost" or (impl == "auto"
+                               and dp.model_supports_ghost_dp(model)):
+            return dp.make_ghost_dp_sgd_grad_fn(model, clip, z)
+        return dp.make_dp_sgd_grad_fn(model, clip, z,
+                                      microbatch_size=cfg.dp_microbatch)
+
+    def _set_ftrl_nonce(self, nonce: int) -> None:
+        """The tree's nonce and its node-noise seed fold(fold(fold(root,
+        DP_NOISE), low word), high word)."""
+        self._ftrl_nonce = nonce
+        self._ftrl_tree_seed = prng.fold(prng.fold(
+            prng.stream_seed(self._root, prng.Stream.DP_NOISE),
+            nonce & 0xFFFFFFFF), nonce >> 32)
 
     @property
     def epochs_per_client(self) -> np.ndarray:
@@ -682,8 +831,9 @@ class FederatedRoundEngine:
                    clip_norm: Optional[float] = None,
                    inject: Optional[Tuple[torch.Tensor, Any]] = None):
         """One round on the device: returns (new global params, new uplink
-        state, the new carried state (SCAFFOLD's (c, c_i) or FedDyn's (h,
-        g)) or None, packed metrics). ``epochs`` is the (C,) epoch budget
+        state, the new carried state (SCAFFOLD's (c, c_i), FedDyn's (h, g)
+        or DP-FTRL's (prefix, noisy prefix, momentum)) or None, packed
+        metrics). ``epochs`` is the (C,) epoch budget
         where SCAFFOLD or FedNova reads it or the budgets differ;
         ``clip_norm`` adaptive clipping's C for this round; ``inject`` the
         audit's (flags, stacked deltas)."""
@@ -758,6 +908,16 @@ class FederatedRoundEngine:
                 global_params, ref_params, new_stacked, rseed, mask,
                 clip_norm, inject)
             del new_stacked
+        elif cfg.dp_mode == "distributed":
+            new_global, sigma_mean = self._distributed(
+                global_params, ref_params, new_stacked, rseed, mask)
+            del new_stacked
+        elif cfg.dp_mode == "dp_ftrl":
+            new_global, state_out = self._dp_ftrl(
+                global_params, new_stacked, mask, round_idx)
+            del new_stacked
+            sigma_mean = torch.tensor(self._ftrl_sigma_node,
+                                      dtype=torch.float32, device=self.device)
         if cfg.uplink_compression != "none":
             # the client's order: train → DP → compress → upload
             hat, ef_out, ef_norm = self._uplink(
@@ -768,7 +928,7 @@ class FederatedRoundEngine:
             del hat
 
         w = normalized_client_weights(self.data.num_samples, mask)
-        if cfg.dp_mode == "client_dp":
+        if cfg.dp_mode in _CENTRAL_DP:
             pass  # new_global is the central-DP release above
         elif feddyn:
             # FedDyn owns the server update: θ ← mean_P(θ_i) − h/α with
@@ -878,6 +1038,75 @@ class FederatedRoundEngine:
                                   device=self.device)
         return new_global, sigma_t, next_cn, frac
 
+    def _distributed(self, global_params, ref_params, new_stacked,
+                     rseed: int, mask: torch.Tensor):
+        """Distributed DP (``fl_tpu/orchestration/round_engine.py
+        :1097-1153``): each Δ clipped to C (the scale folded into the flat
+        rows), stochastically rounded to the γ grid, Skellam noise, the
+        int32 modular sum, decoded over the FIXED m̄. Returns (new global
+        params, σ of the decoded average). Random streams under
+        fold(round, DISTRIBUTED_DP): 0 the rounding of every client's row,
+        1 the per-client shares, 2 the aggregate draw."""
+        plan = self._dist_plan
+        deltas = tree_map(lambda c, g: c - g[None], new_stacked, ref_params)
+        norms = dp.client_norms(deltas)
+        mat, spec = stack_flatten(deltas)
+        del deltas
+        mat.mul_(torch.clamp(plan.clip_norm / torch.clamp(norms, min=1e-12),
+                             max=1.0)[:, None])
+        dseed = prng.stream_seed(rseed, prng.Stream.DISTRIBUTED_DP)
+        m_real = mask.sum()
+        if self.config.dist_fuse_noise:
+            ints = ddp.stochastic_round(mat, plan.gamma, prng.fold(dseed, 0))
+            ints *= (mask > 0).to(torch.int32)[:, None]
+            noise = ddp.aggregate_skellam_noise(
+                prng.fold(dseed, 2), m_real.double() * (plan.mu_local / 2.0),
+                mat.shape[1])
+            total = ddp.wrap_int32(ints.sum(0, dtype=torch.int64) + noise)
+        else:
+            ints = ddp.client_integer_payloads(
+                mat, mask, prng.fold(dseed, 0), prng.fold(dseed, 1),
+                plan.gamma, plan.mu_local)
+            total = ddp.modular_sum(ints)
+        del mat, ints
+        avg = ddp.decode_average(total, plan.gamma, plan.expected_clients)
+        avg_tree = stack_unflatten(avg[None], spec)
+        new_global = tree_map(lambda g, d: (g + d[0].float()).to(g.dtype),
+                              global_params, avg_tree)
+        sigma = (plan.gamma * torch.sqrt(plan.mu_local * m_real.float())
+                 / plan.expected_clients)
+        return new_global, sigma
+
+    def _dp_ftrl(self, global_params, new_stacked, mask: torch.Tensor,
+                 round_idx: int):
+        """DP-FTRL (``fl_tpu/orchestration/round_engine.py:1155-1194``):
+        each participant's params-Δ clipped to C, their masked SUM (no
+        division: the sensitivity is per leaf), the FTRL(M) step against
+        the tree-noised prefix. Returns (new global params, the carried
+        (prefix, noisy prefix, momentum))."""
+        deltas = tree_map(lambda c, g: (c - g[None]).float(), new_stacked,
+                          global_params)
+        norms = dp.client_norms(deltas)
+        cmat, _ = stack_flatten(deltas)
+        del deltas
+        scale = torch.clamp(self.privacy.max_grad_norm
+                            / torch.clamp(norms, min=1e-12), max=1.0)
+        round_sum = torch.tensordot(mask.float() * scale, cmat, dims=1)
+        del cmat
+        pmat, _ = stack_flatten(tree_map(lambda g: g[None].float(),
+                                         global_params))
+        cfg = self.config
+        new_pflat, cumsum, noisy, mom = ftrl.ftrl_server_step(
+            pmat[0], self.ftrl_cumsum, self.ftrl_prev_noisy,
+            self.ftrl_momentum_buf, round_sum, self._ftrl_tree_seed,
+            round_idx + 1, self._ftrl_sigma_node, self._ftrl_height,
+            cfg.ftrl_server_lr, float(self._ftrl_cohort), cfg.ftrl_momentum)
+        new_global = tree_map(lambda t, g: t[0].to(g.dtype),
+                              stack_unflatten(new_pflat[None],
+                                              self._ftrl_spec),
+                              global_params)
+        return new_global, (cumsum, noisy, mom)
+
     # ------------------------------------------------------------------
     # host round loop
     # ------------------------------------------------------------------
@@ -894,8 +1123,21 @@ class FederatedRoundEngine:
         lower a client's inclusion probability): forcing and capping are
         data-dependent selections that would void the subsampling
         amplification the RDP accountant relies on, and the fixed
-        denominator keeps an under-full round well defined."""
+        denominator keeps an under-full round well defined.
+
+        Under dp_ftrl the cohort is the deterministic round-robin
+        ``fl.dp_ftrl.rotation_mask`` (DP-FTRL needs no sampling), less
+        dropout and exclusions."""
         cfg = self.config
+        if cfg.dp_mode == "dp_ftrl":
+            mask = ftrl.rotation_mask(self.num_clients, self.round_number,
+                                      self._ftrl_cohort)
+            if cfg.straggler_dropout_rate > 0:
+                mask *= (self._np_rng.random(self.num_clients)
+                         >= cfg.straggler_dropout_rate).astype(np.float32)
+            if exclude:
+                mask[np.asarray(exclude, int)] = 0.0
+            return mask
         mask = (self._np_rng.random(self.num_clients)
                 < cfg.participation_rate).astype(np.float32)
         if cfg.straggler_dropout_rate > 0:
@@ -991,6 +1233,9 @@ class FederatedRoundEngine:
             self.scaffold_c, self.scaffold_ci = state_out
         elif self.config.feddyn_alpha > 0:
             self.feddyn_h, self.feddyn_grads = state_out
+        elif self.config.dp_mode == "dp_ftrl":
+            (self.ftrl_cumsum, self.ftrl_prev_noisy,
+             self.ftrl_momentum_buf) = state_out
 
     def _dispatch_round(self, mask: Optional[np.ndarray] = None,
                         inject_flags: Optional[np.ndarray] = None,
@@ -1002,11 +1247,16 @@ class FederatedRoundEngine:
         if mask is None:
             mask = self.sample_participation()
         self._check_realized(mask)
-        client_dp = cfg.dp_mode == "client_dp"
+        rdp_mode = cfg.dp_mode in _SUBSAMPLED_GAUSSIAN
         charge = (self.budget_tracker is not None
                   and cfg.dp_mode == "delta")
-        if client_dp:
+        dist_rdp = None
+        if cfg.dp_mode == "dp_ftrl":
+            self._ftrl_gate(mask)
+        if rdp_mode:
             self._client_dp_gate()
+        elif cfg.dp_mode == "distributed":
+            dist_rdp = self._distributed_gate(mask)
         elif charge:
             eps_r = cfg.epsilon_per_round or self.privacy.epsilon
             del_r = cfg.delta_per_round or self.privacy.delta
@@ -1041,6 +1291,8 @@ class FederatedRoundEngine:
             old_params, self.round_number, mask_t, self.uplink_error,
             self._epochs_tensor(), round_clip, inject)
         self._carry_state(state_out)
+        if cfg.dp_mode == "dp_ftrl":
+            self.ftrl_participations += (np.asarray(mask) > 0)
         if self._server_opt is not None:
             # a server step on the pseudo-gradient θ − θ_fedavg
             if self.server_opt_state is None:
@@ -1052,8 +1304,12 @@ class FederatedRoundEngine:
         eps_spent = 0.0
         ledger = None
         rn = self.round_number
-        if client_dp:
+        if rdp_mode:
             eps_spent, ledger = self._client_dp_charge(rn, round_clip)
+        elif cfg.dp_mode == "distributed":
+            eps_spent, ledger = self._distributed_charge(rn, dist_rdp, mask)
+        elif cfg.dp_mode == "dp_ftrl":
+            eps_spent = self._ftrl_charge(rn)
         elif charge:
             self.budget_tracker.consume_budget(eps_r, del_r, f"round_{rn}")
             eps_spent = eps_r
@@ -1072,13 +1328,24 @@ class FederatedRoundEngine:
                              ledger=ledger)
 
     # ------------------------------------------------------------------
-    # client_dp accounting (host)
+    # DP accounting (host)
     # ------------------------------------------------------------------
     def _rdp_round_params(self) -> Tuple[float, int]:
-        """(sampling rate q, mechanism invocations) of one client_dp round:
-        client level, q = the participation rate, ONE invocation a round
-        (the central noised aggregate)."""
-        return min(1.0, self.config.participation_rate), 1
+        """(sampling rate q, mechanism invocations) of one round's RDP
+        step. dp_sgd: example level, q = batch/shard, one invocation a
+        local step (padded slots are masked out of the DP gradient, so a
+        real example's inclusion probability a step is exactly q; shuffle
+        sampling accounted as Poisson, as opacus and tf-privacy do).
+        client_dp: client level, q = the participation rate, ONE
+        invocation a round (the central noised aggregate)."""
+        cfg = self.config
+        if cfg.dp_mode == "client_dp":
+            return min(1.0, cfg.participation_rate), 1
+        t = cfg.training
+        steps_per_epoch = max(1, self.data.samples_per_client
+                              // t.batch_size)
+        q = t.batch_size / max(self.data.samples_per_client, 1)
+        return q, t.local_epochs * steps_per_epoch
 
     def _pld_step_budget(self) -> int:
         """Max mechanism invocations the PLD curve certifies under
@@ -1130,8 +1397,9 @@ class FederatedRoundEngine:
         return self.accountant.get_total_privacy_cost()[0]
 
     def _client_dp_gate(self) -> None:
-        """Refuse a round that would overdraw ε: the PLD step budget under
-        'pld', else the RDP ε projected on a copy of the accountant."""
+        """Refuse a client_dp or dp_sgd round that would overdraw ε: the
+        PLD step budget under 'pld', else the RDP ε projected on a copy of
+        the accountant."""
         cfg = self.config
         _, steps = self._rdp_round_params()
         if cfg.accountant == "pld":
@@ -1152,9 +1420,10 @@ class FederatedRoundEngine:
                 "(RDP accounting)")
 
     def _client_dp_charge(self, rn: int, round_clip: Optional[float]):
-        """Charge one round to the RDP accountant and the PLD step count;
-        returns (ε spent, the deferred ledger entry, which records the
-        round's measured σ once its metrics are on the host)."""
+        """Charge one client_dp or dp_sgd round to the RDP accountant and
+        the PLD step count; returns (ε spent, the deferred ledger entry,
+        which records the round's σ: client_dp's measured one once its
+        metrics are on the host, dp_sgd's z·C/B)."""
         cfg = self.config
         q, steps = self._rdp_round_params()
         self._pld_steps_taken += steps
@@ -1169,11 +1438,101 @@ class FederatedRoundEngine:
                 "subsampled_gaussian", _eps, 0.0,
                 sensitivity=(round_clip if round_clip is not None
                              else self.privacy.max_grad_norm),
-                noise_scale=m["dp_sigma_mean"],
+                noise_scale=(m["dp_sigma_mean"]
+                             if cfg.dp_mode == "client_dp"
+                             else (self.privacy.noise_multiplier
+                                   * self.privacy.max_grad_norm
+                                   / cfg.training.batch_size)),
                 metadata={"round": rn, "mode": cfg.dp_mode,
                           "total_epsilon": _tot, "q": q, "steps": steps})
 
         return eps_spent, ledger
+
+    def _distributed_gate(self, mask: np.ndarray) -> np.ndarray:
+        """The Skellam RDP of this round at its REALIZED participant count
+        (fewer participants, less summed noise, a bigger charge); refuses
+        a round that would overdraw ε. Returns the round's RDP vector."""
+        dist_rdp = self._dist_plan.round_rdp(
+            int(np.sum(np.asarray(mask) > 0)))
+        projected = copy.deepcopy(self.rdp_accountant)
+        projected.accumulate(dist_rdp)
+        if projected.get_epsilon(self.privacy.delta) > self.privacy.epsilon:
+            raise dp.PrivacyError(
+                "Privacy budget exhausted — the next distributed-DP "
+                f"round would exceed ε={self.privacy.epsilon} "
+                "(Skellam RDP accounting)")
+        return dist_rdp
+
+    def _distributed_charge(self, rn: int, dist_rdp: np.ndarray,
+                            mask: np.ndarray):
+        """Charge one distributed round's Skellam RDP; returns (ε spent,
+        the deferred ledger entry)."""
+        before = (self.rdp_accountant.get_epsilon(self.privacy.delta)
+                  if rn > 0 else 0.0)
+        self.rdp_accountant.accumulate(dist_rdp)
+        total_eps = self.rdp_accountant.get_epsilon(self.privacy.delta)
+        eps_spent = total_eps - before
+        m_real = int(np.sum(np.asarray(mask) > 0))
+        plan = self._dist_plan
+
+        def ledger(m, _eps=eps_spent, _tot=total_eps, _m=m_real):
+            self.accountant.add_mechanism(
+                "skellam_distributed", _eps, 0.0,
+                sensitivity=plan.clip_norm,
+                noise_scale=plan.central_sigma_float(_m),
+                metadata={"round": rn, "mode": self.config.dp_mode,
+                          "total_epsilon": _tot, "realized_clients": _m,
+                          "bits": plan.bits,
+                          "mu_central": plan.mu_local * max(_m, 0)})
+
+        return eps_spent, ledger
+
+    def _ftrl_gate(self, mask: np.ndarray) -> None:
+        """Refuse a dp_ftrl round past the tree (T_max fixed its height
+        and sensitivity) or one that would take a client past its
+        participation budget k."""
+        cfg = self.config
+        if self.round_number >= cfg.ftrl_rounds:
+            raise dp.PrivacyError(
+                f"dp_ftrl tree exhausted: ftrl_rounds={cfg.ftrl_rounds} "
+                "fixed the tree height and sensitivity; running more "
+                "rounds would exceed the certified ε. Start a new "
+                "engine to continue (tree restart) — and let it draw "
+                "a FRESH ftrl_tree_nonce (the default): reusing a "
+                "nonce across trees reuses node noise, which "
+                "differencing would cancel.")
+        would = self.ftrl_participations + (np.asarray(mask) > 0)
+        if int(would.max()) > cfg.ftrl_max_participations:
+            over = np.flatnonzero(would > cfg.ftrl_max_participations)[:8]
+            raise dp.PrivacyError(
+                "dp_ftrl participation budget exceeded: clients "
+                f"{over.tolist()} would pass max_participations="
+                f"{cfg.ftrl_max_participations}, which the certified "
+                "sensitivity C*sqrt(k*h) assumed. Use rotation masks "
+                "(fl_tpu.fl.dp_ftrl.rotation_mask) or raise k (and "
+                "re-derive the noise).")
+
+    def _ftrl_charge(self, rn: int) -> float:
+        """The whole tree is one Gaussian mechanism certified up front:
+        charged once, at round 0. Returns the round's ε."""
+        if rn != 0:
+            return 0.0
+        cfg = self.config
+        eps = self._ftrl_eps_total
+        if self.budget_tracker is not None:
+            self.budget_tracker.consume_budget(eps, self.privacy.delta,
+                                               "dp_ftrl_tree")
+        self.accountant.add_mechanism(
+            "tree_gaussian", eps, self.privacy.delta,
+            sensitivity=ftrl.ftrl_sensitivity(
+                self.privacy.max_grad_norm, cfg.ftrl_rounds,
+                cfg.ftrl_max_participations),
+            noise_scale=self._ftrl_sigma_node,
+            metadata={"mode": "dp_ftrl", "t_max": cfg.ftrl_rounds,
+                      "k": cfg.ftrl_max_participations,
+                      "height": self._ftrl_height,
+                      "z": self.privacy.noise_multiplier})
+        return eps
 
     def _finalize_round(self, pending: _PendingRound,
                         evaluate: bool = True,
@@ -1269,8 +1628,9 @@ class FederatedRoundEngine:
         The (R, C) masks are sampled first (or given), the realized-
         participant checks run on each, and the budget for all R rounds is
         checked before anything is dispatched (the (ε, δ) ledger under
-        "delta"; the RDP projection under "client_dp", and the PLD step
-        budget under accountant "pld"). Then each round is dispatched and
+        "delta"; the RDP projection under "client_dp" and "dp_sgd", and
+        the PLD step budget under accountant "pld"; the Skellam RDP at
+        each mask's realized count under "distributed"). Then each round is dispatched and
         charged as ``run_round`` does, each round's ε the RDP marginal at
         its composition depth, and finalized from its row of the one copy;
         the test set is evaluated once, after the last round. With
@@ -1288,6 +1648,11 @@ class FederatedRoundEngine:
                 "run_rounds_fused does not support feddyn (the g_i/h "
                 "state is carried on the host between rounds); use "
                 "run_round / run")
+        if cfg.dp_mode == "dp_ftrl":
+            raise ValueError(
+                "run_rounds_fused does not support dp_ftrl (mechanism "
+                "state and the participation ledger are carried on the "
+                "host between rounds); use run_round / run")
         if self._server_opt is not None:
             raise ValueError(
                 "run_rounds_fused does not support a server optimizer "
@@ -1326,7 +1691,7 @@ class FederatedRoundEngine:
             self._check_realized(mask)
 
         # the budget for all R rounds, before anything is dispatched
-        if cfg.dp_mode == "client_dp":
+        if cfg.dp_mode in _SUBSAMPLED_GAUSSIAN:
             _, steps = self._rdp_round_params()
             projected = copy.deepcopy(self.rdp_accountant)
             for _ in range(num_rounds):
@@ -1342,6 +1707,16 @@ class FederatedRoundEngine:
                     f"ε={self.privacy.epsilon} (PLD accounting: "
                     f"{self._pld_steps_taken}+{steps * num_rounds} steps > "
                     f"{self._pld_step_budget()} certified)")
+        elif cfg.dp_mode == "distributed":
+            # the Skellam RDP of each round at its realized count
+            projected = copy.deepcopy(self.rdp_accountant)
+            for mask in masks:
+                projected.accumulate(self._dist_plan.round_rdp(
+                    int(np.sum(mask > 0))))
+            if projected.get_epsilon(self.privacy.delta) > self.privacy.epsilon:
+                raise dp.PrivacyError(
+                    f"{num_rounds} distributed-DP rounds would exceed "
+                    f"ε={self.privacy.epsilon} (Skellam RDP accounting)")
         elif self.budget_tracker is not None and cfg.dp_mode == "delta":
             eps_r = cfg.epsilon_per_round or self.privacy.epsilon
             del_r = cfg.delta_per_round or self.privacy.delta

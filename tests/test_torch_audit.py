@@ -215,7 +215,7 @@ def test_audit_refusals(config, kw, match):
 
 
 def test_audit_rejects_example_level_mode():
-    """dp_sgd is refused by the audit before its engine refuses the mode."""
+    """dp_sgd is refused by the audit: it certifies example-level DP."""
     class Cfg:
         dp_mode = "dp_sgd"
 

@@ -377,9 +377,17 @@ def test_client_dp_compositions_are_accepted(kwargs):
 
 @pytest.mark.parametrize("mode", ["dp_sgd", "dp_ftrl", "distributed"])
 def test_other_dp_modes_are_refused_by_name(mode):
+    """The other modes are ported: each is taken where the reference takes
+    it, and refused by the reference's rules with its messages, here
+    adaptive clipping outside client_dp."""
     validate_config(JaxConfig(dp_mode=mode, ftrl_rounds=4), 4)
-    with pytest.raises(ValueError, match=f"dp_mode='{mode}' is not ported"):
-        RoundEngineConfig(dp_mode=mode)
+    RoundEngineConfig(dp_mode=mode, ftrl_rounds=4)
+    kwargs = dict(dp_mode=mode, ftrl_rounds=4, adaptive_clipping=True)
+    with pytest.raises(ValueError) as want:
+        validate_config(JaxConfig(**kwargs), 4)
+    with pytest.raises(ValueError) as got:
+        RoundEngineConfig(**kwargs)
+    assert str(got.value) == str(want.value)
 
 
 # ---------------------------------------------------------------------------

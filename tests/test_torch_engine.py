@@ -317,22 +317,34 @@ def test_evaluate_and_run():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"dp_mode": "dp_sgd"}, {"adaptive_clipping": True},
+    {"dp_mode": "dp_ftrl"}, {"adaptive_clipping": True},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_features_are_refused(kwargs):
+    """Every dp_mode is ported; what stays refused is what the reference
+    refuses, naming the field: dp_ftrl without its tree size, adaptive
+    clipping outside client_dp."""
     name = next(iter(kwargs))
     with pytest.raises(ValueError, match=name):
         RoundEngineConfig(**kwargs)
 
 
+_DP = PrivacyConfig(epsilon=100.0, delta=1e-5, noise_multiplier=1.0)
+
+
 @pytest.mark.parametrize("kwargs", [
     {"feddyn_alpha": 0.1}, {"qffl_q": 1.0},
     {"trainable_patterns": (r".*conv.*",)},
-], ids=lambda kw: next(iter(kw)))
+    {"dp_mode": "dp_sgd", "privacy": _DP},
+    {"dp_mode": "dp_ftrl", "ftrl_rounds": 4, "privacy": _DP},
+    {"dp_mode": "distributed", "privacy": _DP},
+], ids=lambda kw: "-".join(str(v) for v in list(kw.values())[:1])
+    if "dp_mode" in kw else next(iter(kw)))
 def test_formerly_unported_features_are_accepted(kwargs):
-    """Refused until FedDyn, q-FFL and PEFT were ported; now each is taken
-    and builds an engine (their rounds are held to the JAX engine in
-    tests/test_torch_feddyn_qffl_peft.py)."""
+    """Refused until FedDyn, q-FFL, PEFT and the DP-SGD, DP-FTRL and
+    distributed-DP mechanisms were ported; now each is taken and builds an
+    engine (their rounds are held to the JAX engine in
+    tests/test_torch_feddyn_qffl_peft.py, test_torch_dp_sgd.py,
+    test_torch_dp_ftrl.py and test_torch_distributed_dp.py)."""
     arr = make_federated_arrays(load_dataset("mnist", n_train_synth=64,
                                              n_test_synth=8), 2, "iid")
     eng = FederatedRoundEngine(create_model("simple_cnn"), arr,

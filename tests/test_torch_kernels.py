@@ -35,6 +35,12 @@ at the edges of its design: a tile over two images, a ragged last tile,
 three column passes, the 128-byte swizzle, two boxes a pixel, clients
 changing inside a block, a ring of two images, a misaligned view).
 
+DP-SGD's microbatch form folds a (C, m) chunk of examples into a (C·m, 1)
+batch: K1/K2 (and K4) are held to their plain versions at that shape (one
+image a client, a partial block of the four images a block takes), and on
+the card the ghost form equals the microbatch form on the unfused model
+and on K1/K2 at the reference's rtol 2e-4 / atol 2e-5 (f32).
+
 Two plain functions of the port's device path are held on the card too:
 the stacked stochastic bf16 rounding equals the CPU's bit for bit, and
 Krum's Gram product stays in full f32 with the TF32 switch on (equal to
@@ -181,6 +187,70 @@ def test_conv_kernels_match_plain(cuda, dtype, ones):
             torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
         else:
             assert float((a - b).norm() / b.norm().clamp(min=1e-30)) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_kernels_at_the_dp_sgd_fold_shape(cuda, dtype):
+    """512 clients x a DP-SGD chunk of 16 examples folded into 8192
+    clients of one image each: K1, K2 and K4 against their plain versions,
+    K4 bit-equal to K1 / K2 fed K1's residuals."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    args = _conv_inputs(gen, 8192, 1, 28, 32, 64, dtype, cuda)
+    x, w1, b1, w2, b2 = args
+    pooled, idx = cb.conv_block_fwd_cuda(*args)
+    want, want_idx = cb.conv_stack_res_fwd_plain(*args)
+    _assert_k1_close(pooled, want, dtype)
+    assert torch.equal(cb.conv_stack_fwd_cuda(*args), pooled)
+    gy = torch.randn(pooled.shape, generator=gen, device=cuda)
+    gy = (gy * (want > 0)).to(dtype).contiguous()
+    got = cb.conv_block_bwd_cuda(gy, want_idx, x, w1, b1, w2)
+    ref = cb.conv_stack_res_bwd_plain(gy, want_idx, x, w1, b1, w2)
+    for a, b in zip(got, ref):
+        assert a.shape[0] == 8192
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+        else:
+            assert float((a - b).norm() / b.norm().clamp(min=1e-30)) <= 1e-2
+    g_k = (torch.randn(pooled.shape, generator=gen, device=cuda)
+           * (pooled > 0)).to(dtype).contiguous()
+    k2 = cb.conv_block_bwd_cuda(g_k, idx, x, w1, b1, w2)
+    k4 = cb.conv_stack_bwd_cuda(g_k, *args)
+    assert all(torch.equal(a, b) for a, b in zip(k2, k4))
+
+
+@pytest.mark.cuda
+def test_dp_sgd_ghost_equals_microbatch_on_the_card(cuda):
+    """The two DP-SGD forms on the card, f32, z = 1.1, the same seeds: the
+    ghost form on the unfused model against the microbatch fold on the
+    unfused model and on ``"residual"`` (K1/K2 at the fold's shape, which
+    must have been launched), leaf by leaf."""
+    from fl_tpu_torch.fl import privacy as dp
+    from fl_tpu_torch.models import create_model
+
+    C, B = 3, 8
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    xb = torch.randn((C, B, 28, 28, 1), generator=gen, device=cuda)
+    yb = torch.randint(0, 10, (C, B), generator=gen, device=cuda)
+    wmask = torch.ones((C, B), device=cuda)
+    wmask[0, 2] = 0.0
+    unfused = create_model("simple_cnn", dropout_rate=0.0)
+    init = unfused.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    params = {l: {k: torch.stack([v * (1 + 0.1 * c) for c in range(C)])
+                  for k, v in d.items()} for l, d in init.items()}
+    args = (params, xb, yb, wmask, 1, 2)
+    ghost = dp.make_ghost_dp_sgd_grad_fn(unfused, 0.7, 1.1)(*args)
+    ops.reset_launch_counts()
+    for fused in (False, "residual"):
+        model = create_model("simple_cnn", dropout_rate=0.0,
+                             fused_conv_block=fused)
+        micro = dp.make_dp_sgd_grad_fn(model, 0.7, 1.1, 4)(*args)
+        for l in ghost:
+            for k in ghost[l]:
+                torch.testing.assert_close(ghost[l][k], micro[l][k],
+                                           rtol=2e-4, atol=2e-5)
+    counts = ops.launch_counts()
+    assert counts["conv_block_fwd"] == counts["conv_block_bwd"] == B // 4
 
 
 def _assert_k1_close(pooled, want, dtype):

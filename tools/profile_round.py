@@ -4,7 +4,8 @@
     python3 tools/profile_round.py parts
     python3 tools/profile_round.py profile [--out DIR] [residual|true|false|
         up-int8|up-topk|up-powersgd|down-bf16|down-int8|down-int8+up-topk|
-        client-dp|v1|v2|v2-f32|v3|v4|v5|v6|v7 ...]
+        client-dp|v1|v2|v2-f32|v3|v4|v5|v6|v7|dp-sgd-microbatch|
+        dp-sgd-ghost|dp-ftrl|distributed-fused|distributed-per-client ...]
 
 ``sweep`` times the four conv kernels at the bench shapes (512 clients x 32
 images, bf16, C1=32, C2=64) for each thread count per block, CUDA events
@@ -29,7 +30,10 @@ configurations (``up-*``: uplink int8, top-k 1%, PowerSGD rank 4;
 cells of its ``phase_fl_variants`` (``chip_smoke.variant_engine``), or
 ``v2-f32``, V2 with its parameters stored in f32, or ``v5`` .. ``v7``,
 FedDyn, q-FFL and PEFT as its ``phase_engine_api`` runs them
-(``chip_smoke.api_engine``): one warm-up round,
+(``chip_smoke.api_engine``), or the other DP mechanisms' cells of its
+``phase_dp_mechanisms`` (``chip_smoke.mechanism_cells``: DP-SGD's
+microbatch fold on ``"residual"`` and ghost norms on ``False``, DP-FTRL,
+distributed DP with fused and per-client noise): one warm-up round,
 then 3 pipelined rounds under ``torch.profiler``, and prints the device
 time per round grouped by kernel family, the launches per round, the busy
 share of the profiled window, rounds/s without the profiler (3 pipelined
@@ -85,6 +89,8 @@ FAMILIES = (
     ("_scatter_gather", "scatter and gather"),
     ("Memcpy", "copies and casts"),
     ("copy_kernel", "copies and casts"),
+    ("poisson", "torch.poisson (Skellam draws)"),
+    ("distribution", "random draws (rand, randn)"),
     ("elementwise", "PyTorch elementwise"),
 )
 
@@ -252,6 +258,9 @@ def main(argv) -> int:
     for v in chip_smoke.API_CELLS:
         modes[v.lower()] = (f"{v} ({chip_smoke.API_LABELS[v]})",
                             lambda v=v: chip_smoke.api_engine(v))
+    for name, cell in chip_smoke.mechanism_cells().items():
+        modes[name] = (name, lambda cell=cell:
+                       chip_smoke.mechanism_engine(**cell))
     out_dir = None
     if argv[1:2] == ["--out"] and len(argv) > 2:
         out_dir, argv = Path(argv[2]), argv[:1] + argv[3:]
