@@ -141,6 +141,23 @@ line each; any failure exits non-zero:
    variance at the bench plan's per-client and aggregate rates, the modular
    sum against the int64 sum mod 2^32 (a ``dp_mechanisms functions``
    line);
+   then the CIFAR-10 slice (``phase_cifar``): K3 at CIFAR10CNN's five
+   leaf groups (512 clients; the conv5, conv6, fc1 and fc2 kernels alone,
+   the batch statistics and small params together) against its plain
+   version, exact at sigma = 0, its noise against the Philox oracle at the
+   ragged last group and by its moments, timed with its bound; the main
+   path, the bench's round with CIFAR10CNN(norm="batch") in bf16 and the
+   on-device augmentation (512 clients x 64 synthetic images, delta DP at
+   the bench's budget): one warm-up and 2 pipelined rounds, K3 launched 5
+   times a round and nothing else, finite losses, ``batch_stats`` finite
+   and moved (the count of noised running variances below zero printed),
+   rounds/s, the device span a round and peak memory (a ``cifar main
+   path`` line); DP-SGD ghost on CIFAR10CNN(norm="group") at
+   ``scripts/dp_sgd_cifar_eps15.py``'s shape (24 clients x 4,096 samples,
+   batch 256, SGD lr 0.05, C = 1, z RDP-calibrated to ε = 1.5 over 30
+   rounds), ε by round equal to a fresh RDP accountant's; and a learning
+   check, 10 IID clients, weak delta DP, 3 rounds, test accuracy on the
+   running statistics > 0.5;
 6. learning check: 10 non-IID clients, 3 rounds, test accuracy > 0.5, with
    ``fused_conv_block="residual"`` and with ``True``, and with
    ``"residual"`` under SCAFFOLD (SGD lr 0.05), under FedNova (SGD lr
@@ -307,6 +324,24 @@ FTRL_T = 8              # tree height 4; rotation allows 10 rounds at k = 1
 DIST_Z = 1.0
 DIST_CLIP = 1.0
 DIST_EPSILON = 64.0
+# the CIFAR-10 slice (phase_cifar): the bench's round shape with
+# CIFAR10CNN(norm="batch") and augmentation, and DP-SGD ghost on
+# CIFAR10CNN(norm="group") at scripts/dp_sgd_cifar_eps15.py's shape
+CIFAR_ROUNDS = 2        # pipelined, after a warm-up round
+CIFAR_PARAMS = 1_470_890
+CIFAR_STATS = 896
+# K3's groups at CIFAR10CNN, in launch order: the standalone leaves of at
+# least 65,536 elements a client (conv5, conv6, fc1, fc2 kernels), then
+# the concatenated rest (batch_stats and the small params)
+CIFAR_K3_GROUPS = (73_728, 147_456, 1_048_576, 131_072, 70_954)
+GHOST_CLIENTS = 24
+GHOST_SAMPLES = 4096
+GHOST_BATCH = 256
+GHOST_LR = 0.05
+GHOST_EPSILON = 1.5     # the script's target over its 30 rounds
+GHOST_PLANNED_ROUNDS = 30
+GHOST_ROUNDS = 2        # run here, after a warm-up round
+GHOST_DELTA = 1e-5
 PROBE_GEMM_SHAPE = (BATCH_SIZE * 16 * 16, 9 * 32, 64)
 # K8a's small cases: whole tiles, edges ragged in every dimension (no
 # 16-byte rows: the staged route); in bf16 also one client of the bench
@@ -3387,6 +3422,290 @@ def qffl_learning_check():
     qffl_spread_check()
 
 
+def cifar_arrays(num_clients=NUM_CLIENTS, samples=SAMPLES_PER_CLIENT,
+                 n_test=1024):
+    """IID shards of synthetic CIFAR-10 (host), and the splits."""
+    from fl_tpu_torch.data import load_dataset, make_federated_arrays
+
+    splits = load_dataset("cifar10", n_train_synth=num_clients * samples,
+                          n_test_synth=n_test)
+    return make_federated_arrays(splits, num_clients=num_clients,
+                                 strategy="iid", samples_per_client=samples,
+                                 seed=0), splits
+
+
+def cifar_engine(num_clients=NUM_CLIENTS, samples=SAMPLES_PER_CLIENT,
+                 eps_r=EPS_R, delta_r=DELTA_R, max_grad_norm=1.0,
+                 local_epochs=LOCAL_EPOCHS, test=False):
+    """The CIFAR-10 slice's main path: the bench's round (512 IID clients x
+    64 synthetic images, 5 local epochs of Adam at batch 32, lr 1e-3,
+    moments in bf16, delta DP at the bench's per-round budget) with
+    CIFAR10CNN(norm="batch") in bf16 and the on-device augmentation."""
+    import torch
+
+    from fl_tpu_torch.core.types import PrivacyConfig
+    from fl_tpu_torch.fl.local_training import FederatedTrainingConfig
+    from fl_tpu_torch.models import create_model
+    from fl_tpu_torch.ops.preprocess import make_cifar_augment
+    from fl_tpu_torch.orchestration import (FederatedRoundEngine,
+                                            RoundEngineConfig)
+
+    arrays, splits = cifar_arrays(num_clients, samples)
+    cfg = RoundEngineConfig(
+        training=FederatedTrainingConfig(
+            local_epochs=local_epochs, batch_size=BATCH_SIZE,
+            learning_rate=0.001, optimizer_state_dtype="bfloat16"),
+        dp_mode="delta",
+        privacy=PrivacyConfig(epsilon=1.0 if eps_r == EPS_R else 1e9,
+                              delta=1e-5, max_grad_norm=max_grad_norm),
+        epsilon_per_round=eps_r, delta_per_round=delta_r,
+        max_clients=num_clients, seed=0)
+    extra = {}
+    if test:
+        extra = dict(test_images=splits.normalized(splits.test_images),
+                     test_labels=splits.test_labels)
+    return FederatedRoundEngine(
+        create_model("cifar10_cnn", dtype=torch.bfloat16), arrays, cfg,
+        device=DEVICE, augment_fn=make_cifar_augment(), **extra)
+
+
+def cifar_ghost_z():
+    """The script's noise multiplier: RDP-calibrated to ε = 1.5 over its
+    30 rounds of 16 steps at q = 256/4096."""
+    from fl_tpu_torch.fl.accounting import calibrate_noise_multiplier
+
+    steps = GHOST_PLANNED_ROUNDS * (GHOST_SAMPLES // GHOST_BATCH)
+    return calibrate_noise_multiplier(GHOST_EPSILON, GHOST_DELTA,
+                                      GHOST_BATCH / GHOST_SAMPLES, steps)
+
+
+def cifar_ghost_engine():
+    """DP-SGD ghost on CIFAR10CNN(norm="group") at the shape of
+    scripts/dp_sgd_cifar_eps15.py (24 clients x 4,096 synthetic samples, 1
+    local epoch at batch 256, SGD lr 0.05, bf16 compute, C = 1), under the
+    RDP accountant."""
+    import torch
+
+    from fl_tpu_torch.core.types import PrivacyConfig
+    from fl_tpu_torch.fl.local_training import FederatedTrainingConfig
+    from fl_tpu_torch.models import create_model
+    from fl_tpu_torch.orchestration import (FederatedRoundEngine,
+                                            RoundEngineConfig)
+
+    arrays, _ = cifar_arrays(GHOST_CLIENTS, GHOST_SAMPLES)
+    return FederatedRoundEngine(
+        create_model("cifar10_cnn", norm="group", dtype=torch.bfloat16),
+        arrays,
+        RoundEngineConfig(
+            training=FederatedTrainingConfig(
+                local_epochs=1, batch_size=GHOST_BATCH,
+                learning_rate=GHOST_LR, optimizer_type="sgd"),
+            dp_mode="dp_sgd", dp_sgd_impl="ghost", accountant="rdp",
+            privacy=PrivacyConfig(epsilon=GHOST_EPSILON, delta=GHOST_DELTA,
+                                  max_grad_norm=1.0,
+                                  noise_multiplier=cifar_ghost_z()),
+            max_clients=GHOST_CLIENTS, seed=0),
+        device=DEVICE)
+
+
+def check_k3_at_cifar(card):
+    """K3 against its plain version at CIFAR10CNN's five groups (512
+    clients): σ = 0 exact to 1e-6 relative, timed against the plain
+    version and its bound; its noise at the ragged width of the last group
+    equal to the numpy Philox oracle and N(0, 1) by its moments. Returns
+    the line's text."""
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch.core import prng
+    from fl_tpu_torch.ops import dp as dpo
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    C = NUM_CLIENTS
+    rseed = prng.round_seed(prng.root_seed(0), 1)
+    groups = []
+    for gi, D in enumerate(CIFAR_K3_GROUPS):
+        xg = torch.randn((C, D), generator=gen, device="cuda") * 1e-3
+        scale = torch.rand((C,), generator=gen, device="cuda")
+        seeds = torch.as_tensor(prng.as_int64(prng.client_stream_seeds(
+            rseed, C, prng.Stream.DP_NOISE, gi))).cuda()
+        groups.append((xg, scale, seeds))
+    err = 0.0
+    for xg, scale, seeds in groups:
+        got = dpo.clip_noise_cuda(xg, scale, torch.zeros_like(scale), seeds)
+        want = xg * scale[:, None]
+        err = max(err, float((got - want).abs().max()))
+        require(torch.allclose(got, want, rtol=1e-6, atol=0.0),
+                f"K3 at CIFAR's group of {xg.shape[1]}: sigma=0 output is "
+                "not x*scale to 1e-6 relative")
+    sig = torch.full((C,), 0.01, device="cuda")
+    n = sum(xg.numel() for xg, _, _ in groups)
+    b_ms, b_by = bound(8 * n + len(groups) * 2 * 16 * C, 10 * n, F32_FLOPS)
+    ms = time_ms(lambda: [dpo.clip_noise_cuda(xg, s, sig, sd)
+                          for xg, s, sd in groups])
+    plain = time_ms(lambda: [dpo.clip_noise_plain(xg, s, sig, sd)
+                             for xg, s, sd in groups], reps=2)
+    del groups
+    # the noise at the ragged width, two real clients' seeds
+    oracle = philox_oracle()
+    D = CIFAR_K3_GROUPS[-1]
+    seeds = prng.as_int64(prng.client_stream_seeds(
+        rseed, 2, prng.Stream.DP_NOISE, len(CIFAR_K3_GROUPS) - 1))
+    z = dpo.clip_noise_cuda(torch.zeros((2, D), device="cuda"),
+                            torch.zeros(2, device="cuda"),
+                            torch.ones(2, device="cuda"),
+                            torch.as_tensor(seeds).cuda()).cpu().numpy()
+    counter, word = (t.numpy() for t in dpo.noise_layout(D))
+    worst = max(float(np.abs(z[c] - oracle.box_muller(seeds[c], counter,
+                                                       word)).max())
+                for c in range(2))
+    require(worst <= 1e-5, f"K3 at width {D} differs from the Philox oracle "
+            f"by {worst} (tol 1e-5)")
+    flat = z.astype(np.float64).ravel()
+    mean, var = float(flat.mean()), float(flat.var())
+    require(abs(mean) <= 0.02 and abs(var - 1) <= 0.03,
+            f"K3 at width {D}: noise mean {mean}, variance {var}")
+    return (f"K3 at CIFAR's groups {list(CIFAR_K3_GROUPS)} x {C} clients: "
+            f"sigma=0 exact to 1e-6 (max abs err {err:.1e}), the Philox "
+            f"oracle to {worst:.1e} at D={D}, noise mean {mean:.2e} var "
+            f"{var:.4f}; {ms:.3f} ms a round's five launches (plain "
+            f"{plain:.3f}, bound {b_ms:.3f} by {b_by})")
+
+
+def phase_cifar(card):
+    """The CIFAR-10 slice on the card: the main path (CIFAR10CNN with
+    BatchNorm, augmentation, per-client batch statistics, delta DP with K3
+    at five groups, 512 clients; a warm-up and 2 pipelined rounds), K3 at
+    those groups against its plain version, DP-SGD ghost on the GroupNorm
+    model at the script's shape (ε after each round against a fresh
+    accountant), and a learning check."""
+    import torch
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.core.pytree import tree_get, tree_leaves, tree_map
+    from fl_tpu_torch.fl.accounting import RDPAccountant
+    from fl_tpu_torch.fl.privacy import leaf_groups
+
+    print(f"cifar {check_k3_at_cifar(card)} [{card}]", flush=True)
+
+    # 1. the main path
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = cifar_engine()
+    build_s = time.perf_counter() - t0
+    variables = engine.global_variables
+    require(sum(t.numel() for t in tree_leaves(variables["params"]))
+            == CIFAR_PARAMS and sum(t.numel() for t in tree_leaves(
+                variables["batch_stats"])) == CIFAR_STATS,
+            "CIFAR10CNN's parameter or statistics count")
+    widths = tuple(sum(tree_get(variables, p).numel() for p in g)
+                   for g in leaf_groups(tree_map(lambda t: t[None],
+                                                 variables)))
+    require(widths == CIFAR_K3_GROUPS, f"K3's groups at CIFAR {widths}")
+    stats0 = [t.clone() for t in tree_leaves(variables["batch_stats"])]
+    t0 = time.perf_counter()
+    warm = engine.run_round(evaluate=False)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    t0 = time.perf_counter()
+    results = engine.run_rounds_pipelined(CIFAR_ROUNDS, evaluate=False)
+    end.record()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    device_ms = start.elapsed_time(end) / CIFAR_ROUNDS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = dict.fromkeys(counts, 0)
+    want["clip_noise"] = len(CIFAR_K3_GROUPS) * CIFAR_ROUNDS
+    require(counts == want, f"cifar: launch counts {counts}, expected "
+                            f"{want}")
+    losses = [warm.train_loss] + [r.train_loss for r in results]
+    require(all(math.isfinite(v) for v in losses), f"cifar: losses {losses}")
+    stats = tree_leaves(engine.global_variables["batch_stats"])
+    require(all(bool(torch.isfinite(t).all()) for t in stats)
+            and all(not torch.equal(a, b) for a, b in zip(stats, stats0)),
+            "cifar: batch_stats not finite or unchanged")
+    neg = sum(int((t < 0).sum()) for t in stats[1::2])
+    print(f"cifar main path: CIFAR10CNN(norm='batch') bf16, augmentation, "
+          f"{NUM_CLIENTS} clients x {SAMPLES_PER_CLIENT} images, delta DP "
+          f"eps_r={EPS_R:.4f}, engine built in {build_s:.1f}s, warm-up "
+          f"round {warm_s:.2f}s, {CIFAR_ROUNDS} pipelined rounds in "
+          f"{dt:.3f}s -> {CIFAR_ROUNDS / dt:.3f} rounds/s, device span "
+          f"{device_ms:.1f} ms a round (CUDA events), peak memory "
+          f"{peak:.2f} GiB, launches {counts['clip_noise']} clip_noise "
+          f"({counts['clip_noise'] // CIFAR_ROUNDS} a round, 0 elsewhere), "
+          f"losses {[f'{v:.4g}' for v in losses]}, batch_stats finite and "
+          f"moved ({neg} of {CIFAR_STATS // 2} running variances negative "
+          f"under the noise) [{card}]", flush=True)
+    del engine, results
+    torch.cuda.empty_cache()
+
+    # 2. DP-SGD ghost on the GroupNorm model, the script's shape
+    torch.cuda.reset_peak_memory_stats()
+    engine = cifar_ghost_engine()
+    z = engine.privacy.noise_multiplier
+    t0 = time.perf_counter()
+    results = [engine.run_round(evaluate=False)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(GHOST_ROUNDS):
+        results.append(engine.run_round(evaluate=False))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(not any(counts.values()), f"cifar ghost: launches {counts}")
+    steps = GHOST_SAMPLES // GHOST_BATCH
+    fresh = RDPAccountant()
+    eps = []
+    for i, entry in enumerate(engine.accountant.get_privacy_ledger()):
+        fresh.step(GHOST_BATCH / GHOST_SAMPLES, z, steps)
+        want_eps = fresh.get_epsilon(GHOST_DELTA)
+        require(entry["metadata"]["total_epsilon"] == want_eps,
+                f"cifar ghost: round {i} ε {entry['metadata']} against a "
+                f"fresh accountant's {want_eps}")
+        eps.append(want_eps)
+    require(len(eps) == len(results)
+            and engine.certified_epsilon() == eps[-1],
+            f"cifar ghost: certified {engine.certified_epsilon()}, ε {eps}")
+    losses = [r.train_loss for r in results]
+    require(all(math.isfinite(v) for v in losses),
+            f"cifar ghost: losses {losses}")
+    print(f"cifar dp_sgd ghost: CIFAR10CNN(norm='group') bf16, "
+          f"{GHOST_CLIENTS} clients x {GHOST_SAMPLES} samples, batch "
+          f"{GHOST_BATCH} ({steps} steps a round), SGD lr {GHOST_LR}, C=1, "
+          f"z={z:.4f}, warm-up round {warm_s:.2f}s, {GHOST_ROUNDS} rounds in "
+          f"{dt:.3f}s -> {GHOST_ROUNDS / dt:.3f} rounds/s, peak memory "
+          f"{peak:.2f} GiB, no kernel launches, losses "
+          f"{[round(v, 4) for v in losses]}, ε by round "
+          f"{[round(v, 4) for v in eps]} (= a fresh RDP accountant's) "
+          f"[{card}]", flush=True)
+    del engine, results
+    torch.cuda.empty_cache()
+
+    # 3. learning: 10 IID clients, weak delta DP, eval on the running
+    # statistics. The main path's 5 local epochs (80 steps a round): at
+    # momentum 0.99 the running statistics lag the moving weights, and
+    # with 2 epochs an H100 read 0.668 in the third round after 0.969
+    engine = cifar_engine(num_clients=10, samples=512, eps_r=1e8,
+                          delta_r=1e-7, max_grad_norm=100.0, test=True)
+    accs = [r.test_accuracy for r in engine.run(num_rounds=3)]
+    require(all(math.isfinite(a) for a in accs) and accs[-1] > 0.5,
+            f"cifar learning: test accuracy after 3 rounds {accs}")
+    print(f"learning cifar10_cnn(norm='batch') bf16 + augmentation, weak "
+          f"delta DP: 10 IID clients, test accuracy by round (running "
+          f"statistics) {[round(a, 4) for a in accs]}", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+
+
 def kernel_report():
     src_cu = "fl_tpu_torch/csrc/conv_block.cu"
     rows = (
@@ -3486,6 +3805,10 @@ def main() -> int:
 
     # 5f. DP-SGD, DP-FTRL and distributed DP
     phase_dp_mechanisms(card, report)
+
+    # 5g. CIFAR-10: CIFAR10CNN with per-client batch statistics, the
+    # augmentation, K3 at five groups; DP-SGD ghost on GroupNorm
+    phase_cifar(card)
 
     # 6. learning checks
     learning_check("residual")

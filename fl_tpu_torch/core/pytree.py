@@ -1,32 +1,71 @@
-"""Parameter-tree helpers: trees are ``{layer: {leaf: tensor}}`` dicts with
-flax's names, walked in flax's flatten order (sorted keys); and the
-"/"-joined flat form of nested dicts (``fl_tpu.core.pytree``'s
-``flatten_dict`` / ``unflatten_dict``), which the masks of ``fl.peft``, the
-engine's weights API and the checkpoint use."""
+"""Parameter-tree helpers: trees are nested dicts of tensors with flax's
+names (``{layer: {leaf}}`` for a model's parameters, ``{"params": ...,
+"batch_stats": ...}`` for its variables), walked in flax's flatten order:
+sorted keys at every depth, so ``batch_stats`` comes before ``params``. A
+leaf's path is the tuple of its keys. Also the "/"-joined flat form of
+nested dicts (``fl_tpu.core.pytree``'s ``flatten_dict`` /
+``unflatten_dict``), which the masks of ``fl.peft``, the engine's weights
+API and the checkpoint use."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping
+from typing import Any, Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
 
 
 def tree_paths(tree) -> List[tuple]:
-    """(layer, leaf) paths in flax's flatten order."""
-    return [(layer, k) for layer in sorted(tree) for k in sorted(tree[layer])]
+    """The key path of every leaf, in flax's flatten order (sorted keys at
+    every depth)."""
+    out: List[tuple] = []
+
+    def rec(prefix, node):
+        if isinstance(node, Mapping):
+            for k in sorted(node):
+                rec(prefix + (k,), node[k])
+        else:
+            out.append(prefix)
+
+    rec((), tree)
+    return out
+
+
+def tree_get(tree, path: Sequence):
+    """The leaf (or subtree) at ``path``."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def tree_leaves(tree) -> list:
+    """The leaves in :func:`tree_paths` order."""
+    return [tree_get(tree, p) for p in tree_paths(tree)]
+
+
+def tree_from_leaves(paths: Sequence[tuple], leaves) -> Dict:
+    """The nested dict with ``leaves`` at ``paths``."""
+    out: Dict = {}
+    for path, leaf in zip(paths, leaves):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
 
 
 def tree_map(fn, *trees):
-    """Apply ``fn`` leaf-wise over trees of the same structure."""
-    return {layer: {k: fn(*(t[layer][k] for t in trees))
-                    for k in trees[0][layer]}
-            for layer in trees[0]}
+    """Apply ``fn`` leaf-wise over trees of the same structure (the first
+    tree's)."""
+    first = trees[0]
+    if isinstance(first, Mapping):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
 
 
 def global_norm(tree) -> torch.Tensor:
     """Global L2 norm over every leaf, in f32 (a 0-d tensor)."""
-    sq = [tree[l][k].float().square().sum() for l, k in tree_paths(tree)]
+    sq = [leaf.float().square().sum() for leaf in tree_leaves(tree)]
     return torch.stack(sq).sum().sqrt()
 
 

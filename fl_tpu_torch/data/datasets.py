@@ -9,8 +9,9 @@ Parity target: MNISTDataLoader / CIFAR10DataLoader
 reference exactly: MNIST (0.1307, 0.3081) (ref :300), CIFAR-10
 (0.4914, 0.4822, 0.4465) / (0.2023, 0.1994, 0.2010) (ref :458).
 Augmentation (random crop with 4-px padding + horizontal flip for CIFAR,
-ref :455-456) belongs on the device inside the training step; the port
-has no augmentation yet.
+ref :455-456) is applied on the device inside the training step
+(``fl_tpu_torch.ops.preprocess.make_cifar_augment``, the engine's
+``augment_fn``), not here.
 
 Real-data discovery: set ``FL_TPU_DATA_DIR`` (or place files under
 ``~/.cache/fl_tpu``). MNIST: the four IDX files (optionally .gz);

@@ -8,6 +8,8 @@ from typing import Optional
 
 import torch
 
+from fl_tpu_torch.core.pytree import tree_map
+
 
 def normalized_client_weights(num_samples: torch.Tensor,
                               mask: Optional[torch.Tensor] = None
@@ -32,13 +34,10 @@ def fedavg_delta(global_tree, stacked_tree, weights: torch.Tensor,
     broadcast and applied to the full-precision master. Non-participants
     (weight 0) leave the global model where it was."""
     ref_tree = global_tree if ref_tree is None else ref_tree
-    return {
-        l: {k: (g + torch.tensordot(
-                weights, (stacked_tree[l][k] - ref_tree[l][k][None]).float(),
-                dims=1)).to(g.dtype)
-            for k, g in leaves.items()}
-        for l, leaves in global_tree.items()
-    }
+    return tree_map(
+        lambda g, c, ref: (g + torch.tensordot(
+            weights, (c - ref[None]).float(), dims=1)).to(g.dtype),
+        global_tree, stacked_tree, ref_tree)
 
 
 def fednova_effective_steps(tau: torch.Tensor, momentum: float

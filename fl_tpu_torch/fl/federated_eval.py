@@ -7,6 +7,7 @@ chunk one forward over all C clients at once, so a fused model launches
 its conv kernel once a chunk), no autograd; per-client loss and accuracy
 plus the sample-weighted population aggregate. The round engine also uses
 it for q-FFL's F_k(θ̂), the clients' losses at the model they received.
+A BatchNorm model is scored with its running statistics.
 """
 
 from __future__ import annotations
@@ -17,21 +18,27 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fl_tpu_torch.core.pytree import tree_map
+from fl_tpu_torch.fl.local_training import model_kwargs
+
 
 def make_federated_eval_fn(model, samples_per_client: int, mean, std,
                            chunk_size: int = 256) -> Callable:
-    """Build ``fn(params, images_u8, labels, n_valid) -> metrics`` over the
-    stacked client axis: ``params`` a tree of (C, ...) leaves (an expanded
-    view of one model serves), ``images_u8`` (C, N, H, W, ch), ``labels``
-    (C, N), ``n_valid`` (C,); metrics (C,) ``loss`` / ``accuracy`` (means
-    over the valid samples) and ``n`` (the valid count)."""
+    """Build ``fn(params, images_u8, labels, n_valid, batch_stats=None)
+    -> metrics`` over the stacked client axis: ``params`` a tree of (C,
+    ...) leaves (an expanded view of one model serves), ``images_u8`` (C,
+    N, H, W, ch), ``labels`` (C, N), ``n_valid`` (C,), ``batch_stats`` the
+    (C, ...) running statistics of a BatchNorm model; metrics (C,)
+    ``loss`` / ``accuracy`` (means over the valid samples) and ``n`` (the
+    valid count)."""
     N = samples_per_client
     chunk = min(chunk_size, N)
     n_chunks = -(-N // chunk)
     pad_to = n_chunks * chunk
 
     @torch.no_grad()
-    def evaluate(params, images_u8, labels, n_valid) -> Dict[str, torch.Tensor]:
+    def evaluate(params, images_u8, labels, n_valid, batch_stats=None
+                 ) -> Dict[str, torch.Tensor]:
         C = images_u8.shape[0]
         n = n_valid.to(torch.int32)
         if pad_to != N:
@@ -48,7 +55,8 @@ def make_federated_eval_fn(model, samples_per_client: int, mean, std,
             xb = images_u8[:, ci * chunk:(ci + 1) * chunk]
             yb = labels[:, ci * chunk:(ci + 1) * chunk].long()
             x = (xb.float() / 255.0 - m) / s
-            logits = model(params, x, train=False)
+            logits = model(params, x, train=False,
+                           **model_kwargs(batch_stats))
             msk = ((ci * chunk + pos0)[None, :] < n[:, None]).float()
             per = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                   yb.reshape(-1), reduction="none"
@@ -71,10 +79,10 @@ def evaluate_federated(engine) -> Dict[str, object]:
         engine.model, samples_per_client=engine.data.samples_per_client,
         mean=engine.data.mean, std=engine.data.std)
     C = engine.num_clients
-    stacked = {l: {k: v[None].expand(C, *v.shape) for k, v in d.items()}
-               for l, d in engine.global_variables["params"].items()}
-    out = run(stacked, engine.data.images, engine.data.labels,
-              engine.data.num_samples)
+    stacked = tree_map(lambda v: v[None].expand(C, *v.shape),
+                       engine.global_variables)
+    out = run(stacked["params"], engine.data.images, engine.data.labels,
+              engine.data.num_samples, stacked.get("batch_stats"))
     out = {k: v.cpu().numpy() for k, v in out.items()}
     w = out["n"].astype(np.float64)
     w = w / max(w.sum(), 1.0)

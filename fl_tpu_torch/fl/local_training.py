@@ -40,6 +40,16 @@ through the remapped permutation, as in the reference, and the masked
 slots' values never count). Its noise seed is fold(fold(round, DP_NOISE),
 epoch·steps + step), its dropout seed the step's dropout seed.
 
+Model collections besides the parameters (``extra``: CIFAR10CNN's
+``batch_stats``, the per-client running statistics of its BatchNorms) are
+carried through the steps: each training forward returns them updated,
+they are no parameter (no gradient, no optimizer), and under
+heterogeneous budgets the masked select keeps a spent client's as well.
+
+Augmentation: ``augment_fn(xb, generator)`` (``ops.preprocess.
+make_cifar_augment``) runs on each normalized batch, its draws from one
+generator a step seeded fold(fold(round, AUGMENT), epoch·steps + step).
+
 Parameters are updated in place inside the step loop where they are
 stored in f32, which keeps one copy of the (C, params) tree.
 """
@@ -54,7 +64,8 @@ import torch
 import torch.nn.functional as F
 
 from fl_tpu_torch.core import prng
-from fl_tpu_torch.core.pytree import tree_paths
+from fl_tpu_torch.core.pytree import (
+    tree_from_leaves, tree_get, tree_map, tree_paths)
 from fl_tpu_torch.core.transfer import to_device
 from fl_tpu_torch.ops import rounding
 
@@ -232,9 +243,12 @@ def rounding_seeds(rseed: int, num_clients: int, device) -> torch.Tensor:
 def make_local_train_fn(model, cfg: FederatedTrainingConfig,
                         samples_per_client: int, mean: torch.Tensor,
                         std: torch.Tensor, grad_mask=None,
-                        dp_sgd_fn: Optional[Callable] = None) -> Callable:
+                        dp_sgd_fn: Optional[Callable] = None,
+                        augment_fn: Optional[Callable] = None) -> Callable:
     """Build ``local_train(params, images_u8, labels, n_valid, rseed,
-    epochs=None, correction=None, lr=None) -> (new_params, metrics)``.
+    epochs=None, correction=None, lr=None, extra=None) -> (new_params,
+    metrics)``, or ``(new_params, metrics, new_extra)`` when ``extra`` is
+    given.
 
     ``params`` is a tree of (C, ...) f32 tensors (not modified),
     ``images_u8`` (C, N, H, W, ch), ``labels`` (C, N) int64, ``n_valid``
@@ -246,7 +260,10 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
     in place of ``learning_rate``. ``grad_mask`` is a tree of unstacked
     leaf masks multiplied into every gradient last. ``dp_sgd_fn(params,
     xb, yb, wmask, dropout_seed, noise_seed)`` replaces every step's
-    gradient (module docstring). ``metrics`` holds (C,)
+    gradient (module docstring). ``extra`` is a dict of the model's
+    other collections, ``{"batch_stats": tree of (C, ...) tensors}``, which
+    the training forward updates (not modified). ``augment_fn(xb,
+    generator)`` augments each normalized batch. ``metrics`` holds (C,)
     tensors ``loss`` and ``accuracy`` of each client's last active epoch,
     ``epochs_completed`` and ``samples_processed``.
     """
@@ -262,11 +279,15 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
     mu = float(cfg.proximal_mu)
 
     def local_train(params, images_u8, labels, n_valid, rseed, epochs=None,
-                    correction=None, lr=None):
+                    correction=None, lr=None, extra=None):
         device = images_u8.device
         C, N = images_u8.shape[:2]
+        if extra is not None and set(extra) != {"batch_stats"}:
+            raise ValueError("extra holds the batch_stats collection, got "
+                             f"{sorted(extra)}")
+        stats = None if extra is None else extra["batch_stats"]
         paths = tree_paths(params)
-        anchor = [params[l][k] for l, k in paths]  # FedProx's w_global
+        anchor = [tree_get(params, p) for p in paths]  # FedProx's w_global
         if store_bf16:
             # the reference's round-to-nearest cast of the start: the
             # returned delta includes it
@@ -277,9 +298,9 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
                      .requires_grad_(True) for a in anchor]
         opt = optimizer.init(store)
         corr = (None if correction is None
-                else [correction[l][k] for l, k in paths])
+                else [tree_get(correction, p) for p in paths])
         masks = (None if grad_mask is None
-                 else [grad_mask[l][k] for l, k in paths])
+                 else [tree_get(grad_mask, p) for p in paths])
         if epochs is not None:
             epochs = torch.as_tensor(epochs).to(device=device,
                                                 dtype=torch.int64)
@@ -288,6 +309,7 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
         shuffle_seed = prng.stream_seed(rseed, prng.Stream.SHUFFLE)
         dropout_seed = prng.stream_seed(rseed, prng.Stream.DROPOUT)
         noise_seed = prng.stream_seed(rseed, prng.Stream.DP_NOISE)
+        augment_seed = prng.stream_seed(rseed, prng.Stream.AUGMENT)
 
         def per_leaf(v):
             """A (C,) vector shaped to broadcast over each leaf."""
@@ -305,6 +327,8 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
             # remap padded slots into the valid region (keeps batches dense)
             perm = torch.where(perm_raw < n, perm_raw, perm_raw % n)
             active = None if epochs is None else per_leaf(epoch < epochs)
+            stats_active = (None if epochs is None or stats is None else
+                            (epoch < epochs).reshape(C, 1))
             ep_loss = torch.zeros(C, device=device)
             ep_acc = torch.zeros(C, device=device)
             for step in range(steps_per_epoch):
@@ -312,27 +336,42 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
                 idx = perm[:, step * batch:(step + 1) * batch]
                 xb = (images_u8[rows, idx].float() / 255.0 - mean) / std
                 yb = labels[rows, idx]
+                if augment_fn is not None:
+                    xb = augment_fn(xb, prng.generator(
+                        prng.fold(augment_seed, ctr), device))
                 dgen = prng.generator(prng.fold(dropout_seed, ctr), device)
                 p32 = ([s.float().requires_grad_(True) for s in store]
                        if store_bf16 else store)
-                tree: Dict = {}
-                for (l, k), t in zip(paths, p32):
-                    tree.setdefault(l, {})[k] = t
+                tree = tree_from_leaves(paths, p32)
+
+                def forward():
+                    """The training forward: logits, and the updated
+                    statistics (None without them)."""
+                    if stats is None:
+                        return model(tree, xb, train=True,
+                                     generator=dgen), None
+                    return model(tree, xb, train=True, generator=dgen,
+                                 batch_stats=stats)
+
                 if dp_sgd_fn is None:
-                    logits = model(tree, xb, train=True, generator=dgen)
+                    logits, new_stats = forward()
                     loss = cross_entropy_loss(logits, yb)
                     grads = list(torch.autograd.grad(loss.sum(), p32))
                 else:
                     with torch.no_grad():
-                        logits = model(tree, xb, train=True, generator=dgen)
+                        logits, new_stats = forward()
                         loss = cross_entropy_loss(logits, yb)
                     raw = perm_raw[:, step * batch:(step + 1) * batch]
                     g_tree = dp_sgd_fn(
                         tree, xb, yb, (raw < n).float(),
                         prng.fold(dropout_seed, ctr),
                         prng.fold(noise_seed, ctr))
-                    grads = [g_tree[l][k] for l, k in paths]
+                    grads = [tree_get(g_tree, p) for p in paths]
                     del g_tree
+                if new_stats is not None:
+                    stats = new_stats if stats_active is None else tree_map(
+                        lambda new, old: torch.where(stats_active, new, old),
+                        new_stats, stats)
                 if store_bf16:
                     step_seed = sr_seed0 + ((ctr * rounding.STEP_STRIDE)
                                             & 0xFFFFFFFF)
@@ -362,9 +401,8 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
                 ep_acc += (logits.detach().argmax(-1) == yb).float().mean(1)
             ep_losses.append(ep_loss / steps_per_epoch)
             ep_accs.append(ep_acc / steps_per_epoch)
-        new_params: Dict = {}
-        for (l, k), t in zip(paths, store):
-            new_params.setdefault(l, {})[k] = t.detach().float()
+        new_params = tree_from_leaves(
+            paths, [t.detach().float() for t in store])
         if epochs is None:
             done = torch.full((C,), max_epochs, dtype=torch.int64,
                               device=device)
@@ -375,32 +413,43 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
             cols = torch.arange(C, device=device)
             loss_c = torch.stack(ep_losses)[last, cols]
             acc_c = torch.stack(ep_accs)[last, cols]
-        return new_params, {
+        metrics = {
             "loss": loss_c, "accuracy": acc_c,
             "epochs_completed": done.to(torch.int32),
             "samples_processed": (done * steps_per_epoch * batch).to(
                 torch.int32)}
+        if extra is None:
+            return new_params, metrics
+        return new_params, metrics, {"batch_stats": stats}
 
     # the engine's SCAFFOLD and FedNova step counts use the trainer's own
     local_train.steps_per_epoch = steps_per_epoch
     return local_train
 
 
+def model_kwargs(batch_stats) -> Dict[str, Any]:
+    """The forward's keywords for a model's non-param collections: its
+    ``batch_stats`` where it has them (eval mode normalizes with them)."""
+    return {} if batch_stats is None else {"batch_stats": batch_stats}
+
+
 @torch.no_grad()
 def evaluate_test_set(model, params, images: torch.Tensor,
-                      labels: torch.Tensor, batch_size: int = 512
-                      ) -> Dict[str, float]:
+                      labels: torch.Tensor, batch_size: int = 512,
+                      batch_stats=None) -> Dict[str, float]:
     """Loss and accuracy of one (unstacked) model on normalized images,
-    averaged over full batches as ``fl_tpu``'s ``make_eval_fn`` does."""
+    averaged over full batches as ``fl_tpu``'s ``make_eval_fn`` does; a
+    BatchNorm model normalizes with its running ``batch_stats``."""
     n = images.shape[0]
     bs = min(batch_size, n)
-    stacked = {l: {k: v[None] for k, v in d.items()}
-               for l, d in params.items()}
+    stacked = tree_map(lambda v: v[None], params)
+    kw = model_kwargs(None if batch_stats is None
+                      else tree_map(lambda v: v[None], batch_stats))
     losses, accs = [], []
     for i in range(max(1, n // bs)):
         xb = images[None, i * bs:(i + 1) * bs]
         yb = labels[None, i * bs:(i + 1) * bs]
-        logits = model(stacked, xb)
+        logits = model(stacked, xb, **kw)
         losses.append(cross_entropy_loss(logits, yb))
         accs.append((logits.argmax(-1) == yb).float().mean(1))
     return {"loss": float(torch.cat(losses).mean()),

@@ -13,6 +13,10 @@ Random streams: the fine-tune's shuffle and dropout draw from the round's
 ``Stream.PERSONALIZE`` seed, root → round → PERSONALIZE, which the trainer
 folds as it folds a training round's seed (one draw for all clients per
 epoch; per-client streams below it).
+
+A BatchNorm model fine-tunes its running statistics with its parameters,
+as the trainer carries them: the global model is scored with the global
+statistics, the personalized one with its own.
 """
 
 from __future__ import annotations
@@ -25,9 +29,11 @@ import torch
 import torch.nn.functional as F
 
 from fl_tpu_torch.core import prng
+from fl_tpu_torch.core.pytree import tree_map
 from fl_tpu_torch.fl.local_training import (
     FederatedTrainingConfig,
     make_local_train_fn,
+    model_kwargs,
 )
 
 
@@ -35,8 +41,9 @@ def make_personalization_fn(model, training: FederatedTrainingConfig,
                             samples_per_client: int, mean, std,
                             finetune_epochs: int = 1,
                             finetune_fraction: float = 0.8) -> Callable:
-    """Build ``fn(params, images_u8, labels, n_valid, seed) -> metrics``
-    over the stacked client axis.
+    """Build ``fn(params, images_u8, labels, n_valid, seed,
+    batch_stats=None) -> metrics`` over the stacked client axis
+    (``batch_stats``: a BatchNorm model's (C, ...) running statistics).
 
     Each client's padded shard is split positionally: the first
     ``⌊finetune_fraction·n⌋`` valid samples fine-tune the global model for
@@ -53,9 +60,9 @@ def make_personalization_fn(model, training: FederatedTrainingConfig,
                                       mean, std)
 
     @torch.no_grad()
-    def holdout_metrics(params, images_u8, labels, lo, hi):
+    def holdout_metrics(params, images_u8, labels, lo, hi, batch_stats):
         x = (images_u8.float() / 255.0 - mean) / std
-        logits = model(params, x, train=False)
+        logits = model(params, x, train=False, **model_kwargs(batch_stats))
         idx = torch.arange(labels.shape[1], device=labels.device)[None, :]
         msk = ((idx >= lo[:, None]) & (idx < hi[:, None])).float()
         denom = torch.clamp(msk.sum(1), min=1.0)
@@ -66,7 +73,8 @@ def make_personalization_fn(model, training: FederatedTrainingConfig,
         acc = ((logits.argmax(-1) == labels).float() * msk).sum(1) / denom
         return loss, acc
 
-    def personalize(params, images_u8, labels, n_valid, seed: int):
+    def personalize(params, images_u8, labels, n_valid, seed: int,
+                    batch_stats=None):
         n = torch.clamp(n_valid.to(torch.int32), min=1)
         # ≥1 fine-tune sample and ≥1 holdout sample whenever n ≥ 2; n == 1
         # has no valid split: n_ft = 1 and an empty holdout, which weighs
@@ -75,9 +83,18 @@ def make_personalization_fn(model, training: FederatedTrainingConfig,
             torch.clamp((n.float() * finetune_fraction).to(torch.int32),
                         min=1),
             torch.clamp(n - 1, min=1))
-        tuned, _ = local_train(params, images_u8, labels, n_ft, seed)
-        g_loss, g_acc = holdout_metrics(params, images_u8, labels, n_ft, n)
-        p_loss, p_acc = holdout_metrics(tuned, images_u8, labels, n_ft, n)
+        if batch_stats is None:
+            tuned, _ = local_train(params, images_u8, labels, n_ft, seed)
+            tuned_stats = None
+        else:
+            tuned, _, extra = local_train(
+                params, images_u8, labels, n_ft, seed,
+                extra={"batch_stats": batch_stats})
+            tuned_stats = extra["batch_stats"]
+        g_loss, g_acc = holdout_metrics(params, images_u8, labels, n_ft, n,
+                                        batch_stats)
+        p_loss, p_acc = holdout_metrics(tuned, images_u8, labels, n_ft, n,
+                                        tuned_stats)
         return {
             "global_loss": g_loss,
             "global_accuracy": g_acc,
@@ -105,13 +122,13 @@ def evaluate_personalization(engine, finetune_epochs: int = 1,
         finetune_fraction=finetune_fraction)
 
     C = engine.num_clients
-    stacked = {l: {k: v[None].expand(C, *v.shape) for k, v in d.items()}
-               for l, d in engine.global_variables["params"].items()}
+    stacked = tree_map(lambda v: v[None].expand(C, *v.shape),
+                       engine.global_variables)
     seed = prng.stream_seed(prng.round_seed(engine._root,
                                             engine.round_number),
                             prng.Stream.PERSONALIZE)
-    out = run(stacked, engine.data.images, engine.data.labels,
-              engine.data.num_samples, seed)
+    out = run(stacked["params"], engine.data.images, engine.data.labels,
+              engine.data.num_samples, seed, stacked.get("batch_stats"))
     out = {k: v.cpu().numpy() for k, v in out.items()}
 
     w = out["n_holdout"].astype(np.float64)

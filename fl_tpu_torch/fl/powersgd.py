@@ -33,7 +33,7 @@ from typing import List, Tuple
 
 import torch
 
-from fl_tpu_torch.core.pytree import tree_paths
+from fl_tpu_torch.core.pytree import tree_leaves
 from fl_tpu_torch.ops.flatten import padded_dim
 
 
@@ -85,8 +85,7 @@ def make_powersgd_plan(template, rank: int) -> PowerSGDPlan:
     entries: List[_MatrixEntry] = []
     offset = 0
     q_offset = 0
-    for layer, k in tree_paths(template):
-        leaf = template[layer][k]
+    for leaf in tree_leaves(template):
         if leaf.dtype.is_floating_point and leaf.dim() >= 2:
             n = math.prod(leaf.shape[:-1])
             m = int(leaf.shape[-1])

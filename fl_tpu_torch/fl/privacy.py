@@ -7,11 +7,13 @@ client over all leaves; scale = min(1, C/‖Δ‖), sens = min(‖Δ‖, C),
 σ = sens·√(2 ln(1.25/δ))/ε; then every element gets Δ·scale + σ·z through
 the clip+noise kernel (``fl_tpu_torch.ops.dp.clip_noise``, K3 on CUDA).
 
-Leaf groups: a leaf with at least ``STANDALONE_MIN`` elements per client
-runs the kernel on its own (C, D) view, with no copy (SimpleCNN's fc1
-kernel, 95% of the bytes); the small leaves are concatenated into one more
-group. Every (round, client, group) has its own seed, so no noise stream is
-reused.
+The tree is the whole variables tree the engine releases (CIFAR10CNN's
+``batch_stats`` with its ``params``, as the reference noises them). Leaf
+groups: a leaf with at least ``STANDALONE_MIN`` elements per client runs
+the kernel on its own (C, D) view, with no copy (SimpleCNN's fc1 kernel,
+95% of the bytes; CIFAR10CNN's conv5, conv6, fc1 and fc2 kernels); the
+small leaves are concatenated into one more group. Every (round, client,
+group) has its own seed, so no noise stream is reused.
 
 Client-level DP-FedAvg (``dp_mode="client_dp"``) is the port of
 ``fl_tpu.fl.privacy``'s central-noise functions (``privacy.py:259-347``),
@@ -36,7 +38,10 @@ folded into the client axis as a (C·m, 1) batch, each example with its own
 copy of its client's parameters, so the model's stacked forward and
 backward (K1/K2 on ``fused_conv_block="residual"``) return per-example
 weight gradients directly. The ghost form takes two batched backwards on
-the unfused formulation and never forms a per-example gradient.
+the unfused formulation and never forms a per-example gradient; its
+kinds are the dense and 3x3 conv layers and GroupNorm (CIFAR10CNN's
+``norm="group"``), whose per-example scale and bias gradients are spatial
+sums of dy·x̂ and dy, x̂ recomputed from the captured input.
 
 :class:`PrivacyBudgetTracker` and :class:`PrivacyAccountant` are host-side
 copies of the reference's ledgers, with the methods the round engine uses
@@ -52,7 +57,9 @@ import torch
 import torch.nn.functional as F
 
 from fl_tpu_torch.core import prng
-from fl_tpu_torch.core.pytree import clip_by_global_norm, tree_map, tree_paths
+from fl_tpu_torch.core.pytree import (
+    clip_by_global_norm, tree_from_leaves, tree_get, tree_leaves, tree_map,
+    tree_paths)
 from fl_tpu_torch.core.transfer import to_device
 from fl_tpu_torch.fl.local_training import per_example_losses
 from fl_tpu_torch.ops import dp as dp_ops
@@ -69,15 +76,15 @@ def leaf_groups(tree) -> List[List[tuple]]:
     tree order), then all small leaves together."""
     paths = tree_paths(tree)
     big = [[p] for p in paths
-           if tree[p[0]][p[1]][0].numel() >= STANDALONE_MIN]
+           if tree_get(tree, p)[0].numel() >= STANDALONE_MIN]
     small = [p for p in paths if [p] not in big]
     return big + ([small] if small else [])
 
 
 def client_norms(tree) -> torch.Tensor:
     """(C,) global L2 norm of each client's stacked leaves."""
-    sq = [tree[l][k].reshape(tree[l][k].shape[0], -1).float().square().sum(1)
-          for l, k in tree_paths(tree)]
+    sq = [t.reshape(t.shape[0], -1).float().square().sum(1)
+          for t in tree_leaves(tree)]
     return torch.stack(sq).sum(0).sqrt()
 
 
@@ -93,9 +100,9 @@ def dp_noise_client_deltas(stacked_deltas, rseed: int, epsilon: float,
     sens = torch.clamp(norms, max=max_norm)
     sigma = sens * dp_ops.gaussian_factor(epsilon, delta)
 
-    noisy: Dict = {l: {} for l in stacked_deltas}
+    paths, noisy = [], []
     for gi, group in enumerate(leaf_groups(stacked_deltas)):
-        leaves = [stacked_deltas[l][k] for l, k in group]
+        leaves = [tree_get(stacked_deltas, p) for p in group]
         C = leaves[0].shape[0]
         flats = [t.reshape(C, -1).float() for t in leaves]
         x = flats[0] if len(flats) == 1 else torch.cat(flats, 1)
@@ -103,9 +110,10 @@ def dp_noise_client_deltas(stacked_deltas, rseed: int, epsilon: float,
             rseed, C, prng.Stream.DP_NOISE, gi)), x.device)
         out = dp_ops.clip_noise(x, scale, sigma, seeds)
         parts = torch.split(out, [f.shape[1] for f in flats], 1)
-        for (l, k), t, part in zip(group, leaves, parts):
-            noisy[l][k] = part.reshape(t.shape).to(t.dtype)
-    return noisy, sens, sigma
+        for p, t, part in zip(group, leaves, parts):
+            paths.append(p)
+            noisy.append(part.reshape(t.shape).to(t.dtype))
+    return tree_from_leaves(paths, noisy), sens, sigma
 
 
 def clip_client_deltas(stacked_deltas, max_norm: float
@@ -137,14 +145,13 @@ def central_noise_tree(tree, seed: int, sigma) -> Any:
     noise of client-level DP-FedAvg (McMahan et al. 2018: the fixed-m̄ mean
     of C-clipped updates has sensitivity C/m̄, so σ = z·C/m̄). Leaf i of
     ``tree_paths`` order draws from its own sub-stream fold(seed, i)."""
-    out: Dict = {}
-    for i, (l, k) in enumerate(tree_paths(tree)):
-        leaf = tree[l][k]
+    out = []
+    for i, leaf in enumerate(tree_leaves(tree)):
         g = prng.generator(prng.fold(seed, i), leaf.device)
         noise = torch.randn(leaf.shape, generator=g, device=leaf.device,
                             dtype=torch.float32)
-        out.setdefault(l, {})[k] = leaf + (sigma * noise).to(leaf.dtype)
-    return out
+        out.append(leaf + (sigma * noise).to(leaf.dtype))
+    return tree_from_leaves(tree_paths(tree), out)
 
 
 def adaptive_clip_delta_multiplier(noise_multiplier: float,
@@ -218,14 +225,14 @@ def _noisy_mean(total, batch: int, sigma: float, noise_seed: int):
     """total / B + N(0, σ²) leaf by leaf, leaf i of ``tree_paths`` order
     from the sub-stream fold(noise_seed, i), drawing every client's rows at
     once: the one noise rule of both DP-SGD forms."""
-    out: Dict = {}
-    for i, (l, k) in enumerate(tree_paths(total)):
-        g = total[l][k] / batch
+    out = []
+    for i, t in enumerate(tree_leaves(total)):
+        g = t / batch
         gen = prng.generator(prng.fold(noise_seed, i), g.device)
         noise = torch.randn(g.shape, generator=gen, device=g.device,
                             dtype=torch.float32)
-        out.setdefault(l, {})[k] = g + sigma * noise
-    return out
+        out.append(g + sigma * noise)
+    return tree_from_leaves(tree_paths(total), out)
 
 
 def _clip_scale(sq: torch.Tensor, max_grad_norm: float,
@@ -265,8 +272,8 @@ def make_dp_sgd_grad_fn(model, max_grad_norm: float,
     all its examples, as the reference applies one key to every example.
     """
     cdt = getattr(model, "dtype", torch.float32)
-    dense = {name for name, kind in getattr(model, "DP_LAYERS", ())
-             if kind == "dense"}
+    dense = {entry[0] for entry in getattr(model, "DP_LAYERS", None) or ()
+             if entry[1] == "dense"}
 
     def dp_grad(params, xb, yb, wmask, dropout_seed, noise_seed):
         C, B = yb.shape
@@ -281,35 +288,34 @@ def make_dp_sgd_grad_fn(model, max_grad_norm: float,
             keep = model.dropout_keep(
                 C, 1, prng.generator(dropout_seed, device), device)
         if keep is not None:
-            keep = keep.repeat_interleave(m, 0)
+            keep = tree_map(lambda t: t.repeat_interleave(m, 0), keep)
 
         def fold(p, layer):
             dt = cdt if layer in dense else torch.float32
             return (p.detach().to(dt).repeat_interleave(m, 0)
                     .requires_grad_(True))
 
-        total = {l: {k: torch.zeros(params[l][k].shape, dtype=torch.float32,
-                                    device=device) for k in params[l]}
-                 for l in params}
+        total = [torch.zeros(tree_get(params, p).shape, dtype=torch.float32,
+                             device=device) for p in paths]
         for j in range(B // m):
             sl = slice(j * m, (j + 1) * m)
-            folded = {l: {k: fold(params[l][k], l) for k in params[l]}
-                      for l in params}
+            folded = tree_from_leaves(
+                paths, [fold(tree_get(params, p), p[0]) for p in paths])
             xc = xb[:, sl].reshape((C * m, 1) + tuple(xb.shape[2:]))
             yc = yb[:, sl].reshape(C * m, 1)
             logits = model(folded, xc, train=True, dropout_mask=keep)
             loss = per_example_losses(logits, yc).sum()
-            leaves = [folded[l][k] for l, k in paths]
+            leaves = [tree_get(folded, p) for p in paths]
             grads = torch.autograd.grad(loss, leaves)
             del logits, loss, folded, leaves
             sq = sum(_rows_sq(g) for g in grads)
             scale = _clip_scale(sq, max_grad_norm,
                                 wmask[:, sl].reshape(C * m))
-            for (l, k), g in zip(paths, grads):
-                total[l][k] += _weighted_rows(scale, g, m)
+            for t, g in zip(total, grads):
+                t += _weighted_rows(scale, g, m)
             del grads
-        return _noisy_mean(total, B, noise_multiplier * max_grad_norm / B,
-                           noise_seed)
+        return _noisy_mean(tree_from_leaves(paths, total), B,
+                           noise_multiplier * max_grad_norm / B, noise_seed)
 
     return dp_grad
 
@@ -332,6 +338,23 @@ def _conv_sq(a: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return s
 
 
+def _groupnorm_sq(a: torch.Tensor, dy: torch.Tensor, groups: int,
+                  eps: float) -> torch.Tensor:
+    """(n, H, W, ch), (n, H, W, ch) f32 → (n,) per-example squared norm
+    of a GroupNorm's scale and bias gradient: x̂ recomputed from the
+    layer's input ``a`` with its group statistics (not by inverting the
+    affine output, which divides by the learned scale), then ‖Σ_s dy·x̂‖²
+    + ‖Σ_s dy‖² over the spatial sites s."""
+    n, H, W, ch = a.shape
+    g = a.reshape(n, H, W, groups, ch // groups)
+    mu = g.mean((1, 2, 4), keepdim=True)
+    var = (g - mu).square().mean((1, 2, 4), keepdim=True)
+    x_hat = ((g - mu) / torch.sqrt(var + eps)).reshape(a.shape)
+    g_scale = (dy * x_hat).sum((1, 2))
+    g_bias = dy.sum((1, 2))
+    return g_scale.square().sum(1) + g_bias.square().sum(1)
+
+
 def make_ghost_dp_sgd_grad_fn(model, max_grad_norm: float,
                               noise_multiplier: float,
                               norm_chunk: Optional[int] = None) -> Callable:
@@ -346,7 +369,9 @@ def make_ghost_dp_sgd_grad_fn(model, max_grad_norm: float,
       loss);
     - per-example norms in f32: a dense layer's kernel ‖x_i‖²·‖dy_i‖² and
       bias ‖dy_i‖²; a 3x3 conv's nine-tap form (``_conv_sq``; with
-      ``norm_chunk`` dividing B, over chunks of that many examples);
+      ``norm_chunk`` dividing B, over chunks of that many examples); a
+      GroupNorm's ``_groupnorm_sq`` (its DP_LAYERS entry carries ``groups``
+      and ``eps``);
     - pass 2: the backward of Σ_i s_i·loss_i, s_i = min(1, C/‖g_i‖)·mask_i,
       is the clipped masked sum.
 
@@ -354,27 +379,27 @@ def make_ghost_dp_sgd_grad_fn(model, max_grad_norm: float,
     forms give the same noisy gradient for the same seeds. Dropout: one
     batch mask from ``dropout_seed``, the same in both passes. Needs a
     model declaring ``DP_LAYERS`` and the taps (SimpleCNN on the unfused
-    formulation; a fused one raises)."""
-    layers = model.DP_LAYERS
+    formulation, a fused one raises; CIFAR10CNN with ``norm="group"``)."""
+    layers = [(e[0], e[1], e[2] if len(e) > 2 else {})
+              for e in model.DP_LAYERS]
 
     def dp_grad(params, xb, yb, wmask, dropout_seed, noise_seed):
         C, B = yb.shape
         device = xb.device
         keep = model.dropout_keep(C, B, prng.generator(dropout_seed, device),
                                   device)
-        p = {l: {k: v.detach() for k, v in d.items()}
-             for l, d in params.items()}
+        p = tree_map(lambda v: v.detach(), params)
         shapes = model.dp_preactivation_shapes(C, B)
         zeros = {name: torch.zeros(shapes[name], dtype=torch.float32,
                                    device=device, requires_grad=True)
-                 for name, _ in layers}
+                 for name, _, _ in layers}
         logits, caps = model(p, xb, train=True, dropout_mask=keep,
                              dp_perturb=zeros, dp_capture=True)
         dys = dict(zip(zeros, torch.autograd.grad(
             per_example_losses(logits, yb).sum(), list(zeros.values()))))
         del logits, zeros
         sq = torch.zeros((C * B,), dtype=torch.float32, device=device)
-        for name, kind in layers:
+        for name, kind, meta in layers:
             a = caps[name].float().reshape((C * B,) + caps[name].shape[2:])
             dy = dys[name].float().reshape((C * B,) + dys[name].shape[2:])
             if kind == "dense":
@@ -385,20 +410,20 @@ def make_ghost_dp_sgd_grad_fn(model, max_grad_norm: float,
                      else C * B)
                 sq += torch.cat([_conv_sq(a[i:i + n], dy[i:i + n])
                                  for i in range(0, C * B, n)])
+            elif kind == "groupnorm":
+                sq += _groupnorm_sq(a, dy, int(meta["groups"]),
+                                    float(meta.get("eps", 1e-6)))
             else:
                 raise ValueError(f"unknown DP layer kind: {kind}")
         del caps, dys
         scale = _clip_scale(sq.reshape(C, B), max_grad_norm, wmask)
 
-        p2 = {l: {k: v.detach().requires_grad_(True)
-                  for k, v in d.items()} for l, d in params.items()}
+        p2 = tree_map(lambda v: v.detach().requires_grad_(True), params)
         logits = model(p2, xb, train=True, dropout_mask=keep)
         loss = (per_example_losses(logits, yb) * scale.detach()).sum()
         paths = tree_paths(p2)
-        grads = torch.autograd.grad(loss, [p2[l][k] for l, k in paths])
-        total: Dict = {}
-        for (l, k), g in zip(paths, grads):
-            total.setdefault(l, {})[k] = g.float()
+        grads = torch.autograd.grad(loss, [tree_get(p2, p) for p in paths])
+        total = tree_from_leaves(paths, [g.float() for g in grads])
         return _noisy_mean(total, B, noise_multiplier * max_grad_norm / B,
                            noise_seed)
 

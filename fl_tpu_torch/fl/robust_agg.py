@@ -31,6 +31,7 @@ import contextlib
 
 import torch
 
+from fl_tpu_torch.core.pytree import tree_map
 from fl_tpu_torch.ops.flatten import stack_flatten, stack_unflatten
 
 ROBUST_AGGREGATORS = ("fedavg", "trimmed_mean", "median", "krum")
@@ -120,9 +121,8 @@ def robust_combine_deltas(global_params, new_stacked, mask: torch.Tensor,
                           krum_m: int = 1):
     """The robust aggregate of the stacked client models' deltas against
     the global model, added to it: the new global parameters."""
-    deltas = {l: {k: (c - global_params[l][k][None]).float()
-                  for k, c in leaves.items()}
-              for l, leaves in new_stacked.items()}
+    deltas = tree_map(lambda c, g: (c - g[None]).float(), new_stacked,
+                      global_params)
     mat, spec = stack_flatten(deltas)
     del deltas
     mask = mask.float()
@@ -135,6 +135,5 @@ def robust_combine_deltas(global_params, new_stacked, mask: torch.Tensor,
     else:
         raise ValueError(f"unknown robust aggregator: {method!r}")
     delta = stack_unflatten(combined[None], spec)
-    return {l: {k: (g + delta[l][k][0].float()).to(g.dtype)
-                for k, g in leaves.items()}
-            for l, leaves in global_params.items()}
+    return tree_map(lambda g, d: (g + d[0].float()).to(g.dtype),
+                    global_params, delta)

@@ -28,6 +28,7 @@ from typing import Any, Tuple
 import torch
 
 from fl_tpu_torch.core import prng
+from fl_tpu_torch.core.pytree import tree_map
 from fl_tpu_torch.ops.flatten import stack_flatten, stack_unflatten
 
 
@@ -78,15 +79,13 @@ def secure_fedavg_delta(global_params, new_stacked, num_samples: torch.Tensor,
     """Sample-weighted FedAvg of the deltas against the global model, from
     the pairwise-masked payloads: equal to ``fedavg_delta`` up to float
     cancellation (~C·eps·scale)."""
-    deltas = {l: {k: (c - global_params[l][k][None]).float()
-                  for k, c in leaves.items()}
-              for l, leaves in new_stacked.items()}
+    deltas = tree_map(lambda c, g: (c - g[None]).float(), new_stacked,
+                      global_params)
     masked, spec = masked_payloads(deltas, num_samples, mask, rseed,
                                    neighbors, scale)
     del deltas
     w_sum = (num_samples.float() * mask.float()).sum()
     total = masked.sum(0) / torch.clamp(w_sum, min=1e-12)
     avg = stack_unflatten(total[None], spec)
-    return {l: {k: (g + avg[l][k][0].float()).to(g.dtype)
-                for k, g in leaves.items()}
-            for l, leaves in global_params.items()}
+    return tree_map(lambda g, d: (g + d[0].float()).to(g.dtype),
+                    global_params, avg)

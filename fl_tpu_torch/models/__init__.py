@@ -1,9 +1,15 @@
 """Models over stacked clients (port of fl_tpu.models)."""
 
+from fl_tpu_torch.models.cifar10_cnn import (  # noqa: F401
+    CIFAR10CNN,
+    variables_from_flax,
+    variables_to_flax,
+)
 from fl_tpu_torch.models.factory import (  # noqa: F401
     AVAILABLE_MODELS,
     create_model,
     get_model_for_dataset,
+    get_model_weights,
 )
 from fl_tpu_torch.models.simple_cnn import (  # noqa: F401
     SimpleCNN,

@@ -66,6 +66,7 @@ from torch import nn
 
 import torch.nn.functional as F
 
+from fl_tpu_torch.core.pytree import tree_leaves
 from fl_tpu_torch.ops.conv_block import conv_stack, conv_stack_res
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -334,4 +335,4 @@ def params_to_flax(params: Params):
 
 
 def count_params(params: Params) -> int:
-    return sum(v.numel() for leaves in params.values() for v in leaves.values())
+    return sum(v.numel() for v in tree_leaves(params))

@@ -29,7 +29,7 @@ from typing import Union
 
 import torch
 
-from fl_tpu_torch.core.pytree import tree_paths
+from fl_tpu_torch.core.pytree import tree_from_leaves, tree_leaves, tree_paths
 
 _M32 = 0xFFFFFFFF
 _LEAF_STRIDE = 0x9E3779B1   # folds the leaf index into the seed
@@ -100,11 +100,8 @@ def leaf_seed(seed, i: int):
 
 
 def stochastic_round_tree_bf16(tree, seed):
-    """:func:`stochastic_round_bf16` over every leaf of a ``{layer: {leaf}}``
-    tree in flax's leaf order, leaf i with :func:`leaf_seed`."""
-    out = {layer: {} for layer in tree}
-    for i, (layer, k) in enumerate(tree_paths(tree)):
-        out[layer][k] = stochastic_round_bf16(
-            tree[layer][k],
-            leaf_seed(_as_seed(seed, tree[layer][k].device), i))
-    return out
+    """:func:`stochastic_round_bf16` over every leaf of a tree in flax's
+    leaf order, leaf i with :func:`leaf_seed`."""
+    return tree_from_leaves(tree_paths(tree), [
+        stochastic_round_bf16(leaf, leaf_seed(_as_seed(seed, leaf.device), i))
+        for i, leaf in enumerate(tree_leaves(tree))])

@@ -3,7 +3,8 @@
 
 The reference's layout, with ``torch.save`` in place of orbax: one
 directory a checkpoint, ``round_{step:08d}/``, holding ``variables.pt``
-(the global model), a ``meta.json`` with ``version`` / ``round_number`` /
+(the global model: params and, for a BatchNorm model, ``batch_stats``), a
+``meta.json`` with ``version`` / ``round_number`` /
 ``host_state`` (the seed, the convergence detector, the (ε, δ) ledger, the
 RDP accountant of dp_sgd / client_dp / distributed, the PLD steps taken,
 the adaptive clip norm), and one ``.pt`` file a piece of carried state:

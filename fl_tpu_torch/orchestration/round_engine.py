@@ -61,6 +61,18 @@ freezing through the trainer's gradient mask). The reference's feature
 rules for these raise its messages verbatim in its order (the trimmed-mean
 rule, which needs the client count, when the engine is built).
 
+Models: SimpleCNN and CIFAR10CNN. A BatchNorm model's ``batch_stats``
+(per-client running statistics, carried through local training) travel in
+``global_variables`` with the params: deltas against θ̂, delta DP's clip
+and K3 groups, client_dp's and distributed DP's release, the uplink's
+flat layout (flax leaf order: ``batch_stats`` first) and robust / secure /
+sample-weighted FedAvg (FedNova reweights the params only) cover them;
+``aggregate_batch_stats=False`` keeps the broadcast ones; the server
+optimizer steps the params only; dp_ftrl freezes them (with the
+reference's warning); dp_sgd, FedDyn and q-FFL refuse such a model with
+the reference's messages. ``augment_fn`` (``ops.preprocess``) augments
+every local batch.
+
 Other entry points: ``run_rounds_fused`` (R rounds dispatched back to back
 with one device→host copy of the stacked per-round metrics at the end),
 ``profile_round`` (one round under ``torch.profiler``, a Chrome trace),
@@ -85,7 +97,6 @@ import torch
 from fl_tpu_torch.core import prng
 from fl_tpu_torch.core.pytree import (
     assert_same_structure,
-    flatten_dict,
     global_norm,
     tree_map,
     unflatten_dict,
@@ -131,6 +142,7 @@ from fl_tpu_torch.fl.uplink import (
     apply_uplink_with_error_feedback,
     make_uplink_fn,
 )
+from fl_tpu_torch.models.factory import get_model_weights
 from fl_tpu_torch.ops.flatten import (
     flat_dim,
     padded_dim,
@@ -171,6 +183,9 @@ class RoundEngineConfig:
     participation_rate: float = 1.0
     straggler_dropout_rate: float = 0.0
     seed: int = 0
+    # average the BatchNorm statistics with the same FedAvg weights
+    # (FedBN-avg); False keeps the broadcast statistics
+    aggregate_batch_stats: bool = True
     # DP-SGD: examples a per-example chunk (peak memory ≈ clients ×
     # dp_microbatch × |params|), and the form: "auto" (ghost norms where
     # the model declares the taps), "ghost" or "microbatch"
@@ -519,6 +534,7 @@ class FederatedRoundEngine:
         device="cuda",
         test_images: Optional[np.ndarray] = None,
         test_labels: Optional[np.ndarray] = None,
+        augment_fn: Optional[Callable] = None,
     ):
         self.model = model
         self.config = config
@@ -614,7 +630,13 @@ class FederatedRoundEngine:
             prng.stream_seed(self._root, prng.Stream.INIT), self.device)
         self.global_variables: Dict[str, Any] = {
             "params": model.init(init_gen, self.device)}
+        # a BatchNorm model's running statistics (CIFAR10CNN norm="batch")
+        init_stats = getattr(model, "init_batch_stats", None)
+        stats = init_stats(self.device) if init_stats is not None else None
+        if stats is not None:
+            self.global_variables["batch_stats"] = stats
         params = self.global_variables["params"]
+        variables = self.global_variables
         # parameter freezing (fl.peft): the mask of the initial params
         self._grad_mask = None
         if config.trainable_patterns:
@@ -623,8 +645,7 @@ class FederatedRoundEngine:
             tr, tot = count_trainable(self._grad_mask)
             logger.info("parameter freezing: %d/%d params trainable "
                         "(%.1f%%)", tr, tot, 100.0 * tr / max(tot, 1))
-        # the models the port runs carry no batch_stats; these are the
-        # reference's refusals for a model that does
+        # the reference's refusals for a model with batch statistics
         if config.feddyn_alpha > 0 and "batch_stats" in self.global_variables:
             raise ValueError(
                 "feddyn's server model θ ← mean θ_i − h/α is defined on "
@@ -652,7 +673,7 @@ class FederatedRoundEngine:
         self._local_train = make_local_train_fn(
             model, train_cfg, self.data.samples_per_client,
             self.data.mean, self.data.std, grad_mask=self._grad_mask,
-            dp_sgd_fn=self._make_dp_sgd_fn())
+            dp_sgd_fn=self._make_dp_sgd_fn(), augment_fn=augment_fn)
         # q-FFL's F_k(θ̂): the masked eval-mode loss over each client's
         # shard at the model it received, inside the superstep
         self._qffl_eval = (make_federated_eval_fn(
@@ -672,20 +693,21 @@ class FederatedRoundEngine:
         else:
             self.test_images = self.test_labels = None
 
-        # uplink state: (C, D_pad) f32 error feedback when compression is
-        # on, a (C, 1) zero dummy otherwise; PowerSGD appends its
-        # warm-started Q factors after the EF region (fl.powersgd)
+        # uplink state: (C, D_pad) f32 error feedback over the whole
+        # variables tree when compression is on, a (C, 1) zero dummy
+        # otherwise; PowerSGD appends its warm-started Q factors after the
+        # EF region (fl.powersgd)
         self._powersgd_plan = None
         if config.uplink_compression == "powersgd":
             self._powersgd_plan = make_powersgd_plan(
-                params, config.uplink_powersgd_rank)
+                variables, config.uplink_powersgd_rank)
             q_gen = prng.generator(
                 prng.stream_seed(self._root, prng.Stream.UPLINK_Q),
                 self.device)
             self.uplink_error = init_uplink_state(
                 q_gen, self._powersgd_plan, self.num_clients)
         else:
-            ef_d = (padded_dim(flat_dim(params, batched=False))
+            ef_d = (padded_dim(flat_dim(variables, batched=False))
                     if config.uplink_compression != "none" else 1)
             self.uplink_error = torch.zeros((self.num_clients, ef_d),
                                             dtype=torch.float32,
@@ -715,7 +737,7 @@ class FederatedRoundEngine:
             self._dist_plan = ddp.DistributedDPPlan(
                 clip_norm=float(self.privacy.max_grad_norm),
                 bits=config.dist_bits,
-                dim=flat_dim(params, batched=False),
+                dim=flat_dim(variables, batched=False),
                 expected_clients=max(1, round(config.participation_rate
                                               * self.num_clients)),
                 noise_multiplier=float(self.privacy.noise_multiplier))
@@ -731,6 +753,12 @@ class FederatedRoundEngine:
             self.ftrl_participations = np.zeros((self.num_clients,),
                                                 np.int64)
             self._ftrl_spec = stacked_spec(params, 1)
+            if "batch_stats" in variables:
+                logger.warning(
+                    "dp_ftrl freezes batch_stats at their init values "
+                    "(only params flow through the DP release); prefer a "
+                    "GroupNorm model, e.g. create_model('cifar10_cnn', "
+                    "norm='group')")
         self.history: List[RoundResult] = []
         self.detector = ConvergenceDetector()
 
@@ -825,15 +853,18 @@ class FederatedRoundEngine:
             / self.num_clients
         return stack_unflatten(transmitted, spec), ef_out, ef_norm
 
-    def _superstep(self, global_params, round_idx: int,
+    def _superstep(self, global_vars, round_idx: int,
                    mask: torch.Tensor, ef_state: torch.Tensor,
                    epochs: Optional[torch.Tensor] = None,
                    clip_norm: Optional[float] = None,
                    inject: Optional[Tuple[torch.Tensor, Any]] = None):
-        """One round on the device: returns (new global params, new uplink
-        state, the new carried state (SCAFFOLD's (c, c_i), FedDyn's (h, g)
-        or DP-FTRL's (prefix, noisy prefix, momentum)) or None, packed
-        metrics). ``epochs`` is the (C,) epoch budget
+        """One round on the device: returns (new global variables, new
+        uplink state, the new carried state (SCAFFOLD's (c, c_i), FedDyn's
+        (h, g) or DP-FTRL's (prefix, noisy prefix, momentum)) or None,
+        packed metrics). ``global_vars`` is ``{"params": ...}`` and, for a
+        BatchNorm model, ``"batch_stats"``: the statistics travel with the
+        parameters through the deltas, DP, the uplink and the aggregation,
+        as in the reference. ``epochs`` is the (C,) epoch budget
         where SCAFFOLD or FedNova reads it or the budgets differ;
         ``clip_norm`` adaptive clipping's C for this round; ``inject`` the
         audit's (flags, stacked deltas)."""
@@ -843,17 +874,16 @@ class FederatedRoundEngine:
         rseed = prng.round_seed(self._root, round_idx)
         # θ̂: what clients actually receive; every delta below is measured
         # against it, and the aggregate is applied to the master
-        ref_params = (tree_map(lambda g: downlink_roundtrip(
-                          g, cfg.downlink_compression), global_params)
-                      if cfg.downlink_compression != "none"
-                      else global_params)
-        stacked = tree_map(lambda g: g[None].expand(C, *g.shape),
-                           ref_params)
+        ref_vars = (tree_map(lambda g: downlink_roundtrip(
+                        g, cfg.downlink_compression), global_vars)
+                    if cfg.downlink_compression != "none"
+                    else global_vars)
+        stacked = tree_map(lambda g: g[None].expand(C, *g.shape), ref_vars)
         pre_losses = None
         if self._qffl_eval is not None:
             # q-FFL's F_k(θ̂), before local training
             pre_losses = self._qffl_eval(
-                stacked, self.data.images, self.data.labels,
+                stacked["params"], self.data.images, self.data.labels,
                 self.data.num_samples)["loss"]
         corr = None
         if cfg.scaffold:
@@ -863,18 +893,24 @@ class FederatedRoundEngine:
             # FedDyn's −⟨g_i, θ⟩ term: the constant gradient addend −g_i
             # (the α-proximal term is the trainer's proximal_mu)
             corr = stack_unflatten(-self.feddyn_grads, self._flat_spec)
-        new_stacked, metrics = self._local_train(
-            stacked, self.data.images, self.data.labels,
+        extra = ({"batch_stats": stacked["batch_stats"]}
+                 if "batch_stats" in stacked else None)
+        out = self._local_train(
+            stacked["params"], self.data.images, self.data.labels,
             self.data.num_samples, rseed,
             epochs=None if self._is_homogeneous() else epochs,
-            correction=corr)
-        del corr
+            correction=corr, extra=extra)
+        new_stacked = {"params": out[0]}
+        metrics = out[1]
+        if extra is not None:
+            new_stacked.update(out[2])
+        del corr, out
         state_out = d_mat = None
         if cfg.scaffold or feddyn:
             # from the raw local trajectories
             d_mat, _ = stack_flatten(tree_map(
-                lambda c, g: (c - g[None]).float(), new_stacked,
-                global_params))
+                lambda c, g: (c - g[None]).float(), new_stacked["params"],
+                global_vars["params"]))
         if cfg.scaffold:
             # k = the steps each client took
             k_steps = epochs.float() * self._local_train.steps_per_epoch
@@ -890,12 +926,12 @@ class FederatedRoundEngine:
             eps_r = cfg.epsilon_per_round or self.privacy.epsilon
             del_r = cfg.delta_per_round or self.privacy.delta
             deltas = tree_map(lambda c, g: c - g[None], new_stacked,
-                              ref_params)
+                              ref_vars)
             noisy, _, sigma = dp.dp_noise_client_deltas(
                 deltas, rseed, eps_r, del_r, self.privacy.max_grad_norm)
             del deltas
             new_stacked = tree_map(lambda d, g: d + g[None], noisy,
-                                   ref_params)
+                                   ref_vars)
             del noisy
             sigma_mean = sigma.sum() / C
 
@@ -905,16 +941,16 @@ class FederatedRoundEngine:
         ef_norm = zero
         if cfg.dp_mode == "client_dp":
             new_global, sigma_mean, next_cn, frac = self._client_dp(
-                global_params, ref_params, new_stacked, rseed, mask,
+                global_vars, ref_vars, new_stacked, rseed, mask,
                 clip_norm, inject)
             del new_stacked
         elif cfg.dp_mode == "distributed":
             new_global, sigma_mean = self._distributed(
-                global_params, ref_params, new_stacked, rseed, mask)
+                global_vars, ref_vars, new_stacked, rseed, mask)
             del new_stacked
         elif cfg.dp_mode == "dp_ftrl":
             new_global, state_out = self._dp_ftrl(
-                global_params, new_stacked, mask, round_idx)
+                global_vars, new_stacked, mask, round_idx)
             del new_stacked
             sigma_mean = torch.tensor(self._ftrl_sigma_node,
                                       dtype=torch.float32, device=self.device)
@@ -922,58 +958,73 @@ class FederatedRoundEngine:
             # the client's order: train → DP → compress → upload
             hat, ef_out, ef_norm = self._uplink(
                 tree_map(lambda c, g: (c - g[None]).float(), new_stacked,
-                         ref_params), ef_state, mask)
+                         ref_vars), ef_state, mask)
             new_stacked = tree_map(lambda g, d: (g[None] + d).to(g.dtype),
-                                   ref_params, hat)
+                                   ref_vars, hat)
             del hat
 
         w = normalized_client_weights(self.data.num_samples, mask)
+        if (cfg.dp_mode not in _CENTRAL_DP and not cfg.aggregate_batch_stats
+                and "batch_stats" in new_stacked):
+            # re-broadcast the REFERENCE statistics so that their delta is
+            # exactly zero (the master's would leak the downlink's
+            # quantization error into them)
+            new_stacked = dict(new_stacked, batch_stats=tree_map(
+                lambda g: g[None].expand(C, *g.shape),
+                ref_vars["batch_stats"]))
         if cfg.dp_mode in _CENTRAL_DP:
             pass  # new_global is the central-DP release above
         elif feddyn:
             # FedDyn owns the server update: θ ← mean_P(θ_i) − h/α with
-            # h ← h − (α/N)Σ_P Δ_i (Acar et al. 2021 Alg. 1)
+            # h ← h − (α/N)Σ_P Δ_i (Acar et al. 2021 Alg. 1); BatchNorm
+            # models are refused when the engine is built
             pmat, pspec = stack_flatten(tree_map(lambda g: g[None].float(),
-                                                 global_params))
+                                                 global_vars["params"]))
             new_pflat, h_out, g_out = feddyn_server_update(
                 pmat[0], self.feddyn_h, self.feddyn_grads, d_mat, mask,
                 cfg.feddyn_alpha, C)
             del pmat, d_mat
             state_out = (h_out, g_out)
-            new_global = tree_map(lambda t, g: t[0].to(g.dtype),
-                                  stack_unflatten(new_pflat[None], pspec),
-                                  global_params)
+            new_global = dict(global_vars, params=tree_map(
+                lambda t, g: t[0].to(g.dtype),
+                stack_unflatten(new_pflat[None], pspec),
+                global_vars["params"]))
         elif cfg.qffl_q is not None:
             # loss-weighted, h-normalized step; deltas against θ̂, applied
             # to the full-precision master
             new_global = qffl_combine(
-                global_params, ref_params, new_stacked, pre_losses, mask,
+                global_vars, ref_vars, new_stacked, pre_losses, mask,
                 cfg.qffl_q, cfg.training.learning_rate)
         elif cfg.aggregation != "fedavg":
             new_global = robust_combine_deltas(
-                global_params, new_stacked, mask, cfg.aggregation,
+                global_vars, new_stacked, mask, cfg.aggregation,
                 trim_k=cfg.trim_k, krum_f=cfg.krum_f, krum_m=cfg.krum_m)
         elif cfg.secure_aggregation:
             new_global = secure_fedavg_delta(
-                global_params, new_stacked, self.data.num_samples, mask,
+                global_vars, new_stacked, self.data.num_samples, mask,
                 rseed, neighbors=cfg.secure_agg_neighbors,
                 scale=cfg.secure_agg_scale)
         else:
             w_params = w
             if cfg.fednova:
                 # normalized averaging (Wang et al. 2020 eq. 6): θ + τ_eff
-                # Σ p_i Δ_i / a_i; FedAvg itself when every a_i is equal
+                # Σ p_i Δ_i / a_i; FedAvg itself when every a_i is equal.
+                # a_i is a trajectory identity of the params only: the
+                # statistics keep the plain sample weights
                 a_i = fednova_effective_steps(
                     epochs.float() * self._local_train.steps_per_epoch,
                     cfg.training.momentum)
                 tau_eff = (w * a_i).sum()
                 w_params = tau_eff * w / torch.clamp(a_i, min=1e-12)
-            new_global = fedavg_delta(global_params, new_stacked, w_params,
-                                      ref_params)
+            new_global = {
+                key: fedavg_delta(global_vars[key], new_stacked[key],
+                                  w_params if key == "params" else w,
+                                  ref_vars[key])
+                for key in global_vars}
         scalars = torch.stack([
             (metrics["loss"] * w).sum(),
             (metrics["accuracy"] * w).sum(),
-            global_norm(tree_map(torch.sub, new_global, global_params)),
+            global_norm(tree_map(torch.sub, new_global, global_vars)),
             global_norm(new_global),
             sigma_mean,
             ef_norm,
@@ -986,7 +1037,7 @@ class FederatedRoundEngine:
         packed = torch.cat([scalars] + per_client)
         return new_global, ef_out, state_out, packed
 
-    def _client_dp(self, global_params, ref_params, new_stacked, rseed: int,
+    def _client_dp(self, global_vars, ref_vars, new_stacked, rseed: int,
                    mask: torch.Tensor, clip_norm: Optional[float],
                    inject: Optional[Tuple[torch.Tensor, Any]]):
         """Client-level DP-FedAvg (``fl_tpu/orchestration/round_engine.py
@@ -1002,7 +1053,7 @@ class FederatedRoundEngine:
         at rate q assumes."""
         cfg = self.config
         C = self.num_clients
-        deltas = tree_map(lambda c, g: c - g[None], new_stacked, ref_params)
+        deltas = tree_map(lambda c, g: c - g[None], new_stacked, ref_vars)
         if inject is not None:
             # audit canaries replace the flagged clients' deltas BEFORE the
             # clip: to the mechanism a canary is a client like any other
@@ -1033,12 +1084,12 @@ class FederatedRoundEngine:
         noisy = dp.central_noise_tree(avg, prng.fold(nseed, 0), sigma)
         del avg
         new_global = tree_map(lambda g, d: (g + d.float()).to(g.dtype),
-                              global_params, noisy)
+                              global_vars, noisy)
         sigma_t = torch.as_tensor(sigma, dtype=torch.float32,
                                   device=self.device)
         return new_global, sigma_t, next_cn, frac
 
-    def _distributed(self, global_params, ref_params, new_stacked,
+    def _distributed(self, global_vars, ref_vars, new_stacked,
                      rseed: int, mask: torch.Tensor):
         """Distributed DP (``fl_tpu/orchestration/round_engine.py
         :1097-1153``): each Δ clipped to C (the scale folded into the flat
@@ -1048,7 +1099,7 @@ class FederatedRoundEngine:
         fold(round, DISTRIBUTED_DP): 0 the rounding of every client's row,
         1 the per-client shares, 2 the aggregate draw."""
         plan = self._dist_plan
-        deltas = tree_map(lambda c, g: c - g[None], new_stacked, ref_params)
+        deltas = tree_map(lambda c, g: c - g[None], new_stacked, ref_vars)
         norms = dp.client_norms(deltas)
         mat, spec = stack_flatten(deltas)
         del deltas
@@ -1072,20 +1123,22 @@ class FederatedRoundEngine:
         avg = ddp.decode_average(total, plan.gamma, plan.expected_clients)
         avg_tree = stack_unflatten(avg[None], spec)
         new_global = tree_map(lambda g, d: (g + d[0].float()).to(g.dtype),
-                              global_params, avg_tree)
+                              global_vars, avg_tree)
         sigma = (plan.gamma * torch.sqrt(plan.mu_local * m_real.float())
                  / plan.expected_clients)
         return new_global, sigma
 
-    def _dp_ftrl(self, global_params, new_stacked, mask: torch.Tensor,
+    def _dp_ftrl(self, global_vars, new_stacked, mask: torch.Tensor,
                  round_idx: int):
         """DP-FTRL (``fl_tpu/orchestration/round_engine.py:1155-1194``):
         each participant's params-Δ clipped to C, their masked SUM (no
         division: the sensitivity is per leaf), the FTRL(M) step against
-        the tree-noised prefix. Returns (new global params, the carried
-        (prefix, noisy prefix, momentum))."""
-        deltas = tree_map(lambda c, g: (c - g[None]).float(), new_stacked,
-                          global_params)
+        the tree-noised prefix. Only the params flow through the release:
+        batch statistics stay as they were. Returns (new global variables,
+        the carried (prefix, noisy prefix, momentum))."""
+        global_params = global_vars["params"]
+        deltas = tree_map(lambda c, g: (c - g[None]).float(),
+                          new_stacked["params"], global_params)
         norms = dp.client_norms(deltas)
         cmat, _ = stack_flatten(deltas)
         del deltas
@@ -1101,11 +1154,11 @@ class FederatedRoundEngine:
             self.ftrl_momentum_buf, round_sum, self._ftrl_tree_seed,
             round_idx + 1, self._ftrl_sigma_node, self._ftrl_height,
             cfg.ftrl_server_lr, float(self._ftrl_cohort), cfg.ftrl_momentum)
-        new_global = tree_map(lambda t, g: t[0].to(g.dtype),
+        new_params = tree_map(lambda t, g: t[0].to(g.dtype),
                               stack_unflatten(new_pflat[None],
                                               self._ftrl_spec),
                               global_params)
-        return new_global, (cumsum, noisy, mom)
+        return dict(global_vars, params=new_params), (cumsum, noisy, mom)
 
     # ------------------------------------------------------------------
     # host round loop
@@ -1276,7 +1329,7 @@ class FederatedRoundEngine:
                     torch.as_tensor(np.asarray(inject_flags, np.float32)
                                     ).to(self.device),
                     tree_map(lambda t: torch.as_tensor(t).to(self.device),
-                             inject_deltas["params"]))
+                             inject_deltas))
         elif inject_flags is not None:
             raise ValueError(
                 "inject_flags passed but config.audit_injection is off")
@@ -1286,20 +1339,23 @@ class FederatedRoundEngine:
 
         round_clip = self.clip_norm  # the C this round uses (adaptive)
         mask_t = to_device(np.asarray(mask, np.float32), self.device)
-        old_params = self.global_variables["params"]
+        old_vars = self.global_variables
         new_global, self.uplink_error, state_out, metrics = self._superstep(
-            old_params, self.round_number, mask_t, self.uplink_error,
+            old_vars, self.round_number, mask_t, self.uplink_error,
             self._epochs_tensor(), round_clip, inject)
         self._carry_state(state_out)
         if cfg.dp_mode == "dp_ftrl":
             self.ftrl_participations += (np.asarray(mask) > 0)
         if self._server_opt is not None:
-            # a server step on the pseudo-gradient θ − θ_fedavg
+            # a server step on the pseudo-gradient θ − θ_fedavg, params
+            # only (batch statistics keep the FedAvg result)
+            old_params = old_vars["params"]
             if self.server_opt_state is None:
                 self.server_opt_state = self._server_opt.init(old_params)
-            new_global, self.server_opt_state = self._server_opt.update(
-                old_params, new_global, self.server_opt_state)
-        self.global_variables = {"params": new_global}
+            new_params, self.server_opt_state = self._server_opt.update(
+                old_params, new_global["params"], self.server_opt_state)
+            new_global = dict(new_global, params=new_params)
+        self.global_variables = new_global
 
         eps_spent = 0.0
         ledger = None
@@ -1550,8 +1606,10 @@ class FederatedRoundEngine:
 
         test_loss = test_acc = None
         if evaluate and self.test_images is not None:
-            ev = evaluate_test_set(self.model, pending.variables["params"],
-                                   self.test_images, self.test_labels)
+            ev = evaluate_test_set(
+                self.model, pending.variables["params"], self.test_images,
+                self.test_labels,
+                batch_stats=pending.variables.get("batch_stats"))
             test_loss, test_acc = ev["loss"], ev["accuracy"]
 
         conv = self.detector.update(RoundObservation(
@@ -1763,8 +1821,10 @@ class FederatedRoundEngine:
     def evaluate(self) -> Dict[str, float]:
         if self.test_images is None:
             raise ValueError("No test set configured")
-        return evaluate_test_set(self.model, self.global_variables["params"],
-                                 self.test_images, self.test_labels)
+        return evaluate_test_set(
+            self.model, self.global_variables["params"], self.test_images,
+            self.test_labels,
+            batch_stats=self.global_variables.get("batch_stats"))
 
     def evaluate_federated(self) -> Dict[str, Any]:
         """Score the current global model on every client's own shard:
@@ -1782,17 +1842,17 @@ class FederatedRoundEngine:
             finetune_fraction=finetune_fraction)
 
     def get_model_weights(self) -> Dict[str, torch.Tensor]:
-        """The global model as a flat ``{"params/conv1/kernel": tensor}``
-        dict, the keys of the reference's ``FLModel.get_model_weights``
-        (copies: the engine's own tensors stay its own)."""
+        """The global model as a flat ``{"params/conv1/kernel": tensor,
+        "batch_stats/bn1/mean": ...}`` dict, the keys of the reference's
+        ``FLModel.get_model_weights`` (copies: the engine's own tensors
+        stay its own)."""
         return {k: v.detach().clone() for k, v in
-                flatten_dict({"params": self.global_variables["params"]}
-                             ).items()}
+                get_model_weights(self.global_variables).items()}
 
     def set_model_weights(self, weights: Dict[str, Any]) -> None:
         """Replace the global model from a flat weight dict of the same
         keys and shapes (numpy arrays or tensors); a mismatch raises."""
-        current = flatten_dict({"params": self.global_variables["params"]})
+        current = get_model_weights(self.global_variables)
         assert_same_structure(current, weights)
         def leaf(v, like):
             t = v if isinstance(v, torch.Tensor) else torch.tensor(

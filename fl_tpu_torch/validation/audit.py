@@ -33,7 +33,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fl_tpu_torch.core.pytree import tree_map, tree_paths
+from fl_tpu_torch.core.pytree import (
+    tree_from_leaves, tree_get, tree_leaves, tree_map, tree_paths)
 from fl_tpu_torch.data.federated import FederatedArrays
 
 # ---------------------------------------------------------------------------
@@ -166,8 +167,8 @@ def make_update_canaries(variables, num_canaries: int, scale: float,
                          seed: int = 0):
     """Random directions on the sphere of radius ``scale`` in the model's
     full variable space, one per canary, stacked on a leading axis: a tree
-    like ``variables`` (``{"params": {layer: {leaf}}}``) of f32 tensors on
-    its device. Drawn leaf by leaf in flax's flatten order with numpy, so
+    like ``variables`` (``{"params": {layer: {leaf}}}``, and a BatchNorm
+    model's ``batch_stats``) of f32 tensors on its device. Drawn leaf by leaf in flax's flatten order with numpy, so
     they equal the reference's directions for a seed.
 
     Random directions in the ~4·10⁵-dimensional parameter space are near
@@ -176,20 +177,17 @@ def make_update_canaries(variables, num_canaries: int, scale: float,
     canary's own contribution plus the mechanism's noise (Steinke et al.
     2023 §6)."""
     rng = np.random.default_rng(seed)
-    params = variables["params"]
-    paths = tree_paths(params)
+    paths = tree_paths(variables)
     outs = [rng.standard_normal(
-        (num_canaries,) + tuple(params[l][k].shape)).astype(np.float32)
-        for l, k in paths]
+        (num_canaries,) + tuple(leaf.shape)).astype(np.float32)
+        for leaf in tree_leaves(variables)]
     sq = sum((o.reshape(num_canaries, -1) ** 2).sum(axis=1) for o in outs)
     norm = np.sqrt(sq)
     outs = [o * (scale / norm).reshape((num_canaries,) + (1,) * (o.ndim - 1))
             for o in outs]
-    out: Dict = {}
-    for (l, k), o in zip(paths, outs):
-        out.setdefault(l, {})[k] = torch.from_numpy(o).to(
-            params[l][k].device)
-    return {"params": out}
+    return tree_from_leaves(paths, [
+        torch.from_numpy(o).to(tree_get(variables, p).device)
+        for p, o in zip(paths, outs)])
 
 
 def make_update_dot_fn():
@@ -201,12 +199,11 @@ def make_update_dot_fn():
 
     @torch.no_grad()
     def dot_fn(old_vars, new_vars, directions):
-        old, new, dirs = (old_vars["params"], new_vars["params"],
-                          directions["params"])
         total = None
-        for l, k in tree_paths(dirs):
-            d = dirs[l][k]
-            delta = new[l][k].float() - old[l][k].float()
+        for p in tree_paths(directions):
+            d = tree_get(directions, p)
+            delta = (tree_get(new_vars, p).float()
+                     - tree_get(old_vars, p).float())
             dots = d.reshape(d.shape[0], -1) @ delta.reshape(-1)
             total = dots if total is None else total + dots
         return total
@@ -262,18 +259,18 @@ def make_canary_dot_fn(model):
     def dot_fn(old_vars, new_vars, images, labels, counts, mean, std):
         old, new = old_vars["params"], new_vars["params"]
         paths = tree_paths(old)
-        device = old[paths[0][0]][paths[0][1]].device
+        device = tree_get(old, paths[0]).device
         x, y, c = _canary_batch(images, labels, counts, device)
         m = x.shape[0]
         stacked = _broadcast(old, m)
-        leaves = [stacked[l][k].requires_grad_(True) for l, k in paths]
+        leaves = [tree_get(stacked, p).requires_grad_(True) for p in paths]
         loss = _canary_losses(model, stacked, x, y, c, mean, std)
         grads = torch.autograd.grad(loss.sum(), leaves)
         with torch.no_grad():
             flat = [g.reshape(m, -1) for g in grads]
             norm = torch.sqrt(sum((g * g).sum(1) for g in flat))
-            moved = [(old[l][k] - new[l][k]).float().reshape(-1)
-                     for l, k in paths]
+            moved = [(tree_get(old, p) - tree_get(new, p)).float()
+                     .reshape(-1) for p in paths]
             dots = sum(g @ mv for g, mv in zip(flat, moved))
             return dots / torch.clamp(norm, min=1e-12)
 
@@ -290,8 +287,7 @@ def make_canary_score_fn(model):
     @torch.no_grad()
     def score_fn(init_vars, final_vars, images, labels, counts, mean, std):
         init, final = init_vars["params"], final_vars["params"]
-        paths = tree_paths(init)
-        device = init[paths[0][0]][paths[0][1]].device
+        device = tree_leaves(init)[0].device
         x, y, c = _canary_batch(images, labels, counts, device)
         m = x.shape[0]
         return (_canary_losses(model, _broadcast(init, m), x, y, c, mean,
@@ -382,9 +378,9 @@ def run_client_membership_audit(
             engine.global_variables, num_canaries,
             scale=float(config.privacy.max_grad_norm), seed=seed)
         # full (C_total,)-stacked injection tree: zeros for real clients
-        inject_stacked = {"params": tree_map(
+        inject_stacked = tree_map(
             lambda u: torch.cat([u.new_zeros((num_real,) + u.shape[1:]),
-                                 u]), directions["params"])}
+                                 u]), directions)
 
     dot_fn = (make_update_dot_fn() if canary_kind == "update"
               else make_canary_dot_fn(model)

@@ -10,9 +10,12 @@ uplink, top-k, PowerSGD and downlink are jnp / lax code):
 - ``int8_roundtrip_matrix`` bit-equal, on ragged D and on a block of zeros;
 - ``topk_roundtrip_matrix`` equal on tie-free data; with ties, k kept a row
   and every kept |x| ≥ every dropped |x|;
-- ``_orthonormalize`` and ``powersgd_roundtrip`` within rtol 1e-5 / atol
-  1e-6 (the reference's f32 einsums and the port's ``torch.bmm`` sum in
-  other orders), the degenerate column zeroed on both sides; the plan equal
+- ``_orthonormalize`` within rtol 1e-5 / atol 1e-6, the degenerate column
+  zeroed on both sides; ``powersgd_roundtrip`` and its error-feedback step
+  against a float64 evaluation of the same steps, each package within the
+  f32 forward-error bound c·γ_K·(|P|·|Pᵀ|·|M|) of its products (the
+  reference's f32 einsums and the port's ``torch.bmm`` sum in other
+  orders), and the two within the sum of their bounds; the plan equal
   entry for entry;
 - both error-feedback steps: the algebra exact to 1e-6, non-participants
   transmitting zero and keeping their state;
@@ -225,8 +228,81 @@ def test_orthonormalize_matches_jax_with_a_degenerate_column():
     np.testing.assert_allclose(got[0].T @ got[0], np.eye(4), atol=1e-5)
 
 
+# f32 unit roundoff: the forward-error bound of a K-long f32 product is
+# |ŷ − y| ≤ γ_K·(|A|·|B|), γ_K = K·u / (1 − K·u) (Higham, Thm. 3.5)
+_U32 = 2.0 ** -24
+# one constant over the roundtrip's three stages (M·Q, modified
+# Gram–Schmidt, Mᵀ·P and P·Qᵀ); both packages stay under 2.2 of it
+_STAGES = 4.0
+
+
+def _gamma(k):
+    return k * _U32 / (1.0 - k * _U32)
+
+
+def _orthonormalize_f64(p):
+    """``_orthonormalize`` in float64 with numpy: the same modified
+    Gram–Schmidt and the same degenerate-column rule."""
+    cols = []
+    for i in range(p.shape[-1]):
+        v = p[:, :, i]
+        orig = np.sqrt(np.sum(v * v, axis=1, keepdims=True))
+        for u in cols:
+            v = v - np.sum(v * u, axis=1, keepdims=True) * u
+        norm = np.sqrt(np.sum(v * v, axis=1, keepdims=True))
+        cols.append(np.where(norm <= 1e-5 * orig + 1e-30, 0.0,
+                             v / np.maximum(norm, 1e-30)))
+    return np.stack(cols, axis=2)
+
+
+def _roundtrip_f64(carried, q, plan):
+    """``powersgd_roundtrip`` evaluated in float64 on the f32 inputs, and
+    the elementwise forward-error bound of an f32 evaluation:
+
+        |ŷ − y| ≤ c·γ_K·S,  K = max(n, m),  c = ``_STAGES``,
+
+    with S = |P|·|Pᵀ|·|M| for the reconstruction P·Pᵀ·M and S = |Mᵀ|·|P|
+    for the new Q = Mᵀ·P (|·| elementwise, the products in float64). The
+    columns that pass through uncopied get a bound of 0. Returns (out, qn,
+    out bound, qn bound)."""
+    c, r = carried.shape[0], plan.rank
+    carried = carried.astype(np.float64)
+    q = q.astype(np.float64)
+    out, qn = carried.copy(), q.copy()
+    out_b, qn_b = np.zeros_like(out), np.zeros_like(qn)
+    for e in plan.entries:
+        cols = slice(e.offset, e.offset + e.n * e.m)
+        qcols = slice(e.q_offset, e.q_offset + e.m * r)
+        mat = carried[:, cols].reshape(c, e.n, e.m)
+        p = _orthonormalize_f64(mat @ q[:, qcols].reshape(c, e.m, r))
+        qe = mat.transpose(0, 2, 1) @ p
+        out[:, cols] = (p @ qe.transpose(0, 2, 1)).reshape(c, -1)
+        qn[:, qcols] = qe.reshape(c, -1)
+        g = _STAGES * _gamma(max(e.n, e.m))
+        ap = np.abs(p)
+        out_b[:, cols] = g * (ap @ (ap.transpose(0, 2, 1) @ np.abs(mat))
+                              ).reshape(c, -1)
+        qn_b[:, qcols] = g * (np.abs(mat).transpose(0, 2, 1) @ ap
+                              ).reshape(c, -1)
+    return out, qn, out_b, qn_b
+
+
+def _within_bound(got, want, bound, what):
+    err = np.abs(got.astype(np.float64) - want)
+    bad = err > bound
+    assert not bad.any(), (
+        f"{what}: {int(bad.sum())} of {bad.size} entries beyond the f32 "
+        f"bound, the worst {float(err[bad].max()):.3g} against "
+        f"{float(bound[bad][np.argmax(err[bad])]):.3g}")
+
+
 @pytest.mark.parametrize("rank", [2, 4])
 def test_powersgd_roundtrip_matches_jax(rank):
+    """Each package against the float64 evaluation of the same steps within
+    the f32 forward-error bound c·γ_K·S (``_roundtrip_f64``), and the two
+    against each other within the sum of their bounds: the two sum the
+    products up to K = 3,136 long in other orders, on outputs that nearly
+    cancel, so neither equals the other to a fixed relative tolerance."""
     plan, jplan = _plans(rank)
     C = 3
     carried = _normal(10, (C, plan.d_pad))
@@ -236,10 +312,17 @@ def test_powersgd_roundtrip_matches_jax(rank):
                                     plan)
     jout, jqn = jps.powersgd_roundtrip(jnp.asarray(carried), jnp.asarray(q),
                                        jplan)
-    np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=1e-5,
-                               atol=1e-6)
-    np.testing.assert_allclose(qn.numpy(), np.asarray(jqn), rtol=1e-5,
-                               atol=1e-6)
+    out64, qn64, out_b, qn_b = _roundtrip_f64(carried, q, plan)
+    for name, got, want, bound in (
+            ("port out", out.numpy(), out64, out_b),
+            ("jax out", np.asarray(jout), out64, out_b),
+            ("port q", qn.numpy(), qn64, qn_b),
+            ("jax q", np.asarray(jqn), qn64, qn_b)):
+        _within_bound(got, want, bound, name)
+    _within_bound(out.numpy(), np.asarray(jout, np.float64), 2 * out_b,
+                  "port vs jax out")
+    _within_bound(qn.numpy(), np.asarray(jqn, np.float64), 2 * qn_b,
+                  "port vs jax q")
     # leaves outside every entry (biases, lane padding) pass through
     covered = np.zeros(plan.d_pad, bool)
     for e in plan.entries:
@@ -292,10 +375,29 @@ def test_powersgd_error_feedback_matches_jax_and_respects_mask():
         torch.tensor(delta), state, torch.tensor(mask), plan)
     jtx, jnew = jps.apply_powersgd_with_error_feedback(
         jnp.asarray(delta), jnp.asarray(s0), jnp.asarray(mask), jplan)
-    np.testing.assert_allclose(tx.numpy(), np.asarray(jtx), rtol=1e-5,
-                               atol=1e-6)
-    np.testing.assert_allclose(new.numpy(), np.asarray(jnew), rtol=1e-5,
-                               atol=1e-6)
+    # the float64 step from the same f32 carried = delta + e_t (one f32
+    # add, the same on both sides); the new EF = carried − transmitted
+    # adds one rounding, u·|carried − transmitted|, to the bound
+    carried = delta + s0[:, :plan.d_pad]
+    out64, qn64, out_b, qn_b = _roundtrip_f64(
+        carried, s0[:, plan.d_pad:], plan)
+    live = (mask > 0)[:, None]
+    tx64 = np.where(live, out64, 0.0)
+    tx_b = np.where(live, out_b, 0.0)
+    new64 = np.concatenate([np.where(live, carried - tx64, s0[:, :plan.d_pad]),
+                            np.where(live, qn64, s0[:, plan.d_pad:])], 1)
+    new_b = np.concatenate([
+        np.where(live, out_b + 2 * _U32 * np.abs(carried - tx64), 0.0),
+        np.where(live, qn_b, 0.0)], 1)
+    for name, got_tx, got_new in (("port", tx.numpy(), new.numpy()),
+                                  ("jax", np.asarray(jtx),
+                                   np.asarray(jnew))):
+        _within_bound(got_tx, tx64, tx_b, f"{name} transmitted")
+        _within_bound(got_new, new64, new_b, f"{name} state")
+    _within_bound(tx.numpy(), np.asarray(jtx, np.float64), 2 * tx_b,
+                  "port vs jax transmitted")
+    _within_bound(new.numpy(), np.asarray(jnew, np.float64), 2 * new_b,
+                  "port vs jax state")
     ef = new.numpy()[:, :plan.d_pad]
     live = mask > 0
     np.testing.assert_allclose((tx.numpy() + ef)[live],

@@ -175,8 +175,10 @@ def test_get_model_for_dataset():
                                   fused_conv_block=True)
     assert (model.num_classes, model.dtype, model.fused_conv_block) == \
         (10, torch.bfloat16, True)
+    # cifar10 routes to CIFAR10CNN (ported); cifar100's model is not
+    assert get_model_for_dataset("cifar10").name == "cifar10_cnn"
     with pytest.raises(ValueError, match="mnist"):
-        get_model_for_dataset("cifar10")
+        get_model_for_dataset("cifar100")
 
 
 def test_unfused_pool_routes_ties_to_the_first_member():

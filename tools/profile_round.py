@@ -5,7 +5,8 @@
     python3 tools/profile_round.py profile [--out DIR] [residual|true|false|
         up-int8|up-topk|up-powersgd|down-bf16|down-int8|down-int8+up-topk|
         client-dp|v1|v2|v2-f32|v3|v4|v5|v6|v7|dp-sgd-microbatch|
-        dp-sgd-ghost|dp-ftrl|distributed-fused|distributed-per-client ...]
+        dp-sgd-ghost|dp-ftrl|distributed-fused|distributed-per-client|
+        cifar|cifar-ghost ...]
 
 ``sweep`` times the four conv kernels at the bench shapes (512 clients x 32
 images, bf16, C1=32, C2=64) for each thread count per block, CUDA events
@@ -33,7 +34,12 @@ FedDyn, q-FFL and PEFT as its ``phase_engine_api`` runs them
 (``chip_smoke.api_engine``), or the other DP mechanisms' cells of its
 ``phase_dp_mechanisms`` (``chip_smoke.mechanism_cells``: DP-SGD's
 microbatch fold on ``"residual"`` and ghost norms on ``False``, DP-FTRL,
-distributed DP with fused and per-client noise): one warm-up round,
+distributed DP with fused and per-client noise), or ``cifar``, the
+CIFAR-10 slice's main path (``chip_smoke.cifar_engine``: CIFAR10CNN with
+BatchNorm and augmentation, 512 clients, delta DP), or ``cifar-ghost``,
+DP-SGD ghost on the GroupNorm model at the CIFAR script's shape
+(``chip_smoke.cifar_ghost_engine``; its rounds run by ``run_round``,
+DP-SGD's rounds pipeline as any other): one warm-up round,
 then 3 pipelined rounds under ``torch.profiler``, and prints the device
 time per round grouped by kernel family, the launches per round, the busy
 share of the profiled window, rounds/s without the profiler (3 pipelined
@@ -78,10 +84,11 @@ FAMILIES = (
     ("nchwToNhwc", "cuDNN layout transforms (NCHW <-> NHWC)"),
     ("nhwcToNchw", "cuDNN layout transforms (NCHW <-> NHWC)"),
     ("tensorTransform", "cuDNN layout transforms (NCHW <-> NHWC)"),
-    ("cudnn", "library conv2 (cuDNN)"),
-    ("nvjet", "fc1/fc2 GEMMs (torch.bmm, cuBLAS)"),
-    ("gemm", "fc1/fc2 GEMMs (torch.bmm, cuBLAS)"),
-    ("cutlass", "fc1/fc2 GEMMs (torch.bmm, cuBLAS)"),
+    ("cudnn", "library convolutions (cuDNN)"),
+    ("implicit_convolve", "library convolutions (cuDNN)"),
+    ("nvjet", "dense GEMMs (torch.bmm, cuBLAS)"),
+    ("gemm", "dense GEMMs (torch.bmm, cuBLAS)"),
+    ("cutlass", "dense GEMMs (torch.bmm, cuBLAS)"),
     ("reduce_kernel", "PyTorch reductions"),
     ("mbtopk", "torch.topk (radix select)"),
     ("Sort", "torch.sort (robust aggregation)"),
@@ -91,6 +98,7 @@ FAMILIES = (
     ("copy_kernel", "copies and casts"),
     ("poisson", "torch.poisson (Skellam draws)"),
     ("distribution", "random draws (rand, randn)"),
+    ("index", "indexing (batch gathers, the augmentation's gather)"),
     ("elementwise", "PyTorch elementwise"),
 )
 
@@ -261,6 +269,11 @@ def main(argv) -> int:
     for name, cell in chip_smoke.mechanism_cells().items():
         modes[name] = (name, lambda cell=cell:
                        chip_smoke.mechanism_engine(**cell))
+    modes["cifar"] = ("cifar10_cnn(norm='batch') + augmentation, delta DP",
+                      chip_smoke.cifar_engine)
+    modes["cifar-ghost"] = ("cifar10_cnn(norm='group') dp_sgd ghost, "
+                            f"{chip_smoke.GHOST_CLIENTS} clients",
+                            chip_smoke.cifar_ghost_engine)
     out_dir = None
     if argv[1:2] == ["--out"] and len(argv) > 2:
         out_dir, argv = Path(argv[2]), argv[:1] + argv[3:]
