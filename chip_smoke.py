@@ -158,6 +158,26 @@ line each; any failure exits non-zero:
    rounds), ε by round equal to a fresh RDP accountant's; and a learning
    check, 10 IID clients, weak delta DP, 3 rounds, test accuracy on the
    running statistics > 0.5;
+   then the rest of the model zoo (``phase_zoo``), each at the bench's
+   training options: K3 at FederatedResNet's nine leaf groups (128
+   clients; the eight layer2 / layer3 conv kernels alone, the rest with
+   the batch statistics) against its plain version as for CIFAR; the main
+   path, ``get_model_for_dataset("cifar100")`` (the ResNet at 100 classes,
+   published widths) in bf16 with the augmentation, 128 clients x 64
+   synthetic CIFAR images under the bench's delta DP: one warm-up and 2
+   pipelined rounds, K3 launched 9 times a round and nothing else, the 30
+   ``batch_stats`` leaves finite; the ViT with rank-4 LoRA adapters under
+   ``lora_trainable_patterns()``, 512 clients, delta DP (K3 once a round),
+   then a round without DP after which every frozen leaf keeps its bits,
+   and ``merge_lora`` of its global params, whose forward equals the
+   unmerged one (f32 to 1e-4 of the largest logit, bf16 within 3e-2
+   relative); LightweightMobileNet at width 0.5, 512 clients, delta DP,
+   one warm-up and one round; each with rounds/s, the device span a round
+   (CUDA events) and peak memory on a ``zoo`` line; ``benchmark_models``
+   (every model's eval forward, one client x 32 images, CUDA events); and
+   two learning checks, 10 IID clients x 512, weak delta DP, 3 rounds: the
+   ResNet's test accuracy on the running statistics > 0.5, the ViT's
+   training loss falling;
 6. learning check: 10 non-IID clients, 3 rounds, test accuracy > 0.5, with
    ``fused_conv_block="residual"`` and with ``True``, and with
    ``"residual"`` under SCAFFOLD (SGD lr 0.05), under FedNova (SGD lr
@@ -342,6 +362,27 @@ GHOST_EPSILON = 1.5     # the script's target over its 30 rounds
 GHOST_PLANNED_ROUNDS = 30
 GHOST_ROUNDS = 2        # run here, after a warm-up round
 GHOST_DELTA = 1e-5
+# the rest of the model zoo (phase_zoo), each path at the bench's
+# training options: FederatedResNet (the cifar100 route, 100 classes,
+# published widths) with the CIFAR augmentation, FederatedViT with rank-4
+# LoRA adapters under lora_trainable_patterns(), LightweightMobileNet at
+# the factory's width 0.5
+ZOO_RESNET_CLIENTS = 128   # the one cut from the bench's 512 (PERF.md §4)
+ZOO_ROUNDS = 2             # pipelined, after a warm-up round
+RESNET_PARAMS = 2_800_804
+RESNET_STATS = 4_480
+# K3's groups at the ResNet, in launch order: the layer2 / layer3 conv
+# kernels of at least 65,536 elements a client, then the rest with the
+# batch statistics; one group for the ViT and the MobileNet (no leaf
+# reaches 65,536)
+RESNET_K3_GROUPS = (73_728, 147_456, 147_456, 147_456, 294_912, 589_824,
+                    589_824, 589_824, 224_804)
+VIT_LORA_PARAMS = 574_602
+MOBILENET_PARAMS = 73_130
+MOBILENET_STATS = 2_240
+ZOO_BENCH_ITERS = 20
+MERGE_F32_TOL = 1e-4    # merged vs unmerged logits, of the largest logit
+MERGE_BF16_TOL = 3e-2   # relative Frobenius, bf16 forwards
 PROBE_GEMM_SHAPE = (BATCH_SIZE * 16 * 16, 9 * 32, 64)
 # K8a's small cases: whole tiles, edges ragged in every dimension (no
 # 16-byte rows: the staged route); in bf16 also one client of the bench
@@ -3436,11 +3477,15 @@ def cifar_arrays(num_clients=NUM_CLIENTS, samples=SAMPLES_PER_CLIENT,
 
 def cifar_engine(num_clients=NUM_CLIENTS, samples=SAMPLES_PER_CLIENT,
                  eps_r=EPS_R, delta_r=DELTA_R, max_grad_norm=1.0,
-                 local_epochs=LOCAL_EPOCHS, test=False):
+                 local_epochs=LOCAL_EPOCHS, test=False, model=None,
+                 augment=True, dp=True, trainable_patterns=None,
+                 device=DEVICE):
     """The CIFAR-10 slice's main path: the bench's round (512 IID clients x
     64 synthetic images, 5 local epochs of Adam at batch 32, lr 1e-3,
     moments in bf16, delta DP at the bench's per-round budget) with
-    CIFAR10CNN(norm="batch") in bf16 and the on-device augmentation."""
+    CIFAR10CNN(norm="batch") in bf16 and the on-device augmentation; the
+    zoo's paths pass their ``model`` (and may leave out the augmentation
+    or, with ``dp=False``, the DP)."""
     import torch
 
     from fl_tpu_torch.core.types import PrivacyConfig
@@ -3451,22 +3496,28 @@ def cifar_engine(num_clients=NUM_CLIENTS, samples=SAMPLES_PER_CLIENT,
                                             RoundEngineConfig)
 
     arrays, splits = cifar_arrays(num_clients, samples)
+    dp_cfg = {}
+    if dp:
+        dp_cfg = dict(
+            dp_mode="delta",
+            privacy=PrivacyConfig(epsilon=1.0 if eps_r == EPS_R else 1e9,
+                                  delta=1e-5, max_grad_norm=max_grad_norm),
+            epsilon_per_round=eps_r, delta_per_round=delta_r)
     cfg = RoundEngineConfig(
         training=FederatedTrainingConfig(
             local_epochs=local_epochs, batch_size=BATCH_SIZE,
             learning_rate=0.001, optimizer_state_dtype="bfloat16"),
-        dp_mode="delta",
-        privacy=PrivacyConfig(epsilon=1.0 if eps_r == EPS_R else 1e9,
-                              delta=1e-5, max_grad_norm=max_grad_norm),
-        epsilon_per_round=eps_r, delta_per_round=delta_r,
-        max_clients=num_clients, seed=0)
+        trainable_patterns=trainable_patterns, max_clients=num_clients,
+        seed=0, **dp_cfg)
     extra = {}
     if test:
         extra = dict(test_images=splits.normalized(splits.test_images),
                      test_labels=splits.test_labels)
+    if model is None:
+        model = create_model("cifar10_cnn", dtype=torch.bfloat16)
     return FederatedRoundEngine(
-        create_model("cifar10_cnn", dtype=torch.bfloat16), arrays, cfg,
-        device=DEVICE, augment_fn=make_cifar_augment(), **extra)
+        model, arrays, cfg, device=device,
+        augment_fn=make_cifar_augment() if augment else None, **extra)
 
 
 def cifar_ghost_z():
@@ -3508,12 +3559,12 @@ def cifar_ghost_engine():
         device=DEVICE)
 
 
-def check_k3_at_cifar(card):
-    """K3 against its plain version at CIFAR10CNN's five groups (512
-    clients): σ = 0 exact to 1e-6 relative, timed against the plain
-    version and its bound; its noise at the ragged width of the last group
-    equal to the numpy Philox oracle and N(0, 1) by its moments. Returns
-    the line's text."""
+def check_k3_at_groups(groups, C):
+    """K3 against its plain version at a model's DP groups (``groups`` the
+    widths a client, in launch order) over C clients: σ = 0 exact to 1e-6
+    relative, timed against the plain version and its bound; its noise at
+    the ragged width of the last group equal to the numpy Philox oracle and
+    N(0, 1) by its moments. Returns the line's text."""
     import numpy as np
     import torch
 
@@ -3522,36 +3573,35 @@ def check_k3_at_cifar(card):
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
-    C = NUM_CLIENTS
     rseed = prng.round_seed(prng.root_seed(0), 1)
-    groups = []
-    for gi, D in enumerate(CIFAR_K3_GROUPS):
+    data = []
+    for gi, D in enumerate(groups):
         xg = torch.randn((C, D), generator=gen, device="cuda") * 1e-3
         scale = torch.rand((C,), generator=gen, device="cuda")
         seeds = torch.as_tensor(prng.as_int64(prng.client_stream_seeds(
             rseed, C, prng.Stream.DP_NOISE, gi))).cuda()
-        groups.append((xg, scale, seeds))
+        data.append((xg, scale, seeds))
     err = 0.0
-    for xg, scale, seeds in groups:
+    for xg, scale, seeds in data:
         got = dpo.clip_noise_cuda(xg, scale, torch.zeros_like(scale), seeds)
         want = xg * scale[:, None]
         err = max(err, float((got - want).abs().max()))
         require(torch.allclose(got, want, rtol=1e-6, atol=0.0),
-                f"K3 at CIFAR's group of {xg.shape[1]}: sigma=0 output is "
-                "not x*scale to 1e-6 relative")
+                f"K3 at a group of {xg.shape[1]}: sigma=0 output is not "
+                "x*scale to 1e-6 relative")
     sig = torch.full((C,), 0.01, device="cuda")
-    n = sum(xg.numel() for xg, _, _ in groups)
-    b_ms, b_by = bound(8 * n + len(groups) * 2 * 16 * C, 10 * n, F32_FLOPS)
+    n = sum(xg.numel() for xg, _, _ in data)
+    b_ms, b_by = bound(8 * n + len(data) * 2 * 16 * C, 10 * n, F32_FLOPS)
     ms = time_ms(lambda: [dpo.clip_noise_cuda(xg, s, sig, sd)
-                          for xg, s, sd in groups])
+                          for xg, s, sd in data])
     plain = time_ms(lambda: [dpo.clip_noise_plain(xg, s, sig, sd)
-                             for xg, s, sd in groups], reps=2)
-    del groups
+                             for xg, s, sd in data], reps=2)
+    del data
     # the noise at the ragged width, two real clients' seeds
     oracle = philox_oracle()
-    D = CIFAR_K3_GROUPS[-1]
+    D = groups[-1]
     seeds = prng.as_int64(prng.client_stream_seeds(
-        rseed, 2, prng.Stream.DP_NOISE, len(CIFAR_K3_GROUPS) - 1))
+        rseed, 2, prng.Stream.DP_NOISE, len(groups) - 1))
     z = dpo.clip_noise_cuda(torch.zeros((2, D), device="cuda"),
                             torch.zeros(2, device="cuda"),
                             torch.ones(2, device="cuda"),
@@ -3566,11 +3616,11 @@ def check_k3_at_cifar(card):
     mean, var = float(flat.mean()), float(flat.var())
     require(abs(mean) <= 0.02 and abs(var - 1) <= 0.03,
             f"K3 at width {D}: noise mean {mean}, variance {var}")
-    return (f"K3 at CIFAR's groups {list(CIFAR_K3_GROUPS)} x {C} clients: "
-            f"sigma=0 exact to 1e-6 (max abs err {err:.1e}), the Philox "
-            f"oracle to {worst:.1e} at D={D}, noise mean {mean:.2e} var "
-            f"{var:.4f}; {ms:.3f} ms a round's five launches (plain "
-            f"{plain:.3f}, bound {b_ms:.3f} by {b_by})")
+    return (f"groups {list(groups)} x {C} clients: sigma=0 exact to 1e-6 "
+            f"(max abs err {err:.1e}), the Philox oracle to {worst:.1e} at "
+            f"D={D}, noise mean {mean:.2e} var {var:.4f}; {ms:.3f} ms a "
+            f"round's {len(groups)} launches (plain {plain:.3f}, bound "
+            f"{b_ms:.3f} by {b_by})")
 
 
 def phase_cifar(card):
@@ -3587,7 +3637,9 @@ def phase_cifar(card):
     from fl_tpu_torch.fl.accounting import RDPAccountant
     from fl_tpu_torch.fl.privacy import leaf_groups
 
-    print(f"cifar {check_k3_at_cifar(card)} [{card}]", flush=True)
+    print(f"cifar K3 at CIFAR's "
+          f"{check_k3_at_groups(CIFAR_K3_GROUPS, NUM_CLIENTS)} [{card}]",
+          flush=True)
 
     # 1. the main path
     torch.cuda.synchronize()
@@ -3706,6 +3758,274 @@ def phase_cifar(card):
     torch.cuda.empty_cache()
 
 
+def zoo_resnet_engine(num_clients=ZOO_RESNET_CLIENTS, **kw):
+    """The zoo's main path: ``get_model_for_dataset("cifar100")`` (the
+    ResNet at 100 classes) in bf16 with the CIFAR augmentation, on the
+    synthetic CIFAR-10 arrays (labels 0-9 are valid among 100), the
+    bench's training options and delta DP."""
+    import torch
+
+    from fl_tpu_torch.models import get_model_for_dataset
+
+    return cifar_engine(num_clients, model=get_model_for_dataset(
+        "cifar100", dtype=torch.bfloat16), **kw)
+
+
+def zoo_vit_engine(num_clients=NUM_CLIENTS, **kw):
+    """Federated fine-tuning: the default FederatedViT with rank-4 LoRA
+    adapters in bf16, only ``lora_trainable_patterns()`` trained."""
+    import torch
+
+    from fl_tpu_torch.fl.peft import lora_trainable_patterns
+    from fl_tpu_torch.models import create_model
+
+    return cifar_engine(num_clients, model=create_model(
+        "federated_vit", lora_rank=4, dtype=torch.bfloat16), augment=False,
+        trainable_patterns=lora_trainable_patterns(), **kw)
+
+
+def zoo_mobilenet_engine(num_clients=NUM_CLIENTS, **kw):
+    """``get_lightweight_model()`` (LightweightMobileNet at width 0.5) in
+    bf16."""
+    import torch
+
+    from fl_tpu_torch.models import get_lightweight_model
+
+    return cifar_engine(num_clients, model=get_lightweight_model(
+        dtype=torch.bfloat16), augment=False, **kw)
+
+
+def run_zoo_cell(card, label, make_engine, rounds, groups, params,
+                 warmup=True):
+    """Build a zoo engine (its parameter count and, under delta DP, K3's
+    group widths checked), run a warm-up round and ``rounds`` pipelined
+    rounds with the launch counts read around them: K3 ``len(groups)``
+    times a round, nothing else. Prints rounds/s, the device span a round
+    (CUDA events), peak memory, the launches and the losses; returns the
+    engine."""
+    import torch
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.core.pytree import tree_get, tree_leaves, tree_map
+    from fl_tpu_torch.fl.privacy import leaf_groups
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = make_engine()
+    build_s = time.perf_counter() - t0
+    variables = engine.global_variables
+    n = sum(t.numel() for t in tree_leaves(variables["params"]))
+    require(n == params, f"{label}: {n} parameters, expected {params}")
+    if groups:
+        widths = tuple(sum(tree_get(variables, p).numel() for p in g)
+                       for g in leaf_groups(tree_map(lambda t: t[None],
+                                                     variables)))
+        require(widths == groups, f"{label}: K3's groups {widths}, "
+                f"expected {groups}")
+    losses, warm_s = [], 0.0
+    if warmup:
+        t0 = time.perf_counter()
+        losses.append(engine.run_round(evaluate=False).train_loss)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    t0 = time.perf_counter()
+    results = engine.run_rounds_pipelined(rounds, evaluate=False)
+    end.record()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want["clip_noise"] = len(groups) * rounds
+    require(counts == want, f"{label}: launch counts {counts}, expected "
+                            f"{want}")
+    losses += [r.train_loss for r in results]
+    require(all(math.isfinite(v) for v in losses),
+            f"{label}: losses {losses}")
+    print(f"zoo {label}: engine built in {build_s:.1f}s, warm-up round "
+          f"{warm_s:.2f}s, {rounds} pipelined rounds in {dt:.3f}s -> "
+          f"{rounds / dt:.3f} rounds/s, device span "
+          f"{start.elapsed_time(end) / rounds:.1f} ms a round (CUDA "
+          f"events), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, launches "
+          f"{counts['clip_noise']} clip_noise ({len(groups)} a round, 0 "
+          f"elsewhere), losses {[f'{v:.4g}' for v in losses]} [{card}]",
+          flush=True)
+    return engine
+
+
+def check_lora_merge(card, engine):
+    """``merge_lora`` of a fine-tuned ViT's global params: the merged tree's
+    forward equals the unmerged one on 256 test images, in f32 to f32
+    rounding and in bf16 within bf16 rounding; the adapters come back
+    zero."""
+    import torch
+
+    from fl_tpu_torch.core.pytree import tree_leaves, tree_map, tree_paths
+    from fl_tpu_torch.data import load_dataset
+    from fl_tpu_torch.fl.peft import merge_lora
+    from fl_tpu_torch.models import create_model
+
+    params = engine.global_variables["params"]
+    moved = sum(float(t.abs().sum()) for p, t in zip(
+        tree_paths(params), tree_leaves(params)) if p[-1] == "lora_b")
+    require(moved > 0, "zoo vit: the LoRA B matrices never moved")
+    merged = merge_lora(params)
+    require(all(not t.any() for p, t in zip(tree_paths(merged),
+                                            tree_leaves(merged))
+                if p[-1].startswith("lora_")),
+            "zoo vit: merge_lora left adapters non-zero")
+    splits = load_dataset("cifar10", n_train_synth=256, n_test_synth=256)
+    x = torch.as_tensor(splits.normalized(splits.test_images)).to(
+        engine.device)[None]
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = create_model("federated_vit", lora_rank=4, dtype=dtype)
+        with torch.no_grad():
+            a = model(tree_map(lambda t: t[None], params), x)
+            b = model(tree_map(lambda t: t[None], merged), x)
+        errs[dtype] = (float((a - b).abs().max() / a.abs().max()),
+                       float((a - b).norm() / a.norm()))
+    f32, bf16 = errs[torch.float32][0], errs[torch.bfloat16][1]
+    require(f32 <= MERGE_F32_TOL and bf16 <= MERGE_BF16_TOL,
+            f"zoo vit: merged forward differs: f32 {f32} (tol "
+            f"{MERGE_F32_TOL}), bf16 {bf16} (tol {MERGE_BF16_TOL})")
+    return (f"merge_lora: adapters zeroed, merged vs unmerged logits on "
+            f"256 test images: f32 max |diff| {f32:.2e} of the largest "
+            f"logit, bf16 relative Frobenius {bf16:.2e} [{card}]")
+
+
+def resnet_learning_check(device=DEVICE):
+    """10 IID clients x 512 synthetic CIFAR images, the ResNet at 100
+    classes in bf16 with augmentation, weak delta DP, 3 rounds; returns
+    the test accuracy by round (on the running statistics)."""
+    engine = zoo_resnet_engine(num_clients=10, samples=512, eps_r=1e8,
+                               delta_r=1e-7, max_grad_norm=100.0, test=True,
+                               device=device)
+    return [r.test_accuracy for r in engine.run(num_rounds=3)]
+
+
+def vit_learning_check(device=DEVICE):
+    """10 IID clients x 512 synthetic CIFAR images, the default ViT
+    (dropout 0.1, no adapters) in bf16, weak delta DP, 3 rounds; returns
+    the (train loss, test accuracy) by round."""
+    import torch
+
+    from fl_tpu_torch.models import create_model
+
+    engine = cifar_engine(10, samples=512, eps_r=1e8, delta_r=1e-7,
+                          max_grad_norm=100.0, test=True, augment=False,
+                          model=create_model("federated_vit",
+                                             dtype=torch.bfloat16),
+                          device=device)
+    return [(r.train_loss, r.test_accuracy) for r in engine.run(num_rounds=3)]
+
+
+def phase_zoo(card):
+    """The rest of the model zoo on the card: the ResNet main path (128
+    clients, K3 at nine groups), the ViT with LoRA (512 clients, K3 at one
+    group; a round without DP keeps every frozen leaf's bits; merge_lora),
+    the MobileNet (512 clients), K3 at the ResNet's groups against its
+    plain version, ``benchmark_models`` and two learning checks."""
+    import torch
+
+    from fl_tpu_torch.core.pytree import flatten_dict, tree_leaves
+    from fl_tpu_torch.models import benchmark_models
+
+    print(f"zoo K3 at the ResNet's "
+          f"{check_k3_at_groups(RESNET_K3_GROUPS, ZOO_RESNET_CLIENTS)} "
+          f"[{card}]", flush=True)
+
+    # 1. the main path: the cifar100 route's ResNet
+    engine = run_zoo_cell(
+        card, f"resnet main path: get_model_for_dataset('cifar100') bf16, "
+        f"augmentation, {ZOO_RESNET_CLIENTS} clients x {SAMPLES_PER_CLIENT} "
+        f"images, delta DP eps_r={EPS_R:.4f}", zoo_resnet_engine,
+        ZOO_ROUNDS, RESNET_K3_GROUPS, RESNET_PARAMS)
+    stats = tree_leaves(engine.global_variables["batch_stats"])
+    require(len(stats) == 30 and sum(t.numel() for t in stats)
+            == RESNET_STATS and all(bool(torch.isfinite(t).all())
+                                    for t in stats),
+            "zoo resnet: batch_stats not 30 finite leaves of 4,480")
+    neg = sum(int((t < 0).sum()) for t in stats[1::2])
+    print(f"zoo resnet batch_stats: 30 leaves finite, {neg} of "
+          f"{RESNET_STATS // 2} running variances negative under the "
+          f"noise", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+
+    # 2. federated fine-tuning: the ViT with LoRA under delta DP, then a
+    # round without DP whose frozen leaves keep their bits
+    vit_groups = (VIT_LORA_PARAMS,)
+    engine = run_zoo_cell(
+        card, f"vit-lora: federated_vit(lora_rank=4) bf16, "
+        f"lora_trainable_patterns(), {NUM_CLIENTS} clients, delta DP "
+        f"eps_r={EPS_R:.4f}", zoo_vit_engine, ZOO_ROUNDS, vit_groups,
+        VIT_LORA_PARAMS)
+    del engine
+    torch.cuda.empty_cache()
+    init = {}
+
+    def no_dp_engine():
+        eng = zoo_vit_engine(dp=False)
+        init.update((k, v.clone()) for k, v in flatten_dict(
+            eng.global_variables["params"]).items())
+        return eng
+
+    engine = run_zoo_cell(card, f"vit-lora without DP: {NUM_CLIENTS} "
+                          "clients, one round", no_dp_engine, 1, (),
+                          VIT_LORA_PARAMS, warmup=False)
+    mask = flatten_dict(engine._grad_mask)
+    frozen = [k for k in init if not mask[k].any()]
+    after = flatten_dict(engine.global_variables["params"])
+    require(all(torch.equal(after[k], init[k]) for k in frozen),
+            "zoo vit: a frozen leaf moved in a round without DP")
+    trained = [k for k in init if k not in frozen]
+    moved = sum(not torch.equal(after[k], init[k]) for k in trained)
+    require(moved > 0, "zoo vit: no trainable leaf moved")
+    print(f"zoo vit-lora frozen: {len(frozen)} frozen leaves bit-equal "
+          f"after the round, {moved} of {len(trained)} trainable leaves "
+          f"moved; {check_lora_merge(card, engine)}", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+
+    # 3. the MobileNet, the factory's lightweight preset
+    engine = run_zoo_cell(
+        card, f"mobilenet: get_lightweight_model() bf16, {NUM_CLIENTS} "
+        f"clients, delta DP eps_r={EPS_R:.4f}", zoo_mobilenet_engine, 1,
+        (MOBILENET_PARAMS + MOBILENET_STATS,), MOBILENET_PARAMS)
+    del engine
+    torch.cuda.empty_cache()
+
+    # 4. every model's forward, timed on the card
+    bench = benchmark_models(batch_size=BATCH_SIZE, iters=ZOO_BENCH_ITERS)
+    errors = {k: v["error"] for k, v in bench.items() if "error" in v}
+    require(not errors, f"benchmark_models: {errors}")
+    print(f"zoo benchmark_models (one client x {BATCH_SIZE} images, eval "
+          f"forward, CUDA events over {ZOO_BENCH_ITERS} after a warm-up): "
+          + ", ".join(f"{k} {1e3 * v['inference_time']:.3f} ms"
+                      for k, v in bench.items()) + f" [{card}]", flush=True)
+
+    # 5. learning
+    accs = resnet_learning_check()
+    require(all(math.isfinite(a) for a in accs) and accs[-1] > 0.5,
+            f"zoo resnet learning: test accuracy after 3 rounds {accs}")
+    print(f"learning federated_resnet (cifar100 route) bf16 + augmentation, "
+          f"weak delta DP: 10 IID clients x 512, test accuracy by round "
+          f"(running statistics) {[round(a, 4) for a in accs]}", flush=True)
+    hist = vit_learning_check()
+    require(all(math.isfinite(v) for h in hist for v in h)
+            and hist[-1][0] < hist[0][0],
+            f"zoo vit learning: (train loss, test accuracy) {hist}")
+    print(f"learning federated_vit bf16, weak delta DP: 10 IID clients x "
+          f"512, train loss by round {[round(h[0], 4) for h in hist]}, test "
+          f"accuracy {[round(h[1], 4) for h in hist]}", flush=True)
+    torch.cuda.empty_cache()
+
+
 def kernel_report():
     src_cu = "fl_tpu_torch/csrc/conv_block.cu"
     rows = (
@@ -3809,6 +4129,9 @@ def main() -> int:
     # 5g. CIFAR-10: CIFAR10CNN with per-client batch statistics, the
     # augmentation, K3 at five groups; DP-SGD ghost on GroupNorm
     phase_cifar(card)
+    # 5h. the rest of the model zoo: the ResNet (the cifar100 route), the
+    # ViT with LoRA, the MobileNet; K3 at their groups
+    phase_zoo(card)
 
     # 6. learning checks
     learning_check("residual")

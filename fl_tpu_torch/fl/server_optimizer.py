@@ -94,8 +94,8 @@ def state_from_optax(state, device="cpu") -> Dict[str, Any]:
     ``TraceState``), its leaves as numpy: trees like ``params_from_flax``
     gives."""
     def tree(t):
-        return {l: {k: torch.tensor(np.asarray(v, np.float32), device=device)
-                    for k, v in leaves.items()} for l, leaves in t.items()}
+        return tree_map(lambda v: torch.tensor(np.asarray(v, np.float32),
+                                               device=device), t)
 
     for part in state:
         if hasattr(part, "trace"):

@@ -54,11 +54,18 @@ from torch import nn
 
 import torch.nn.functional as F
 
-from fl_tpu_torch.models.simple_cnn import (
-    _Conv3x3,
-    _lecun_normal,
-    _nhwc_to_planes,
-    _planes_to_nhwc,
+from fl_tpu_torch.core.pytree import tree_map
+from fl_tpu_torch.models.layers import (
+    GroupedConv,
+    batch_norm,
+    batch_stats_init,
+    check_dtype,
+    lecun_normal,
+    nhwc_to_planes,
+    norm_apply,
+    norm_init,
+    planes_to_nhwc,
+    wide,
 )
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -66,54 +73,7 @@ Params = Dict[str, Dict[str, torch.Tensor]]
 NORMS = ("batch", "group")
 _WIDTHS = (32, 32, 64, 64, 128, 128)
 _FC = ((4 * 4 * 128, 512), (512, 256))
-BN_MOMENTUM = 0.99
-BN_EPS = 1e-5
 GN_EPS = 1e-6
-
-
-def _wide(t: torch.Tensor) -> torch.Tensor:
-    """t in at least f32, flax's ``force_float32_reductions``."""
-    return t.to(torch.promote_types(t.dtype, torch.float32))
-
-
-class _BatchNormTrain(torch.autograd.Function):
-    """flax's training BatchNorm over grouped planes (B, C·K, H, W): each
-    plane channel normalized by its f32 batch statistics over (B, H, W)
-    with the fast variance. Returns (y in x's dtype, batch mean, biased
-    batch variance). The backward recomputes x̂ from the saved input (no
-    f32 copy of the activation is kept)."""
-
-    @staticmethod
-    def forward(ctx, x, scale, bias, eps):
-        x32 = _wide(x)
-        mean = x32.mean((0, 2, 3))
-        var = torch.clamp(x32.square().mean((0, 2, 3)) - mean.square(),
-                          min=0.0)
-        rstd = torch.rsqrt(var + eps)
-        mul = rstd * scale
-        y = ((x32 - mean[:, None, None]) * mul[:, None, None]
-             + bias[:, None, None]).to(x.dtype)
-        ctx.save_for_backward(x, mean, rstd, scale)
-        ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
-
-    @staticmethod
-    def backward(ctx, dy, _dmean, _dvar):
-        x, mean, rstd, scale = ctx.saved_tensors
-        dy = _wide(dy)
-        xhat = (_wide(x) - mean[:, None, None]) * rstd[:, None, None]
-        dbias = dy.sum((0, 2, 3))
-        dscale = (dy * xhat).sum((0, 2, 3))
-        n = x.numel() // x.shape[1]
-        g = (scale * rstd)[:, None, None]
-        dx = g * (dy - (dbias / n)[:, None, None]
-                  - xhat * (dscale / n)[:, None, None])
-        return dx.to(x.dtype), dscale, dbias, None
-
-
-def _norm_apply(x32: torch.Tensor, mean, rstd, scale, bias):
-    """flax's ``_normalize``: (x − μ)·(rsqrt(σ² + eps)·scale) + bias."""
-    return (x32 - mean) * (rstd * scale) + bias
 
 
 class CIFAR10CNN(nn.Module):
@@ -126,9 +86,7 @@ class CIFAR10CNN(nn.Module):
                  dtype: torch.dtype = torch.float32, norm: str = "batch",
                  group_norm_groups: int = 8):
         super().__init__()
-        if dtype not in (torch.float32, torch.bfloat16, torch.float64):
-            raise ValueError("dtype must be float32, bfloat16 or float64, "
-                             f"got {dtype}")
+        check_dtype(dtype)
         if norm not in NORMS:
             raise ValueError(f"norm={norm!r} not in ('batch', 'group')")
         self.num_classes = num_classes
@@ -180,13 +138,11 @@ class CIFAR10CNN(nn.Module):
         for name, leaves in self.param_shapes().items():
             if "kernel" in leaves:
                 params[name] = {
-                    "kernel": _lecun_normal(leaves["kernel"], generator,
-                                            device),
+                    "kernel": lecun_normal(leaves["kernel"], generator,
+                                           device),
                     "bias": torch.zeros(leaves["bias"], device=device)}
             else:
-                params[name] = {
-                    "scale": torch.ones(leaves["scale"], device=device),
-                    "bias": torch.zeros(leaves["bias"], device=device)}
+                params[name] = norm_init(leaves["scale"][0], device)
         return params
 
     def init_batch_stats(self, device) -> Optional[Params]:
@@ -194,8 +150,7 @@ class CIFAR10CNN(nn.Module):
         for GroupNorm."""
         if not self.has_batch_stats:
             return None
-        return {f"bn{i}": {"mean": torch.zeros(w, device=device),
-                           "var": torch.ones(w, device=device)}
+        return {f"bn{i}": batch_stats_init(w, device)
                 for i, w in enumerate(_WIDTHS, 1)}
 
     def dp_preactivation_shapes(self, num_clients: int, batch: int
@@ -248,10 +203,10 @@ class CIFAR10CNN(nn.Module):
         each mask broadcastable to its layer) is given. ``dp_perturb`` /
         ``dp_capture``: the ghost-DP taps of ``norm="group"``; with
         ``dp_capture`` the result is (logits, captures)."""
-        batch_norm = self.norm == "batch"
-        if batch_norm and batch_stats is None:
+        use_bn = self.norm == "batch"
+        if use_bn and batch_stats is None:
             raise ValueError("norm='batch' needs the batch_stats collection")
-        if batch_norm and (dp_capture or dp_perturb is not None):
+        if use_bn and (dp_capture or dp_perturb is not None):
             raise ValueError("only norm='group' carries the ghost-DP taps "
                              "(BatchNorm couples examples)")
         cdt = self.dtype
@@ -269,65 +224,50 @@ class CIFAR10CNN(nn.Module):
                 return t
             k = keep[name]
             if planes:
-                k = _nhwc_to_planes(k.expand(C, B, *k.shape[2:]))
+                k = nhwc_to_planes(k.expand(C, B, *k.shape[2:]))
             return torch.where(k, t / keep_prob, torch.zeros_like(t))
 
         def pert_planes(name, t):
             if dp_perturb is not None:
-                t = t + _nhwc_to_planes(dp_perturb[name].to(t.dtype))
+                t = t + nhwc_to_planes(dp_perturb[name].to(t.dtype))
             return t
 
         def norm_layer(h, i):
             p = params[self._norm_name(i)]
-            scale = p["scale"].reshape(-1)
-            bias = p["bias"].reshape(-1)
-            if batch_norm:
-                st = batch_stats[f"bn{i}"]
-                if train:
-                    y, mean, var = _BatchNormTrain.apply(h, scale, bias,
-                                                         BN_EPS)
-                    with torch.no_grad():
-                        new_stats[f"bn{i}"] = {
-                            "mean": BN_MOMENTUM * st["mean"]
-                            + (1.0 - BN_MOMENTUM) * mean.reshape(C, -1),
-                            "var": BN_MOMENTUM * st["var"]
-                            + (1.0 - BN_MOMENTUM) * var.reshape(C, -1)}
-                    return y
-                mean = st["mean"].reshape(-1)[:, None, None]
-                rstd = torch.rsqrt(st["var"].reshape(-1)
-                                   + BN_EPS)[:, None, None]
-                return _norm_apply(_wide(h), mean, rstd,
-                                   scale[:, None, None],
-                                   bias[:, None, None]).to(cdt)
+            if use_bn:
+                y, new = batch_norm(h, p, batch_stats[f"bn{i}"], train)
+                if new is not None:
+                    new_stats[f"bn{i}"] = new
+                return y
             # GroupNorm: statistics of each (example, client, group)
             if dp_capture:
-                captures[f"gn{i}"] = _planes_to_nhwc(h, C)
+                captures[f"gn{i}"] = planes_to_nhwc(h, C)
             Bh, CK, H, W = h.shape
             G = min(self.group_norm_groups, CK // C)
-            g32 = _wide(h).reshape(Bh, C, G, CK // (C * G), H, W)
+            g32 = wide(h).reshape(Bh, C, G, CK // (C * G), H, W)
             mean = g32.mean((3, 4, 5), keepdim=True)
             var = torch.clamp(g32.square().mean((3, 4, 5), keepdim=True)
                               - mean.square(), min=0.0)
-            y = _norm_apply(g32, mean, torch.rsqrt(var + GN_EPS),
-                            scale.reshape(1, C, G, -1, 1, 1),
-                            bias.reshape(1, C, G, -1, 1, 1))
+            y = norm_apply(g32, mean, torch.rsqrt(var + GN_EPS),
+                           p["scale"].reshape(1, C, G, -1, 1, 1),
+                           p["bias"].reshape(1, C, G, -1, 1, 1))
             return pert_planes(f"gn{i}", y.reshape(h.shape).to(cdt))
 
         def grouped(w):     # (C, 3, 3, I, O) -> (C*O, I, 3, 3)
             return w.to(cdt).permute(0, 4, 3, 1, 2).reshape(
                 -1, w.shape[3], 3, 3)
 
-        h = _nhwc_to_planes(x.to(cdt))
+        h = nhwc_to_planes(x.to(cdt))
         for i in range(1, 7):
             p = params[f"conv{i}"]
             if dp_capture:
-                captures[f"conv{i}"] = _planes_to_nhwc(h, C)
-            h = (_Conv3x3.apply(h, grouped(p["kernel"]), C)
+                captures[f"conv{i}"] = planes_to_nhwc(h, C)
+            h = (GroupedConv.apply(h, grouped(p["kernel"]), C)
                  + p["bias"].to(cdt).reshape(1, -1, 1, 1))
             h = torch.relu(norm_layer(pert_planes(f"conv{i}", h), i))
             if i % 2 == 0:
                 h = drop(f"pool{i // 2}", F.max_pool2d(h, 2), True)
-        h = _planes_to_nhwc(h, C).reshape(C, B, -1)
+        h = planes_to_nhwc(h, C).reshape(C, B, -1)
         for i in (1, 2, 3):
             p = params[f"fc{i}"]
             captures[f"fc{i}"] = h
@@ -340,25 +280,20 @@ class CIFAR10CNN(nn.Module):
         out = h.float()
         if dp_capture:
             return out, captures
-        if batch_norm and train:
+        if use_bn and train:
             return out, new_stats
         return out
 
 
 def variables_from_flax(variables, device="cpu"):
     """A flax variables dict (``{"params", "batch_stats"}`` of numpy
-    arrays, with or without a client axis) as f32 torch tensors on
-    ``device``, same names and layouts."""
-    return {col: {layer: {k: torch.tensor(np.asarray(v, np.float32),
-                                          device=device)
-                          for k, v in leaves.items()}
-                  for layer, leaves in tree.items()}
-            for col, tree in variables.items()}
+    arrays, with or without a client axis, nested to any depth) as f32
+    torch tensors on ``device``, same names and layouts."""
+    return tree_map(lambda v: torch.tensor(np.asarray(v, np.float32),
+                                           device=device), variables)
 
 
 def variables_to_flax(variables):
     """The inverse of :func:`variables_from_flax`: numpy f32 arrays."""
-    return {col: {layer: {k: v.detach().cpu().numpy().astype(np.float32)
-                          for k, v in leaves.items()}
-                  for layer, leaves in tree.items()}
-            for col, tree in variables.items()}
+    return tree_map(lambda v: v.detach().cpu().numpy().astype(np.float32),
+                    variables)

@@ -56,8 +56,6 @@ the same values and mean nothing here (the factory refuses them by name).
 
 from __future__ import annotations
 
-import contextlib
-import math
 from typing import Dict, Optional, Union
 
 import numpy as np
@@ -66,7 +64,13 @@ from torch import nn
 
 import torch.nn.functional as F
 
-from fl_tpu_torch.core.pytree import tree_leaves
+from fl_tpu_torch.core.pytree import tree_leaves, tree_map
+from fl_tpu_torch.models.layers import (
+    GroupedConv,
+    lecun_normal,
+    nhwc_to_planes,
+    planes_to_nhwc,
+)
 from fl_tpu_torch.ops.conv_block import conv_stack, conv_stack_res
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -79,55 +83,6 @@ _SHAPES = {
 
 
 FUSED_CONV_BLOCK = (False, True, "residual")
-
-
-@contextlib.contextmanager
-def _cudnn_tf32_off():
-    """cuDNN's TF32 switch off inside the block and as it was after it.
-    (``torch.backends.cudnn.flags`` would also set cuDNN's other switches
-    to its own defaults, ``enabled=False`` among them.)"""
-    before = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = before
-
-
-class _Conv3x3(torch.autograd.Function):
-    """``F.conv2d(h, w, padding=1, groups=groups)`` with TF32 off in the
-    forward and in the backward (autograd runs the backward after the
-    caller's ``with`` block has ended, so a context manager around the
-    forward alone would not cover it)."""
-
-    @staticmethod
-    def forward(ctx, h, w, groups):
-        ctx.save_for_backward(h, w)
-        ctx.groups = groups
-        with _cudnn_tf32_off():
-            return F.conv2d(h, w, padding=1, groups=groups)
-
-    @staticmethod
-    def backward(ctx, g):
-        h, w = ctx.saved_tensors
-        with _cudnn_tf32_off():
-            dh, dw, _ = torch.ops.aten.convolution_backward(
-                g, h, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0],
-                ctx.groups, [ctx.needs_input_grad[0],
-                             ctx.needs_input_grad[1], False])
-        return dh, dw, None
-
-
-def _planes_to_nhwc(h: torch.Tensor, C: int) -> torch.Tensor:
-    """(B, C*K, H, W) grouped planes -> (C, B, H, W, K) stacked NHWC."""
-    B, CK, H, W = h.shape
-    return h.reshape(B, C, CK // C, H, W).permute(1, 0, 3, 4, 2)
-
-
-def _nhwc_to_planes(t: torch.Tensor) -> torch.Tensor:
-    """(C, B, H, W, K) stacked NHWC -> (B, C*K, H, W) grouped planes."""
-    C, B, H, W, K = t.shape
-    return t.permute(1, 0, 4, 2, 3).reshape(B, C * K, H, W)
 
 
 def conv_segment_unfused(x, w1, b1, w2, b2, dp_perturb=None,
@@ -153,23 +108,12 @@ def conv_segment_unfused(x, w1, b1, w2, b2, dp_perturb=None,
     h = x.reshape(C, B, H, W).permute(1, 0, 2, 3)
     for name, w, b in (("conv1", w1, b1), ("conv2", w2, b2)):
         if captures is not None:
-            captures[name] = _planes_to_nhwc(h, C)
-        h = _Conv3x3.apply(h, grouped(w), C) + b.to(cdt).reshape(1, -1, 1, 1)
+            captures[name] = planes_to_nhwc(h, C)
+        h = GroupedConv.apply(h, grouped(w), C) + b.to(cdt).reshape(1, -1, 1, 1)
         if dp_perturb is not None:
-            h = h + _nhwc_to_planes(dp_perturb[name].to(cdt))
+            h = h + nhwc_to_planes(dp_perturb[name].to(cdt))
         h = F.max_pool2d(torch.relu(h), 2)
-    return _planes_to_nhwc(h, C)
-
-
-def _lecun_normal(shape, generator, device) -> torch.Tensor:
-    """flax's lecun_normal: truncated normal (±2 std) with variance
-    1/fan_in, fan_in = every kernel dim but the last."""
-    fan_in = math.prod(shape[:-1])
-    # std of the unit normal truncated to (-2, 2)
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
-                                 generator=generator)
+    return planes_to_nhwc(h, C)
 
 
 _FUSED_TAPS_MESSAGE = (
@@ -212,7 +156,7 @@ class SimpleCNN(nn.Module):
     def init(self, generator: torch.Generator, device) -> Params:
         """lecun_normal kernels and zero biases, unstacked."""
         return {
-            name: {"kernel": _lecun_normal(s["kernel"], generator, device),
+            name: {"kernel": lecun_normal(s["kernel"], generator, device),
                    "bias": torch.zeros(s["bias"], dtype=torch.float32,
                                        device=device)}
             for name, s in self.param_shapes().items()
@@ -290,11 +234,11 @@ class SimpleCNN(nn.Module):
 
 
 def params_from_flax(tree, device="cpu") -> Params:
-    """A flax params tree of numpy arrays (with or without a client axis)
-    as f32 torch tensors on ``device``, same names and layouts."""
-    return {layer: {k: torch.tensor(np.asarray(v, np.float32), device=device)
-                    for k, v in leaves.items()}
-            for layer, leaves in tree.items()}
+    """A flax params tree of numpy arrays (with or without a client axis,
+    nested to any depth) as f32 torch tensors on ``device``, same names and
+    layouts."""
+    return tree_map(lambda v: torch.tensor(np.asarray(v, np.float32),
+                                           device=device), tree)
 
 
 def load_uplink_state(engine, state) -> None:
@@ -329,9 +273,8 @@ def load_feddyn_state(engine, h, g) -> None:
 
 def params_to_flax(params: Params):
     """The inverse of :func:`params_from_flax`: numpy f32 arrays."""
-    return {layer: {k: v.detach().cpu().numpy().astype(np.float32)
-                    for k, v in leaves.items()}
-            for layer, leaves in params.items()}
+    return tree_map(lambda v: v.detach().cpu().numpy().astype(np.float32),
+                    params)
 
 
 def count_params(params: Params) -> int:

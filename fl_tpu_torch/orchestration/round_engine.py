@@ -61,7 +61,11 @@ freezing through the trainer's gradient mask). The reference's feature
 rules for these raise its messages verbatim in its order (the trimmed-mean
 rule, which needs the client count, when the engine is built).
 
-Models: SimpleCNN and CIFAR10CNN. A BatchNorm model's ``batch_stats``
+Models: any of ``models.AVAILABLE_MODELS`` (SimpleCNN, CIFAR10CNN,
+FederatedResNet, LightweightMobileNet, FederatedViT with or without LoRA
+adapters) or another object with the same duck-typed contract: ``init``,
+optionally ``init_batch_stats`` and ``dropout_keep``, and ``forward(params,
+x, train=, generator=, ...)``. A BatchNorm model's ``batch_stats``
 (per-client running statistics, carried through local training) travel in
 ``global_variables`` with the params: deltas against θ̂, delta DP's clip
 and K3 groups, client_dp's and distributed DP's release, the uplink's

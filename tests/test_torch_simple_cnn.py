@@ -175,10 +175,12 @@ def test_get_model_for_dataset():
                                   fused_conv_block=True)
     assert (model.num_classes, model.dtype, model.fused_conv_block) == \
         (10, torch.bfloat16, True)
-    # cifar10 routes to CIFAR10CNN (ported); cifar100's model is not
+    # the reference's routes: cifar10 → CIFAR10CNN, cifar100 → the
+    # ResNet at 100 classes, any other dataset → SimpleCNN
     assert get_model_for_dataset("cifar10").name == "cifar10_cnn"
-    with pytest.raises(ValueError, match="mnist"):
-        get_model_for_dataset("cifar100")
+    resnet = get_model_for_dataset("cifar100")
+    assert (resnet.name, resnet.num_classes) == ("federated_resnet", 100)
+    assert get_model_for_dataset("svhn").name == "simple_cnn"
 
 
 def test_unfused_pool_routes_ties_to_the_first_member():
@@ -201,7 +203,7 @@ def test_unfused_convolution_is_the_library_call_with_tf32_off():
     it (it turns it off around its own forward and backward only)."""
     import torch.nn.functional as F
 
-    from fl_tpu_torch.models.simple_cnn import _Conv3x3
+    from fl_tpu_torch.models.layers import GroupedConv
 
     g = torch.Generator().manual_seed(0)
     h = torch.randn((2, 6, 8, 8), generator=g)
@@ -211,7 +213,7 @@ def test_unfused_convolution_is_the_library_call_with_tf32_off():
     torch.backends.cudnn.allow_tf32 = True
     try:
         outs = []
-        for conv in (lambda a, b: _Conv3x3.apply(a, b, 3),
+        for conv in (lambda a, b: GroupedConv.apply(a, b, 3),
                      lambda a, b: F.conv2d(a, b, padding=1, groups=3)):
             a, b = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
             out = conv(a, b)
@@ -223,4 +225,4 @@ def test_unfused_convolution_is_the_library_call_with_tf32_off():
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
     # an input that needs no gradient gets none
     b = w.clone().requires_grad_(True)
-    assert torch.autograd.grad(_Conv3x3.apply(h, b, 3), b, r)[0].shape == w.shape
+    assert torch.autograd.grad(GroupedConv.apply(h, b, 3), b, r)[0].shape == w.shape

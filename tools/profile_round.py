@@ -6,7 +6,7 @@
         up-int8|up-topk|up-powersgd|down-bf16|down-int8|down-int8+up-topk|
         client-dp|v1|v2|v2-f32|v3|v4|v5|v6|v7|dp-sgd-microbatch|
         dp-sgd-ghost|dp-ftrl|distributed-fused|distributed-per-client|
-        cifar|cifar-ghost ...]
+        cifar|cifar-ghost|resnet|vit-lora|mobilenet ...]
 
 ``sweep`` times the four conv kernels at the bench shapes (512 clients x 32
 images, bf16, C1=32, C2=64) for each thread count per block, CUDA events
@@ -39,7 +39,12 @@ CIFAR-10 slice's main path (``chip_smoke.cifar_engine``: CIFAR10CNN with
 BatchNorm and augmentation, 512 clients, delta DP), or ``cifar-ghost``,
 DP-SGD ghost on the GroupNorm model at the CIFAR script's shape
 (``chip_smoke.cifar_ghost_engine``; its rounds run by ``run_round``,
-DP-SGD's rounds pipeline as any other): one warm-up round,
+DP-SGD's rounds pipeline as any other), or the zoo's paths of its
+``phase_zoo``: ``resnet`` (the cifar100 route's FederatedResNet, 128
+clients, augmentation, delta DP), ``vit-lora`` (FederatedViT with LoRA
+adapters under ``lora_trainable_patterns()``, 512 clients, delta DP) and
+``mobilenet`` (``get_lightweight_model()``, 512 clients, delta DP): one
+warm-up round,
 then 3 pipelined rounds under ``torch.profiler``, and prints the device
 time per round grouped by kernel family, the launches per round, the busy
 share of the profiled window, rounds/s without the profiler (3 pipelined
@@ -80,7 +85,9 @@ FAMILIES = (
     ("reduce_partials_kernel", "reduce_partials_kernel"),
     ("clip_noise_kernel", "K3 clip_noise_kernel"),
     ("max_pool", "library max pool fwd/bwd"),
-    ("conv_depthwise2d", "library conv1 (PyTorch's depthwise kernels)"),
+    ("conv_depthwise2d", "library depthwise convs (PyTorch's "
+     "conv_depthwise2d: SimpleCNN's conv1, MobileNet's depthwise)"),
+    ("softmax", "softmax (the ViT's attention, the loss)"),
     ("nchwToNhwc", "cuDNN layout transforms (NCHW <-> NHWC)"),
     ("nhwcToNchw", "cuDNN layout transforms (NCHW <-> NHWC)"),
     ("tensorTransform", "cuDNN layout transforms (NCHW <-> NHWC)"),
@@ -274,6 +281,13 @@ def main(argv) -> int:
     modes["cifar-ghost"] = ("cifar10_cnn(norm='group') dp_sgd ghost, "
                             f"{chip_smoke.GHOST_CLIENTS} clients",
                             chip_smoke.cifar_ghost_engine)
+    modes["resnet"] = ("federated_resnet (cifar100 route) + augmentation, "
+                       f"{chip_smoke.ZOO_RESNET_CLIENTS} clients, delta DP",
+                       chip_smoke.zoo_resnet_engine)
+    modes["vit-lora"] = ("federated_vit(lora_rank=4), LoRA patterns, delta "
+                         "DP", chip_smoke.zoo_vit_engine)
+    modes["mobilenet"] = ("lightweight_mobilenet (width 0.5), delta DP",
+                          chip_smoke.zoo_mobilenet_engine)
     out_dir = None
     if argv[1:2] == ["--out"] and len(argv) > 2:
         out_dir, argv = Path(argv[2]), argv[:1] + argv[3:]
