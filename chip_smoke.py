@@ -129,8 +129,10 @@ line each; any failure exits non-zero:
    ``dp_mechanisms`` line with rounds/s, peak memory, the launches a round
    and ε by round beside a fresh accountant's: dp_sgd microbatch on
    ``"residual"`` (q = 0.5, z = 2, C = 1, m = 16: K1 30 and K2 20 times a
-   round, one K1 a step for the metrics' forward and one K1 / K2 a chunk),
-   dp_sgd ghost on ``False`` (no conv kernel), the PLD step budget under
+   round, one K1 a step for the metrics' forward and one K1 / K2 a chunk;
+   K3 once a leaf a step, 80 a round, for the noise keyed by client),
+   dp_sgd ghost on ``False`` (no conv kernel; K3 as for the microbatch
+   form), the PLD step budget under
    dp_sgd on a 1e-3 grid with its host seconds, dp_ftrl on ``"residual"``
    (z = 1, T = 8, cohorts of m̄ = 51 in rotation, ε charged once) and its
    checkpoint restored into a fresh engine whose next round is bit-equal,
@@ -155,7 +157,8 @@ line each; any failure exits non-zero:
    path`` line); DP-SGD ghost on CIFAR10CNN(norm="group") at
    ``scripts/dp_sgd_cifar_eps15.py``'s shape (24 clients x 4,096 samples,
    batch 256, SGD lr 0.05, C = 1, z RDP-calibrated to ε = 1.5 over 30
-   rounds), ε by round equal to a fresh RDP accountant's; and a learning
+   rounds; K3 once a leaf a step for the noise and nothing else), ε by
+   round equal to a fresh RDP accountant's; and a learning
    check, 10 IID clients, weak delta DP, 3 rounds, test accuracy on the
    running statistics > 0.5;
    then the rest of the model zoo (``phase_zoo``), each at the bench's
@@ -177,7 +180,19 @@ line each; any failure exits non-zero:
    (every model's eval forward, one client x 32 images, CUDA events); and
    two learning checks, 10 IID clients x 512, weak delta DP, 3 rounds: the
    ResNet's test accuracy on the running statistics > 0.5, the ViT's
-   training loss falling;
+   training loss falling; then the client mesh (``phase_mesh``): the
+   512-client ``"residual"`` bench round unsharded, then on a one-rank
+   NCCL mesh (``make_mesh()``), 3 pipelined rounds after a warm-up each,
+   the mesh's weights equal to the unsharded ones bit for bit, its
+   per-round collectives two all-reduces (the 1.69 MB packed delta, the
+   packed metrics), K1/K2 10 and K3 2 times a round; then two gloo ranks
+   sharing the one card (``core.mesh.spawn``), 256 clients each, held to
+   the unsharded weights within 1e-5 of each leaf's largest weight (+
+   1e-6; the share within rtol 1e-5 / atol 1e-6 element by element
+   printed), the warm-up round's loss within 1e-5 relative and the later
+   ones (of a model the bench's noise has destroyed, 1e7–1e9) within
+   1e-4, each rank's launches, rounds/s and peak memory printed (``mesh``
+   lines);
 6. learning check: 10 non-IID clients, 3 rounds, test accuracy > 0.5, with
    ``fused_conv_block="residual"`` and with ``True``, and with
    ``"residual"`` under SCAFFOLD (SGD lr 0.05), under FedNova (SGD lr
@@ -241,6 +256,7 @@ BATCH_SIZE = 32
 EPS_R = 1.0 / 28   # bench.py: epsilon / (rounds + 8) at its 20 rounds
 DELTA_R = 1e-5 / 28
 N_PARAMS = 421642  # SimpleCNN
+SIMPLE_CNN_LEAVES = 8
 
 # published peaks of one H100 SXM (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -3247,11 +3263,14 @@ def phase_dp_mechanisms(card, report):
     check_fold_kernels(card, report)
 
     # DP-SGD: the microbatch fold on "residual" (K1 once a step for the
-    # metrics' forward and once a chunk, K2 once a chunk), ghost on False
+    # metrics' forward and once a chunk, K2 once a chunk), ghost on False;
+    # both draw a step's noise through K3, once a leaf (keyed by client)
+    noise = dict(clip_noise=steps * SIMPLE_CNN_LEAVES)
     for name, per_round in (
-            ("dp-sgd-microbatch", dict(conv_block_fwd=steps * (1 + chunks),
+            ("dp-sgd-microbatch", dict(noise,
+                                       conv_block_fwd=steps * (1 + chunks),
                                        conv_block_bwd=steps * chunks)),
-            ("dp-sgd-ghost", {})):
+            ("dp-sgd-ghost", noise)):
         cell = cells[name]
         impl, fused = cell["dp_sgd_impl"], cell["fused"]
         label = f"dp_mechanisms dp_sgd {impl} fused_conv_block={fused!r}"
@@ -3713,8 +3732,13 @@ def phase_cifar(card):
     dt = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    require(not any(counts.values()), f"cifar ghost: launches {counts}")
     steps = GHOST_SAMPLES // GHOST_BATCH
+    # the step's noise through K3, once a leaf; no other kernel
+    leaves = len(tree_leaves(engine.global_variables["params"]))
+    want = dict.fromkeys(counts, 0)
+    want["clip_noise"] = GHOST_ROUNDS * steps * leaves
+    require(counts == want, f"cifar ghost: launches {counts}, expected "
+                            f"{want}")
     fresh = RDPAccountant()
     eps = []
     for i, entry in enumerate(engine.accountant.get_privacy_ledger()):
@@ -3735,7 +3759,8 @@ def phase_cifar(card):
           f"{GHOST_BATCH} ({steps} steps a round), SGD lr {GHOST_LR}, C=1, "
           f"z={z:.4f}, warm-up round {warm_s:.2f}s, {GHOST_ROUNDS} rounds in "
           f"{dt:.3f}s -> {GHOST_ROUNDS / dt:.3f} rounds/s, peak memory "
-          f"{peak:.2f} GiB, no kernel launches, losses "
+          f"{peak:.2f} GiB, launches {counts['clip_noise']} clip_noise "
+          f"({leaves} a step, 0 elsewhere), losses "
           f"{[round(v, 4) for v in losses]}, ε by round "
           f"{[round(v, 4) for v in eps]} (= a fresh RDP accountant's) "
           f"[{card}]", flush=True)
@@ -4026,6 +4051,160 @@ def phase_zoo(card):
     torch.cuda.empty_cache()
 
 
+MESH_ROUNDS = 3          # pipelined, after a warm-up round
+MESH_RANKS = 2           # gloo ranks sharing the one card
+
+
+def mesh_engine(mesh=None, arrays=None):
+    """The 512-client bf16 delta-DP bench engine (``"residual"``), on the
+    card or on ``mesh``."""
+    from fl_tpu_torch.core.types import PrivacyConfig
+    from fl_tpu_torch.orchestration import (FederatedRoundEngine,
+                                            RoundEngineConfig)
+
+    cfg = RoundEngineConfig(
+        training=bench_training(), dp_mode="delta",
+        privacy=PrivacyConfig(epsilon=1.0, delta=1e-5, max_grad_norm=1.0),
+        epsilon_per_round=EPS_R, delta_per_round=DELTA_R,
+        max_clients=NUM_CLIENTS, seed=0)
+    return FederatedRoundEngine(
+        bench_model("residual"), arrays or bench_arrays(), cfg,
+        device=None if mesh is not None else DEVICE, mesh=mesh)
+
+
+def mesh_rounds(engine):
+    """A warm-up round, then MESH_ROUNDS pipelined ones: returns (the
+    launch counts of the pipelined rounds, rounds/s, peak memory in GiB,
+    the losses with the warm-up's first, the collectives of the last
+    round, the weights on the host)."""
+    import torch
+
+    from fl_tpu_torch import ops
+
+    torch.cuda.reset_peak_memory_stats()
+    warm = engine.run_round(evaluate=False)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = engine.run_rounds_pipelined(MESH_ROUNDS, evaluate=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    return (counts, MESH_ROUNDS / dt,
+            torch.cuda.max_memory_allocated() / 2 ** 30,
+            [r.train_loss for r in [warm] + results],
+            list(engine.round_collectives),
+            {k: v.cpu() for k, v in engine.get_model_weights().items()})
+
+
+def mesh_rank_job(mesh):
+    """One gloo rank's share of the bench round (``phase_mesh``)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return mesh_rounds(mesh_engine(mesh))
+
+
+def check_mesh_counts(label, counts):
+    steps = LOCAL_EPOCHS * (SAMPLES_PER_CLIENT // BATCH_SIZE)
+    want = {"conv_block_fwd": steps * MESH_ROUNDS,
+            "conv_block_bwd": steps * MESH_ROUNDS,
+            "clip_noise": 2 * MESH_ROUNDS}
+    require(counts == want, f"{label}: launches {counts}, expected {want}")
+
+
+def phase_mesh(card):
+    """The client axis over ranks (``core.mesh``, ``parallel``): the bench
+    round unsharded, on a one-rank NCCL mesh (the same code with the
+    identity sum: equal bit for bit, two all-reduces a round), and on two
+    gloo ranks sharing the card (CUDA tensors through gloo), held to the
+    unsharded round: each leaf within 1e-6 + 1e-5 of its largest weight
+    (the noised sum's scale), the warm-up round's loss within 1e-5
+    relative and the noise-destroyed model's later losses within 1e-4.
+    Every rank must launch K1, K2 and K3; a failing rank fails the
+    run."""
+    import torch
+    import torch.distributed as dist
+
+    from fl_tpu_torch.core.mesh import make_mesh, spawn
+
+    t_phase = time.perf_counter()
+    arrays = bench_arrays()
+    plain = mesh_rounds(mesh_engine(arrays=arrays))
+    check_mesh_counts("mesh unsharded", plain[0])
+    torch.cuda.empty_cache()
+
+    mesh = make_mesh()
+    require(mesh.world_size == 1 and mesh.backend == "nccl",
+            f"mesh: {mesh}")
+    one = mesh_rounds(mesh_engine(mesh, arrays))
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    check_mesh_counts("mesh nccl world_size=1", one[0])
+    require(one[3] == plain[3]
+            and all(torch.equal(one[5][k], v) for k, v in plain[5].items()),
+            "mesh nccl world_size=1: the rounds differ from the unsharded "
+            f"ones (losses {one[3]} against {plain[3]})")
+    calls = one[4]
+    require([c.kind for c in calls] == ["all_reduce", "all_reduce"]
+            and calls[0].nbytes == 4 * N_PARAMS
+            and sum(c.nbytes for c in calls) <= 1_800_000,
+            f"mesh nccl world_size=1: collectives a round {calls}")
+    print(f"mesh nccl world_size=1: {NUM_CLIENTS} clients bf16 delta-DP "
+          f"'residual', {MESH_ROUNDS} pipelined rounds {one[1]:.3f} "
+          f"rounds/s (unsharded {plain[1]:.3f} in this call), peak memory "
+          f"{one[2]:.2f} GiB (unsharded {plain[2]:.2f}), weights and losses "
+          f"equal to the unsharded ones bit for bit, collectives a round "
+          f"{[(c.kind, c.dtype, c.nbytes) for c in calls]}, launches "
+          f"{one[0]} [{card}]", flush=True)
+
+    t0 = time.perf_counter()
+    ranks = spawn(mesh_rank_job, MESH_RANKS, backend="gloo",
+                  device="cuda:0")
+    spawn_s = time.perf_counter() - t0
+    text = []
+    for r, got in enumerate(ranks):
+        check_mesh_counts(f"mesh gloo rank {r}", got[0])
+        require([c.kind for c in got[4]] == ["all_reduce", "all_reduce"],
+                f"mesh gloo rank {r}: collectives a round {got[4]}")
+        # rtol against each leaf's largest weight: a weight of the noised
+        # round is a sum of 512 terms of the noise's scale (σ ≈ 154 an
+        # element), and one near zero is a cancellation among them, which
+        # another summation order moves by ulps of those terms
+        worst = elementwise = 0.0
+        for k, v in plain[5].items():
+            a, b = got[5][k].float(), v.float()
+            gap = float((a - b).abs().max())
+            require(gap <= 1e-6 + 1e-5 * float(b.abs().max()),
+                    f"mesh gloo rank {r}: {k} differs from the unsharded "
+                    f"round by {gap} (its largest weight "
+                    f"{float(b.abs().max())})")
+            worst = max(worst, gap)
+            elementwise += float(((a - b).abs()
+                                  <= 1e-6 + 1e-5 * b.abs()).sum())
+        elementwise /= sum(v.numel() for v in plain[5].values())
+        # the warm-up round's loss is the clients' on the initial model;
+        # after it the model is the bench's noise (σ ≈ 154 an element), and
+        # its losses, 1e7–1e9, are differences of logits that large
+        rel = [abs(x - y) / abs(y) for x, y in zip(got[3], plain[3])]
+        require(rel[0] <= 1e-5 and max(rel) <= 1e-4,
+                f"mesh gloo rank {r}: losses {got[3]} against {plain[3]}")
+        text.append(f"rank {r}: {NUM_CLIENTS // MESH_RANKS} clients, "
+                    f"{got[1]:.3f} rounds/s, peak memory {got[2]:.2f} GiB, "
+                    f"launches {got[0]}, max |w - w_unsharded| {worst:.2e} "
+                    f"({100 * elementwise:.3f}% of the weights within rtol "
+                    f"1e-5 / atol 1e-6 element by element), losses' rel. "
+                    f"gaps {[f'{v:.1e}' for v in rel]}")
+    require(all(torch.equal(ranks[0][5][k], v)
+                for k, v in ranks[1][5].items()),
+            "mesh gloo: the ranks' global models differ")
+    print(f"mesh gloo world_size={MESH_RANKS} on one card (CUDA tensors "
+          f"through gloo; spawn and both ranks {spawn_s:.1f}s): "
+          + "; ".join(text) + f"; phase {time.perf_counter() - t_phase:.1f}s"
+          f" [{card}]", flush=True)
+
+
 def kernel_report():
     src_cu = "fl_tpu_torch/csrc/conv_block.cu"
     rows = (
@@ -4132,6 +4311,9 @@ def main() -> int:
     # 5h. the rest of the model zoo: the ResNet (the cifar100 route), the
     # ViT with LoRA, the MobileNet; K3 at their groups
     phase_zoo(card)
+
+    # 5i. the client axis sharded over ranks
+    phase_mesh(card)
 
     # 6. learning checks
     learning_check("residual")

@@ -20,6 +20,8 @@ find, and imports torch and never JAX:
 - ``fl_tpu_torch.native``        the LZ4 codec (C++, built by g++ at first
                                  use, bound with ctypes)
 - ``fl_tpu_torch.orchestration`` the round engine
+- ``fl_tpu_torch.parallel``      the client axis sharded over GPUs: one
+                                 ``torch.distributed`` rank a shard
 - ``fl_tpu_torch.validation``    the client-level membership audit
 
 Parameters keep the JAX layouts and flax names; client state is stacked

@@ -1,2 +1,2 @@
-"""Configuration types, random streams and parameter-tree helpers (port of
-fl_tpu.core)."""
+"""Configuration types, random streams, the client mesh and parameter-tree
+helpers (port of fl_tpu.core)."""

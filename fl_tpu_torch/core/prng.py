@@ -21,7 +21,12 @@ wants:
   fold(fold(round, DROPOUT), step), drawing the whole (C, B, features)
   mask.
 
-Per-client seeds (DP noise) come from :func:`client_stream_seeds`.
+Per-client seeds come from :func:`client_stream_seeds` (delta DP's
+noise, stochastic rounding) and :func:`client_seeds_of` (DP-SGD's noise,
+distributed DP's rounding and shares), keyed by GLOBAL client id: under a
+client mesh (``core.mesh``) a rank draws exactly its own clients' streams,
+and the index-sized draws above (the shuffle, dropout masks, augmentation
+offsets) are drawn whole on every rank and sliced to its rows.
 """
 
 from __future__ import annotations
@@ -82,14 +87,37 @@ def stream_seed(cseed: int, stream: Stream) -> int:
     return fold(cseed, int(stream))
 
 
+def fold_many(seeds, data) -> np.ndarray:
+    """:func:`fold` element by element over uint64 arrays (numpy's uint64
+    products wrap mod 2^64 as the scalar form's masks do)."""
+    z = (np.asarray(seeds, np.uint64)
+         + np.uint64(_GOLDEN) * (np.asarray(data, np.uint64) + np.uint64(1)))
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return z ^ (z >> np.uint64(31))
+
+
 def client_stream_seeds(rseed: int, num_clients: int, stream: Stream,
-                        group: int = 0) -> np.ndarray:
+                        group: int = 0, first: int = 0) -> np.ndarray:
     """(C,) uint64 seeds fold(fold(fold(round, c), stream), group) for
-    every client of a round — the per-(client, leaf group) streams of the
-    DP noise."""
-    return np.array(
-        [fold(stream_seed(client_seed(rseed, c), stream), group)
-         for c in range(num_clients)], dtype=np.uint64)
+    clients c = first, …, first + C − 1 of a round — the per-(client, leaf
+    group) streams of the DP noise. ``first`` is a shard's first global
+    client id, so a client draws the same stream whichever rank holds
+    it."""
+    ids = np.arange(first, first + num_clients, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        c = fold_many(np.uint64(rseed), ids)
+        return fold_many(fold_many(c, int(stream)), group)
+
+
+def client_seeds_of(seed: int, num_clients: int, first: int = 0
+                    ) -> np.ndarray:
+    """(C,) uint64 seeds fold(seed, c) for clients c = first, …, first +
+    C − 1: one stream a global client id under a shared seed."""
+    with np.errstate(over="ignore"):
+        return fold_many(np.uint64(seed),
+                         np.arange(first, first + num_clients,
+                                   dtype=np.uint64))
 
 
 def as_int64(seeds: np.ndarray) -> np.ndarray:

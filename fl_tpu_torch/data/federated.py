@@ -20,6 +20,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from fl_tpu_torch.core.mesh import shard_client_tree
 from fl_tpu_torch.data.datasets import DatasetSplits
 from fl_tpu_torch.fl.partition import partition_indices
 
@@ -44,18 +45,25 @@ class FederatedArrays:
     def samples_per_client(self) -> int:
         return self.images.shape[1]
 
-    def to_device(self, device) -> "FederatedArrays":
+    def to_device(self, device=None, mesh=None) -> "FederatedArrays":
         """Copies of every array on ``device`` (labels as int64, the index
-        type torch's losses take)."""
-        def put(a, dtype=None):
-            t = torch.as_tensor(np.asarray(a))
+        type torch's losses take). With a client ``mesh``
+        (``core.mesh.ClientMesh``) only this rank's rows of the client
+        arrays go to the mesh's device (the reference's sharded upload)."""
+        if mesh is not None:
+            device = mesh.device
+
+        def put(a, dtype=None, rows=False):
+            a = np.asarray(a)
+            t = (shard_client_tree(a, mesh) if rows and mesh is not None
+                 else torch.as_tensor(a))
             return t.to(device=device, dtype=dtype or t.dtype)
 
         return dataclasses.replace(
             self,
-            images=put(self.images),
-            labels=put(self.labels, torch.int64),
-            num_samples=put(self.num_samples, torch.int32),
+            images=put(self.images, rows=True),
+            labels=put(self.labels, torch.int64, rows=True),
+            num_samples=put(self.num_samples, torch.int32, rows=True),
             mean=put(self.mean, torch.float32),
             std=put(self.std, torch.float32),
         )

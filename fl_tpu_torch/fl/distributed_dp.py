@@ -27,8 +27,11 @@ int32 arithmetic and are handled here:
   aggregate rate is above 2^24, where an f32 count could not hold every
   integer.
 
-Random streams are seeds (``core.prng``), one generator a draw over every
-client's row at once where the reference folds one key a client.
+Random streams are seeds (``core.prng``). The per-client draws (the
+rounding's uniforms, the per-client Skellam shares) take one generator a
+client, seeded fold(seed, c) by GLOBAL client id c as the reference folds
+one key a client, so a client draws the same whichever shard of the client
+axis holds it; the aggregate noise is one draw from the round's seed.
 """
 
 from __future__ import annotations
@@ -232,14 +235,22 @@ def modular_sum(ints: torch.Tensor) -> torch.Tensor:
     return wrap_int32(ints.sum(0, dtype=torch.int64))
 
 
-def stochastic_round(mat: torch.Tensor, gamma: float, seed: int
-                     ) -> torch.Tensor:
+def _client_generators(seed: int, num_clients: int, first: int, device):
+    """One generator a client, seeded fold(seed, c) for the global ids c =
+    first, …, first + C − 1."""
+    return [prng.generator(int(s), device)
+            for s in prng.client_seeds_of(seed, num_clients, first)]
+
+
+def stochastic_round(mat: torch.Tensor, gamma: float, seed: int,
+                     first: int = 0) -> torch.Tensor:
     """(C, D) f32 → int32 lattice, unbiased: floor(x/γ + U[0, 1)) in f32,
-    U drawn for every row at once from ``seed``. Exact zeros (padding,
-    untouched coordinates) round to exactly 0."""
-    g = prng.generator(seed, mat.device)
-    u = torch.rand(mat.shape, generator=g, device=mat.device,
-                   dtype=torch.float32)
+    row r's U drawn from fold(``seed``, first + r), its global client id.
+    Exact zeros (padding, untouched coordinates) round to exactly 0."""
+    u = torch.empty(mat.shape, dtype=torch.float32, device=mat.device)
+    for r, g in enumerate(_client_generators(seed, mat.shape[0], first,
+                                             mat.device)):
+        torch.rand(mat.shape[1:], generator=g, out=u[r])
     return torch.floor(mat / torch.tensor(gamma, dtype=torch.float32)
                        + u).to(torch.int32)
 
@@ -273,12 +284,16 @@ def aggregate_skellam_noise(seed: int, lam_total, dim: int,
 
 def client_integer_payloads(mat: torch.Tensor, mask: torch.Tensor,
                             round_seed: int, noise_seed: int, gamma: float,
-                            mu_local: float) -> torch.Tensor:
+                            mu_local: float, first: int = 0) -> torch.Tensor:
     """Each participant's int32 wire payload: round(clipped/γ) + its
-    Sk(μ_local) share, mod 2^32; non-participants send exact zeros."""
-    ints = stochastic_round(mat, gamma, round_seed).to(torch.int64)
-    ints += skellam_noise(noise_seed, mu_local / 2.0, mat.shape,
-                          mat.device).to(torch.int64)
+    Sk(μ_local) share, mod 2^32; non-participants send exact zeros. Row r
+    is global client first + r: its rounding draws from fold(round_seed,
+    first + r), its share from fold(noise_seed, first + r)."""
+    ints = stochastic_round(mat, gamma, round_seed, first).to(torch.int64)
+    for r, s in enumerate(prng.client_seeds_of(noise_seed, mat.shape[0],
+                                               first)):
+        ints[r] += skellam_noise(int(s), mu_local / 2.0, mat.shape[1:],
+                                 mat.device).to(torch.int64)
     return wrap_int32(ints) * (mask > 0).to(torch.int32)[:, None]
 
 

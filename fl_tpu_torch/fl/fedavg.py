@@ -26,6 +26,21 @@ def normalized_client_weights(num_samples: torch.Tensor,
                        uniform)
 
 
+def weighted_delta_sum(stacked_tree, weights: torch.Tensor, ref_tree):
+    """Σₖ wₖ·(θₖ − θ̂) leaf by leaf, in f32: on a shard of the client axis,
+    the shard's partial sum (its rows of the weights normalized over all
+    C), which one packed all-reduce completes."""
+    return tree_map(
+        lambda c, ref: torch.tensordot(weights, (c - ref[None]).float(),
+                                       dims=1),
+        stacked_tree, ref_tree)
+
+
+def apply_delta(global_tree, avg_tree):
+    """global + the averaged delta, in each global leaf's dtype."""
+    return tree_map(lambda g, d: (g + d).to(g.dtype), global_tree, avg_tree)
+
+
 def fedavg_delta(global_tree, stacked_tree, weights: torch.Tensor,
                  ref_tree=None):
     """global + Σₖ wₖ·(θₖ − θ̂), leaf by leaf, where θ̂ (``ref_tree``,
@@ -34,10 +49,8 @@ def fedavg_delta(global_tree, stacked_tree, weights: torch.Tensor,
     broadcast and applied to the full-precision master. Non-participants
     (weight 0) leave the global model where it was."""
     ref_tree = global_tree if ref_tree is None else ref_tree
-    return tree_map(
-        lambda g, c, ref: (g + torch.tensordot(
-            weights, (c - ref[None]).float(), dims=1)).to(g.dtype),
-        global_tree, stacked_tree, ref_tree)
+    return apply_delta(global_tree,
+                       weighted_delta_sum(stacked_tree, weights, ref_tree))
 
 
 def fednova_effective_steps(tau: torch.Tensor, momentum: float

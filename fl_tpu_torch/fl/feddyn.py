@@ -22,7 +22,7 @@ g (C, D_pad), carried across rounds on the engine's device;
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -35,17 +35,21 @@ def feddyn_server_update(
     mask: torch.Tensor,           # (C,) participation mask
     alpha: float,
     num_clients: int,
+    psum_: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One FedDyn round's state and model update (Alg. 1's server lines):
     returns ``(new_params_flat, new_h, new_grads)``. Non-participants' g_i
     are untouched; h moves by the participants' delta sum over the client
     count N; the new model is the unweighted participant mean minus h/α.
-    A round without participants leaves the model where it was."""
+    A round without participants leaves the model where it was. On a shard
+    of the client axis the matrices and the mask are the shard's rows and
+    ``psum_`` sums the delta and the participant count over the shards."""
+    psum_ = psum_ or (lambda x: x)
     m = (mask > 0).float()[:, None]
     new_grads = torch.where(m > 0, grad_mat - alpha * delta_mat, grad_mat)
-    sum_delta = torch.sum(m * delta_mat, dim=0)             # (D_pad,)
+    sum_delta = psum_(torch.sum(m * delta_mat, dim=0))      # (D_pad,)
     new_h = h_flat - (alpha / float(num_clients)) * sum_delta
-    p_real = mask.float().sum()
+    p_real = psum_(mask.float().sum())
     mean_theta = params_flat + sum_delta / torch.clamp(p_real, min=1.0)
     # an EMPTY round must not move the model: without participants the
     # paper's server line has no mean to take, and applying −h/α alone

@@ -50,6 +50,13 @@ Augmentation: ``augment_fn(xb, generator)`` (``ops.preprocess.
 make_cifar_augment``) runs on each normalized batch, its draws from one
 generator a step seeded fold(fold(round, AUGMENT), epoch·steps + step).
 
+Sharded client axis (``core.mesh``): with ``rows=(first, total)`` the
+trainer holds clients first, …, first + C − 1 of ``total`` and gives each
+the streams it has in a single-process round: the shuffle, the dropout
+masks and the augmentation draws are drawn for all ``total`` clients and
+sliced to these rows (index- and activation-sized), the rounding seeds and
+DP-SGD's noise are keyed by global client id.
+
 Parameters are updated in place inside the step loop where they are
 stored in f32, which keeps one copy of the (C, params) tree.
 """
@@ -232,10 +239,13 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor
     return per_example_losses(logits, labels).mean(1)
 
 
-def rounding_seeds(rseed: int, num_clients: int, device) -> torch.Tensor:
-    """(C,) u32 seeds of the stochastic rounding of a round, one a client:
-    the two halves of fold(fold(round, c), ROUNDING) xor-ed."""
-    s = prng.client_stream_seeds(rseed, num_clients, prng.Stream.ROUNDING)
+def rounding_seeds(rseed: int, num_clients: int, device, first: int = 0
+                   ) -> torch.Tensor:
+    """(C,) u32 seeds of the stochastic rounding of a round, one a client
+    (global ids first, …): the two halves of fold(fold(round, c),
+    ROUNDING) xor-ed."""
+    s = prng.client_stream_seeds(rseed, num_clients, prng.Stream.ROUNDING,
+                                 first=first)
     s = (s ^ (s >> np.uint64(32))) & np.uint64(0xFFFFFFFF)
     return to_device(s.astype(np.int64), device)
 
@@ -246,9 +256,9 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
                         dp_sgd_fn: Optional[Callable] = None,
                         augment_fn: Optional[Callable] = None) -> Callable:
     """Build ``local_train(params, images_u8, labels, n_valid, rseed,
-    epochs=None, correction=None, lr=None, extra=None) -> (new_params,
-    metrics)``, or ``(new_params, metrics, new_extra)`` when ``extra`` is
-    given.
+    epochs=None, correction=None, lr=None, extra=None, rows=None) ->
+    (new_params, metrics)``, or ``(new_params, metrics, new_extra)`` when
+    ``extra`` is given.
 
     ``params`` is a tree of (C, ...) f32 tensors (not modified),
     ``images_u8`` (C, N, H, W, ch), ``labels`` (C, N) int64, ``n_valid``
@@ -263,7 +273,10 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
     gradient (module docstring). ``extra`` is a dict of the model's
     other collections, ``{"batch_stats": tree of (C, ...) tensors}``, which
     the training forward updates (not modified). ``augment_fn(xb,
-    generator)`` augments each normalized batch. ``metrics`` holds (C,)
+    generator)`` augments each normalized batch. ``rows=(first, total)``:
+    these C clients are global clients first, … of ``total`` (module
+    docstring); ``augment_fn`` then takes ``rows=`` too, and
+    ``dp_sgd_fn`` gets it as a keyword. ``metrics`` holds (C,)
     tensors ``loss`` and ``accuracy`` of each client's last active epoch,
     ``epochs_completed`` and ``samples_processed``.
     """
@@ -279,9 +292,12 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
     mu = float(cfg.proximal_mu)
 
     def local_train(params, images_u8, labels, n_valid, rseed, epochs=None,
-                    correction=None, lr=None, extra=None):
+                    correction=None, lr=None, extra=None, rows=None):
         device = images_u8.device
         C, N = images_u8.shape[:2]
+        first, total = (0, C) if rows is None else rows
+        sharded = total != C
+        shard_kw = {"rows": (first, total)} if sharded else {}
         if extra is not None and set(extra) != {"batch_stats"}:
             raise ValueError("extra holds the batch_stats collection, got "
                              f"{sorted(extra)}")
@@ -292,7 +308,8 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
             # the reference's round-to-nearest cast of the start: the
             # returned delta includes it
             store = [a.to(torch.bfloat16).contiguous() for a in anchor]
-            sr_seed0 = rounding_seeds(rseed, C, device)
+            sr_seed0 = (rounding_seeds(rseed, C, device, first=first)
+                        if sharded else rounding_seeds(rseed, C, device))
         else:
             store = [a.detach().clone(memory_format=torch.contiguous_format)
                      .requires_grad_(True) for a in anchor]
@@ -322,8 +339,9 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
         ep_losses, ep_accs = [], []
         for epoch in range(max_epochs):
             g = prng.generator(prng.fold(shuffle_seed, epoch), device)
-            perm_raw = torch.argsort(
-                torch.rand((C, N), generator=g, device=device), dim=1)
+            perm_raw = torch.argsort(torch.rand(
+                (total, N), generator=g, device=device)[first:first + C],
+                dim=1)
             # remap padded slots into the valid region (keeps batches dense)
             perm = torch.where(perm_raw < n, perm_raw, perm_raw % n)
             active = None if epochs is None else per_leaf(epoch < epochs)
@@ -338,8 +356,15 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
                 yb = labels[rows, idx]
                 if augment_fn is not None:
                     xb = augment_fn(xb, prng.generator(
-                        prng.fold(augment_seed, ctr), device))
+                        prng.fold(augment_seed, ctr), device), **shard_kw)
                 dgen = prng.generator(prng.fold(dropout_seed, ctr), device)
+                drop_kw = {}
+                if sharded and getattr(model, "dropout_keep", None):
+                    # the whole (total, B, ...) draw, this shard's rows
+                    keep = model.dropout_keep(total, batch, dgen, device)
+                    if keep is not None:
+                        drop_kw = {"dropout_mask": tree_map(
+                            lambda k: k[first:first + C], keep)}
                 p32 = ([s.float().requires_grad_(True) for s in store]
                        if store_bf16 else store)
                 tree = tree_from_leaves(paths, p32)
@@ -349,9 +374,9 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
                     statistics (None without them)."""
                     if stats is None:
                         return model(tree, xb, train=True,
-                                     generator=dgen), None
+                                     generator=dgen, **drop_kw), None
                     return model(tree, xb, train=True, generator=dgen,
-                                 batch_stats=stats)
+                                 batch_stats=stats, **drop_kw)
 
                 if dp_sgd_fn is None:
                     logits, new_stats = forward()
@@ -365,7 +390,7 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
                     g_tree = dp_sgd_fn(
                         tree, xb, yb, (raw < n).float(),
                         prng.fold(dropout_seed, ctr),
-                        prng.fold(noise_seed, ctr))
+                        prng.fold(noise_seed, ctr), **shard_kw)
                     grads = [tree_get(g_tree, p) for p in paths]
                     del g_tree
                 if new_stats is not None:

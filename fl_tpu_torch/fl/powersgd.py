@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -99,15 +99,21 @@ def make_powersgd_plan(template, rank: int) -> PowerSGDPlan:
 
 
 def init_uplink_state(generator: torch.Generator, plan: PowerSGDPlan,
-                      num_clients: int) -> torch.Tensor:
+                      num_clients: int, *,
+                      rows: Optional[Tuple[int, int]] = None
+                      ) -> torch.Tensor:
     """(C, d_pad + dq_pad) initial state on ``generator``'s device: zero EF,
     standard-normal Q drawn from ``generator`` (the engine's
-    ``Stream.UPLINK_Q``)."""
+    ``Stream.UPLINK_Q``). ``rows=(lo, hi)``: only those clients' rows (a
+    shard of the client axis), their Q the rows of the whole (C, dq_pad)
+    draw."""
     device = generator.device
-    state = torch.zeros((num_clients, plan.state_width), dtype=torch.float32,
+    lo, hi = (0, num_clients) if rows is None else rows
+    q = torch.randn((num_clients, plan.dq_pad), generator=generator,
+                    device=device)
+    state = torch.zeros((hi - lo, plan.state_width), dtype=torch.float32,
                         device=device)
-    state[:, plan.d_pad:] = torch.randn(
-        (num_clients, plan.dq_pad), generator=generator, device=device)
+    state[:, plan.d_pad:] = q[lo:hi]
     return state
 
 

@@ -89,12 +89,19 @@ def client_norms(tree) -> torch.Tensor:
 
 
 def dp_noise_client_deltas(stacked_deltas, rseed: int, epsilon: float,
-                           delta: float, max_norm: float
+                           delta: float, max_norm: float, first: int = 0,
+                           use_kernel: Optional[bool] = None
                            ) -> Tuple[Any, torch.Tensor, torch.Tensor]:
     """Reference-mode DP over stacked client deltas (leading axis C).
     ``rseed`` is the round's seed; client c's group g noise is keyed by
-    fold(fold(fold(rseed, c), DP_NOISE), g). Returns (noisy tree,
-    sensitivity (C,), sigma (C,))."""
+    fold(fold(fold(rseed, c), DP_NOISE), g), c the GLOBAL client id (the
+    rows are clients first, …, first + C − 1). ``use_kernel``: None takes
+    K3 on a CUDA tensor and the plain version on a CPU one, True K3 (a CPU
+    tensor raises), False the plain version (the reference's
+    ``use_pallas_dp``). Returns (noisy tree, sensitivity (C,), sigma
+    (C,))."""
+    clip_noise = {None: dp_ops.clip_noise, True: dp_ops.clip_noise_cuda,
+                  False: dp_ops.clip_noise_plain}[use_kernel]
     norms = client_norms(stacked_deltas)
     scale = torch.clamp(max_norm / torch.clamp(norms, min=1e-12), max=1.0)
     sens = torch.clamp(norms, max=max_norm)
@@ -107,8 +114,8 @@ def dp_noise_client_deltas(stacked_deltas, rseed: int, epsilon: float,
         flats = [t.reshape(C, -1).float() for t in leaves]
         x = flats[0] if len(flats) == 1 else torch.cat(flats, 1)
         seeds = to_device(prng.as_int64(prng.client_stream_seeds(
-            rseed, C, prng.Stream.DP_NOISE, gi)), x.device)
-        out = dp_ops.clip_noise(x, scale, sigma, seeds)
+            rseed, C, prng.Stream.DP_NOISE, gi, first)), x.device)
+        out = clip_noise(x.contiguous(), scale, sigma, seeds)
         parts = torch.split(out, [f.shape[1] for f in flats], 1)
         for p, t, part in zip(group, leaves, parts):
             paths.append(p)
@@ -221,17 +228,23 @@ def _weighted_rows(w: torch.Tensor, g: torch.Tensor, m: int
     return out.reshape((C,) + tuple(shape))
 
 
-def _noisy_mean(total, batch: int, sigma: float, noise_seed: int):
-    """total / B + N(0, σ²) leaf by leaf, leaf i of ``tree_paths`` order
-    from the sub-stream fold(noise_seed, i), drawing every client's rows at
-    once: the one noise rule of both DP-SGD forms."""
+def _noisy_mean(total, batch: int, sigma: float, noise_seed: int,
+                first: int = 0):
+    """total / B + N(0, σ²) leaf by leaf: the one noise rule of both DP-SGD
+    forms. Client c's row of leaf i (``tree_paths`` order) draws from the
+    seed fold(fold(noise_seed, i), c), c the GLOBAL client id (the rows
+    are clients first, …), through the clip+noise kernel at scale 1/B (K3
+    on a CUDA tensor), so no rank draws another rank's rows."""
     out = []
     for i, t in enumerate(tree_leaves(total)):
-        g = t / batch
-        gen = prng.generator(prng.fold(noise_seed, i), g.device)
-        noise = torch.randn(g.shape, generator=gen, device=g.device,
-                            dtype=torch.float32)
-        out.append(g + sigma * noise)
+        C = t.shape[0]
+        x = t.reshape(C, -1).float().contiguous()
+        seeds = to_device(prng.as_int64(prng.client_seeds_of(
+            prng.fold(noise_seed, i), C, first)), x.device)
+        scale = torch.full((C,), 1.0 / batch, dtype=torch.float32,
+                           device=x.device)
+        out.append(dp_ops.clip_noise(x, scale, torch.full_like(scale, sigma),
+                                     seeds).reshape(t.shape))
     return tree_from_leaves(tree_paths(total), out)
 
 
@@ -250,7 +263,8 @@ def make_dp_sgd_grad_fn(model, max_grad_norm: float,
     stacked clients (the reference's ``make_dp_sgd_grad_fn`` with its
     loss_fn the model's training loss). Returns
 
-        dp_grad(params, xb, yb, wmask, dropout_seed, noise_seed) -> grads
+        dp_grad(params, xb, yb, wmask, dropout_seed, noise_seed,
+                rows=None) -> grads
 
     with ``params`` a tree of (C, ...) tensors, ``xb`` (C, B, ...)
     normalized images, ``yb`` (C, B) labels and ``wmask`` (C, B) weights
@@ -270,13 +284,17 @@ def make_dp_sgd_grad_fn(model, max_grad_norm: float,
     C·m·|params| gradient values plus as many parameter copies. Dropout:
     one single-example mask a client per step (``dropout_seed``), shared by
     all its examples, as the reference applies one key to every example.
+    ``rows=(first, total)``: the C clients are global clients first, … of
+    ``total`` (a shard of the client axis); the dropout draw is made for
+    all ``total`` and sliced, and the noise keyed by global id.
     """
     cdt = getattr(model, "dtype", torch.float32)
     dense = {entry[0] for entry in getattr(model, "DP_LAYERS", None) or ()
              if entry[1] == "dense"}
 
-    def dp_grad(params, xb, yb, wmask, dropout_seed, noise_seed):
+    def dp_grad(params, xb, yb, wmask, dropout_seed, noise_seed, rows=None):
         C, B = yb.shape
+        first, total_c = (0, C) if rows is None else rows
         m = min(microbatch_size, B)
         if B % m:
             raise ValueError(f"batch {B} must be divisible by microbatch "
@@ -286,9 +304,10 @@ def make_dp_sgd_grad_fn(model, max_grad_norm: float,
         keep = None
         if hasattr(model, "dropout_keep"):
             keep = model.dropout_keep(
-                C, 1, prng.generator(dropout_seed, device), device)
+                total_c, 1, prng.generator(dropout_seed, device), device)
         if keep is not None:
-            keep = tree_map(lambda t: t.repeat_interleave(m, 0), keep)
+            keep = tree_map(lambda t: t[first:first + C].repeat_interleave(
+                m, 0), keep)
 
         def fold(p, layer):
             dt = cdt if layer in dense else torch.float32
@@ -315,7 +334,8 @@ def make_dp_sgd_grad_fn(model, max_grad_norm: float,
                 t += _weighted_rows(scale, g, m)
             del grads
         return _noisy_mean(tree_from_leaves(paths, total), B,
-                           noise_multiplier * max_grad_norm / B, noise_seed)
+                           noise_multiplier * max_grad_norm / B, noise_seed,
+                           first)
 
     return dp_grad
 
@@ -383,11 +403,15 @@ def make_ghost_dp_sgd_grad_fn(model, max_grad_norm: float,
     layers = [(e[0], e[1], e[2] if len(e) > 2 else {})
               for e in model.DP_LAYERS]
 
-    def dp_grad(params, xb, yb, wmask, dropout_seed, noise_seed):
+    def dp_grad(params, xb, yb, wmask, dropout_seed, noise_seed, rows=None):
         C, B = yb.shape
+        first, total_c = (0, C) if rows is None else rows
         device = xb.device
-        keep = model.dropout_keep(C, B, prng.generator(dropout_seed, device),
+        keep = model.dropout_keep(total_c, B,
+                                  prng.generator(dropout_seed, device),
                                   device)
+        if keep is not None and total_c != C:
+            keep = tree_map(lambda t: t[first:first + C], keep)
         p = tree_map(lambda v: v.detach(), params)
         shapes = model.dp_preactivation_shapes(C, B)
         zeros = {name: torch.zeros(shapes[name], dtype=torch.float32,
@@ -425,7 +449,7 @@ def make_ghost_dp_sgd_grad_fn(model, max_grad_norm: float,
         grads = torch.autograd.grad(loss, [tree_get(p2, p) for p in paths])
         total = tree_from_leaves(paths, [g.float() for g in grads])
         return _noisy_mean(total, B, noise_multiplier * max_grad_norm / B,
-                           noise_seed)
+                           noise_seed, first)
 
     return dp_grad
 

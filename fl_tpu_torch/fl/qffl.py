@@ -19,6 +19,8 @@ masked sum.
 
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 
 from fl_tpu_torch.core.pytree import tree_map
@@ -32,12 +34,15 @@ _LOSS_FLOOR = 1e-12
 
 def qffl_combine(global_params, ref_params, new_stacked,
                  pre_losses: torch.Tensor, mask: torch.Tensor, q: float,
-                 lr: float):
+                 lr: float, psum_: Optional[Callable] = None):
     """One q-FedAvg server step (Alg. 2 lines 7-9) on params trees:
     ``new_stacked`` the clients' trained (C, ...) params, ``ref_params``
     the model they received (θ̂; differs from ``global_params`` only under
     downlink compression), ``pre_losses`` (C,) F_k(θ̂), ``mask`` (C,). The
-    step is applied to the full-precision ``global_params``."""
+    step is applied to the full-precision ``global_params``. On a shard of
+    the client axis the stacked rows, losses and mask are the shard's and
+    ``psum_`` sums the numerator and the denominator over the shards."""
+    psum_ = psum_ or (lambda x: x)
     L = 1.0 / float(lr)
     F = torch.clamp(pre_losses.float(), min=_LOSS_FLOOR)
     Fq = F ** q
@@ -48,8 +53,8 @@ def qffl_combine(global_params, ref_params, new_stacked,
     norms2 = torch.sum(dmat * dmat, dim=1)             # (C,) ‖Δw_k‖²
 
     h = q * F ** (q - 1.0) * norms2 + L * Fq           # (C,)
-    denom = torch.sum(h * mask)
-    numer = torch.tensordot(Fq * mask, dmat, dims=1)   # (D_pad,)
+    denom = psum_(torch.sum(h * mask))
+    numer = psum_(torch.tensordot(Fq * mask, dmat, dims=1))  # (D_pad,)
     del dmat
     step = numer / torch.clamp(denom, min=1e-30)
 

@@ -20,7 +20,7 @@ device. :func:`state_from_reference` loads the reference engine's.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,18 +36,23 @@ def scaffold_correction(c_flat: torch.Tensor, ci_mat: torch.Tensor, spec):
 
 def scaffold_update(c_flat: torch.Tensor, ci_mat: torch.Tensor,
                     delta_mat: torch.Tensor, mask: torch.Tensor,
-                    k_steps: torch.Tensor, lr: float, num_clients: int
+                    k_steps: torch.Tensor, lr: float, num_clients: int,
+                    psum_: Optional[Callable] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One round's control-variate update (Option II) from the (C, D_pad)
     deltas w_local − w_global and the (C,) local steps taken: returns
     (new c, new c_i). Non-participants keep their c_i, and so does a
     participant that took no step (it has no trajectory to estimate from);
-    the server moves by the participants' sum over N."""
+    the server moves by the participants' sum over N. On a shard of the
+    client axis the rows are the shard's and ``psum_`` sums the server's
+    move over the shards (N the global count)."""
     k = torch.clamp(k_steps.float(), min=1.0)[:, None]
     ci_plus = ci_mat - c_flat[None, :] - delta_mat / (k * lr)
     m = ((mask > 0) & (k_steps > 0)).float()[:, None]
     new_ci = torch.where(m > 0, ci_plus, ci_mat)
     dc = (m * (ci_plus - ci_mat)).sum(0)
+    if psum_ is not None:
+        dc = psum_(dc)
     return c_flat + dc / float(num_clients), new_ci
 
 

@@ -80,12 +80,19 @@ def make_cifar_augment(padding: int = 4) -> Callable:
     """The augment function of the trainer's ``augment_fn`` slot:
     ``augment(x, generator)`` crops every client's normalized (C, B, H, W,
     ch) batch at its own offset (``padding``-px zero padding) and flips
-    each sample at p = 0.5, with the draws from ``generator``."""
+    each sample at p = 0.5, with the draws from ``generator``. With
+    ``rows=(first, total)`` the batch holds clients first, … of ``total``
+    (a shard of the client axis): the draws are made for all ``total``
+    clients and these rows taken, so a client's crop and flips do not
+    depend on the shard that holds it."""
 
-    def augment(x: torch.Tensor, generator: Optional[torch.Generator]
-                ) -> torch.Tensor:
-        dy, dx, flip = augment_draws(generator, x.shape[0], x.shape[1],
+    def augment(x: torch.Tensor, generator: Optional[torch.Generator],
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        C = x.shape[0]
+        first, total = (0, C) if rows is None else rows
+        dy, dx, flip = augment_draws(generator, total, x.shape[1],
                                      padding, x.device)
-        return crop_and_flip(x, dy, dx, flip, padding)
+        sl = slice(first, first + C)
+        return crop_and_flip(x, dy[sl], dx[sl], flip[sl], padding)
 
     return augment

@@ -148,6 +148,7 @@ def save_engine_checkpoint(engine, directory: str,
                            max_to_keep: int = 3) -> Path:
     """Snapshot a FederatedRoundEngine: the model, the round, the host
     state and every piece of carried device state its configuration has."""
+    engine._refuse_mesh("checkpoint (save_engine_checkpoint)")
     mgr = CheckpointManager(directory, max_to_keep=max_to_keep)
     step = engine.round_number
     path = mgr.save(step, engine.global_variables, engine_host_state(engine))
@@ -209,6 +210,7 @@ def restore_engine_checkpoint(engine, directory: str,
     """Restore a FederatedRoundEngine in place from the given (or latest)
     checkpoint; returns the round it resumes at. The checkpoint's model
     must have the engine's structure."""
+    engine._refuse_mesh("checkpoint (restore_engine_checkpoint)")
     mgr = CheckpointManager(directory)
     state = mgr.restore(step, device=engine.device)
     assert_same_structure(flatten_dict(engine.global_variables),

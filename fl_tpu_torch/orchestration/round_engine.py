@@ -83,6 +83,25 @@ with one device→host copy of the stacked per-round metrics at the end),
 ``evaluate_federated`` / ``evaluate_personalized`` (``fl.federated_eval``,
 ``fl.personalization``), ``get_model_weights`` / ``set_model_weights``; and
 ``orchestration.checkpoint``'s save and restore.
+
+The client axis sharded over GPUs (``mesh=``, a ``core.mesh.ClientMesh``):
+the port of the reference's ``shard_map`` superstep. Every rank of the
+group builds the same host state from the same seed (participation masks,
+accountants, ledgers, the convergence detector, adaptive clipping's C) and
+holds the replicated global model, but only its own block of CL = C /
+world_size clients: their shards, their local training, their DP noise
+(K3 keyed by global client id), their uplink error feedback and carried
+variates. Every cross-client quantity goes through the rank group
+(``parallel.Communicator``): the sample weights come from the replicated
+mask and counts, so the FedAvg round makes exactly two all-reduces, the
+weighted delta partial sums of every leaf packed in one f32 buffer and
+the summable metrics packed in another (each rank puts its per-client
+losses at its offset of a zeroed (C,) vector, so the sum is the gather);
+robust and secure aggregation gather the stacked deltas and run
+replicated, as the reference's do. The hooks are the identity without a
+mesh, so the unsharded round is the same code. ``checkpoint``,
+``evaluate_federated``, ``evaluate_personalized`` and ``profile_round``
+refuse a mesh ("not ported under a mesh yet").
 """
 
 from __future__ import annotations
@@ -99,9 +118,11 @@ import numpy as np
 import torch
 
 from fl_tpu_torch.core import prng
+from fl_tpu_torch.core.mesh import ClientMesh, replicate_tree
 from fl_tpu_torch.core.pytree import (
     assert_same_structure,
     global_norm,
+    tree_leaves,
     tree_map,
     unflatten_dict,
 )
@@ -117,9 +138,10 @@ from fl_tpu_torch.fl.federated_eval import (
     evaluate_federated, make_federated_eval_fn)
 from fl_tpu_torch.fl.feddyn import feddyn_server_update
 from fl_tpu_torch.fl.fedavg import (
-    fedavg_delta,
+    apply_delta,
     fednova_effective_steps,
     normalized_client_weights,
+    weighted_delta_sum,
 )
 from fl_tpu_torch.fl.local_training import (
     FederatedTrainingConfig,
@@ -155,6 +177,7 @@ from fl_tpu_torch.ops.flatten import (
     stacked_spec,
 )
 from fl_tpu_torch.ops.quantize import dequantize_affine, quantize_affine
+from fl_tpu_torch.parallel.collectives import Communicator
 
 logger = logging.getLogger(__name__)
 
@@ -190,6 +213,13 @@ class RoundEngineConfig:
     # average the BatchNorm statistics with the same FedAvg weights
     # (FedBN-avg); False keeps the broadcast statistics
     aggregate_batch_stats: bool = True
+    # the reference's field, which it reads nowhere: accepted and ignored
+    # (the model's own dtype decides its compute dtype)
+    compute_dtype: str = "float32"
+    # delta DP's clip + noise: None = K3 on a CUDA device (with or without
+    # a mesh), the plain version on the CPU; True = K3 (the CPU raises);
+    # False = the plain version (ops.dp.clip_noise_plain)
+    use_pallas_dp: Optional[bool] = None
     # DP-SGD: examples a per-example chunk (peak memory ≈ clients ×
     # dp_microbatch × |params|), and the form: "auto" (ghost norms where
     # the model declares the taps), "ghost" or "microbatch"
@@ -517,6 +547,13 @@ _SCALARS = ("train_loss", "train_accuracy", "weight_change_norm",
             "next_clip_norm", "clip_fraction")
 
 
+def _same_device(device, mesh_device: torch.device) -> bool:
+    """``device`` names the mesh's device ("cuda" for "cuda:1" too)."""
+    d = torch.device(device)
+    return d.type == mesh_device.type and d.index in (None,
+                                                      mesh_device.index)
+
+
 def downlink_roundtrip(x: torch.Tensor, kind: str) -> torch.Tensor:
     """θ̂ of one leaf, what the clients receive: per-leaf symmetric int8
     quantize → dequantize, or a bfloat16 cast there and back."""
@@ -535,25 +572,54 @@ class FederatedRoundEngine:
         model,
         data: FederatedArrays,
         config: RoundEngineConfig,
-        device="cuda",
+        device=None,
         test_images: Optional[np.ndarray] = None,
         test_labels: Optional[np.ndarray] = None,
         augment_fn: Optional[Callable] = None,
+        mesh=None,
     ):
         self.model = model
         self.config = config
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.num_clients = data.num_clients
+        if mesh is not None:
+            if not isinstance(mesh, ClientMesh):
+                raise ValueError(
+                    f"mesh must be a ClientMesh (fl_tpu_torch.core.mesh."
+                    f"make_mesh), got {type(mesh).__name__}")
+            if device is not None and not _same_device(device, mesh.device):
+                raise ValueError(
+                    f"device={str(device)!r} conflicts with the mesh's "
+                    f"device {str(mesh.device)!r}; with a mesh the engine "
+                    "runs on the mesh's device")
+            # this rank's client rows (raises when C does not divide)
+            self._rows = mesh.client_rows(self.num_clients)
+            device = mesh.device
+        else:
+            self._rows = (0, self.num_clients)
+        self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
-                f"FederatedRoundEngine runs on device={str(device)!r} and no "
-                "CUDA device is available; pass device=\"cpu\" to run on "
-                "the CPU")
-        self.num_clients = data.num_clients
+                f"FederatedRoundEngine runs on device={str(self.device)!r} "
+                "and no CUDA device is available; pass device=\"cpu\" to "
+                "run on the CPU")
+        if config.use_pallas_dp and self.device.type != "cuda":
+            raise ValueError(
+                "use_pallas_dp=True launches K3 (ops.dp.clip_noise_cuda), "
+                f"which needs a CUDA device; the engine runs on "
+                f"{str(self.device)!r} (use None or False)")
+        self._comm = Communicator(mesh) if mesh is not None else None
+        # the collectives of the last dispatched round (under a mesh)
+        self.round_collectives = []
         message = trimmed_mean_message(config, self.num_clients)
         if message:
             raise ValueError(message)
         self._num_samples = np.asarray(data.num_samples)
-        self.data = data.to_device(self.device)
+        self.data = data.to_device(self.device, mesh=mesh)
+        # every client's count on the device: the sample weights are
+        # normalized over all C on every rank
+        self._num_samples_all = torch.as_tensor(
+            self._num_samples.astype(np.int32)).to(self.device)
         # per-client epoch budgets (capability adaptation; default flat)
         self._epochs_per_client = np.full(
             (self.num_clients,), config.training.local_epochs, np.int32)
@@ -639,6 +705,10 @@ class FederatedRoundEngine:
         stats = init_stats(self.device) if init_stats is not None else None
         if stats is not None:
             self.global_variables["batch_stats"] = stats
+        if mesh is not None:
+            # every rank draws the same init; rank 0's is the one kept
+            self.global_variables = replicate_tree(self.global_variables,
+                                                   mesh)
         params = self.global_variables["params"]
         variables = self.global_variables
         # parameter freezing (fl.peft): the mask of the initial params
@@ -709,11 +779,12 @@ class FederatedRoundEngine:
                 prng.stream_seed(self._root, prng.Stream.UPLINK_Q),
                 self.device)
             self.uplink_error = init_uplink_state(
-                q_gen, self._powersgd_plan, self.num_clients)
+                q_gen, self._powersgd_plan, self.num_clients,
+                rows=self._rows)
         else:
             ef_d = (padded_dim(flat_dim(variables, batched=False))
                     if config.uplink_compression != "none" else 1)
-            self.uplink_error = torch.zeros((self.num_clients, ef_d),
+            self.uplink_error = torch.zeros((self._num_local, ef_d),
                                             dtype=torch.float32,
                                             device=self.device)
         # SCAFFOLD's variates: server c (D_pad,) and clients' c_i (C,
@@ -727,13 +798,13 @@ class FederatedRoundEngine:
             d_pad = padded_dim(flat_dim(params, batched=False))
             server = torch.zeros((d_pad,), dtype=torch.float32,
                                  device=self.device)
-            clients = torch.zeros((self.num_clients, d_pad),
+            clients = torch.zeros((self._num_local, d_pad),
                                   dtype=torch.float32, device=self.device)
             if config.scaffold:
                 self.scaffold_c, self.scaffold_ci = server, clients
             else:
                 self.feddyn_h, self.feddyn_grads = server, clients
-            self._flat_spec = stacked_spec(params, self.num_clients)
+            self._flat_spec = stacked_spec(params, self._num_local)
         # distributed DP: the plan's sensitivity and noise from the model's
         # real flat dim, certified against int32 wraparound up front
         self._dist_plan = None
@@ -765,6 +836,40 @@ class FederatedRoundEngine:
                     "norm='group')")
         self.history: List[RoundResult] = []
         self.detector = ConvergenceDetector()
+
+    @property
+    def _num_local(self) -> int:
+        """CL: the clients this rank holds (all C without a mesh)."""
+        return self._rows[1] - self._rows[0]
+
+    # the cross-client hooks: the rank group under a mesh, else identity
+    def _psum(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self._comm is None else self._comm.psum(x)
+
+    def _psum_tree(self, tree):
+        return tree if self._comm is None else self._comm.psum_tree(tree)
+
+    def _gather_clients(self, tree):
+        return (tree if self._comm is None
+                else self._comm.gather_clients(tree))
+
+    def _per_client(self, v: torch.Tensor) -> torch.Tensor:
+        """This rank's (CL,) values at its offset of a zeroed (C,) vector,
+        so that the sum over the ranks is the gather."""
+        if self._comm is None:
+            return v
+        out = torch.zeros((self.num_clients,), dtype=v.dtype,
+                          device=v.device)
+        out[self._rows[0]:self._rows[1]] = v
+        return out
+
+    def _refuse_mesh(self, name: str) -> None:
+        """An engine over a client mesh holds only its rank's clients: the
+        entry points that need every client's state refuse it."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{name} is not ported under a mesh yet; run it on an "
+                "engine built without mesh=")
 
     @property
     def _round_rdp(self) -> np.ndarray:
@@ -838,7 +943,8 @@ class FederatedRoundEngine:
     # ------------------------------------------------------------------
     def _uplink(self, deltas, ef_state: torch.Tensor, mask: torch.Tensor):
         """Compress every client's f32 delta with error feedback: returns
-        (transmitted deltas as a tree, new uplink state, EF norm)."""
+        (transmitted deltas as a tree, new uplink state, the sum of the
+        clients' EF norms)."""
         cfg = self.config
         mat, spec = stack_flatten(deltas)
         if cfg.uplink_compression == "powersgd":
@@ -853,9 +959,8 @@ class FederatedRoundEngine:
         # EF-residual norm over the EF region only (for powersgd the state
         # also carries the Q factors)
         ef_reg = ef_out[:, :mat.shape[1]]
-        ef_norm = torch.sqrt(torch.sum(ef_reg * ef_reg, dim=1)).sum() \
-            / self.num_clients
-        return stack_unflatten(transmitted, spec), ef_out, ef_norm
+        ef_sum = torch.sqrt(torch.sum(ef_reg * ef_reg, dim=1)).sum()
+        return stack_unflatten(transmitted, spec), ef_out, ef_sum
 
     def _superstep(self, global_vars, round_idx: int,
                    mask: torch.Tensor, ef_state: torch.Tensor,
@@ -868,12 +973,18 @@ class FederatedRoundEngine:
         packed metrics). ``global_vars`` is ``{"params": ...}`` and, for a
         BatchNorm model, ``"batch_stats"``: the statistics travel with the
         parameters through the deltas, DP, the uplink and the aggregation,
-        as in the reference. ``epochs`` is the (C,) epoch budget
-        where SCAFFOLD or FedNova reads it or the budgets differ;
-        ``clip_norm`` adaptive clipping's C for this round; ``inject`` the
-        audit's (flags, stacked deltas)."""
+        as in the reference. ``mask`` is the (C,) participation of every
+        client and ``epochs`` the (C,) epoch budget, where SCAFFOLD or
+        FedNova reads it or the budgets differ; ``clip_norm`` adaptive
+        clipping's C for this round; ``inject`` the audit's (flags, stacked
+        deltas). Under a mesh the client-stacked operands (``ef_state``,
+        ``inject``'s, the carried variates) and results are this rank's
+        rows, and every cross-client sum goes through the hooks."""
         cfg = self.config
         C = self.num_clients
+        lo, hi = self._rows
+        CL = hi - lo
+        mask_l = mask[lo:hi]
         feddyn = cfg.feddyn_alpha > 0
         rseed = prng.round_seed(self._root, round_idx)
         # θ̂: what clients actually receive; every delta below is measured
@@ -882,7 +993,7 @@ class FederatedRoundEngine:
                         g, cfg.downlink_compression), global_vars)
                     if cfg.downlink_compression != "none"
                     else global_vars)
-        stacked = tree_map(lambda g: g[None].expand(C, *g.shape), ref_vars)
+        stacked = tree_map(lambda g: g[None].expand(CL, *g.shape), ref_vars)
         pre_losses = None
         if self._qffl_eval is not None:
             # q-FFL's F_k(θ̂), before local training
@@ -902,8 +1013,8 @@ class FederatedRoundEngine:
         out = self._local_train(
             stacked["params"], self.data.images, self.data.labels,
             self.data.num_samples, rseed,
-            epochs=None if self._is_homogeneous() else epochs,
-            correction=corr, extra=extra)
+            epochs=None if self._is_homogeneous() else epochs[lo:hi],
+            correction=corr, extra=extra, rows=(lo, C))
         new_stacked = {"params": out[0]}
         metrics = out[1]
         if extra is not None:
@@ -917,13 +1028,17 @@ class FederatedRoundEngine:
                 global_vars["params"]))
         if cfg.scaffold:
             # k = the steps each client took
-            k_steps = epochs.float() * self._local_train.steps_per_epoch
+            k_steps = (epochs[lo:hi].float()
+                       * self._local_train.steps_per_epoch)
             state_out = scaffold_update(
-                self.scaffold_c, self.scaffold_ci, d_mat, mask, k_steps,
-                cfg.training.learning_rate, C)
+                self.scaffold_c, self.scaffold_ci, d_mat, mask_l, k_steps,
+                cfg.training.learning_rate, C, self._psum)
             d_mat = None
 
-        sigma_mean = torch.zeros((), device=self.device)
+        zero = torch.zeros((), device=self.device)
+        # σ: delta mode's per-client sum (averaged over C after the
+        # metrics' reduce), the central modes' replicated value
+        sigma_sum, sigma_rep = zero, None
         if cfg.dp_mode == "delta":
             # reference semantics (federated_trainer.py:428-469): noise
             # the local delta against θ̂ and re-add it to θ̂
@@ -932,49 +1047,52 @@ class FederatedRoundEngine:
             deltas = tree_map(lambda c, g: c - g[None], new_stacked,
                               ref_vars)
             noisy, _, sigma = dp.dp_noise_client_deltas(
-                deltas, rseed, eps_r, del_r, self.privacy.max_grad_norm)
+                deltas, rseed, eps_r, del_r, self.privacy.max_grad_norm,
+                first=lo, use_kernel=cfg.use_pallas_dp)
             del deltas
             new_stacked = tree_map(lambda d, g: d + g[None], noisy,
                                    ref_vars)
             del noisy
-            sigma_mean = sigma.sum() / C
+            sigma_sum = sigma.sum()
 
-        zero = torch.zeros((), device=self.device)
         next_cn = frac = zero
         ef_out = ef_state
-        ef_norm = zero
+        ef_sum = zero
         if cfg.dp_mode == "client_dp":
-            new_global, sigma_mean, next_cn, frac = self._client_dp(
-                global_vars, ref_vars, new_stacked, rseed, mask,
+            new_global, sigma_rep, next_cn, frac = self._client_dp(
+                global_vars, ref_vars, new_stacked, rseed, mask_l,
                 clip_norm, inject)
             del new_stacked
         elif cfg.dp_mode == "distributed":
-            new_global, sigma_mean = self._distributed(
+            new_global, sigma_rep = self._distributed(
                 global_vars, ref_vars, new_stacked, rseed, mask)
             del new_stacked
         elif cfg.dp_mode == "dp_ftrl":
             new_global, state_out = self._dp_ftrl(
-                global_vars, new_stacked, mask, round_idx)
+                global_vars, new_stacked, mask_l, round_idx)
             del new_stacked
-            sigma_mean = torch.tensor(self._ftrl_sigma_node,
-                                      dtype=torch.float32, device=self.device)
+            sigma_rep = torch.tensor(self._ftrl_sigma_node,
+                                     dtype=torch.float32, device=self.device)
         if cfg.uplink_compression != "none":
             # the client's order: train → DP → compress → upload
-            hat, ef_out, ef_norm = self._uplink(
+            hat, ef_out, ef_sum = self._uplink(
                 tree_map(lambda c, g: (c - g[None]).float(), new_stacked,
-                         ref_vars), ef_state, mask)
+                         ref_vars), ef_state, mask_l)
             new_stacked = tree_map(lambda g, d: (g[None] + d).to(g.dtype),
                                    ref_vars, hat)
             del hat
 
-        w = normalized_client_weights(self.data.num_samples, mask)
+        # the sample weights of every client, from the replicated counts
+        # and mask (no reduce), and this rank's rows of them
+        w_all = normalized_client_weights(self._num_samples_all, mask)
+        w = w_all[lo:hi]
         if (cfg.dp_mode not in _CENTRAL_DP and not cfg.aggregate_batch_stats
                 and "batch_stats" in new_stacked):
             # re-broadcast the REFERENCE statistics so that their delta is
             # exactly zero (the master's would leak the downlink's
             # quantization error into them)
             new_stacked = dict(new_stacked, batch_stats=tree_map(
-                lambda g: g[None].expand(C, *g.shape),
+                lambda g: g[None].expand(CL, *g.shape),
                 ref_vars["batch_stats"]))
         if cfg.dp_mode in _CENTRAL_DP:
             pass  # new_global is the central-DP release above
@@ -985,8 +1103,8 @@ class FederatedRoundEngine:
             pmat, pspec = stack_flatten(tree_map(lambda g: g[None].float(),
                                                  global_vars["params"]))
             new_pflat, h_out, g_out = feddyn_server_update(
-                pmat[0], self.feddyn_h, self.feddyn_grads, d_mat, mask,
-                cfg.feddyn_alpha, C)
+                pmat[0], self.feddyn_h, self.feddyn_grads, d_mat, mask_l,
+                cfg.feddyn_alpha, C, self._psum)
             del pmat, d_mat
             state_out = (h_out, g_out)
             new_global = dict(global_vars, params=tree_map(
@@ -997,16 +1115,22 @@ class FederatedRoundEngine:
             # loss-weighted, h-normalized step; deltas against θ̂, applied
             # to the full-precision master
             new_global = qffl_combine(
-                global_vars, ref_vars, new_stacked, pre_losses, mask,
-                cfg.qffl_q, cfg.training.learning_rate)
+                global_vars, ref_vars, new_stacked, pre_losses, mask_l,
+                cfg.qffl_q, cfg.training.learning_rate, self._psum)
         elif cfg.aggregation != "fedavg":
+            # the sorts and Krum's distances need every client's update:
+            # gather the stacked trees, then combine replicated
             new_global = robust_combine_deltas(
-                global_vars, new_stacked, mask, cfg.aggregation,
-                trim_k=cfg.trim_k, krum_f=cfg.krum_f, krum_m=cfg.krum_m)
+                global_vars, self._gather_clients(new_stacked), mask,
+                cfg.aggregation, trim_k=cfg.trim_k, krum_f=cfg.krum_f,
+                krum_m=cfg.krum_m)
         elif cfg.secure_aggregation:
+            # the ring's pairs span the shards: gather, mask and cancel
+            # replicated
             new_global = secure_fedavg_delta(
-                global_vars, new_stacked, self.data.num_samples, mask,
-                rseed, neighbors=cfg.secure_agg_neighbors,
+                global_vars, self._gather_clients(new_stacked),
+                self._num_samples_all, mask, rseed,
+                neighbors=cfg.secure_agg_neighbors,
                 scale=cfg.secure_agg_scale)
         else:
             w_params = w
@@ -1018,27 +1142,39 @@ class FederatedRoundEngine:
                 a_i = fednova_effective_steps(
                     epochs.float() * self._local_train.steps_per_epoch,
                     cfg.training.momentum)
-                tau_eff = (w * a_i).sum()
-                w_params = tau_eff * w / torch.clamp(a_i, min=1e-12)
-            new_global = {
-                key: fedavg_delta(global_vars[key], new_stacked[key],
-                                  w_params if key == "params" else w,
-                                  ref_vars[key])
-                for key in global_vars}
-        scalars = torch.stack([
-            (metrics["loss"] * w).sum(),
-            (metrics["accuracy"] * w).sum(),
-            global_norm(tree_map(torch.sub, new_global, global_vars)),
-            global_norm(new_global),
-            sigma_mean,
-            ef_norm,
-            next_cn,
-            frac,
-        ])
+                tau_eff = (w_all * a_i).sum()
+                w_params = (tau_eff * w_all
+                            / torch.clamp(a_i, min=1e-12))[lo:hi]
+            # the weighted delta partial sums of every leaf, in ONE reduce
+            avg = self._psum_tree({
+                key: weighted_delta_sum(
+                    new_stacked[key], w_params if key == "params" else w,
+                    ref_vars[key])
+                for key in global_vars})
+            new_global = {key: apply_delta(global_vars[key], avg[key])
+                          for key in global_vars}
+        # the summable metrics in ONE reduce: the weighted loss and
+        # accuracy, delta mode's σ sum, the EF norms' sum and the
+        # per-client series, each rank's at its offset
         per_client = [metrics["loss"], metrics["accuracy"]]
         if pre_losses is not None:
             per_client.append(pre_losses)
-        packed = torch.cat([scalars] + per_client)
+        summed = self._psum(torch.cat(
+            [torch.stack([(metrics["loss"] * w).sum(),
+                          (metrics["accuracy"] * w).sum(),
+                          sigma_sum, ef_sum])]
+            + [self._per_client(v) for v in per_client]))
+        scalars = torch.stack([
+            summed[0],
+            summed[1],
+            global_norm(tree_map(torch.sub, new_global, global_vars)),
+            global_norm(new_global),
+            summed[2] / C if sigma_rep is None else sigma_rep,
+            summed[3] / C,
+            next_cn,
+            frac,
+        ])
+        packed = torch.cat([scalars, summed[4:]])
         return new_global, ef_out, state_out, packed
 
     def _client_dp(self, global_vars, ref_vars, new_stacked, rseed: int,
@@ -1054,9 +1190,11 @@ class FederatedRoundEngine:
         ~2C/m and the certified ε understated ~2×; fixed, each client
         moves the mean by at most C/m̄, and σ = z·C/m̄ is noise multiplier z
         against that sensitivity, as the Poisson-subsampled RDP accounting
-        at rate q assumes."""
+        at rate q assumes. ``mask`` and ``inject`` are this rank's rows;
+        the masked sum and the clipped count are summed over the ranks
+        (m̄ is the global expected count), and the noise is drawn after
+        the sum from the replicated round seed."""
         cfg = self.config
-        C = self.num_clients
         deltas = tree_map(lambda c, g: c - g[None], new_stacked, ref_vars)
         if inject is not None:
             # audit canaries replace the flagged clients' deltas BEFORE the
@@ -1064,7 +1202,7 @@ class FederatedRoundEngine:
             flags, inj = inject
             deltas = tree_map(
                 lambda d, i: torch.where(
-                    flags.reshape((C,) + (1,) * (d.dim() - 1)) > 0,
+                    flags.reshape(flags.shape + (1,) * (d.dim() - 1)) > 0,
                     i.to(d.dtype), d), deltas, inj)
         adaptive = cfg.adaptive_clipping
         cn = (torch.tensor(clip_norm, dtype=torch.float32, device=self.device)
@@ -1072,6 +1210,7 @@ class FederatedRoundEngine:
         m = self._expected_count
         avg, pre_norms = dp.clipped_masked_mean(deltas, cn, mask, m)
         del deltas
+        avg = self._psum_tree(avg)
         z_eff = self._z_delta if adaptive else self.privacy.noise_multiplier
         sigma = z_eff * cn / m
         nseed = prng.stream_seed(rseed, prng.Stream.DP_NOISE)
@@ -1080,7 +1219,7 @@ class FederatedRoundEngine:
             # the noised clipped fraction drives the geometric update;
             # the aggregate and the count draw from distinct sub-streams
             b = (pre_norms <= cn).float()
-            centered = (mask.float() * (b - 0.5)).sum()
+            centered = self._psum((mask.float() * (b - 0.5)).sum())
             frac = dp.noisy_clipped_fraction(
                 centered, m, self._clip_count_stddev, prng.fold(nseed, 1))
             next_cn = dp.geometric_clip_update(
@@ -1101,8 +1240,13 @@ class FederatedRoundEngine:
         int32 modular sum, decoded over the FIXED m̄. Returns (new global
         params, σ of the decoded average). Random streams under
         fold(round, DISTRIBUTED_DP): 0 the rounding of every client's row,
-        1 the per-client shares, 2 the aggregate draw."""
+        1 the per-client shares, 2 the aggregate draw; the per-client
+        ones keyed by global client id. ``mask`` is every client's: this
+        rank's rows go into its payloads, and the integer sum is
+        all-reduced in int64 before the wrap mod 2^32."""
         plan = self._dist_plan
+        lo, hi = self._rows
+        mask_l = mask[lo:hi]
         deltas = tree_map(lambda c, g: c - g[None], new_stacked, ref_vars)
         norms = dp.client_norms(deltas)
         mat, spec = stack_flatten(deltas)
@@ -1112,17 +1256,20 @@ class FederatedRoundEngine:
         dseed = prng.stream_seed(rseed, prng.Stream.DISTRIBUTED_DP)
         m_real = mask.sum()
         if self.config.dist_fuse_noise:
-            ints = ddp.stochastic_round(mat, plan.gamma, prng.fold(dseed, 0))
-            ints *= (mask > 0).to(torch.int32)[:, None]
+            ints = ddp.stochastic_round(mat, plan.gamma, prng.fold(dseed, 0),
+                                        first=lo)
+            ints *= (mask_l > 0).to(torch.int32)[:, None]
             noise = ddp.aggregate_skellam_noise(
                 prng.fold(dseed, 2), m_real.double() * (plan.mu_local / 2.0),
                 mat.shape[1])
-            total = ddp.wrap_int32(ints.sum(0, dtype=torch.int64) + noise)
+            total = ddp.wrap_int32(
+                self._psum(ints.sum(0, dtype=torch.int64)) + noise)
         else:
             ints = ddp.client_integer_payloads(
-                mat, mask, prng.fold(dseed, 0), prng.fold(dseed, 1),
-                plan.gamma, plan.mu_local)
-            total = ddp.modular_sum(ints)
+                mat, mask_l, prng.fold(dseed, 0), prng.fold(dseed, 1),
+                plan.gamma, plan.mu_local, first=lo)
+            total = ddp.wrap_int32(
+                self._psum(ints.sum(0, dtype=torch.int64)))
         del mat, ints
         avg = ddp.decode_average(total, plan.gamma, plan.expected_clients)
         avg_tree = stack_unflatten(avg[None], spec)
@@ -1138,8 +1285,10 @@ class FederatedRoundEngine:
         each participant's params-Δ clipped to C, their masked SUM (no
         division: the sensitivity is per leaf), the FTRL(M) step against
         the tree-noised prefix. Only the params flow through the release:
-        batch statistics stay as they were. Returns (new global variables,
-        the carried (prefix, noisy prefix, momentum))."""
+        batch statistics stay as they were. ``mask`` is this rank's rows;
+        the clipped sum is summed over the ranks, and the tree noise is
+        replicated. Returns (new global variables, the carried (prefix,
+        noisy prefix, momentum))."""
         global_params = global_vars["params"]
         deltas = tree_map(lambda c, g: (c - g[None]).float(),
                           new_stacked["params"], global_params)
@@ -1148,7 +1297,8 @@ class FederatedRoundEngine:
         del deltas
         scale = torch.clamp(self.privacy.max_grad_norm
                             / torch.clamp(norms, min=1e-12), max=1.0)
-        round_sum = torch.tensordot(mask.float() * scale, cmat, dims=1)
+        round_sum = self._psum(torch.tensordot(mask.float() * scale, cmat,
+                                               dims=1))
         del cmat
         pmat, _ = stack_flatten(tree_map(lambda g: g[None].float(),
                                          global_params))
@@ -1228,8 +1378,8 @@ class FederatedRoundEngine:
         """Execute one FedAvg round (superstep + host bookkeeping). With
         ``audit_injection``, clients whose ``inject_flags`` (C,) entry is
         positive submit their entry of ``inject_deltas`` (a tree like
-        ``global_variables`` whose leaves are stacked over C) in place of
-        their trained delta."""
+        ``global_variables`` whose leaves are stacked over C; under a mesh
+        over this rank's CL clients) in place of their trained delta."""
         return self._finalize_round(
             self._dispatch_round(mask, inject_flags, inject_deltas),
             evaluate=evaluate)
@@ -1329,9 +1479,16 @@ class FederatedRoundEngine:
                 if inject_deltas is None:
                     raise ValueError("inject_flags passed without "
                                      "inject_deltas")
+                lo, hi = self._rows
+                for leaf in tree_leaves(inject_deltas):
+                    if leaf.shape[0] != hi - lo:
+                        raise ValueError(
+                            "inject_deltas must be stacked over this "
+                            f"engine's {hi - lo} clients, got "
+                            f"{leaf.shape[0]} rows")
                 inject = (
                     torch.as_tensor(np.asarray(inject_flags, np.float32)
-                                    ).to(self.device),
+                                    [lo:hi]).to(self.device),
                     tree_map(lambda t: torch.as_tensor(t).to(self.device),
                              inject_deltas))
         elif inject_flags is not None:
@@ -1344,9 +1501,13 @@ class FederatedRoundEngine:
         round_clip = self.clip_norm  # the C this round uses (adaptive)
         mask_t = to_device(np.asarray(mask, np.float32), self.device)
         old_vars = self.global_variables
+        if self._comm is not None:
+            self._comm.begin_round()
         new_global, self.uplink_error, state_out, metrics = self._superstep(
             old_vars, self.round_number, mask_t, self.uplink_error,
             self._epochs_tensor(), round_clip, inject)
+        if self._comm is not None:
+            self.round_collectives = list(self._comm.calls)
         self._carry_state(state_out)
         if cfg.dp_mode == "dp_ftrl":
             self.ftrl_participations += (np.asarray(mask) > 0)
@@ -1807,6 +1968,7 @@ class FederatedRoundEngine:
         it); the path is kept in ``last_trace_path``."""
         from torch.profiler import ProfilerActivity, profile
 
+        self._refuse_mesh("profile_round")
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
@@ -1834,6 +1996,7 @@ class FederatedRoundEngine:
         """Score the current global model on every client's own shard:
         per-client loss / accuracy, the sample-weighted aggregate and the
         fairness spread (see fl_tpu_torch.fl.federated_eval)."""
+        self._refuse_mesh("evaluate_federated")
         return evaluate_federated(self)
 
     def evaluate_personalized(self, finetune_epochs: int = 1,
@@ -1841,6 +2004,7 @@ class FederatedRoundEngine:
                               ) -> Dict[str, Any]:
         """Per-client fine-tune gain on held-out shard tails, all clients
         at once (see fl_tpu_torch.fl.personalization)."""
+        self._refuse_mesh("evaluate_personalized")
         return evaluate_personalization(
             self, finetune_epochs=finetune_epochs,
             finetune_fraction=finetune_fraction)

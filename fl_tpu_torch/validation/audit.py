@@ -19,8 +19,9 @@ flax's flatten order, and the port keeps flax's layouts). The scores are
 PyTorch on the engine's device: update canaries inject through the round
 engine's ``audit_injection`` hook and are scored by a projection of the
 released delta; data canaries are scored by autograd through the port's
-model. The ``mesh`` argument is refused until the port shards clients
-over several GPUs.
+model. With a client ``mesh`` (``core.mesh``) the engine runs the
+rounds sharded, each rank injecting its own rows of the canaries; the
+released model, and so every score, is the same on every rank.
 """
 
 from __future__ import annotations
@@ -345,9 +346,6 @@ def run_client_membership_audit(
             "dp_sgd certifies example-level DP; a client-level canary "
             "audit would not lower-bound it. Audit dp_mode='client_dp', "
             "'delta', or 'none'.")
-    if mesh is not None:
-        raise ValueError("mesh: the port does not shard clients over "
-                         "several GPUs yet; run the audit with mesh=None")
     if canary_kind not in ("update", "data"):
         raise ValueError("canary_kind must be 'update' or 'data'")
     if score_method not in ("grad_dot", "loss_drop"):
@@ -366,7 +364,9 @@ def run_client_membership_audit(
 
     if canary_kind == "update":
         config = dataclasses.replace(config, audit_injection=True)
-    engine = FederatedRoundEngine(model, audited, config, device=device)
+    engine = FederatedRoundEngine(model, audited, config,
+                                  device=None if mesh is not None else device,
+                                  mesh=mesh)
     init_weights = tree_map(torch.clone, engine.global_variables["params"])
     canary_batch = (np.asarray(audited.images)[num_real:],
                     np.asarray(audited.labels)[num_real:],
@@ -377,10 +377,15 @@ def run_client_membership_audit(
         directions = make_update_canaries(
             engine.global_variables, num_canaries,
             scale=float(config.privacy.max_grad_norm), seed=seed)
-        # full (C_total,)-stacked injection tree: zeros for real clients
+        # the (C_total,)-stacked injection tree, zeros for real clients;
+        # under a mesh the engine's rows of it only
+        lo, hi = engine._rows
         inject_stacked = tree_map(
-            lambda u: torch.cat([u.new_zeros((num_real,) + u.shape[1:]),
-                                 u]), directions)
+            lambda u: torch.cat([
+                u.new_zeros((max(0, min(hi, num_real) - lo),)
+                            + u.shape[1:]),
+                u[max(lo - num_real, 0):max(hi - num_real, 0)]]),
+            directions)
 
     dot_fn = (make_update_dot_fn() if canary_kind == "update"
               else make_canary_dot_fn(model)

@@ -34,6 +34,17 @@ from fl_tpu_torch.validation import audit as ta
 # ---------------------------------------------------------------------------
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("r", [1, 6, 20, 64])
 def test_binomial_sf_and_tail_equal_the_reference(r):
     for v in range(-1, r + 2):

@@ -68,6 +68,17 @@ SILENT = dict(z=1e-9, epsilon=1e20)  # the same, over several rounds
 RDP_GRID = [(q, z) for q in (0.01, 0.1, 0.5, 1.0) for z in (0.6, 1.0, 4.0)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("q,z", RDP_GRID, ids=str)
 def test_rdp_values_equal_the_reference(q, z):
     a = jacc.rdp_subsampled_gaussian(q, z)

@@ -61,6 +61,17 @@ C, B = 2, 4
 GHOST = dict(rtol=2e-4, atol=2e-5)   # the reference's ghost-vs-microbatch
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _flax_variables(norm):
     """Two clients' flax variables: the flax init and a perturbed copy with

@@ -43,6 +43,17 @@ from fl_tpu_torch.orchestration.round_engine import downlink_roundtrip
 SIMPLE_CNN_D = 421_642
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _normal(seed, shape, sigma=1.0):
     return np.random.default_rng(seed).normal(0, sigma, shape).astype(
         np.float32)

@@ -21,6 +21,17 @@ from fl_tpu_torch.ops import conv_block as cb
 from fl_tpu_torch.ops import launch_counts, reset_launch_counts
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed, C, B, H, C1, C2, ones=False):
     rng = np.random.default_rng(seed)
     x = (np.ones((C, B, H, H, 1), np.float32) if ones

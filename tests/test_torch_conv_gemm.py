@@ -42,6 +42,17 @@ SHAPES = [
 IDS = ["conv2", "8x8", "28x28_I4"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _conv_inputs(shape, seed=0):
     B, H, W, I, O = shape
     rng = np.random.default_rng(seed)

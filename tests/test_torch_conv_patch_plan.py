@@ -55,6 +55,17 @@ WGRAD_SHAPES["conv2_wgrad"] = WGRAD_SHAPES.pop("conv2_fwd")
 WGRAD_SHAPES["stem_wgrad"] = WGRAD_SHAPES.pop("stem_fwd")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _up(n, m):
     return -(-n // m) * m
 

@@ -59,6 +59,17 @@ C = 4
 SIMPLE_CNN_D = 421_642
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel_equal(a, b, tol=1e-12):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     assert np.all(np.abs(a - b) <= tol * np.maximum(np.abs(b), 1e-300)), (

@@ -31,6 +31,17 @@ SHAPES = {"conv1": {"kernel": (3, 3, 1, 4), "bias": (4,)},
           "fc1": {"kernel": (300, 256), "bias": (256,)}}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _deltas(C=4, seed=0):
     """Stacked deltas; client norms spread across the clip bound 1."""
     rng = np.random.default_rng(seed)

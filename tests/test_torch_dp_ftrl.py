@@ -63,6 +63,17 @@ C = 4
 # the numpy functions: equal values
 # ---------------------------------------------------------------------------
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("z", [0.0, 0.5, 1.0, 2.0, 4.0, 1e-6])
 def test_gaussian_epsilon_equals_the_reference(z):
     for delta in (1e-5, 1e-3):

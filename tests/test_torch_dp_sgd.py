@@ -65,6 +65,17 @@ from fl_tpu_torch.orchestration import FederatedRoundEngine, RoundEngineConfig
 F32 = dict(rtol=2e-4, atol=2e-5)   # the reference's ghost-vs-microbatch
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class Linear:
     """The reference's ``linear_model_loss`` model over stacked clients:
     logits = x @ w, no dropout."""

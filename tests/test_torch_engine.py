@@ -59,6 +59,17 @@ SIMPLE_CNN_D = 421_642
 FORMULATIONS = [False, True, "residual"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _engines(dtype_name, participation_rate=1.0, num_clients=4,
              fused="residual", **compression):
     jdt, tdt = {"bf16": (jnp.bfloat16, torch.bfloat16),
@@ -412,6 +423,67 @@ def test_training_options_are_the_reference_config(kwargs):
     tests/test_torch_fl_variants.py)."""
     assert (FederatedTrainingConfig(**kwargs).to_dict()
             == JaxTrainingConfig(**kwargs).to_dict())
+
+
+def _profile_script_engine(**overrides):
+    """``scripts/profile_bench_round.py``'s engine (its ``use_pallas_dp``
+    choice among the overrides), at 4 clients of 16 samples on the CPU."""
+    arr = make_federated_arrays(load_dataset("mnist", n_train_synth=64,
+                                             n_test_synth=8), 4, "iid",
+                                samples_per_client=16)
+    cfg = RoundEngineConfig(
+        training=FederatedTrainingConfig(local_epochs=1, batch_size=16,
+                                         learning_rate=0.001,
+                                         optimizer_type="adam",
+                                         optimizer_state_dtype="bfloat16"),
+        dp_mode="delta",
+        privacy=PrivacyConfig(epsilon=1.0, delta=1e-5, max_grad_norm=1.0),
+        epsilon_per_round=0.02, delta_per_round=1e-7, max_clients=4, seed=0,
+        **overrides)
+    return FederatedRoundEngine(
+        create_model("simple_cnn", dtype=torch.bfloat16), arr, cfg,
+        device="cpu")
+
+
+def test_use_pallas_dp_false_takes_the_plain_version(monkeypatch):
+    """The reference's ``use_pallas_dp``: None dispatches by device
+    (``ops.dp.clip_noise``: K3 on a card, the plain version here), False
+    calls the plain version directly; on the CPU both give the same round
+    bit for bit."""
+    from fl_tpu_torch.ops import dp as dp_ops
+
+    calls = []
+    dispatch = dp_ops.clip_noise
+    monkeypatch.setattr(dp_ops, "clip_noise", lambda *a: (
+        calls.append("dispatch"), dispatch(*a))[1])
+    weights = {}
+    for use in (None, False):
+        calls.clear()
+        eng = _profile_script_engine(use_pallas_dp=use)
+        eng.run_round(evaluate=False)
+        weights[use] = eng.get_model_weights()
+        assert calls == (["dispatch"] * 2 if use is None else []), use
+    for k, v in weights[None].items():
+        assert torch.equal(weights[False][k], v), k
+
+
+def test_use_pallas_dp_true_needs_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("the machine has a card")
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        _profile_script_engine(use_pallas_dp=True)
+
+
+def test_compute_dtype_is_accepted_and_ignored():
+    """The reference declares ``compute_dtype`` and reads it nowhere; the
+    port takes it and leaves the round to the model's dtype."""
+    assert RoundEngineConfig().compute_dtype == JaxConfig().compute_dtype
+    want = _profile_script_engine()
+    got = _profile_script_engine(compute_dtype="bfloat16")
+    want.run_round(evaluate=False)
+    got.run_round(evaluate=False)
+    for k, v in want.get_model_weights().items():
+        assert torch.equal(got.get_model_weights()[k], v), k
 
 
 def test_delta_dp_needs_a_privacy_config():

@@ -86,6 +86,17 @@ DTYPES = {"f32": (jnp.float32, torch.float32, "residual"),
           "bf16": (jnp.bfloat16, torch.bfloat16, "residual")}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _arrays(n=16, num_samples=None):
     kw = dict(num_clients=C, strategy="iid", samples_per_client=n, seed=0)
     j = jax_make_arrays(jax_load_dataset("mnist", n_train_synth=256,

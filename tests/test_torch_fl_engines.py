@@ -75,6 +75,17 @@ VARIANTS = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _arrays():
     kw = dict(num_clients=C, strategy="iid", samples_per_client=16, seed=0)
     return (jax_make_arrays(jax_load_dataset("mnist", n_train_synth=256,

@@ -41,6 +41,11 @@ image a client, a partial block of the four images a block takes), and on
 the card the ghost form equals the microbatch form on the unfused model
 and on K1/K2 at the reference's rtol 2e-4 / atol 2e-5 (f32).
 
+The client mesh on the card: one NCCL rank (``core.mesh.make_mesh()``)
+runs the bench configuration's round (K1, K2, K3) bit-equal to the
+unsharded engine's, and DP-SGD's noise through K3 is keyed by global
+client id (the halves of the client axis draw the whole axis's noise).
+
 Two plain functions of the port's device path are held on the card too:
 the stacked stochastic bf16 rounding equals the CPU's bit for bit, and
 Krum's Gram product stays in full f32 with the TF32 switch on (equal to
@@ -61,6 +66,17 @@ from fl_tpu_torch.ops import conv_probe as probe
 from fl_tpu_torch.ops import dp as dpo
 from fl_tpu_torch.ops import quantize as qz
 from fl_tpu_torch.ops import rounding
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _conv_inputs(gen, C, B, H, C1, C2, dtype, device, ones=False):
@@ -948,3 +964,59 @@ def test_stacked_rounding_on_the_card_equals_the_cpu(cuda):
     one = rounding.stochastic_round_bf16(x[0].to(cuda), int(seeds[0]))
     assert torch.equal(one.cpu().view(torch.int16), card[0].cpu().view(
         torch.int16))
+
+
+@pytest.mark.cuda
+def test_dp_sgd_noise_through_k3_is_keyed_by_global_client(cuda):
+    """DP-SGD's noise on the card (K3 at scale 1/B): the halves of the
+    client axis, each with its first global client id, draw the whole
+    axis's noise bit for bit."""
+    from fl_tpu_torch.fl import privacy as tdp
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    tree = {"w": {"kernel": torch.randn((4, 3000, 7), generator=gen,
+                                        device=cuda)}}
+    ops.reset_launch_counts()
+    whole = tdp._noisy_mean(tree, 8, 0.3, 21)["w"]["kernel"]
+    parts = torch.cat([tdp._noisy_mean(
+        {"w": {"kernel": tree["w"]["kernel"][lo:lo + 2]}}, 8, 0.3, 21,
+        first=lo)["w"]["kernel"] for lo in (0, 2)])
+    assert ops.launch_counts()["clip_noise"] == 3
+    assert torch.equal(whole, parts)
+
+
+@pytest.mark.cuda
+def test_one_nccl_rank_is_the_unsharded_round(cuda):
+    """One NCCL rank (``core.mesh.make_mesh()``) runs the unsharded round's
+    code with the identity sum: the bench configuration at 16 clients
+    (bf16 ``"residual"``, delta DP: K1, K2, K3) gives the same weights bit
+    for bit after a round and two pipelined ones, with two all-reduces a
+    round."""
+    import torch.distributed as dist
+
+    import torch_mesh_jobs as jobs
+    from fl_tpu_torch.core.mesh import make_mesh
+    from fl_tpu_torch.models import create_model
+    from fl_tpu_torch.orchestration import FederatedRoundEngine
+
+    cfg = jobs.inventory_config()
+    arrays = jobs.arrays(jobs.JAX_CLIENTS)
+
+    def model():
+        return create_model("simple_cnn", dtype=torch.bfloat16,
+                            fused_conv_block="residual")
+
+    plain = FederatedRoundEngine(model(), arrays, cfg, device="cuda")
+    mesh = make_mesh()
+    try:
+        sharded = FederatedRoundEngine(model(), arrays, cfg, mesh=mesh)
+        for engine in (plain, sharded):
+            engine.run_round(evaluate=False)
+            engine.run_rounds_pipelined(2)
+        kinds = [c.kind for c in sharded.round_collectives]
+    finally:
+        dist.destroy_process_group()
+    assert kinds == ["all_reduce", "all_reduce"]
+    want = plain.get_model_weights()
+    for k, v in sharded.get_model_weights().items():
+        assert torch.equal(v, want[k]), k

@@ -34,6 +34,17 @@ KNOWN_ANSWERS = [
 RAGGED_WIDTHS = (1, 3, 4097, 20234)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("counter, key, want", KNOWN_ANSWERS,
                          ids=["zeros", "ones", "pi"])
 def test_philox_known_answers(counter, key, want):

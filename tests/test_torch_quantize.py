@@ -23,6 +23,17 @@ from fl_tpu_torch.ops import launch_counts, reset_launch_counts
 from fl_tpu_torch.ops import quantize as qz
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _vector(seed, d, sigma=3.0):
     return np.random.default_rng(seed).normal(0, sigma, d).astype(np.float32)
 

@@ -33,6 +33,17 @@ from fl_tpu_torch.fl import server_optimizer as tso
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _matrix(C, D, seed, outliers=True):
     rng = np.random.default_rng(seed)
     mat = rng.standard_normal((C, D)).astype(np.float32)

@@ -24,6 +24,17 @@ from fl_tpu_torch.models import (count_params, create_model,
 FORMULATIONS = [False, True, "residual"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def flax_side():
     """Two clients' flax params (the flax init, and a perturbed copy with

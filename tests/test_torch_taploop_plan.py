@@ -41,6 +41,17 @@ EDGE_CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tiles(B, H, W):
     return -(-B * H * W // probe.TMA_ROWS)
 

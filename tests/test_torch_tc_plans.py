@@ -46,6 +46,17 @@ CONV_KERNELS = ("conv_block_fwd", "conv_block_bwd", "conv_stack_fwd",
                 "conv_stack_bwd")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _check_gemm_plan(plan, dtype, C, M, K, N):
     assert 0 < plan.smem_bytes <= SMEM_LIMIT
     assert plan.smem_bytes == probe.gemm_smem_bytes(plan.route, K, N, plan.rows,

@@ -20,6 +20,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from fl_tpu import native as jnative
 from fl_tpu.fl import compression as jcomp
@@ -48,6 +49,17 @@ COMPRESSORS = [
     ("top_k", {"sparsity_ratio": 0.9}),
     ("top_k", {"sparsity_ratio": 0.5}),
 ]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -96,12 +96,13 @@ def _flax_shapes(name, **kw):
 
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
-    """Each test on one intra-op thread, restored after it: several test
-    processes share the CPU under xdist, and idle OpenMP threads spinning
-    in each starve the others' JAX compiles (these two files on 6 workers:
-    257 s with torch's default threads, 49 s with one)."""
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles
+    (these two files on 6 workers: 257 s with torch's default threads, 49 s
+    with one)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
