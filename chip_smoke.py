@@ -192,7 +192,29 @@ line each; any failure exits non-zero:
    printed), the warm-up round's loss within 1e-5 relative and the later
    ones (of a model the bench's noise has destroyed, 1e7–1e9) within
    1e-4, each rank's launches, rounds/s and peak memory printed (``mesh``
-   lines);
+   lines); then the other engines (``phase_engines``) at the bench's 512
+   clients, model and training: IFCA at k = 4 without DP (a warm-up and
+   3 rounds, K1 = k assignment forwards + 10 and K2 = 10 a round; the last
+   cluster set to a copy of the one before it is adopted by nobody and
+   passes a round bit for bit; a checkpoint's next round bit for bit),
+   FedBuff with a 64-client buffer and max_staleness 8 (a warm-up and 4
+   server steps, K1 = K2 = 10 a step, the staleness histogram and the
+   cancellations; a checkpoint's next step bit for bit, timeline
+   included), Ditto at λ = 0.1 beside the delta-DP bench engine (a
+   warm-up and 3 (round, step) pairs, K1 = K2 = 20 and K3 = 2 a pair;
+   ``evaluate_personal``, K1 twice; the engine's and the 0.86 GB of
+   personal models' checkpoints, the next pair bit for bit), each with its
+   rate and peak memory on an ``engines`` line; on two gloo ranks sharing
+   the card IFCA's first round (the assignments equal, each leaf within
+   1e-5 of its largest weight, two all-reduces) and the bench round with
+   Ditto's step from the unsharded run's θ_g (the round within phase_mesh's
+   tolerance, the step's personal models at every 32nd client within it,
+   its metrics within 1e-4), every rank launching K1 and K2 (and K3 in
+   the bench round); the world-2 checkpoint of the engine and the personal
+   models restored at world 1 bit for bit (sha256 of every rank's rows);
+   and learning checks on 16 clients x 256 with label-permuted halves:
+   IFCA warm-started reaches pure populations, Ditto's personal models
+   beat the global one, FedBuff raises the test accuracy;
 6. learning check: 10 non-IID clients, 3 rounds, test accuracy > 0.5, with
    ``fused_conv_block="residual"`` and with ``True``, and with
    ``"residual"`` under SCAFFOLD (SGD lr 0.05), under FedNova (SGD lr
@@ -4205,6 +4227,617 @@ def phase_mesh(card):
           f" [{card}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the clustered (IFCA), Ditto and async (FedBuff) engines
+# ---------------------------------------------------------------------------
+
+ENGINE_ROUNDS = 3        # timed rounds / (round, step) pairs, after a warm-up
+IFCA_K = 4
+DITTO_LAM = 0.1
+FEDBUFF_K = 64           # buffer_size
+FEDBUFF_STALENESS = 8    # max_staleness: a ring of 9 versions
+FEDBUFF_STEPS = 4        # timed server steps, after a warm-up step
+ENGINE_ROWS = slice(0, NUM_CLIENTS, 32)  # personal rows held across ranks
+
+
+def _tree_clone(tree):
+    import torch
+
+    from fl_tpu_torch.core.pytree import tree_map
+
+    return tree_map(torch.clone, tree)
+
+
+def _tree_equal(a, b) -> bool:
+    import torch
+
+    from fl_tpu_torch.core.pytree import flatten_dict
+
+    fa, fb = flatten_dict(a), flatten_dict(b)
+    return fa.keys() == fb.keys() and all(torch.equal(fa[k], fb[k])
+                                          for k in fa)
+
+
+def _rows_digest(tree, rows) -> str:
+    """sha256 of every leaf's rows ``rows`` (sorted keys): two ranks' or
+    two processes' copies are equal bit for bit when their digests are."""
+    import hashlib
+
+    from fl_tpu_torch.core.pytree import flatten_dict
+
+    h = hashlib.sha256()
+    for k, v in sorted(flatten_dict(tree).items()):
+        h.update(k.encode())
+        h.update(v[rows].contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _launched(**want):
+    """The launches since the last reset, required equal to ``want`` (0
+    for every kernel not named)."""
+    from fl_tpu_torch import ops
+
+    got = ops.launch_counts()
+    full = dict.fromkeys(got, 0)
+    full.update(want)
+    return got, got == full
+
+
+def ifca_engine(arrays=None, mesh=None, **cfg):
+    """IFCA over the bench's 512 clients, model and training (no DP)."""
+    from fl_tpu_torch.fl import ClusteredConfig, ClusteredFederatedEngine
+
+    cfg.setdefault("num_clusters", IFCA_K)
+    cfg.setdefault("training", bench_training())
+    return ClusteredFederatedEngine(
+        bench_model("residual"), arrays or bench_arrays(),
+        ClusteredConfig(seed=0, **cfg),
+        mesh=mesh, device=None if mesh is not None else DEVICE)
+
+
+def fedbuff_engine(arrays=None):
+    from fl_tpu_torch.fl import AsyncConfig, AsyncFederatedEngine
+
+    return AsyncFederatedEngine(
+        bench_model("residual"), arrays or bench_arrays(),
+        AsyncConfig(training=bench_training(), buffer_size=FEDBUFF_K,
+                    max_staleness=FEDBUFF_STALENESS, seed=0),
+        device=DEVICE)
+
+
+def engines_ifca(card, arrays, tmp):
+    """IFCA at k = 4: a warm-up round, ENGINE_ROUNDS timed ones (K1 = k
+    assignment forwards + 10 training forwards a round, K2 = 10), an
+    empty cluster bit for bit, a checkpoint's next round bit for bit.
+    Returns (launches, the warm-up round's models and assignments: the
+    2-rank run's reference)."""
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.core.pytree import tree_map
+    from fl_tpu_torch.orchestration.checkpoint import (
+        restore_clustered_checkpoint, save_clustered_checkpoint)
+
+    steps = LOCAL_EPOCHS * (SAMPLES_PER_CLIENT // BATCH_SIZE)
+    engine = ifca_engine(arrays)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = engine.run_round()
+    warm_s = time.perf_counter() - t0
+    reference = (_tree_clone(engine.cluster_variables),
+                 engine.assignments.copy(), warm)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = engine.run(ENGINE_ROUNDS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got, ok = _launched(conv_block_fwd=ENGINE_ROUNDS * (IFCA_K + steps),
+                        conv_block_bwd=ENGINE_ROUNDS * steps)
+    require(ok, f"engines ifca: launches {got}")
+    total = dict(got)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [r.train_loss for r in [warm] + results]
+    require(all(math.isfinite(v) for v in losses)
+            and all(bool(torch.isfinite(t).all()) for t in
+                    engine.cluster_variables["params"]["fc2"].values()),
+            f"engines ifca: losses {losses}")
+    require(all(sum(r.cluster_sizes) == NUM_CLIENTS for r in results),
+            "engines ifca: cluster sizes do not add up")
+    print(f"engines ifca k={IFCA_K}: {NUM_CLIENTS} clients bf16 "
+          f"'residual', warm-up round {warm_s:.2f}s, {ENGINE_ROUNDS} rounds "
+          f"in {dt:.3f}s -> {ENGINE_ROUNDS / dt:.3f} rounds/s, peak memory "
+          f"{peak:.2f} GiB, cluster sizes by round "
+          f"{[r.cluster_sizes for r in [warm] + results]}, train loss "
+          f"{[round(v, 4) for v in losses]}, assignment loss "
+          f"{[round(r.assignment_loss, 4) for r in [warm] + results]}, "
+          f"launches a round K1 {got['conv_block_fwd'] // ENGINE_ROUNDS} "
+          f"(k={IFCA_K} assignment forwards + {steps} training), K2 "
+          f"{got['conv_block_bwd'] // ENGINE_ROUNDS} [{card}]", flush=True)
+
+    # the last cluster a copy of the one before it: every tie goes to the
+    # first index, so nobody adopts it and it passes the round bit for bit
+    last = IFCA_K - 1
+    engine.cluster_variables = tree_map(
+        lambda v: torch.cat([v[:last], v[last - 1:last]]),
+        engine.cluster_variables)
+    before = _tree_clone(engine.cluster_model(last))
+    ops.reset_launch_counts()
+    r = engine.run_round()
+    for k, v in ops.launch_counts().items():
+        total[k] = total.get(k, 0) + v
+    require(r.cluster_sizes[last] == 0
+            and _tree_equal(engine.cluster_model(last), before),
+            f"engines ifca: the duplicated cluster took clients "
+            f"({r.cluster_sizes}) or changed")
+
+    ckpt = os.path.join(tmp, "ifca")
+    t0 = time.perf_counter()
+    save_clustered_checkpoint(engine, ckpt)
+    save_s = time.perf_counter() - t0
+    engine.run_round()
+    after = (_tree_clone(engine.cluster_variables), engine.assignments.copy())
+    t0 = time.perf_counter()
+    step = restore_clustered_checkpoint(engine, ckpt)
+    restore_s = time.perf_counter() - t0
+    engine.run_round()
+    require(_tree_equal(engine.cluster_variables, after[0])
+            and np.array_equal(engine.assignments, after[1]),
+            "engines ifca: the round after a restore differs from the "
+            "uninterrupted one")
+    print(f"engines ifca empty cluster: cluster {last} (a copy of cluster "
+          f"{last - 1}) adopted by no client, bit for bit after the round "
+          f"(sizes {r.cluster_sizes}); checkpoint of {IFCA_K} models saved "
+          f"in {save_s:.3f}s, restored at round {step} in {restore_s:.3f}s, "
+          f"the next round equal to the uninterrupted one bit for bit "
+          f"(models, assignments) [{card}]", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return total, reference
+
+
+def engines_ditto(card, tmp):
+    """Ditto at λ = 0.1 beside the bench engine (delta DP, K3): a warm-up
+    (round, step) pair, ENGINE_ROUNDS timed pairs, ``evaluate_personal``,
+    a checkpoint of both. Returns (launches, the engine and the
+    personalizer, the warm-up pair's reference for the 2-rank run)."""
+    import torch
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.core.pytree import tree_leaves, tree_map
+    from fl_tpu_torch.fl import DittoPersonalizer
+    from fl_tpu_torch.orchestration.checkpoint import (
+        restore_ditto_checkpoint, restore_engine_checkpoint,
+        save_ditto_checkpoint, save_engine_checkpoint)
+
+    steps = LOCAL_EPOCHS * (SAMPLES_PER_CLIENT // BATCH_SIZE)
+    engine = make_bench_engine("residual")
+    ditto = DittoPersonalizer(engine, lam=DITTO_LAM)
+    torch.cuda.reset_peak_memory_stats()
+    engine.run_round(evaluate=False)
+    m0 = ditto.step()
+    reference = (_tree_clone(engine.global_variables), m0,
+                 tree_map(lambda t: t[ENGINE_ROWS].clone(),
+                          ditto.personal_variables))
+    ops.reset_launch_counts()
+    round_s = step_s = 0.0
+    metrics = [m0]
+    for _ in range(ENGINE_ROUNDS):
+        t0 = time.perf_counter()
+        engine.run_round(evaluate=False)
+        t1 = time.perf_counter()
+        metrics.append(ditto.step())
+        t2 = time.perf_counter()
+        round_s += t1 - t0
+        step_s += t2 - t1
+    got, ok = _launched(conv_block_fwd=ENGINE_ROUNDS * 2 * steps,
+                        conv_block_bwd=ENGINE_ROUNDS * 2 * steps,
+                        clip_noise=ENGINE_ROUNDS * 2)
+    require(ok, f"engines ditto: launches {got}")
+    total = dict(got)
+    pair = (f"K1 {got['conv_block_fwd'] // ENGINE_ROUNDS} K2 "
+            f"{got['conv_block_bwd'] // ENGINE_ROUNDS} K3 "
+            f"{got['clip_noise'] // ENGINE_ROUNDS}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(all(math.isfinite(m["personal_loss"]) for m in metrics)
+            and all(bool(torch.isfinite(t).all()) for t in
+                    ditto.personal_variables["params"]["fc2"].values()),
+            f"engines ditto: personal metrics {metrics}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ev = ditto.evaluate_personal()
+    eval_s = time.perf_counter() - t0
+    got, ok = _launched(conv_block_fwd=2)
+    require(ok and ev["per_client"]["accuracy"].shape == (NUM_CLIENTS,),
+            f"engines ditto evaluate_personal: launches {got}")
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+    gb = nbytes(*tree_leaves(ditto.personal_variables)) / 1e9
+    personal = [float(f"{m['personal_loss']:.4g}") for m in metrics]
+    print(f"engines ditto lam={DITTO_LAM}: beside the {NUM_CLIENTS}-client "
+          f"bf16 delta-DP bench engine, {ENGINE_ROUNDS} (round, step) pairs "
+          f"after a warm-up: rounds {ENGINE_ROUNDS / round_s:.3f}/s, steps "
+          f"{ENGINE_ROUNDS / step_s:.3f}/s, together "
+          f"{ENGINE_ROUNDS / (round_s + step_s):.3f} pairs/s, peak memory "
+          f"{peak:.2f} GiB, personal models {gb:.3f} GB "
+          f"({NUM_CLIENTS} x {N_PARAMS:,} f32), personal loss by step "
+          f"{personal}, "
+          f"launches a pair {pair}; evaluate_personal "
+          f"{eval_s:.3f}s (K1 x2), personal accuracy "
+          f"{ev['personal_accuracy']:.4f}, global {ev['global_accuracy']:.4f}"
+          f" [{card}]", flush=True)
+
+    ckpt = os.path.join(tmp, "ditto")
+    t0 = time.perf_counter()
+    save_engine_checkpoint(engine, os.path.join(ckpt, "engine"))
+    save_ditto_checkpoint(ditto, os.path.join(ckpt, "personal"))
+    save_s = time.perf_counter() - t0
+    engine.run_round(evaluate=False)
+    ditto.step()
+    after = (_tree_clone(engine.global_variables),
+             _tree_clone(ditto.personal_variables))
+    t0 = time.perf_counter()
+    restore_engine_checkpoint(engine, os.path.join(ckpt, "engine"))
+    step = restore_ditto_checkpoint(ditto, os.path.join(ckpt, "personal"))
+    restore_s = time.perf_counter() - t0
+    engine.run_round(evaluate=False)
+    ditto.step()
+    require(_tree_equal(engine.global_variables, after[0])
+            and _tree_equal(ditto.personal_variables, after[1]),
+            "engines ditto: the pair after a restore differs from the "
+            "uninterrupted one")
+    del after
+    print(f"engines ditto checkpoint: engine and {gb:.3f} GB of personal "
+          f"models saved in {save_s:.2f}s, restored at step {step} in "
+          f"{restore_s:.2f}s, the next (round, step) equal to the "
+          f"uninterrupted one bit for bit [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    return total, engine, ditto, reference
+
+
+def engines_fedbuff(card, arrays, tmp):
+    """FedBuff with a 64-client buffer and max_staleness 8: a warm-up
+    step, FEDBUFF_STEPS timed ones (K1 = K2 = 10 a step), the staleness
+    histogram and the cancellations, a checkpoint's next step bit for
+    bit."""
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.orchestration.checkpoint import (
+        restore_async_checkpoint, save_async_checkpoint)
+
+    steps = LOCAL_EPOCHS * (SAMPLES_PER_CLIENT // BATCH_SIZE)
+    engine = fedbuff_engine(arrays)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = engine.run_server_step()
+    warm_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = engine.run(FEDBUFF_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    # the rounds whose streams a buffer's rows draw, one draw each: a
+    # completed client's attempt is its counter less the restart
+    attempts = [len(set((engine._attempts[r.client_ids] - 1).tolist()))
+                for r in results[-1:]]
+    got, ok = _launched(conv_block_fwd=FEDBUFF_STEPS * steps,
+                        conv_block_bwd=FEDBUFF_STEPS * steps)
+    require(ok, f"engines fedbuff: launches {got}")
+    total = dict(got)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [r.train_loss for r in [warm] + results]
+    require(all(math.isfinite(v) for v in losses)
+            and all(len(r.client_ids) == FEDBUFF_K
+                    and max(r.staleness) <= FEDBUFF_STALENESS
+                    for r in results), f"engines fedbuff: {results}")
+    hist = np.bincount(np.concatenate([r.staleness for r in
+                                       [warm] + results]),
+                       minlength=FEDBUFF_STALENESS + 1)
+    print(f"engines fedbuff buffer={FEDBUFF_K} max_staleness="
+          f"{FEDBUFF_STALENESS}: {NUM_CLIENTS} clients bf16 'residual', "
+          f"warm-up step {warm_s:.2f}s, {FEDBUFF_STEPS} server steps in "
+          f"{dt:.3f}s -> {FEDBUFF_STEPS / dt:.3f} steps/s "
+          f"({FEDBUFF_STEPS * FEDBUFF_K / dt:.1f} client updates/s), peak "
+          f"memory {peak:.2f} GiB, staleness histogram {hist.tolist()}, "
+          f"cancelled attempts {results[-1].cancelled_attempts}, sim time "
+          f"{results[-1].sim_time:.3f}, {attempts[0]} distinct attempts "
+          f"in the last buffer (one stream draw each), train loss "
+          f"{[round(v, 4) for v in losses]}, launches a step K1 "
+          f"{got['conv_block_fwd'] // FEDBUFF_STEPS} K2 "
+          f"{got['conv_block_bwd'] // FEDBUFF_STEPS} [{card}]", flush=True)
+
+    ckpt = os.path.join(tmp, "fedbuff")
+    t0 = time.perf_counter()
+    save_async_checkpoint(engine, ckpt)
+    save_s = time.perf_counter() - t0
+    a = engine.run_server_step()
+    after = (_tree_clone(engine.global_variables), _tree_clone(engine.ring))
+    t0 = time.perf_counter()
+    step = restore_async_checkpoint(engine, ckpt)
+    restore_s = time.perf_counter() - t0
+    b = engine.run_server_step()
+    require((a.client_ids, a.staleness, a.sim_time, a.cancelled_attempts)
+            == (b.client_ids, b.staleness, b.sim_time, b.cancelled_attempts)
+            and _tree_equal(engine.global_variables, after[0])
+            and _tree_equal(engine.ring, after[1]),
+            "engines fedbuff: the step after a restore differs from the "
+            "uninterrupted one")
+    print(f"engines fedbuff checkpoint: model, ring of "
+          f"{FEDBUFF_STALENESS + 1} versions and the host event state saved "
+          f"in {save_s:.3f}s, restored at server step {step} in "
+          f"{restore_s:.3f}s, the next step equal to the uninterrupted one "
+          f"bit for bit (timeline, model, ring) [{card}]", flush=True)
+    del engine, after
+    torch.cuda.empty_cache()
+    return total
+
+
+def engines_rank_job(mesh, global_after_round0, tmp):
+    """One gloo rank's share (``phase_engines``): IFCA's first round; the
+    bench engine's round with Ditto's step, the step from the unsharded
+    run's global model; the engine's and the personal models' checkpoint
+    at world 2. Returns the launches and what the main process compares."""
+    import torch
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.core.pytree import tree_map
+    from fl_tpu_torch.fl import DittoPersonalizer
+    from fl_tpu_torch.orchestration.checkpoint import (
+        save_ditto_checkpoint, save_engine_checkpoint)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arrays = bench_arrays()
+    lo, hi = mesh.client_rows(NUM_CLIENTS)
+    out = {"rows": (lo, hi)}
+    ifca = ifca_engine(arrays, mesh)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = ifca.run_round()
+    torch.cuda.synchronize()
+    out["ifca"] = {"s": time.perf_counter() - t0,
+                   "launches": {k: v for k, v in ops.launch_counts().items()
+                                if v},
+                   "result": r, "assignments": ifca.assignments,
+                   "models": tree_map(lambda t: t.cpu(),
+                                      ifca.cluster_variables),
+                   "collectives": [tuple(c) for c in ifca.round_collectives]}
+    del ifca
+    torch.cuda.empty_cache()
+
+    engine = mesh_engine(mesh, arrays)
+    ditto = DittoPersonalizer(engine, lam=DITTO_LAM)
+    ops.reset_launch_counts()
+    engine.run_round(evaluate=False)
+    round0 = tree_map(lambda t: t.cpu(), engine.global_variables)
+    # the step against the unsharded run's θ_g: the same inputs a client
+    engine.global_variables = tree_map(lambda t: t.to(mesh.device),
+                                       global_after_round0)
+    t0 = time.perf_counter()
+    m = ditto.step()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    mine = [i for i in range(NUM_CLIENTS)[ENGINE_ROWS] if lo <= i < hi]
+    save_engine_checkpoint(engine, os.path.join(tmp, "engine"))
+    save_ditto_checkpoint(ditto, os.path.join(tmp, "personal"))
+    out["ditto"] = {
+        "launches": {k: v for k, v in ops.launch_counts().items() if v},
+        "round0": round0, "metrics": m, "step_s": step_s,
+        "rows": {i: tree_map(lambda t: t[i - lo].cpu(),
+                             ditto.personal_variables) for i in mine},
+        "digest": _rows_digest(ditto.personal_variables, slice(None)),
+        "global_digest": _rows_digest(
+            tree_map(lambda t: t[None], engine.global_variables), 0)}
+    return out
+
+
+def engines_mesh(card, ifca_ref, ditto_engine, ditto, ditto_ref, tmp):
+    """IFCA's first round and the Ditto step on two gloo ranks sharing the
+    card, held to the unsharded runs within phase_mesh's tolerances; the
+    checkpoint saved at world 2 restored here, at world 1, bit for bit.
+    Returns the ranks' launches."""
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch.core.mesh import spawn
+    from fl_tpu_torch.core.pytree import flatten_dict, tree_map
+    from fl_tpu_torch.orchestration.checkpoint import (
+        restore_ditto_checkpoint, restore_engine_checkpoint)
+
+    def close(label, got, want, worst):
+        g, w = flatten_dict(got), flatten_dict(want)
+        for k, v in w.items():
+            a, b = g[k].float().cpu(), v.float().cpu()
+            gap = float((a - b).abs().max())
+            require(gap <= 1e-6 + 1e-5 * float(b.abs().max()),
+                    f"{label}: {k} differs from the unsharded run by {gap} "
+                    f"(its largest weight {float(b.abs().max())})")
+            worst = max(worst, gap)
+        return worst
+
+    ckpt = os.path.join(tmp, "mesh")
+    g0, m0, rows0 = ditto_ref
+    t0 = time.perf_counter()
+    ranks = spawn(engines_rank_job, MESH_RANKS, tree_map(
+        lambda t: t.cpu(), g0), ckpt, backend="gloo", device="cuda:0")
+    spawn_s = time.perf_counter() - t0
+    steps = LOCAL_EPOCHS * (SAMPLES_PER_CLIENT // BATCH_SIZE)
+    text, total = [], {}
+    models, assign, warm = ifca_ref
+    for r, got in enumerate(ranks):
+        ifca = got["ifca"]
+        want = {"conv_block_fwd": IFCA_K + steps, "conv_block_bwd": steps}
+        require(ifca["launches"] == want,
+                f"engines mesh rank {r} ifca: launches {ifca['launches']}")
+        require([c[0] for c in ifca["collectives"]] == ["all_reduce"] * 2,
+                f"engines mesh rank {r} ifca: collectives "
+                f"{ifca['collectives']}")
+        require(np.array_equal(ifca["assignments"], assign)
+                and ifca["result"].cluster_sizes == warm.cluster_sizes,
+                f"engines mesh rank {r} ifca: assignments differ")
+        rel = abs(ifca["result"].train_loss - warm.train_loss) / abs(
+            warm.train_loss)
+        require(rel <= 1e-5, f"engines mesh rank {r} ifca: loss "
+                             f"{ifca['result'].train_loss} against "
+                             f"{warm.train_loss}")
+        worst_ifca = close(f"engines mesh rank {r} ifca", ifca["models"],
+                           models, 0.0)
+        dit = got["ditto"]
+        want = {"conv_block_fwd": 2 * steps, "conv_block_bwd": 2 * steps,
+                "clip_noise": 2}
+        require(dit["launches"] == want,
+                f"engines mesh rank {r} ditto: launches {dit['launches']}")
+        worst_round = close(f"engines mesh rank {r} bench round",
+                            dit["round0"], g0, 0.0)
+        worst_rows = 0.0
+        for i, row in dit["rows"].items():
+            j = list(range(NUM_CLIENTS)[ENGINE_ROWS]).index(i)
+            worst_rows = close(
+                f"engines mesh rank {r} ditto client {i}", row,
+                tree_map(lambda t: t[j], rows0), worst_rows)
+        rel_d = {k: abs(dit["metrics"][k] - m0[k]) / max(abs(m0[k]), 1e-30)
+                 for k in m0}
+        require(all(v <= 1e-4 for v in rel_d.values()),
+                f"engines mesh rank {r} ditto: step metrics {dit['metrics']}"
+                f" against {m0}")
+        for src in (ifca["launches"], dit["launches"]):
+            for k, v in src.items():
+                total[k] = total.get(k, 0) + v
+        text.append(
+            f"rank {r}: ifca round {ifca['s']:.3f}s, collectives "
+            f"{ifca['collectives']}, max |w - w_unsharded| "
+            f"{worst_ifca:.2e}; bench round max gap {worst_round:.2e}; "
+            f"ditto step {dit['step_s']:.3f}s, {len(dit['rows'])} clients' "
+            f"personal models max gap {worst_rows:.2e}, metrics' rel. gaps "
+            f"{ {k: f'{v:.1e}' for k, v in rel_d.items()} }")
+
+    # world 2 -> world 1: the engine's and the personal models' files
+    t0 = time.perf_counter()
+    restore_engine_checkpoint(ditto_engine, os.path.join(ckpt, "engine"))
+    restore_ditto_checkpoint(ditto, os.path.join(ckpt, "personal"))
+    restore_s = time.perf_counter() - t0
+    require(_rows_digest(tree_map(lambda t: t[None],
+                                  ditto_engine.global_variables), 0)
+            == ranks[0]["ditto"]["global_digest"],
+            "engines mesh: the global model restored at world 1 differs "
+            "from the one saved at world 2")
+    for r, got in enumerate(ranks):
+        lo, hi = got["rows"]
+        require(_rows_digest(ditto.personal_variables, slice(lo, hi))
+                == got["ditto"]["digest"],
+                f"engines mesh: rank {r}'s personal models restored at "
+                "world 1 differ from the ones it saved at world 2")
+    print(f"engines mesh gloo world_size={MESH_RANKS} on one card (spawn "
+          f"and both ranks {spawn_s:.1f}s): " + "; ".join(text)
+          + f"; checkpoint saved at world 2 restored at world 1 in "
+          f"{restore_s:.2f}s, the global model and every rank's personal "
+          f"rows equal bit for bit (sha256) [{card}]", flush=True)
+    return total
+
+
+def engines_learning(card):
+    """Label-permuted halves (clients 8-15: y + 5 mod 10) of 16 clients x
+    256 synthetic MNIST images, bf16 ``"residual"``, no DP: IFCA with
+    warm starts reaches perfect population purity, Ditto's personal
+    models beat the global one on their own shards; FedBuff on the
+    unpermuted clients raises the test accuracy."""
+    import torch
+
+    from fl_tpu_torch.data import load_dataset, make_federated_arrays
+    from fl_tpu_torch.fl import (AsyncConfig, AsyncFederatedEngine,
+                                 DittoPersonalizer)
+    from fl_tpu_torch.fl.local_training import FederatedTrainingConfig
+    from fl_tpu_torch.orchestration import (FederatedRoundEngine,
+                                            RoundEngineConfig)
+
+    C = 16
+    splits = load_dataset("mnist", n_train_synth=C * 256, n_test_synth=1024)
+
+    def arrays(permuted):
+        fa = make_federated_arrays(splits, C, "iid", samples_per_client=256,
+                                   seed=0)
+        if permuted:
+            fa.labels[C // 2:] = (fa.labels[C // 2:] + 5) % 10
+        return fa
+
+    train = FederatedTrainingConfig(local_epochs=2, batch_size=32,
+                                    learning_rate=1e-3)
+    ifca = ifca_engine(arrays(True), num_clusters=2,
+                       warmstart_clients=(0, C - 1), training=train)
+    sizes = [r.cluster_sizes for r in ifca.run(4)]
+    a = ifca.assignments
+    require(len(set(a[:C // 2])) == 1 and len(set(a[C // 2:])) == 1
+            and a[0] != a[-1],
+            f"learning ifca: assignments {a.tolist()}, sizes {sizes}")
+    del ifca
+
+    engine = FederatedRoundEngine(
+        bench_model("residual"), arrays(True),
+        RoundEngineConfig(training=train, max_clients=C, seed=0),
+        device=DEVICE)
+    ditto = DittoPersonalizer(engine, lam=DITTO_LAM)
+    for _ in range(3):
+        engine.run_round(evaluate=False)
+        ditto.step()
+    ev = ditto.evaluate_personal()
+    require(ev["personalization_gain"] > 0, f"learning ditto: {ev}")
+    del engine, ditto
+
+    fb = AsyncFederatedEngine(
+        bench_model("residual"), arrays(False),
+        AsyncConfig(training=train, buffer_size=4, seed=0), device=DEVICE)
+    before = fb.evaluate(splits.test_images, splits.test_labels)["accuracy"]
+    fb.run(8)
+    after = fb.evaluate(splits.test_images, splits.test_labels)["accuracy"]
+    require(after > before, f"learning fedbuff: test accuracy {before} -> "
+                            f"{after}")
+    del fb
+    torch.cuda.empty_cache()
+    print(f"learning engines: 16 clients, label-permuted halves; ifca k=2 "
+          f"warm-started: pure populations, sizes by round {sizes}; ditto "
+          f"lam={DITTO_LAM} after 3 (round, step): personal accuracy "
+          f"{ev['personal_accuracy']:.4f} against global "
+          f"{ev['global_accuracy']:.4f} (gain "
+          f"{ev['personalization_gain']:.4f}); fedbuff buffer 4 (unpermuted"
+          f" labels), 8 server steps: test accuracy {before:.4f} -> "
+          f"{after:.4f} [{card}]", flush=True)
+
+
+def phase_engines(card, counts):
+    """The clustered (IFCA), Ditto and async (FedBuff) engines at the
+    bench's full width (512 clients x 64 synthetic MNIST images, SimpleCNN
+    bf16 ``"residual"``, Adam with bf16 moments, 5 epochs x batch 32):
+    each one's rounds, launches and memory, a checkpoint's next round bit
+    for bit, IFCA and the Ditto step on two gloo ranks, the learning
+    checks. Its launches join ``counts``."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    arrays = bench_arrays()
+    with tempfile.TemporaryDirectory(prefix="fl_engines_") as tmp:
+        launches = []
+        got, ifca_ref = engines_ifca(card, arrays, tmp)
+        launches.append(got)
+        launches.append(engines_fedbuff(card, arrays, tmp))
+        # the Ditto engine stays resident for the 2-rank comparison
+        got, engine, ditto, ditto_ref = engines_ditto(card, tmp)
+        launches.append(got)
+        launches.append(engines_mesh(card, ifca_ref, engine, ditto,
+                                     ditto_ref, tmp))
+        del engine, ditto, ifca_ref, ditto_ref
+        torch.cuda.empty_cache()
+    engines_learning(card)
+    for got in launches:
+        for k in ("conv_block_fwd", "conv_block_bwd", "clip_noise"):
+            counts[k] = counts.get(k, 0) + got.get(k, 0)
+    print(f"engines: phase {time.perf_counter() - t_phase:.1f}s [{card}]",
+          flush=True)
+
+
 def kernel_report():
     src_cu = "fl_tpu_torch/csrc/conv_block.cu"
     rows = (
@@ -4314,6 +4947,8 @@ def main() -> int:
 
     # 5i. the client axis sharded over ranks
     phase_mesh(card)
+    # 5j. the clustered (IFCA), Ditto and async (FedBuff) engines
+    phase_engines(card, counts)
 
     # 6. learning checks
     learning_check("residual")

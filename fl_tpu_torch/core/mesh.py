@@ -130,6 +130,36 @@ def make_mesh(n_devices: Optional[int] = None, device="cuda",
                       world_size=world, device=dev, backend=backend)
 
 
+def _same_device(device, mesh_device: torch.device) -> bool:
+    """``device`` names the mesh's device ("cuda" for "cuda:1" too)."""
+    d = torch.device(device)
+    return d.type == mesh_device.type and d.index in (None,
+                                                      mesh_device.index)
+
+
+def resolve_device(owner: str, device, mesh) -> torch.device:
+    """The device an engine runs on: the mesh's, which ``device`` may only
+    name, or ``device``, the card by default. Without a card and without
+    ``device="cpu"`` this raises."""
+    if mesh is not None:
+        if not isinstance(mesh, ClientMesh):
+            raise ValueError(
+                f"mesh must be a ClientMesh (fl_tpu_torch.core.mesh."
+                f"make_mesh), got {type(mesh).__name__}")
+        if device is not None and not _same_device(device, mesh.device):
+            raise ValueError(
+                f"device={str(device)!r} conflicts with the mesh's "
+                f"device {str(mesh.device)!r}; with a mesh the engine "
+                "runs on the mesh's device")
+        device = mesh.device
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{owner} runs on device={str(device)!r} and no CUDA device is "
+            "available; pass device=\"cpu\" to run on the CPU")
+    return device
+
+
 def shard_client_tree(tree, mesh: ClientMesh):
     """This rank's rows of every (C, ...) leaf (numpy or tensors), copied
     to its device."""

@@ -1,7 +1,23 @@
 """Federated core: local training, delta and client-level DP with their
-accountants, FedAvg, convergence, partitioning, compression (port of
+accountants, FedAvg, convergence, partitioning, compression, and the
+clustered (IFCA), Ditto and asynchronous (FedBuff) engines (port of
 fl_tpu.fl)."""
 
+from fl_tpu_torch.fl.async_fl import (  # noqa: F401
+    AsyncConfig,
+    AsyncFederatedEngine,
+    AsyncStepResult,
+)
+from fl_tpu_torch.fl.clustered import (  # noqa: F401
+    ClusteredConfig,
+    ClusteredFederatedEngine,
+    ClusteredRoundResult,
+)
+from fl_tpu_torch.fl.ditto import DittoPersonalizer  # noqa: F401
+from fl_tpu_torch.fl.federated_eval import (  # noqa: F401
+    evaluate_federated,
+    make_federated_eval_fn,
+)
 from fl_tpu_torch.fl.peft import (  # noqa: F401
     LoRADense,
     count_trainable,

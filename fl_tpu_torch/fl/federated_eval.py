@@ -8,6 +8,11 @@ its conv kernel once a chunk), no autograd; per-client loss and accuracy
 plus the sample-weighted population aggregate. The round engine also uses
 it for q-FFL's F_k(θ̂), the clients' losses at the model they received.
 A BatchNorm model is scored with its running statistics.
+
+Under a client mesh each rank scores its own rows, and the per-client
+results come back in global order through one all-reduce (each rank's
+rows at their offset of a zeroed (C,) vector): the aggregate and the
+spread are then those of the single-process evaluation.
 """
 
 from __future__ import annotations
@@ -71,6 +76,22 @@ def make_federated_eval_fn(model, samples_per_client: int, mean, std,
     return evaluate
 
 
+def gather_scores(engine, out: Dict[str, torch.Tensor]
+                  ) -> Dict[str, np.ndarray]:
+    """A federated evaluation's (CL,) ``loss`` / ``accuracy`` / ``n`` of
+    this rank's rows as (C,) host arrays in global order: one all-reduce
+    of the three packed under a mesh (the engine's client axis), a copy
+    without one."""
+    if engine.mesh is None:
+        return {k: v.cpu().numpy() for k, v in out.items()}
+    keys = ("loss", "accuracy", "n")
+    packed = engine._axis.psum(torch.stack(
+        [engine._axis.per_client(out[k].float()) for k in keys])).cpu().numpy()
+    got = dict(zip(keys, packed))
+    got["n"] = got["n"].astype(np.int32)
+    return got
+
+
 def evaluate_federated(engine) -> Dict[str, object]:
     """Score a FederatedRoundEngine's current global model on every
     client's own shard. Returns per-client arrays plus the sample-weighted
@@ -78,12 +99,12 @@ def evaluate_federated(engine) -> Dict[str, object]:
     run = make_federated_eval_fn(
         engine.model, samples_per_client=engine.data.samples_per_client,
         mean=engine.data.mean, std=engine.data.std)
-    C = engine.num_clients
-    stacked = tree_map(lambda v: v[None].expand(C, *v.shape),
+    rows = engine.data.images.shape[0]  # CL under a mesh
+    stacked = tree_map(lambda v: v[None].expand(rows, *v.shape),
                        engine.global_variables)
-    out = run(stacked["params"], engine.data.images, engine.data.labels,
-              engine.data.num_samples, stacked.get("batch_stats"))
-    out = {k: v.cpu().numpy() for k, v in out.items()}
+    out = gather_scores(engine, run(
+        stacked["params"], engine.data.images, engine.data.labels,
+        engine.data.num_samples, stacked.get("batch_stats")))
     w = out["n"].astype(np.float64)
     w = w / max(w.sum(), 1.0)
     return {

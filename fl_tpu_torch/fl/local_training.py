@@ -57,6 +57,16 @@ masks and the augmentation draws are drawn for all ``total`` clients and
 sliced to these rows (index- and activation-sized), the rounding seeds and
 DP-SGD's noise are keyed by global client id.
 
+Rows from several rounds (FedBuff's buffer, ``fl.async_fl``): with
+``rows=(ids, total)`` and a (C,) sequence of round seeds, row i is global
+client ids[i] of the round whose seed is the i-th, and gets that round's
+streams: the shuffle and the dropout masks are drawn once for each
+distinct round seed, for all ``total`` clients, and gathered at the rows'
+ids; the rounding seeds are keyed by (round seed, id). One round seed and
+consecutive ids take the sliced path above, so those rows draw bit for
+bit what a round draws. DP-SGD and augmentation take one round's rows
+only.
+
 Parameters are updated in place inside the step loop where they are
 stored in f32, which keeps one copy of the (C, params) tree.
 """
@@ -246,8 +256,57 @@ def rounding_seeds(rseed: int, num_clients: int, device, first: int = 0
     ROUNDING) xor-ed."""
     s = prng.client_stream_seeds(rseed, num_clients, prng.Stream.ROUNDING,
                                  first=first)
+    return _u32_seeds(s, device)
+
+
+def _u32_seeds(s: np.ndarray, device) -> torch.Tensor:
     s = (s ^ (s >> np.uint64(32))) & np.uint64(0xFFFFFFFF)
     return to_device(s.astype(np.int64), device)
+
+
+def _row_rounding_seeds(rseeds: np.ndarray, ids: np.ndarray, device
+                        ) -> torch.Tensor:
+    """:func:`rounding_seeds` of each row's own (round seed, global id)."""
+    with np.errstate(over="ignore"):
+        s = prng.fold_many(prng.fold_many(prng.fold_many(
+            rseeds, ids.astype(np.uint64)), int(prng.Stream.ROUNDING)), 0)
+    return _u32_seeds(s, device)
+
+
+def _stream_groups(rseed, rows, C: int):
+    """Normalize ``(rseed, rows)``: returns (round seed, (first, total),
+    None) where the rows are consecutive clients of one round, else (None,
+    (None, total), groups) with one (round seed, local rows, global ids)
+    a distinct round seed (module docstring)."""
+    if rows is None:
+        return int(rseed), (0, C), None
+    where, total = rows
+    seeds = np.broadcast_to(np.asarray(rseed, dtype=np.uint64), (C,))
+    if np.ndim(where) == 0:
+        ids = np.arange(int(where), int(where) + C, dtype=np.int64)
+    else:
+        ids = np.asarray(where, np.int64)
+        if ids.shape != (C,):
+            raise ValueError(f"rows' ids must name {C} clients, got "
+                             f"shape {ids.shape}")
+    if (seeds == seeds[0]).all() and np.array_equal(
+            ids, np.arange(ids[0], ids[0] + C)):
+        return int(seeds[0]), (int(ids[0]), total), None
+    groups = []
+    for s in dict.fromkeys(seeds.tolist()):
+        loc = np.flatnonzero(seeds == np.uint64(s))
+        groups.append((int(s), loc, ids[loc]))
+    return None, (None, total), groups
+
+
+def _gather_groups(parts, groups, device):
+    """Each group's rows of its own whole draw (``parts[g]``, a tree whose
+    leaves lead with ``total``), in the local row order."""
+    order = np.concatenate([loc for _, loc, _ in groups])
+    inv = torch.as_tensor(np.argsort(order), device=device)
+    ids = [torch.as_tensor(gids, device=device) for _, _, gids in groups]
+    return tree_map(lambda *leaves: torch.cat(
+        [leaf[i] for leaf, i in zip(leaves, ids)])[inv], *parts)
 
 
 def make_local_train_fn(model, cfg: FederatedTrainingConfig,
@@ -276,7 +335,10 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
     generator)`` augments each normalized batch. ``rows=(first, total)``:
     these C clients are global clients first, … of ``total`` (module
     docstring); ``augment_fn`` then takes ``rows=`` too, and
-    ``dp_sgd_fn`` gets it as a keyword. ``metrics`` holds (C,)
+    ``dp_sgd_fn`` gets it as a keyword. ``rows=(ids, total)`` with a
+    (C,) sequence of global ids, and ``rseed`` a (C,) sequence of round
+    seeds: each row draws its own round's streams (module docstring).
+    ``metrics`` holds (C,)
     tensors ``loss`` and ``accuracy`` of each client's last active epoch,
     ``epochs_completed`` and ``samples_processed``.
     """
@@ -295,8 +357,13 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
                     correction=None, lr=None, extra=None, rows=None):
         device = images_u8.device
         C, N = images_u8.shape[:2]
-        first, total = (0, C) if rows is None else rows
-        sharded = total != C
+        rseed, (first, total), groups = _stream_groups(rseed, rows, C)
+        if groups is not None and (dp_sgd_fn is not None
+                                   or augment_fn is not None):
+            raise ValueError("rows from several rounds (rows=(ids, total)) "
+                             "do not take DP-SGD or augmentation: their "
+                             "draws are one round's")
+        sharded = total != C and groups is None
         shard_kw = {"rows": (first, total)} if sharded else {}
         if extra is not None and set(extra) != {"batch_stats"}:
             raise ValueError("extra holds the batch_stats collection, got "
@@ -308,8 +375,15 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
             # the reference's round-to-nearest cast of the start: the
             # returned delta includes it
             store = [a.to(torch.bfloat16).contiguous() for a in anchor]
-            sr_seed0 = (rounding_seeds(rseed, C, device, first=first)
-                        if sharded else rounding_seeds(rseed, C, device))
+            if groups is not None:
+                seeds = np.empty(C, np.uint64)
+                ids = np.empty(C, np.int64)
+                for s, loc, gids in groups:
+                    seeds[loc], ids[loc] = s, gids
+                sr_seed0 = _row_rounding_seeds(seeds, ids, device)
+            else:
+                sr_seed0 = (rounding_seeds(rseed, C, device, first=first)
+                            if sharded else rounding_seeds(rseed, C, device))
         else:
             store = [a.detach().clone(memory_format=torch.contiguous_format)
                      .requires_grad_(True) for a in anchor]
@@ -322,11 +396,18 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
             epochs = torch.as_tensor(epochs).to(device=device,
                                                 dtype=torch.int64)
         n = n_valid.clamp(min=1).long()[:, None]
-        rows = torch.arange(C, device=device)[:, None]
-        shuffle_seed = prng.stream_seed(rseed, prng.Stream.SHUFFLE)
-        dropout_seed = prng.stream_seed(rseed, prng.Stream.DROPOUT)
-        noise_seed = prng.stream_seed(rseed, prng.Stream.DP_NOISE)
-        augment_seed = prng.stream_seed(rseed, prng.Stream.AUGMENT)
+        row_idx = torch.arange(C, device=device)[:, None]
+        if groups is None:
+            shuffle_seed = prng.stream_seed(rseed, prng.Stream.SHUFFLE)
+            dropout_seed = prng.stream_seed(rseed, prng.Stream.DROPOUT)
+            noise_seed = prng.stream_seed(rseed, prng.Stream.DP_NOISE)
+            augment_seed = prng.stream_seed(rseed, prng.Stream.AUGMENT)
+        else:
+            shuffle_seeds = [prng.stream_seed(s, prng.Stream.SHUFFLE)
+                             for s, _, _ in groups]
+            dropout_seeds = [prng.stream_seed(s, prng.Stream.DROPOUT)
+                             for s, _, _ in groups]
+            has_dropout = getattr(model, "dropout_keep", None) is not None
 
         def per_leaf(v):
             """A (C,) vector shaped to broadcast over each leaf."""
@@ -338,10 +419,17 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
                                                  device=device)))
         ep_losses, ep_accs = [], []
         for epoch in range(max_epochs):
-            g = prng.generator(prng.fold(shuffle_seed, epoch), device)
-            perm_raw = torch.argsort(torch.rand(
-                (total, N), generator=g, device=device)[first:first + C],
-                dim=1)
+            if groups is None:
+                g = prng.generator(prng.fold(shuffle_seed, epoch), device)
+                draw = torch.rand((total, N), generator=g,
+                                  device=device)[first:first + C]
+            else:
+                draw = _gather_groups([torch.rand(
+                    (total, N), device=device, generator=prng.generator(
+                        prng.fold(s, epoch), device))
+                    for s in shuffle_seeds], groups, device)
+            perm_raw = torch.argsort(draw, dim=1)
+            del draw
             # remap padded slots into the valid region (keeps batches dense)
             perm = torch.where(perm_raw < n, perm_raw, perm_raw % n)
             active = None if epochs is None else per_leaf(epoch < epochs)
@@ -352,13 +440,27 @@ def make_local_train_fn(model, cfg: FederatedTrainingConfig,
             for step in range(steps_per_epoch):
                 ctr = epoch * steps_per_epoch + step
                 idx = perm[:, step * batch:(step + 1) * batch]
-                xb = (images_u8[rows, idx].float() / 255.0 - mean) / std
-                yb = labels[rows, idx]
+                xb = (images_u8[row_idx, idx].float() / 255.0 - mean) / std
+                yb = labels[row_idx, idx]
                 if augment_fn is not None:
                     xb = augment_fn(xb, prng.generator(
                         prng.fold(augment_seed, ctr), device), **shard_kw)
-                dgen = prng.generator(prng.fold(dropout_seed, ctr), device)
                 drop_kw = {}
+                if groups is not None:
+                    dgen = None
+                    keeps = ([model.dropout_keep(total, batch,
+                                                 prng.generator(prng.fold(
+                                                     s, ctr), device),
+                                                 device)
+                              for s in dropout_seeds] if has_dropout
+                             else [None])
+                    if keeps[0] is not None:
+                        drop_kw = {"dropout_mask": _gather_groups(
+                            keeps, groups, device)}
+                    del keeps
+                else:
+                    dgen = prng.generator(prng.fold(dropout_seed, ctr),
+                                          device)
                 if sharded and getattr(model, "dropout_keep", None):
                     # the whole (total, B, ...) draw, this shard's rows
                     keep = model.dropout_keep(total, batch, dgen, device)
@@ -479,3 +581,34 @@ def evaluate_test_set(model, params, images: torch.Tensor,
         accs.append((logits.argmax(-1) == yb).float().mean(1))
     return {"loss": float(torch.cat(losses).mean()),
             "accuracy": float(torch.cat(accs).mean())}
+
+
+def train_variables(local_train: Callable, variables, images_u8, labels,
+                    n_valid, rseed, **kw):
+    """``local_train`` over a stacked variables tree: the params trained,
+    a BatchNorm model's ``batch_stats`` carried through ``extra=``.
+    Returns (new variables, metrics)."""
+    if "batch_stats" not in variables:
+        params, metrics = local_train(variables["params"], images_u8, labels,
+                                      n_valid, rseed, **kw)
+        return {"params": params}, metrics
+    params, metrics, extra = local_train(
+        variables["params"], images_u8, labels, n_valid, rseed,
+        extra={"batch_stats": variables["batch_stats"]}, **kw)
+    return {"params": params, **extra}, metrics
+
+
+def evaluate_u8_test_set(model, variables, images_u8, labels, mean, std,
+                         device) -> Dict[str, float]:
+    """:func:`evaluate_test_set` of one model's variables on a uint8 test
+    set, normalized on the host with the data's ``mean`` / ``std`` (the
+    reference's ``evaluate_test_set`` of the clustered and async
+    engines)."""
+    mean = np.asarray(torch.as_tensor(mean).cpu(), np.float32)
+    std = np.asarray(torch.as_tensor(std).cpu(), np.float32)
+    x = (np.asarray(images_u8, np.float32) / 255.0 - mean) / std
+    return evaluate_test_set(
+        model, variables["params"],
+        torch.as_tensor(x, dtype=torch.float32).to(device),
+        torch.as_tensor(np.asarray(labels, np.int64)).to(device),
+        batch_stats=variables.get("batch_stats"))

@@ -109,8 +109,16 @@ def init_variables(model, seed: int = 0, device="cpu") -> Dict[str, Any]:
     """A model's unstacked variables, ``{"params": ..., "batch_stats":
     ...}`` (the statistics only where the model has them), from a seeded
     generator."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    variables = {"params": model.init(gen, device)}
+    return init_model_variables(
+        model, torch.Generator(device=device).manual_seed(seed), device)
+
+
+def init_model_variables(model, generator: torch.Generator, device
+                         ) -> Dict[str, Any]:
+    """A model's unstacked variables drawn from ``generator``:
+    ``{"params"}`` and, for a BatchNorm model, its initial
+    ``batch_stats``."""
+    variables = {"params": model.init(generator, device)}
     init_stats = getattr(model, "init_batch_stats", None)
     stats = init_stats(device) if init_stats is not None else None
     if stats is not None:

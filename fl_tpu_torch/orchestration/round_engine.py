@@ -99,9 +99,11 @@ the summable metrics packed in another (each rank puts its per-client
 losses at its offset of a zeroed (C,) vector, so the sum is the gather);
 robust and secure aggregation gather the stacked deltas and run
 replicated, as the reference's do. The hooks are the identity without a
-mesh, so the unsharded round is the same code. ``checkpoint``,
-``evaluate_federated``, ``evaluate_personalized`` and ``profile_round``
-refuse a mesh ("not ported under a mesh yet").
+mesh, so the unsharded round is the same code. ``evaluate_federated``
+scores each rank's rows and gathers them; the checkpoints gather the
+per-client state to rank 0's files and give each rank its rows back
+(``orchestration.checkpoint``). ``evaluate_personalized`` and
+``profile_round`` refuse a mesh ("not ported under a mesh yet").
 """
 
 from __future__ import annotations
@@ -118,7 +120,7 @@ import numpy as np
 import torch
 
 from fl_tpu_torch.core import prng
-from fl_tpu_torch.core.mesh import ClientMesh, replicate_tree
+from fl_tpu_torch.core.mesh import replicate_tree, resolve_device
 from fl_tpu_torch.core.pytree import (
     assert_same_structure,
     global_norm,
@@ -147,6 +149,7 @@ from fl_tpu_torch.fl.local_training import (
     FederatedTrainingConfig,
     evaluate_test_set,
     make_local_train_fn,
+    train_variables,
 )
 from fl_tpu_torch.fl.peft import count_trainable, trainable_mask
 from fl_tpu_torch.fl.personalization import evaluate_personalization
@@ -168,7 +171,8 @@ from fl_tpu_torch.fl.uplink import (
     apply_uplink_with_error_feedback,
     make_uplink_fn,
 )
-from fl_tpu_torch.models.factory import get_model_weights
+from fl_tpu_torch.models.factory import (
+    get_model_weights, init_model_variables)
 from fl_tpu_torch.ops.flatten import (
     flat_dim,
     padded_dim,
@@ -177,7 +181,7 @@ from fl_tpu_torch.ops.flatten import (
     stacked_spec,
 )
 from fl_tpu_torch.ops.quantize import dequantize_affine, quantize_affine
-from fl_tpu_torch.parallel.collectives import Communicator
+from fl_tpu_torch.parallel.collectives import ClientAxis
 
 logger = logging.getLogger(__name__)
 
@@ -547,13 +551,6 @@ _SCALARS = ("train_loss", "train_accuracy", "weight_change_norm",
             "next_clip_norm", "clip_fraction")
 
 
-def _same_device(device, mesh_device: torch.device) -> bool:
-    """``device`` names the mesh's device ("cuda" for "cuda:1" too)."""
-    d = torch.device(device)
-    return d.type == mesh_device.type and d.index in (None,
-                                                      mesh_device.index)
-
-
 def downlink_roundtrip(x: torch.Tensor, kind: str) -> torch.Tensor:
     """θ̂ of one leaf, what the clients receive: per-leaf symmetric int8
     quantize → dequantize, or a bfloat16 cast there and back."""
@@ -582,33 +579,15 @@ class FederatedRoundEngine:
         self.config = config
         self.mesh = mesh
         self.num_clients = data.num_clients
-        if mesh is not None:
-            if not isinstance(mesh, ClientMesh):
-                raise ValueError(
-                    f"mesh must be a ClientMesh (fl_tpu_torch.core.mesh."
-                    f"make_mesh), got {type(mesh).__name__}")
-            if device is not None and not _same_device(device, mesh.device):
-                raise ValueError(
-                    f"device={str(device)!r} conflicts with the mesh's "
-                    f"device {str(mesh.device)!r}; with a mesh the engine "
-                    "runs on the mesh's device")
-            # this rank's client rows (raises when C does not divide)
-            self._rows = mesh.client_rows(self.num_clients)
-            device = mesh.device
-        else:
-            self._rows = (0, self.num_clients)
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"FederatedRoundEngine runs on device={str(self.device)!r} "
-                "and no CUDA device is available; pass device=\"cpu\" to "
-                "run on the CPU")
+        self.device = resolve_device("FederatedRoundEngine", device, mesh)
         if config.use_pallas_dp and self.device.type != "cuda":
             raise ValueError(
                 "use_pallas_dp=True launches K3 (ops.dp.clip_noise_cuda), "
                 f"which needs a CUDA device; the engine runs on "
                 f"{str(self.device)!r} (use None or False)")
-        self._comm = Communicator(mesh) if mesh is not None else None
+        # this rank's client rows and the hooks across the ranks
+        self._axis = ClientAxis(mesh, self.num_clients)
+        self._rows = self._axis.rows
         # the collectives of the last dispatched round (under a mesh)
         self.round_collectives = []
         message = trimmed_mean_message(config, self.num_clients)
@@ -696,15 +675,10 @@ class FederatedRoundEngine:
             self.clip_norm = float(self.privacy.max_grad_norm)
 
         self.round_number = 0
-        init_gen = prng.generator(
-            prng.stream_seed(self._root, prng.Stream.INIT), self.device)
-        self.global_variables: Dict[str, Any] = {
-            "params": model.init(init_gen, self.device)}
-        # a BatchNorm model's running statistics (CIFAR10CNN norm="batch")
-        init_stats = getattr(model, "init_batch_stats", None)
-        stats = init_stats(self.device) if init_stats is not None else None
-        if stats is not None:
-            self.global_variables["batch_stats"] = stats
+        # params and a BatchNorm model's running statistics
+        self.global_variables: Dict[str, Any] = init_model_variables(
+            model, prng.generator(prng.stream_seed(
+                self._root, prng.Stream.INIT), self.device), self.device)
         if mesh is not None:
             # every rank draws the same init; rank 0's is the one kept
             self.global_variables = replicate_tree(self.global_variables,
@@ -784,7 +758,7 @@ class FederatedRoundEngine:
         else:
             ef_d = (padded_dim(flat_dim(variables, batched=False))
                     if config.uplink_compression != "none" else 1)
-            self.uplink_error = torch.zeros((self._num_local, ef_d),
+            self.uplink_error = torch.zeros((self._axis.local, ef_d),
                                             dtype=torch.float32,
                                             device=self.device)
         # SCAFFOLD's variates: server c (D_pad,) and clients' c_i (C,
@@ -798,13 +772,13 @@ class FederatedRoundEngine:
             d_pad = padded_dim(flat_dim(params, batched=False))
             server = torch.zeros((d_pad,), dtype=torch.float32,
                                  device=self.device)
-            clients = torch.zeros((self._num_local, d_pad),
+            clients = torch.zeros((self._axis.local, d_pad),
                                   dtype=torch.float32, device=self.device)
             if config.scaffold:
                 self.scaffold_c, self.scaffold_ci = server, clients
             else:
                 self.feddyn_h, self.feddyn_grads = server, clients
-            self._flat_spec = stacked_spec(params, self._num_local)
+            self._flat_spec = stacked_spec(params, self._axis.local)
         # distributed DP: the plan's sensitivity and noise from the model's
         # real flat dim, certified against int32 wraparound up front
         self._dist_plan = None
@@ -837,35 +811,10 @@ class FederatedRoundEngine:
         self.history: List[RoundResult] = []
         self.detector = ConvergenceDetector()
 
-    @property
-    def _num_local(self) -> int:
-        """CL: the clients this rank holds (all C without a mesh)."""
-        return self._rows[1] - self._rows[0]
-
-    # the cross-client hooks: the rank group under a mesh, else identity
-    def _psum(self, x: torch.Tensor) -> torch.Tensor:
-        return x if self._comm is None else self._comm.psum(x)
-
-    def _psum_tree(self, tree):
-        return tree if self._comm is None else self._comm.psum_tree(tree)
-
-    def _gather_clients(self, tree):
-        return (tree if self._comm is None
-                else self._comm.gather_clients(tree))
-
-    def _per_client(self, v: torch.Tensor) -> torch.Tensor:
-        """This rank's (CL,) values at its offset of a zeroed (C,) vector,
-        so that the sum over the ranks is the gather."""
-        if self._comm is None:
-            return v
-        out = torch.zeros((self.num_clients,), dtype=v.dtype,
-                          device=v.device)
-        out[self._rows[0]:self._rows[1]] = v
-        return out
-
     def _refuse_mesh(self, name: str) -> None:
-        """An engine over a client mesh holds only its rank's clients: the
-        entry points that need every client's state refuse it."""
+        """An engine over a client mesh holds only its rank's clients:
+        ``evaluate_personalized`` and ``profile_round``, not ported under
+        a mesh, refuse it."""
         if self.mesh is not None:
             raise NotImplementedError(
                 f"{name} is not ported under a mesh yet; run it on an "
@@ -1008,18 +957,12 @@ class FederatedRoundEngine:
             # FedDyn's −⟨g_i, θ⟩ term: the constant gradient addend −g_i
             # (the α-proximal term is the trainer's proximal_mu)
             corr = stack_unflatten(-self.feddyn_grads, self._flat_spec)
-        extra = ({"batch_stats": stacked["batch_stats"]}
-                 if "batch_stats" in stacked else None)
-        out = self._local_train(
-            stacked["params"], self.data.images, self.data.labels,
+        new_stacked, metrics = train_variables(
+            self._local_train, stacked, self.data.images, self.data.labels,
             self.data.num_samples, rseed,
             epochs=None if self._is_homogeneous() else epochs[lo:hi],
-            correction=corr, extra=extra, rows=(lo, C))
-        new_stacked = {"params": out[0]}
-        metrics = out[1]
-        if extra is not None:
-            new_stacked.update(out[2])
-        del corr, out
+            correction=corr, rows=(lo, C))
+        del corr
         state_out = d_mat = None
         if cfg.scaffold or feddyn:
             # from the raw local trajectories
@@ -1032,7 +975,7 @@ class FederatedRoundEngine:
                        * self._local_train.steps_per_epoch)
             state_out = scaffold_update(
                 self.scaffold_c, self.scaffold_ci, d_mat, mask_l, k_steps,
-                cfg.training.learning_rate, C, self._psum)
+                cfg.training.learning_rate, C, self._axis.psum)
             d_mat = None
 
         zero = torch.zeros((), device=self.device)
@@ -1104,7 +1047,7 @@ class FederatedRoundEngine:
                                                  global_vars["params"]))
             new_pflat, h_out, g_out = feddyn_server_update(
                 pmat[0], self.feddyn_h, self.feddyn_grads, d_mat, mask_l,
-                cfg.feddyn_alpha, C, self._psum)
+                cfg.feddyn_alpha, C, self._axis.psum)
             del pmat, d_mat
             state_out = (h_out, g_out)
             new_global = dict(global_vars, params=tree_map(
@@ -1116,19 +1059,19 @@ class FederatedRoundEngine:
             # to the full-precision master
             new_global = qffl_combine(
                 global_vars, ref_vars, new_stacked, pre_losses, mask_l,
-                cfg.qffl_q, cfg.training.learning_rate, self._psum)
+                cfg.qffl_q, cfg.training.learning_rate, self._axis.psum)
         elif cfg.aggregation != "fedavg":
             # the sorts and Krum's distances need every client's update:
             # gather the stacked trees, then combine replicated
             new_global = robust_combine_deltas(
-                global_vars, self._gather_clients(new_stacked), mask,
+                global_vars, self._axis.gather(new_stacked), mask,
                 cfg.aggregation, trim_k=cfg.trim_k, krum_f=cfg.krum_f,
                 krum_m=cfg.krum_m)
         elif cfg.secure_aggregation:
             # the ring's pairs span the shards: gather, mask and cancel
             # replicated
             new_global = secure_fedavg_delta(
-                global_vars, self._gather_clients(new_stacked),
+                global_vars, self._axis.gather(new_stacked),
                 self._num_samples_all, mask, rseed,
                 neighbors=cfg.secure_agg_neighbors,
                 scale=cfg.secure_agg_scale)
@@ -1146,7 +1089,7 @@ class FederatedRoundEngine:
                 w_params = (tau_eff * w_all
                             / torch.clamp(a_i, min=1e-12))[lo:hi]
             # the weighted delta partial sums of every leaf, in ONE reduce
-            avg = self._psum_tree({
+            avg = self._axis.psum_tree({
                 key: weighted_delta_sum(
                     new_stacked[key], w_params if key == "params" else w,
                     ref_vars[key])
@@ -1159,11 +1102,11 @@ class FederatedRoundEngine:
         per_client = [metrics["loss"], metrics["accuracy"]]
         if pre_losses is not None:
             per_client.append(pre_losses)
-        summed = self._psum(torch.cat(
+        summed = self._axis.psum(torch.cat(
             [torch.stack([(metrics["loss"] * w).sum(),
                           (metrics["accuracy"] * w).sum(),
                           sigma_sum, ef_sum])]
-            + [self._per_client(v) for v in per_client]))
+            + [self._axis.per_client(v) for v in per_client]))
         scalars = torch.stack([
             summed[0],
             summed[1],
@@ -1210,7 +1153,7 @@ class FederatedRoundEngine:
         m = self._expected_count
         avg, pre_norms = dp.clipped_masked_mean(deltas, cn, mask, m)
         del deltas
-        avg = self._psum_tree(avg)
+        avg = self._axis.psum_tree(avg)
         z_eff = self._z_delta if adaptive else self.privacy.noise_multiplier
         sigma = z_eff * cn / m
         nseed = prng.stream_seed(rseed, prng.Stream.DP_NOISE)
@@ -1219,7 +1162,7 @@ class FederatedRoundEngine:
             # the noised clipped fraction drives the geometric update;
             # the aggregate and the count draw from distinct sub-streams
             b = (pre_norms <= cn).float()
-            centered = self._psum((mask.float() * (b - 0.5)).sum())
+            centered = self._axis.psum((mask.float() * (b - 0.5)).sum())
             frac = dp.noisy_clipped_fraction(
                 centered, m, self._clip_count_stddev, prng.fold(nseed, 1))
             next_cn = dp.geometric_clip_update(
@@ -1263,13 +1206,13 @@ class FederatedRoundEngine:
                 prng.fold(dseed, 2), m_real.double() * (plan.mu_local / 2.0),
                 mat.shape[1])
             total = ddp.wrap_int32(
-                self._psum(ints.sum(0, dtype=torch.int64)) + noise)
+                self._axis.psum(ints.sum(0, dtype=torch.int64)) + noise)
         else:
             ints = ddp.client_integer_payloads(
                 mat, mask_l, prng.fold(dseed, 0), prng.fold(dseed, 1),
                 plan.gamma, plan.mu_local, first=lo)
             total = ddp.wrap_int32(
-                self._psum(ints.sum(0, dtype=torch.int64)))
+                self._axis.psum(ints.sum(0, dtype=torch.int64)))
         del mat, ints
         avg = ddp.decode_average(total, plan.gamma, plan.expected_clients)
         avg_tree = stack_unflatten(avg[None], spec)
@@ -1297,7 +1240,7 @@ class FederatedRoundEngine:
         del deltas
         scale = torch.clamp(self.privacy.max_grad_norm
                             / torch.clamp(norms, min=1e-12), max=1.0)
-        round_sum = self._psum(torch.tensordot(mask.float() * scale, cmat,
+        round_sum = self._axis.psum(torch.tensordot(mask.float() * scale, cmat,
                                                dims=1))
         del cmat
         pmat, _ = stack_flatten(tree_map(lambda g: g[None].float(),
@@ -1501,13 +1444,11 @@ class FederatedRoundEngine:
         round_clip = self.clip_norm  # the C this round uses (adaptive)
         mask_t = to_device(np.asarray(mask, np.float32), self.device)
         old_vars = self.global_variables
-        if self._comm is not None:
-            self._comm.begin_round()
+        self._axis.begin_round()
         new_global, self.uplink_error, state_out, metrics = self._superstep(
             old_vars, self.round_number, mask_t, self.uplink_error,
             self._epochs_tensor(), round_clip, inject)
-        if self._comm is not None:
-            self.round_collectives = list(self._comm.calls)
+        self.round_collectives = self._axis.calls
         self._carry_state(state_out)
         if cfg.dp_mode == "dp_ftrl":
             self.ftrl_participations += (np.asarray(mask) > 0)
@@ -1995,8 +1936,8 @@ class FederatedRoundEngine:
     def evaluate_federated(self) -> Dict[str, Any]:
         """Score the current global model on every client's own shard:
         per-client loss / accuracy, the sample-weighted aggregate and the
-        fairness spread (see fl_tpu_torch.fl.federated_eval)."""
-        self._refuse_mesh("evaluate_federated")
+        fairness spread (see fl_tpu_torch.fl.federated_eval); under a mesh
+        each rank scores its own clients and every rank gets all C."""
         return evaluate_federated(self)
 
     def evaluate_personalized(self, finetune_epochs: int = 1,

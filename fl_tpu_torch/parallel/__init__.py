@@ -10,6 +10,7 @@ them where they are made instead.
 """
 
 from fl_tpu_torch.parallel.collectives import (  # noqa: F401
+    ClientAxis,
     Collective,
     Communicator,
     fedavg_psum_shard_map,

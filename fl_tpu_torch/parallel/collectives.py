@@ -95,6 +95,49 @@ class Communicator:
         return tree_map(gather, tree)
 
 
+class ClientAxis:
+    """This rank's rows [lo, hi) of a client-stacked axis of ``total``
+    rows and the hooks across the ranks, the identity without a mesh (the
+    clustered, Ditto and async engines' counterpart of the round engine's
+    ``_psum`` / ``_per_client`` / ``_gather_clients``)."""
+
+    def __init__(self, mesh: Optional[ClientMesh], total: int):
+        self.total = total
+        self.rows = (0, total) if mesh is None else mesh.client_rows(total)
+        self.comm = None if mesh is None else Communicator(mesh)
+
+    @property
+    def local(self) -> int:
+        return self.rows[1] - self.rows[0]
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.comm is None else self.comm.psum(x)
+
+    def psum_tree(self, tree):
+        return tree if self.comm is None else self.comm.psum_tree(tree)
+
+    def gather(self, tree):
+        """(CL, ...) → (C, ...) on every rank."""
+        return tree if self.comm is None else self.comm.gather_clients(tree)
+
+    def per_client(self, v: torch.Tensor) -> torch.Tensor:
+        """This rank's (CL, ...) rows at their offset of a zeroed (C, ...)
+        tensor, so that the sum over the ranks is the gather."""
+        if self.comm is None:
+            return v
+        out = v.new_zeros((self.total,) + tuple(v.shape[1:]))
+        out[self.rows[0]:self.rows[1]] = v
+        return out
+
+    @property
+    def calls(self) -> List[Collective]:
+        return [] if self.comm is None else list(self.comm.calls)
+
+    def begin_round(self) -> None:
+        if self.comm is not None:
+            self.comm.begin_round()
+
+
 def fedavg_psum_shard_map(mesh: ClientMesh, stacked_weights: Any,
                           num_samples: torch.Tensor,
                           mask: Optional[torch.Tensor] = None) -> Any:

@@ -1,5 +1,6 @@
-"""The 2-rank runs of the port's sharded round engine that the mesh tests
-read (``test_torch_mesh.py``, ``test_torch_mesh_features.py``).
+"""The 2-rank runs of the port's sharded round engine and of the clustered,
+Ditto and async engines that the mesh tests read (``test_torch_mesh.py``,
+``test_torch_mesh_features.py``, ``test_torch_engines_mesh.py``).
 
 Spawning ranks costs seconds, so each test file's 2-rank cases run in ONE
 launch a test session: :func:`mesh_results` runs :func:`rank_job` on two
@@ -263,6 +264,182 @@ def collectives(mesh) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the clustered, Ditto and async engines, evaluate_federated and the
+# checkpoints under a mesh (test_torch_engines_mesh.py)
+# ---------------------------------------------------------------------------
+
+SGD = dict(local_epochs=1, batch_size=8, learning_rate=0.05,
+           optimizer_type="sgd", momentum=0.0)
+ALL = np.ones(N_CLIENTS, np.float32)
+
+
+def _device(mesh):
+    return None if mesh is not None else "cpu"
+
+
+def _host(tree) -> dict:
+    """A tree's leaves as flat numpy arrays (every rank's rows gathered
+    beforehand where they are per client)."""
+    from fl_tpu_torch.core.pytree import flatten_dict
+
+    return {k: v.detach().cpu().numpy() for k, v in
+            flatten_dict(tree).items()}
+
+
+def permuted_arrays():
+    """:func:`arrays` with the second half's labels permuted (y + 5 mod
+    10): two populations for IFCA."""
+    fa = arrays()
+    fa.labels[N_CLIENTS // 2:] = (fa.labels[N_CLIENTS // 2:] + 5) % 10
+    return fa
+
+
+def ifca_engine(mesh=None):
+    from fl_tpu_torch.fl import ClusteredConfig, ClusteredFederatedEngine
+
+    return ClusteredFederatedEngine(
+        create_model("simple_cnn"), permuted_arrays(),
+        ClusteredConfig(training=FederatedTrainingConfig(**dict(
+            SGD, local_epochs=2)), num_clusters=2, seed=0,
+            warmstart_clients=(0, N_CLIENTS - 1)),
+        mesh=mesh, device=_device(mesh))
+
+
+def ifca_run(mesh=None, directory=None) -> dict:
+    """Two IFCA rounds (dropout live: the streams are keyed by global
+    client id); with ``directory`` the engine's checkpoint is saved
+    there."""
+    from fl_tpu_torch.orchestration.checkpoint import (
+        save_clustered_checkpoint)
+
+    eng = ifca_engine(mesh)
+    results = eng.run(2)
+    out = {"sizes": [r.cluster_sizes for r in results],
+           "metrics": [(r.train_loss, r.train_accuracy, r.assignment_loss)
+                       for r in results],
+           "assignments": eng.assignments.tolist(),
+           "weights": _host(eng.cluster_variables),
+           "collectives": [tuple(c) for c in eng.round_collectives]}
+    if directory is not None:
+        save_clustered_checkpoint(eng, directory)
+    return out
+
+
+def ditto_engine(mesh=None):
+    return FederatedRoundEngine(
+        create_model("simple_cnn"), arrays(),
+        RoundEngineConfig(training=FederatedTrainingConfig(**SGD),
+                          max_clients=N_CLIENTS, seed=3),
+        device=_device(mesh), mesh=mesh)
+
+
+def ditto_run(mesh=None, directory=None) -> dict:
+    """Two (engine round, Ditto step) pairs, then ``evaluate_personal``
+    and the engine's ``evaluate_federated``; with ``directory`` the
+    personalizer's checkpoint is saved there."""
+    from fl_tpu_torch.fl import DittoPersonalizer
+    from fl_tpu_torch.orchestration.checkpoint import save_ditto_checkpoint
+
+    eng = ditto_engine(mesh)
+    ditto = DittoPersonalizer(eng, lam=0.2)
+    steps = []
+    for _ in range(2):
+        eng.run_round(mask=ALL, evaluate=False)
+        steps.append(ditto.step())
+    personal = ditto.evaluate_personal()
+    fed = eng.evaluate_federated()
+    out = {"steps": steps,
+           "personal": {k: v for k, v in personal.items()
+                        if k != "per_client"},
+           "personal_per_client": personal["per_client"],
+           "federated": {k: v for k, v in fed.items() if k != "per_client"},
+           "federated_per_client": fed["per_client"],
+           "models": _host(eng._axis.gather(ditto.personal_variables))}
+    if directory is not None:
+        save_ditto_checkpoint(ditto, directory)
+    return out
+
+
+def fedbuff_engine(mesh=None):
+    from fl_tpu_torch.fl import AsyncConfig, AsyncFederatedEngine
+
+    return AsyncFederatedEngine(
+        create_model("simple_cnn"), arrays(),
+        AsyncConfig(training=FederatedTrainingConfig(**SGD), buffer_size=4,
+                    max_staleness=2, seed=1),
+        mesh=mesh, device=_device(mesh))
+
+
+def fedbuff_run(mesh=None, directory=None) -> dict:
+    """Four FedBuff server steps (lognormal durations, a 3-version ring:
+    the buffer mixes attempts and ids, so each rank's rows take the
+    trainer's per-row streams); with ``directory`` the engine's checkpoint
+    is saved there."""
+    from fl_tpu_torch.orchestration.checkpoint import save_async_checkpoint
+
+    eng = fedbuff_engine(mesh)
+    results = eng.run(4)
+    out = {"timeline": [(r.client_ids, r.staleness, r.sim_time,
+                         r.cancelled_attempts) for r in results],
+           "metrics": [(r.train_loss, r.train_accuracy) for r in results],
+           "weights": _host(eng.global_variables),
+           "ring": _host(eng.ring),
+           "collectives": [tuple(c) for c in eng.round_collectives]}
+    if directory is not None:
+        save_async_checkpoint(eng, directory)
+    return out
+
+
+def checkpoint_engine(mesh=None):
+    """SCAFFOLD with the int8 uplink: per-client c_i and error feedback
+    carried across rounds."""
+    return FederatedRoundEngine(
+        create_model("simple_cnn"), arrays(),
+        RoundEngineConfig(training=FederatedTrainingConfig(**SGD),
+                          scaffold=True, uplink_compression="int8",
+                          max_clients=N_CLIENTS, seed=6),
+        device=_device(mesh), mesh=mesh)
+
+
+def engine_state(eng) -> dict:
+    """The round engine's model and carried state, every client's rows."""
+    return {"weights": _host(eng.global_variables),
+            "c": eng.scaffold_c.cpu().numpy(),
+            "ci": eng._axis.gather(eng.scaffold_ci).cpu().numpy(),
+            "ef": eng._axis.gather(eng.uplink_error).cpu().numpy()}
+
+
+def checkpoint_run(mesh, directory) -> dict:
+    """One round, a checkpoint, the uninterrupted next round; then a fresh
+    engine restored from the checkpoint and its next round."""
+    from fl_tpu_torch.orchestration.checkpoint import (
+        restore_engine_checkpoint, save_engine_checkpoint)
+
+    eng = checkpoint_engine(mesh)
+    eng.run_round(mask=ALL, evaluate=False)
+    saved = engine_state(eng)
+    save_engine_checkpoint(eng, directory)
+    eng.run_round(mask=ALL, evaluate=False)
+    resumed = checkpoint_engine(mesh)
+    step = restore_engine_checkpoint(resumed, directory)
+    restored = engine_state(resumed)
+    resumed.run_round(mask=ALL, evaluate=False)
+    return {"step": step, "saved": saved, "restored": restored,
+            "uninterrupted": engine_state(eng),
+            "resumed": engine_state(resumed)}
+
+
+def engines_job(mesh, directory: str) -> dict:
+    return {
+        "ifca": ifca_run(mesh, os.path.join(directory, "ifca")),
+        "ditto": ditto_run(mesh, os.path.join(directory, "ditto")),
+        "fedbuff": fedbuff_run(mesh, os.path.join(directory, "fedbuff")),
+        "checkpoint": checkpoint_run(mesh, os.path.join(directory,
+                                                        "engine")),
+    }
+
+
+# ---------------------------------------------------------------------------
 # the launch
 # ---------------------------------------------------------------------------
 
@@ -275,6 +452,8 @@ def rank_job(mesh, spec: dict) -> dict:
     if "features" in spec:
         return {"features": {name: feature_rounds(name, cfg, mesh)
                              for name, cfg in spec["features"].items()}}
+    if "engines" in spec:
+        return engines_job(mesh, spec["engines"])
     lo, hi = mesh.client_rows(spec["fedavg"]["counts"].shape[0])
     fedavg = {}
     for label, mask in (("masked", spec["fedavg"]["mask"]),
@@ -351,9 +530,12 @@ def jax_init_weights() -> dict:
             for layer in params for k, v in params[layer].items()}
 
 
-def build_spec(part: str) -> dict:
+def build_spec(part: str, workdir) -> dict:
     """The launch's inputs for one test file: ``"features"`` (the feature
-    matrix's configs) or ``"mesh"`` (everything else)."""
+    matrix's configs), ``"engines"`` (a directory under ``workdir`` for
+    the checkpoints) or ``"mesh"`` (everything else)."""
+    if part == "engines":
+        return {"engines": str(workdir)}
     if part == "features":
         from fl_tpu.orchestration.features import FEATURES
 
@@ -374,14 +556,27 @@ def mesh_results(tmp_path_factory, part: str) -> list:
     others read its file."""
     from filelock import FileLock
 
-    base = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        base = base.parent  # shared by the session's xdist workers
+    base = _session_base(tmp_path_factory)
     path = base / f"torch_mesh_{part}.pkl"
     with FileLock(str(path) + ".lock"):
         if not path.exists():
-            results = spawn(rank_job, WORLD, build_spec(part))
+            results = spawn(rank_job, WORLD,
+                            build_spec(part, mesh_workdir(tmp_path_factory,
+                                                          part)))
             with open(path, "wb") as f:
                 pickle.dump(results, f)
     with open(path, "rb") as f:
         return pickle.load(f)
+
+
+def _session_base(tmp_path_factory):
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent  # shared by the session's xdist workers
+    return base
+
+
+def mesh_workdir(tmp_path_factory, part: str):
+    """The directory a part's ranks write into (its checkpoints), under
+    the session's shared temporary directory."""
+    return _session_base(tmp_path_factory) / f"torch_mesh_{part}_files"
