@@ -214,7 +214,28 @@ line each; any failure exits non-zero:
    models restored at world 1 bit for bit (sha256 of every rank's rows);
    and learning checks on 16 clients x 256 with label-permuted halves:
    IFCA warm-started reaches pure populations, Ditto's personal models
-   beat the global one, FedBuff raises the test accuracy;
+   beat the global one, FedBuff raises the test accuracy; then the
+   hierarchical, decentralized, FedDF and HPO engines
+   (``phase_topologies``) at the same width, without DP: K1 at FedDF's
+   teacher shape (512 clients x 256 proxy images) and student shape (1 x
+   256) and K2 at the student's, bf16, held to their plain versions (the
+   plain forward at 512 clients in chunks of 64; the errors join the
+   kernel table's); HierFAVG at E = 8, τ = 2 (a warm-up and 3 rounds, K1
+   = K2 = 10 a round, the edge divergence 0.0 after each sync); D-PSGD
+   on the ring (a warm-up and 2 rounds, the consensus distance printed)
+   and one round at W = 11ᵀ/C, every client held to one no-DP round of
+   ``FederatedRoundEngine`` from the same init within 1e-5 of each leaf's
+   largest weight; FedDF at the reference's defaults (64 Adam steps x 256
+   of 2,048 synthetic proxy images; a warm-up and one round, K1 = 10 +
+   65 teacher + 66 student forwards and K2 = 10 + 64 a round, the probe
+   KL shrinking in both rounds); HPO over learning rates (1e-4, 1e-3,
+   1e-2) with a rung after round 0 at η = 2 (the rung round at 1,536
+   trainer rows kills one trial, the survivors bit for bit their
+   pre-compaction slots; 2 rounds at G = 2, K1 = 11 and K2 = 10 a round);
+   each with rounds/s and peak memory on a ``topologies`` line; and each
+   engine's first round on two gloo ranks sharing the card within 1e-5
+   of each leaf's largest weight of the single-process round (FedDF with
+   8 SGD distill steps), every rank's launches and collectives printed;
 6. learning check: 10 non-IID clients, 3 rounds, test accuracy > 0.5, with
    ``fused_conv_block="residual"`` and with ``True``, and with
    ``"residual"`` under SCAFFOLD (SGD lr 0.05), under FedNova (SGD lr
@@ -575,6 +596,26 @@ def check_grads(name, tag, got, want, dtype):
     return worst
 
 
+def check_index(name, tag, cb, args, idx, i_ref, p_ref):
+    """K1's pool2 window index may differ from the plain version's only
+    where the plain window holds a near-tie: the kernel's chosen member
+    within one ulp of the window max. Returns where they differ."""
+    import torch
+
+    pr = p_ref.float()
+    bad = idx != i_ref
+    if bool(bad.any()):
+        win = cb.pool2_windows_plain(*args)
+        chosen = win.gather(-1, idx.long()[..., None])[..., 0]
+        near = (chosen - pr).abs() <= (
+            bf16_ulp(pr) + 1e-5 if args[0].dtype != torch.float32
+            else 1e-5 * (1 + pr.abs()))
+        require(bool(near[bad].all()),
+                f"{name} {tag}: {int(bad.sum())} window indices differ "
+                "beyond near-ties")
+    return bad
+
+
 def check_conv(cb, gen, C, B, dtype, constant=False, geo=(28, 32, 64)):
     """K1, K2 and K4 against their plain versions, and K4 against K1/K2,
     on the same inputs; `geo` is (H, C1, C2). Returns the errors and the
@@ -598,19 +639,7 @@ def check_conv(cb, gen, C, B, dtype, constant=False, geo=(28, 32, 64)):
     require(torch.equal(pooled, pooled4), f"K4 fwd {tag}: not bit-equal to K1")
     require(torch.equal(pooled, pooled_again) and torch.equal(idx, idx_again),
             f"K1 {tag}: two runs differ")
-    # idx may differ only where the plain window holds a near-tie: the
-    # kernel's chosen member within one ulp of the window max
-    pr = p_ref.float()
-    bad = idx != i_ref
-    if bool(bad.any()):
-        win = cb.pool2_windows_plain(*args)
-        chosen = win.gather(-1, idx.long()[..., None])[..., 0]
-        near = (chosen - pr).abs() <= (
-            bf16_ulp(pr) + 1e-5 if dtype != torch.float32
-            else 1e-5 * (1 + pr.abs()))
-        require(bool(near[bad].all()),
-                f"K1 {tag}: {int(bad.sum())} window indices differ beyond "
-                "near-ties")
+    bad = check_index("K1", tag, cb, args, idx, i_ref, p_ref)
     # K2 on identical routing: the plain version's idx for both
     g_raw = torch.randn(pooled.shape, generator=gen, device="cuda").to(dtype)
     g = (g_raw * (p_ref > 0)).to(dtype).contiguous()
@@ -4248,6 +4277,12 @@ def _tree_clone(tree):
     return tree_map(torch.clone, tree)
 
 
+def host_tree(tree):
+    from fl_tpu_torch.core.pytree import tree_map
+
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
 def _tree_equal(a, b) -> bool:
     import torch
 
@@ -4270,6 +4305,24 @@ def _rows_digest(tree, rows) -> str:
         h.update(k.encode())
         h.update(v[rows].contiguous().cpu().numpy().tobytes())
     return h.hexdigest()
+
+
+def _leaf_gaps(label, got, want):
+    """Every leaf of ``got`` within 1e-5 of ``want``'s largest weight (+
+    1e-6), the mesh phase's bound; returns the largest gap."""
+    from fl_tpu_torch.core.pytree import flatten_dict
+
+    g, w = flatten_dict(got), flatten_dict(want)
+    require(g.keys() == w.keys(), f"{label}: trees differ {sorted(g)}")
+    worst = 0.0
+    for k, v in w.items():
+        a, b = g[k].float().to(v.device), v.float()
+        gap = float((a - b).abs().max())
+        top = float(b.abs().max())
+        require(gap <= 1e-6 + 1e-5 * top,
+                f"{label}: {k} off by {gap} (its largest weight {top})")
+        worst = max(worst, gap)
+    return worst
 
 
 def _launched(**want):
@@ -4642,20 +4695,9 @@ def engines_mesh(card, ifca_ref, ditto_engine, ditto, ditto_ref, tmp):
     import torch
 
     from fl_tpu_torch.core.mesh import spawn
-    from fl_tpu_torch.core.pytree import flatten_dict, tree_map
+    from fl_tpu_torch.core.pytree import tree_map
     from fl_tpu_torch.orchestration.checkpoint import (
         restore_ditto_checkpoint, restore_engine_checkpoint)
-
-    def close(label, got, want, worst):
-        g, w = flatten_dict(got), flatten_dict(want)
-        for k, v in w.items():
-            a, b = g[k].float().cpu(), v.float().cpu()
-            gap = float((a - b).abs().max())
-            require(gap <= 1e-6 + 1e-5 * float(b.abs().max()),
-                    f"{label}: {k} differs from the unsharded run by {gap} "
-                    f"(its largest weight {float(b.abs().max())})")
-            worst = max(worst, gap)
-        return worst
 
     ckpt = os.path.join(tmp, "mesh")
     g0, m0, rows0 = ditto_ref
@@ -4682,21 +4724,21 @@ def engines_mesh(card, ifca_ref, ditto_engine, ditto, ditto_ref, tmp):
         require(rel <= 1e-5, f"engines mesh rank {r} ifca: loss "
                              f"{ifca['result'].train_loss} against "
                              f"{warm.train_loss}")
-        worst_ifca = close(f"engines mesh rank {r} ifca", ifca["models"],
-                           models, 0.0)
+        worst_ifca = _leaf_gaps(f"engines mesh rank {r} ifca",
+                                ifca["models"], models)
         dit = got["ditto"]
         want = {"conv_block_fwd": 2 * steps, "conv_block_bwd": 2 * steps,
                 "clip_noise": 2}
         require(dit["launches"] == want,
                 f"engines mesh rank {r} ditto: launches {dit['launches']}")
-        worst_round = close(f"engines mesh rank {r} bench round",
-                            dit["round0"], g0, 0.0)
+        worst_round = _leaf_gaps(f"engines mesh rank {r} bench round",
+                                 dit["round0"], g0)
         worst_rows = 0.0
         for i, row in dit["rows"].items():
             j = list(range(NUM_CLIENTS)[ENGINE_ROWS]).index(i)
-            worst_rows = close(
+            worst_rows = max(worst_rows, _leaf_gaps(
                 f"engines mesh rank {r} ditto client {i}", row,
-                tree_map(lambda t: t[j], rows0), worst_rows)
+                tree_map(lambda t: t[j], rows0)))
         rel_d = {k: abs(dit["metrics"][k] - m0[k]) / max(abs(m0[k]), 1e-30)
                  for k in m0}
         require(all(v <= 1e-4 for v in rel_d.values()),
@@ -4838,6 +4880,529 @@ def phase_engines(card, counts):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the hierarchical, decentralized, FedDF and HPO engines (phase_topologies)
+# ---------------------------------------------------------------------------
+
+TOPO_EDGES = 8           # HierFAVG's edges
+TOPO_TAU = 2             # cloud sync every 2 rounds
+TOPO_HIER_ROUNDS = 3     # timed rounds after a warm-up (4 in all)
+TOPO_DEC_ROUNDS = 2      # timed ring rounds after a warm-up (3 in all)
+FEDDF_PROXY = 2048       # synthetic uint8 proxy images
+FEDDF_STEPS = 64         # the reference's defaults: 64 steps x 256
+FEDDF_BATCH = 256
+FEDDF_MESH_STEPS = 8     # the 2-rank comparison's SGD distill steps
+HPO_LRS = (1e-4, 1e-3, 1e-2)
+HPO_ROUNDS = 2           # timed rounds after the warm-up rung round
+HPO_VAL = 1024           # validation images
+K1_CHUNK = 64            # clients a plain-version chunk at (512, 256)
+
+
+def _steps():
+    return LOCAL_EPOCHS * (SAMPLES_PER_CLIENT // BATCH_SIZE)
+
+
+def hier_engine(arrays, mesh=None):
+    from fl_tpu_torch.fl import (HierarchicalConfig,
+                                 HierarchicalFederatedEngine)
+
+    return HierarchicalFederatedEngine(
+        bench_model("residual"), arrays,
+        HierarchicalConfig(training=bench_training(), num_edges=TOPO_EDGES,
+                           global_sync_every=TOPO_TAU, seed=0),
+        mesh=mesh, device=None if mesh is not None else DEVICE)
+
+
+def dec_engine(arrays, mesh=None, mixing=None):
+    from fl_tpu_torch.fl import (DecentralizedConfig,
+                                 DecentralizedFederatedEngine)
+
+    return DecentralizedFederatedEngine(
+        bench_model("residual"), arrays,
+        DecentralizedConfig(training=bench_training(), mixing_matrix=mixing,
+                            seed=0),
+        mesh=mesh, device=None if mesh is not None else DEVICE)
+
+
+def feddf_proxy():
+    from fl_tpu_torch.data import load_dataset
+
+    return load_dataset("mnist", n_train_synth=FEDDF_PROXY, n_test_synth=1,
+                        seed=7).train_images
+
+
+def feddf_engine(arrays, proxy, mesh=None, **cfg):
+    """FedDF at the reference's defaults unless ``cfg`` says otherwise."""
+    from fl_tpu_torch.fl import FedDFConfig, FedDFEngine
+
+    cfg.setdefault("distill_steps", FEDDF_STEPS)
+    return FedDFEngine(
+        bench_model("residual"), arrays, proxy,
+        FedDFConfig(training=bench_training(), distill_batch=FEDDF_BATCH,
+                    seed=0, **cfg),
+        mesh=mesh, device=None if mesh is not None else DEVICE)
+
+
+def hpo_val():
+    from fl_tpu_torch.data import load_dataset
+
+    splits = load_dataset("mnist", n_train_synth=1, n_test_synth=HPO_VAL,
+                          seed=9)
+    return splits.test_images, splits.test_labels
+
+
+def hpo_engine(arrays, mesh=None):
+    from fl_tpu_torch.fl import FederatedHPOEngine, HPOConfig
+
+    vx, vy = hpo_val()
+    return FederatedHPOEngine(
+        bench_model("residual"), arrays,
+        HPOConfig(training=bench_training(), learning_rates=HPO_LRS,
+                  rung_rounds=(0,), eta=2, seed=0), vx, vy,
+        mesh=mesh, device=None if mesh is not None else DEVICE)
+
+
+def _timed_rounds(engine, rounds, run=None):
+    """``rounds`` rounds after the reset of the launch counts and of the
+    peak memory: (results, seconds, launches, peak GiB)."""
+    import torch
+
+    from fl_tpu_torch import ops
+
+    run = run or engine.run_round
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = [run() for _ in range(rounds)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return (results, dt, ops.launch_counts(),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def topo_hierarchical(card, arrays):
+    """HierFAVG at E = 8, τ = 2: a warm-up round and TOPO_HIER_ROUNDS
+    timed ones (K1 = K2 = 10 a round), the edge divergence 0.0 after each
+    sync and positive between. Returns (launches, the warm-up round's edge
+    models and result: the 2-rank run's reference)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = hier_engine(arrays)
+    t0 = time.perf_counter()
+    warm = eng.run_round()
+    warm_s = time.perf_counter() - t0
+    ref = (_tree_clone(eng.edge_variables), warm)
+    results, dt, got, peak = _timed_rounds(eng, TOPO_HIER_ROUNDS)
+    _, ok = _launched(conv_block_fwd=TOPO_HIER_ROUNDS * _steps(),
+                      conv_block_bwd=TOPO_HIER_ROUNDS * _steps())
+    require(ok, f"topologies hierarchical: launches {got}")
+    rs = [warm] + results
+    require([r.cloud_synced for r in rs]
+            == [(i + 1) % TOPO_TAU == 0 for i in range(len(rs))]
+            and all((r.edge_divergence == 0.0) == r.cloud_synced
+                    for r in rs)
+            and all(math.isfinite(r.train_loss) for r in rs),
+            f"topologies hierarchical: {rs}")
+    print(f"topologies hierarchical E={TOPO_EDGES} tau={TOPO_TAU}: "
+          f"{NUM_CLIENTS} clients bf16 'residual', warm-up round "
+          f"{warm_s:.2f}s, {TOPO_HIER_ROUNDS} rounds in {dt:.3f}s -> "
+          f"{TOPO_HIER_ROUNDS / dt:.3f} rounds/s, peak memory {peak:.2f} "
+          f"GiB, synced {[r.cloud_synced for r in rs]}, edge divergence "
+          f"{[float(f'{r.edge_divergence:.4g}') for r in rs]} (0.0 after "
+          f"each sync), train loss {[round(r.train_loss, 4) for r in rs]}, "
+          f"launches a round K1 {got['conv_block_fwd'] // TOPO_HIER_ROUNDS} "
+          f"K2 {got['conv_block_bwd'] // TOPO_HIER_ROUNDS} [{card}]",
+          flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return dict(got), ref
+
+
+def topo_decentralized(card, arrays):
+    """D-PSGD on the ring: a warm-up round and TOPO_DEC_ROUNDS timed ones
+    (K1 = K2 = 10 a round); then one round at W = 11ᵀ/C held to one
+    no-DP round of FederatedRoundEngine from the same init, every client
+    within 1e-5 of each leaf's largest weight. Returns (launches, the
+    warm-up round's sampled client rows, mean model and result)."""
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch.core.pytree import flatten_dict, tree_map
+    from fl_tpu_torch.orchestration import (FederatedRoundEngine,
+                                            RoundEngineConfig)
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = dec_engine(arrays)
+    t0 = time.perf_counter()
+    warm = eng.run_round()
+    warm_s = time.perf_counter() - t0
+    ref = (tree_map(lambda t: t[ENGINE_ROWS].clone(), eng.client_variables),
+           eng.mean_model(), warm)
+    results, dt, got, peak = _timed_rounds(eng, TOPO_DEC_ROUNDS)
+    _, ok = _launched(conv_block_fwd=TOPO_DEC_ROUNDS * _steps(),
+                      conv_block_bwd=TOPO_DEC_ROUNDS * _steps())
+    require(ok, f"topologies decentralized: launches {got}")
+    rs = [warm] + results
+    require(all(math.isfinite(r.train_loss)
+                and math.isfinite(r.consensus_distance) for r in rs),
+            f"topologies decentralized: {rs}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # the complete uniform graph is FedAvg: one round of each engine
+    C = NUM_CLIENTS
+    full = dec_engine(arrays, mixing=np.full((C, C), 1.0 / C))
+    flat = FederatedRoundEngine(
+        bench_model("residual"), arrays,
+        RoundEngineConfig(training=bench_training(), max_clients=C, seed=0),
+        device=DEVICE)
+    r_full = full.run_round()
+    flat.run_round(mask=np.ones(C, np.float32), evaluate=False)
+    # every client row at once: each leaf's largest gap over the clients
+    g = flatten_dict(flat.global_variables)
+    worst = 0.0
+    for k, v in flatten_dict(full.client_variables).items():
+        gap = float((v.float() - g[k].float()[None]).abs().max())
+        top = float(g[k].float().abs().max())
+        require(gap <= 1e-6 + 1e-5 * top,
+                f"topologies decentralized complete graph: {k} off by {gap} "
+                f"(its largest weight {top})")
+        worst = max(worst, gap)
+    require(r_full.consensus_distance < 1e-3,
+            f"topologies decentralized complete graph: consensus "
+            f"{r_full.consensus_distance}")
+    print(f"topologies decentralized ring: {NUM_CLIENTS} client models bf16 "
+          f"'residual', warm-up round {warm_s:.2f}s, {TOPO_DEC_ROUNDS} rounds "
+          f"in {dt:.3f}s -> {TOPO_DEC_ROUNDS / dt:.3f} rounds/s, peak memory "
+          f"{peak:.2f} GiB, consensus distance "
+          f"{[float(f'{r.consensus_distance:.5g}') for r in rs]}, train loss "
+          f"{[round(r.train_loss, 4) for r in rs]}, launches a round K1 "
+          f"{got['conv_block_fwd'] // TOPO_DEC_ROUNDS} K2 "
+          f"{got['conv_block_bwd'] // TOPO_DEC_ROUNDS}; W = 11^T/C: every "
+          f"client's model within 1e-5 of each leaf's largest weight of the "
+          f"round engine's no-DP round from the same init (max gap "
+          f"{worst:.2e}), consensus {r_full.consensus_distance:.3g} "
+          f"[{card}]", flush=True)
+    del full, flat
+    torch.cuda.empty_cache()
+    return dict(got), ref
+
+
+def topo_feddf(card, arrays, proxy):
+    """FedDF at the reference's defaults (64 Adam steps x 256 proxy
+    images, τ = 1): a warm-up round and one timed (K1 = 10 training + 65
+    teacher forwards at (512, 256) + 64 student forwards and 2 probes at
+    (1, 256); K2 = 10 + 64), the probe KL shrinking in both. Returns the
+    launches."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = feddf_engine(arrays, proxy)
+    t0 = time.perf_counter()
+    warm = eng.run_round()
+    warm_s = time.perf_counter() - t0
+    results, dt, got, peak = _timed_rounds(eng, 1)
+    want_k1 = _steps() + (1 + FEDDF_STEPS) + FEDDF_STEPS + 2
+    want_k2 = _steps() + FEDDF_STEPS
+    _, ok = _launched(conv_block_fwd=want_k1, conv_block_bwd=want_k2)
+    require(ok, f"topologies feddf: launches {got}")
+    rs = [warm] + results
+    require(all(math.isfinite(r.train_loss)
+                and r.distill_kl_after < r.distill_kl_before for r in rs),
+            f"topologies feddf: the probe KL did not shrink: {rs}")
+    kls = [(round(r.distill_kl_before, 5), round(r.distill_kl_after, 5))
+           for r in rs]
+    print(f"topologies feddf {FEDDF_STEPS} adam steps x {FEDDF_BATCH} of "
+          f"{FEDDF_PROXY} proxy images: {NUM_CLIENTS} clients bf16 "
+          f"'residual', warm-up round {warm_s:.2f}s, 1 round in {dt:.3f}s "
+          f"-> {1 / dt:.3f} rounds/s, peak memory {peak:.2f} GiB, probe KL "
+          f"before -> after {kls}, "
+          f"train loss {[round(r.train_loss, 4) for r in rs]}, launches a "
+          f"round K1 {got['conv_block_fwd']} (10 training + "
+          f"{1 + FEDDF_STEPS} teacher at ({NUM_CLIENTS}, {FEDDF_BATCH}) + "
+          f"{FEDDF_STEPS + 2} student at (1, {FEDDF_BATCH})) K2 "
+          f"{got['conv_block_bwd']} [{card}]", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return dict(got)
+
+
+def topo_hpo(card, arrays):
+    """HPO over learning rates HPO_LRS, a rung after round 0 (η = 2): the
+    warm-up rung round at G = 3 (1,536 trainer rows) kills one trial, the
+    survivors' models equal to their slots before the compaction bit for
+    bit; then HPO_ROUNDS timed rounds at G = 2 (K1 = 10 + 1 validation
+    forward, K2 = 10 a round). Returns (launches, the warm-up round's
+    trial models and result)."""
+    import torch
+
+    from fl_tpu_torch.core.pytree import tree_map
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = hpo_engine(arrays)
+    pre = []
+    score = eng._val_accuracies
+
+    def snapshot():
+        pre.append(_tree_clone(eng.trial_variables))
+        return score()
+
+    eng._val_accuracies = snapshot
+    t0 = time.perf_counter()
+    warm = eng.run_round()
+    warm_s = time.perf_counter() - t0
+    peak0 = torch.cuda.max_memory_allocated() / 2 ** 30
+    eng._val_accuracies = score
+    kept = list(eng._alive_ids)
+    require(warm.halved and len(kept) == 2,
+            f"topologies hpo: rung round {warm}")
+    require(_tree_equal(eng.trial_variables, tree_map(
+        lambda t: t[torch.as_tensor(kept, device=t.device)], pre[0])),
+            "topologies hpo: the survivors' models differ from their slots "
+            "before the compaction")
+    ref = (_tree_clone(eng.trial_variables), warm)
+    del pre
+    torch.cuda.reset_peak_memory_stats()
+    results, dt, got, peak = _timed_rounds(eng, HPO_ROUNDS)
+    _, ok = _launched(conv_block_fwd=HPO_ROUNDS * (_steps() + 1),
+                      conv_block_bwd=HPO_ROUNDS * _steps())
+    require(ok, f"topologies hpo: launches {got}")
+    dead = [t.trial_id for t in eng.trials if not t.alive]
+    print(f"topologies hpo lrs={HPO_LRS} rung after round 0 eta=2: "
+          f"{NUM_CLIENTS} clients bf16 'residual', rung round at G=3 "
+          f"({3 * NUM_CLIENTS} trainer rows) {warm_s:.2f}s with peak memory "
+          f"{peak0:.2f} GiB, killed trial {dead}, survivors bit for bit "
+          f"their pre-compaction slots; {HPO_ROUNDS} rounds at G=2 in "
+          f"{dt:.3f}s -> {HPO_ROUNDS / dt:.3f} rounds/s, peak memory "
+          f"{peak:.2f} GiB, validation accuracy by round "
+          f"{[r.val_accuracies for r in [warm] + results]}, best trial "
+          f"{eng.best_trial().trial_id}, launches a round K1 "
+          f"{got['conv_block_fwd'] // HPO_ROUNDS} K2 "
+          f"{got['conv_block_bwd'] // HPO_ROUNDS} [{card}]", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return dict(got), ref
+
+
+def topo_kernel_shapes(card, report):
+    """K1 at FedDF's teacher shape (512, 256) and student shape (1, 256),
+    K2 at (1, 256), bf16, held to their plain versions (the plain forward
+    at (512, 256) in chunks of K1_CHUNK clients); their errors join the
+    kernel report's."""
+    import torch
+
+    from fl_tpu_torch.ops import conv_block as cb
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    dt = torch.bfloat16
+    text, err = [], {"conv_block_fwd": 0.0, "conv_block_bwd": 0.0}
+    for C in (NUM_CLIENTS, 1):
+        B = FEDDF_BATCH
+        tag = f"bf16 C={C} B={B}"
+        args = conv_inputs(gen, C, B, dt)
+        pooled, idx = cb.conv_block_fwd_cuda(*args)
+        k1_ms = time_ms(lambda: cb.conv_block_fwd_cuda(*args))
+        for c0 in range(0, C, K1_CHUNK):
+            part = [a[c0:c0 + K1_CHUNK] for a in args]
+            p_ref, i_ref = cb.conv_stack_res_fwd_plain(*part)
+            err["conv_block_fwd"] = max(err["conv_block_fwd"], check_pooled(
+                "K1", tag, pooled[c0:c0 + K1_CHUNK], p_ref, dt))
+            check_index("K1", tag, cb, part, idx[c0:c0 + K1_CHUNK], i_ref,
+                        p_ref)
+        fwd_bound = conv_work(args, torch.zeros_like(pooled))[0][
+            "conv_block_fwd"][0]
+        line = f"K1 ({C}, {B}) {k1_ms:.3f} ms (bound {fwd_bound:.3f})"
+        if C == 1:
+            x, w1, b1, w2, _ = args
+            g = (torch.randn(pooled.shape, generator=gen, device="cuda")
+                 * (p_ref > 0)).to(dt).contiguous()
+            got = cb.conv_block_bwd_cuda(g, i_ref, x, w1, b1, w2)
+            want = cb.conv_stack_res_bwd_plain(g, i_ref, x, w1, b1, w2)
+            err["conv_block_bwd"] = check_grads("K2", tag, got, want, dt)
+            k2_ms = time_ms(lambda: cb.conv_block_bwd_cuda(g, i_ref, x, w1,
+                                                           b1, w2))
+            plain_ms = time_ms(lambda: cb.conv_stack_res_bwd_plain(
+                g, i_ref, x, w1, b1, w2))
+            bwd_bound = conv_work(args, g)[0]["conv_block_bwd"][0]
+            fwd_plain_ms = time_ms(lambda: cb.conv_stack_res_fwd_plain(*args))
+            line += (f", plain {fwd_plain_ms:.3f}; "
+                     f"K2 ({C}, {B}) {k2_ms:.3f} ms, plain {plain_ms:.3f} "
+                     f"(bound {bwd_bound:.3f})")
+        text.append(line)
+        del args, pooled, idx
+        torch.cuda.empty_cache()
+    for k, v in err.items():
+        report[k]["max_abs_err"] = max(report[k].get("max_abs_err", 0.0), v)
+    print(f"topologies kernels: K1 at ({NUM_CLIENTS}, {FEDDF_BATCH}) and "
+          f"(1, {FEDDF_BATCH}), K2 at (1, {FEDDF_BATCH}), bf16, match their "
+          f"plain versions (1 bf16 ulp / 1e-2 relative Frobenius; max abs "
+          f"err K1 {err['conv_block_fwd']:.3g}, K2 "
+          f"{err['conv_block_bwd']:.3g}): " + "; ".join(text)
+          + f" [{card}]", flush=True)
+
+
+def topo_rank_job(mesh, proxy):
+    """One gloo rank's share (``phase_topologies``): each engine's first
+    round. Returns per engine the launches, the round's collectives and
+    what the main process compares."""
+    import torch
+
+    from fl_tpu_torch import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arrays = bench_arrays()
+    lo, hi = mesh.client_rows(NUM_CLIENTS)
+    out = {"rows": (lo, hi)}
+    host = host_tree
+
+    def first_round(name, eng, keep):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = eng.run_round()
+        torch.cuda.synchronize()
+        out[name] = {"s": time.perf_counter() - t0, "result": r,
+                     "launches": {k: v for k, v in
+                                  ops.launch_counts().items() if v},
+                     "collectives": [tuple(c) for c in
+                                     eng.round_collectives],
+                     **keep(eng)}
+        del eng
+        torch.cuda.empty_cache()
+
+    first_round("hierarchical", hier_engine(arrays, mesh),
+                lambda e: {"models": host(e.edge_variables)})
+    mine = [i for i in range(NUM_CLIENTS)[ENGINE_ROWS] if lo <= i < hi]
+    first_round("decentralized", dec_engine(arrays, mesh),
+                lambda e: {"rows": {i: host(e.client_model(i))
+                                    for i in mine},
+                           "models": host(e.mean_model())})
+    first_round("feddf", feddf_engine(
+        arrays, proxy, mesh, distill_steps=FEDDF_MESH_STEPS,
+        distill_optimizer="sgd"),
+        lambda e: {"models": host(e.global_variables)})
+    first_round("hpo", hpo_engine(arrays, mesh),
+                lambda e: {"models": host(e.trial_variables)})
+    return out
+
+
+def topo_mesh(card, arrays, proxy, refs):
+    """Each engine's first round on two gloo ranks sharing the card, held
+    to the single-process first round within 1e-5 of each leaf's largest
+    weight (FedDF with SGD distillation, its own single-process round
+    here: Adam turns the teacher sum's reduction order into lr-sized steps
+    where a gradient is near zero). Returns the ranks' launches."""
+    import torch
+
+    from fl_tpu_torch.core.mesh import spawn
+    from fl_tpu_torch.core.pytree import tree_map
+
+    eng = feddf_engine(arrays, proxy, distill_steps=FEDDF_MESH_STEPS,
+                       distill_optimizer="sgd")
+    r_df = eng.run_round()
+    refs["feddf"] = (host_tree(eng.global_variables), r_df)
+    del eng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(topo_rank_job, MESH_RANKS, proxy, backend="gloo",
+                  device="cuda:0")
+    spawn_s = time.perf_counter() - t0
+    steps = _steps()
+    want_launches = {
+        "hierarchical": (steps, steps), "decentralized": (steps, steps),
+        "feddf": (steps + 1 + 2 * FEDDF_MESH_STEPS + 2,
+                  steps + FEDDF_MESH_STEPS),
+        "hpo": (steps + 1, steps)}
+    total, text = {}, []
+    for r, got in enumerate(ranks):
+        lo, hi = got["rows"]
+        parts = []
+        for name, (k1, k2) in want_launches.items():
+            g, label = got[name], f"topologies mesh rank {r} {name}"
+            require(g["launches"] == {"conv_block_fwd": k1,
+                                      "conv_block_bwd": k2},
+                    f"{label}: launches {g['launches']}")
+            for k, v in g["launches"].items():
+                total[k] = total.get(k, 0) + v
+            res, want = g["result"], refs[name][-1]
+            if name == "decentralized":
+                rows0, mean0 = refs[name][0], refs[name][1]
+                sampled = list(range(NUM_CLIENTS)[ENGINE_ROWS])
+                worst = _leaf_gaps(f"{label} mean model", g["models"],
+                                   mean0)
+                for i, row in g["rows"].items():
+                    worst = max(worst, _leaf_gaps(
+                        f"{label} client {i}", row, tree_map(
+                            lambda t: t[sampled.index(i)], rows0)))
+                require(abs(res.consensus_distance
+                            - want.consensus_distance)
+                        <= 1e-4 * want.consensus_distance,
+                        f"{label}: consensus {res.consensus_distance} "
+                        f"against {want.consensus_distance}")
+            else:
+                worst = _leaf_gaps(label, g["models"], refs[name][0])
+            if name == "hpo":
+                require(res.alive_trials == want.alive_trials
+                        and res.val_accuracies.keys()
+                        == want.val_accuracies.keys()
+                        and all(abs(res.val_accuracies[t]
+                                    - want.val_accuracies[t])
+                                <= 2.0 / HPO_VAL
+                                for t in want.val_accuracies),
+                        f"{label}: {res} against {want}")
+            else:
+                require(abs(res.train_loss - want.train_loss)
+                        <= 1e-4 * abs(want.train_loss),
+                        f"{label}: loss {res.train_loss} against "
+                        f"{want.train_loss}")
+            parts.append(f"{name} {g['s']:.3f}s, max gap {worst:.2e}, "
+                         f"collectives {g['collectives']}")
+        text.append(f"rank {r} (clients {lo}-{hi - 1}): " + "; ".join(parts))
+    print(f"topologies mesh gloo world_size={MESH_RANKS} on one card (spawn "
+          f"and both ranks {spawn_s:.1f}s): each engine's first round "
+          f"within 1e-5 of each leaf's largest weight of the single-process "
+          f"round (feddf with {FEDDF_MESH_STEPS} SGD steps): "
+          + " | ".join(text) + f" [{card}]", flush=True)
+    return total
+
+
+def phase_topologies(card, counts, report):
+    """The hierarchical (HierFAVG), decentralized (D-PSGD), FedDF and
+    federated-HPO engines at the bench's full width (512 clients x 64
+    synthetic MNIST images, SimpleCNN bf16 ``"residual"``, Adam with bf16
+    moments, 5 epochs x batch 32): each one's rounds/s, peak memory and
+    launches a round; K1 and K2 at FedDF's new shapes against their plain
+    versions; each engine's first round on two gloo ranks. Its launches
+    join ``counts``."""
+    import torch
+
+    t_phase = time.perf_counter()
+    arrays = bench_arrays()
+    proxy = feddf_proxy()
+    topo_kernel_shapes(card, report)
+    launches, refs = [], {}
+    got, (models, res) = topo_hierarchical(card, arrays)
+    launches.append(got)
+    refs["hierarchical"] = (host_tree(models), res)
+    got, (rows, mean, res) = topo_decentralized(card, arrays)
+    launches.append(got)
+    refs["decentralized"] = (host_tree(rows), host_tree(mean), res)
+    launches.append(topo_feddf(card, arrays, proxy))
+    got, (models, res) = topo_hpo(card, arrays)
+    launches.append(got)
+    refs["hpo"] = (host_tree(models), res)
+    del models, rows, mean
+    torch.cuda.empty_cache()
+    launches.append(topo_mesh(card, arrays, proxy, refs))
+    for got in launches:
+        for k in ("conv_block_fwd", "conv_block_bwd"):
+            counts[k] = counts.get(k, 0) + got.get(k, 0)
+    print(f"topologies: phase {time.perf_counter() - t_phase:.1f}s [{card}]",
+          flush=True)
+
+
 def kernel_report():
     src_cu = "fl_tpu_torch/csrc/conv_block.cu"
     rows = (
@@ -4949,6 +5514,8 @@ def main() -> int:
     phase_mesh(card)
     # 5j. the clustered (IFCA), Ditto and async (FedBuff) engines
     phase_engines(card, counts)
+    # 5k. the hierarchical, decentralized, FedDF and HPO engines
+    phase_topologies(card, counts, report)
 
     # 6. learning checks
     learning_check("residual")

@@ -1,6 +1,7 @@
 """Federated core: local training, delta and client-level DP with their
 accountants, FedAvg, convergence, partitioning, compression, and the
-clustered (IFCA), Ditto and asynchronous (FedBuff) engines (port of
+clustered (IFCA), Ditto, asynchronous (FedBuff), hierarchical (HierFAVG),
+decentralized (D-PSGD), FedDF and federated-HPO engines (port of
 fl_tpu.fl)."""
 
 from fl_tpu_torch.fl.async_fl import (  # noqa: F401
@@ -13,10 +14,34 @@ from fl_tpu_torch.fl.clustered import (  # noqa: F401
     ClusteredFederatedEngine,
     ClusteredRoundResult,
 )
+from fl_tpu_torch.fl.decentralized import (  # noqa: F401
+    DecentralizedConfig,
+    DecentralizedFederatedEngine,
+    DecentralizedRoundResult,
+    metropolis_mixing_matrix,
+    ring_mixing_matrix,
+    validate_mixing_matrix,
+)
 from fl_tpu_torch.fl.ditto import DittoPersonalizer  # noqa: F401
 from fl_tpu_torch.fl.federated_eval import (  # noqa: F401
     evaluate_federated,
     make_federated_eval_fn,
+)
+from fl_tpu_torch.fl.feddf import (  # noqa: F401
+    FedDFConfig,
+    FedDFEngine,
+    FedDFRoundResult,
+)
+from fl_tpu_torch.fl.hierarchical import (  # noqa: F401
+    HierarchicalConfig,
+    HierarchicalFederatedEngine,
+    HierarchicalRoundResult,
+)
+from fl_tpu_torch.fl.hpo import (  # noqa: F401
+    FederatedHPOEngine,
+    HPOConfig,
+    HPORoundResult,
+    Trial,
 )
 from fl_tpu_torch.fl.peft import (  # noqa: F401
     LoRADense,

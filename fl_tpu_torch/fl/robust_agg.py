@@ -68,7 +68,7 @@ def median_matrix(mat: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def _full_f32_matmul():
+def full_f32_matmul():
     """TF32 off for CUDA products inside the block, as it was after."""
     before = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -82,7 +82,7 @@ def pairwise_sq_distances(mat: torch.Tensor) -> torch.Tensor:
     """(C, D) -> (C, C) squared distances ‖x_i‖² + ‖x_j‖² − 2⟨x_i, x_j⟩,
     the Gram product in full f32, clamped at 0."""
     sq = (mat * mat).sum(1)
-    with _full_f32_matmul():
+    with full_f32_matmul():
         gram = mat @ mat.T
     return torch.clamp(sq[:, None] + sq[None, :] - 2.0 * gram, min=0.0)
 

@@ -1,0 +1,264 @@
+"""The port's hierarchical engine (HierFAVG, ``fl_tpu_torch.fl.
+hierarchical``) against the reference's ``fl_tpu.fl.hierarchical``.
+
+- Two rounds of both engines at E = 3 edges, τ = 2 (8 clients, 16 images
+  each, SimpleCNN in f32 with ``fused_conv_block="residual"``: the
+  reference's Pallas kernels in interpret mode, the port's K1/K2 through
+  their plain versions), the reference's init carried across
+  (``params_from_flax``; the init streams differ by construction), the
+  draws out of the comparison (dropout 0, ``samples_per_client ==
+  batch_size``), plain SGD. Edge and cloud models within the reference's
+  own mesh bound (rtol 2e-5 / atol 2e-6), the metrics, the sync flags and
+  the edge divergence within rtol 1e-5, the evaluations too.
+- The FedAvg limits, within the reference's own bound (rtol 1e-5 / atol
+  1e-7): one edge (the edge model every round, the cloud syncing only
+  after the third) and a cloud sync every round each equal the port's
+  ``FederatedRoundEngine``.
+- The default assignment leaves no edge empty and equals the reference's;
+  every refusal carries the reference's message; without a card and
+  without ``device="cpu"`` the engine raises.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+from fl_tpu.data.federated import FederatedArrays as JaxArrays
+from fl_tpu.data.synthetic import synthetic_mnist
+from fl_tpu.fl.hierarchical import HierarchicalConfig as JaxConfig
+from fl_tpu.fl.hierarchical import HierarchicalFederatedEngine as JaxEngine
+from fl_tpu.fl.local_training import \
+    FederatedTrainingConfig as JaxTrainingConfig
+from fl_tpu.models import create_model as jax_create_model
+from fl_tpu_torch.core.mesh import ClientMesh
+from fl_tpu_torch.data.federated import FederatedArrays
+from fl_tpu_torch.fl import HierarchicalConfig, HierarchicalFederatedEngine
+from fl_tpu_torch.fl.local_training import FederatedTrainingConfig
+from fl_tpu_torch.models import create_model, params_from_flax, params_to_flax
+from fl_tpu_torch.orchestration import FederatedRoundEngine, RoundEngineConfig
+
+C, N = 8, 16
+TRAIN = dict(local_epochs=2, batch_size=N, learning_rate=0.05,
+             optimizer_type="sgd", momentum=0.0)
+ASSIGN = (0, 0, 0, 1, 1, 1, 2, 2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module's tests and fixtures on one intra-op thread, restored
+    after it: several test processes share the CPU under xdist, and idle
+    OpenMP threads spinning in each starve the others' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def pieces(C=C, n=N, seed=11):
+    """The reference's two populations (``tests/test_clustered.py``): the
+    second half's labels shifted (y + 5 mod 10), so that the edges drift
+    apart; and a test set."""
+    xtr, ytr, xte, yte = synthetic_mnist(n_train=C * n, n_test=128,
+                                         seed=seed)
+    labels = ytr.reshape(C, n).astype(np.int32)
+    labels[C // 2:] = (labels[C // 2:] + 5) % 10
+    return dict(images=xtr.reshape(C, n, 28, 28, 1), labels=labels,
+                num_samples=np.full(C, n, np.int32),
+                mean=np.asarray([0.1307], np.float32),
+                std=np.asarray([0.3081], np.float32),
+                num_classes=10), xte, yte
+
+
+def port_arrays(p):
+    return FederatedArrays(**{k: (v.copy() if isinstance(v, np.ndarray)
+                                  else v) for k, v in p.items()})
+
+
+def port_model():
+    return create_model("simple_cnn", dropout_rate=0.0,
+                        fused_conv_block="residual")
+
+
+def port_engine(p, **kw):
+    kw.setdefault("training", FederatedTrainingConfig(**TRAIN))
+    return HierarchicalFederatedEngine(port_model(), port_arrays(p),
+                                       HierarchicalConfig(**kw),
+                                       device="cpu")
+
+
+def carry(jeng, teng):
+    """The reference's initial cloud model into the port's engine, every
+    edge at it."""
+    teng.cloud_variables = {"params": params_from_flax(
+        jax.device_get(jeng.cloud_variables["params"]))}
+    teng.edge_variables = teng._broadcast(teng.cloud_variables)
+
+
+@pytest.fixture(scope="module")
+def parity():
+    p, _, _ = pieces()
+    cfg = dict(num_edges=3, edge_assignment=ASSIGN, global_sync_every=2,
+               seed=0)
+    jeng = JaxEngine(jax_create_model("simple_cnn", dropout_rate=0.0,
+                                      fused_conv_block="residual"),
+                     JaxArrays(**p),
+                     JaxConfig(training=JaxTrainingConfig(**TRAIN), **cfg))
+    teng = port_engine(p, **cfg)
+    carry(jeng, teng)
+    rounds = []
+    for _ in range(2):
+        jr, tr = jeng.run_round(), teng.run_round()
+        edges = (params_to_flax(teng.edge_variables["params"]),
+                 jax.device_get(jeng.edge_variables["params"]))
+        rounds.append((jr, tr, edges))
+    return jeng, teng, rounds
+
+
+def close(got, want, rtol, atol):
+    for layer in want:
+        for k in want[layer]:
+            np.testing.assert_allclose(np.asarray(got[layer][k]),
+                                       np.asarray(want[layer][k]),
+                                       rtol=rtol, atol=atol,
+                                       err_msg=f"{layer}/{k}")
+
+
+def test_edge_models_equal_the_reference_every_round(parity):
+    _, _, rounds = parity
+    for _, _, (got, want) in rounds:
+        close(got, want, 2e-5, 2e-6)
+
+
+def test_cloud_model_equals_the_reference(parity):
+    jeng, teng, _ = parity
+    close(params_to_flax(teng.cloud_variables["params"]),
+          jax.device_get(jeng.cloud_variables["params"]), 2e-5, 2e-6)
+
+
+@pytest.mark.parametrize("name", ["train_loss", "train_accuracy",
+                                  "edge_divergence"])
+def test_round_metrics_equal_the_reference(parity, name):
+    _, _, rounds = parity
+    for jr, tr, _ in rounds:
+        assert tr.cloud_synced == jr.cloud_synced
+        assert getattr(tr, name) == pytest.approx(getattr(jr, name),
+                                                  rel=1e-5, abs=1e-7)
+    # τ = 2: the edges drift in round 0, and the sync after round 1
+    # rebroadcasts the cloud model
+    (_, r0, _), (_, r1, _) = rounds
+    assert not r0.cloud_synced and r0.edge_divergence > 1e-3
+    assert r1.cloud_synced and r1.edge_divergence == 0.0
+
+
+@pytest.mark.parametrize("edge", [None, 0, 2])
+def test_evaluate_equals_the_reference(parity, edge):
+    jeng, teng, _ = parity
+    _, xte, yte = pieces()
+    want, got = jeng.evaluate(xte, yte, edge), teng.evaluate(xte, yte, edge)
+    assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
+    assert got["accuracy"] == pytest.approx(want["accuracy"], abs=1e-6)
+
+
+def test_evaluate_refuses_an_edge_out_of_range(parity):
+    jeng, teng, _ = parity
+    _, xte, yte = pieces()
+    with pytest.raises(IndexError) as want:
+        jeng.evaluate(xte, yte, edge=3)
+    with pytest.raises(IndexError) as got:
+        teng.evaluate(xte, yte, edge=3)
+    assert str(got.value) == str(want.value)
+
+
+def flat_engine(p):
+    return FederatedRoundEngine(
+        port_model(), port_arrays(p),
+        RoundEngineConfig(training=FederatedTrainingConfig(**TRAIN),
+                          max_clients=C, seed=0), device="cpu")
+
+
+def assert_fedavg(got, want):
+    for layer in want:
+        for k in want[layer]:
+            np.testing.assert_allclose(got[layer][k].numpy(),
+                                       want[layer][k].numpy(),
+                                       rtol=1e-5, atol=1e-7,
+                                       err_msg=f"{layer}/{k}")
+
+
+def test_single_edge_tracks_the_flat_round_between_syncs():
+    p, _, _ = pieces()
+    flat = flat_engine(p)
+    hier = port_engine(p, num_edges=1, global_sync_every=3, seed=0)
+    for r in range(3):
+        flat.run_round(mask=np.ones(C, np.float32), evaluate=False)
+        res = hier.run_round()
+        assert res.cloud_synced == (r == 2)
+        assert_fedavg(hier.edge_model(0)["params"],
+                      flat.global_variables["params"])
+
+
+def test_sync_every_round_tracks_the_flat_round():
+    p, _, _ = pieces()
+    flat = flat_engine(p)
+    hier = port_engine(p, num_edges=2, global_sync_every=1, seed=0)
+    for _ in range(2):
+        flat.run_round(mask=np.ones(C, np.float32), evaluate=False)
+        res = hier.run_round()
+        assert res.cloud_synced and res.edge_divergence < 1e-6
+        assert_fedavg(hier.cloud_variables["params"],
+                      flat.global_variables["params"])
+
+
+@pytest.mark.parametrize("clients,edges", [(4, 3), (8, 3), (7, 7)])
+def test_default_assignment_leaves_no_edge_empty(clients, edges):
+    p, _, _ = pieces(C=clients, n=4)
+    jeng = JaxEngine(jax_create_model("simple_cnn"), JaxArrays(**p),
+                     JaxConfig(num_edges=edges))
+    teng = HierarchicalFederatedEngine(
+        create_model("simple_cnn"), port_arrays(p),
+        HierarchicalConfig(num_edges=edges), device="cpu")
+    np.testing.assert_array_equal(teng.assignment, jeng.assignment)
+    assert (np.bincount(teng.assignment, minlength=edges) > 0).all()
+
+
+REFUSALS = {
+    "edges0": dict(num_edges=0),
+    "edges_over_c": dict(num_edges=5),
+    "sync0": dict(global_sync_every=0),
+    "length": dict(num_edges=2, edge_assignment=(0, 1, 1)),
+    "range": dict(num_edges=2, edge_assignment=(0, 1, 2, 1)),
+    "empty_edge": dict(num_edges=3, edge_assignment=(0, 1, 1, 0)),
+    "mesh_divides": dict(num_edges=2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSALS))
+def test_refusals_carry_the_reference_messages(case):
+    p, _, _ = pieces(C=4, n=4)
+    kw = REFUSALS[case]
+    jmesh = tmesh = None
+    if case == "mesh_divides":
+        jmesh = types.SimpleNamespace(devices=np.empty(3))
+        tmesh = ClientMesh(group=None, rank=0, world_size=3,
+                           device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(ValueError) as want:
+        JaxEngine(jax_create_model("simple_cnn"), JaxArrays(**p),
+                  JaxConfig(**kw), mesh=jmesh)
+    with pytest.raises(ValueError) as got:
+        HierarchicalFederatedEngine(
+            create_model("simple_cnn"), port_arrays(p),
+            HierarchicalConfig(**kw), mesh=tmesh,
+            device=None if tmesh else "cpu")
+    assert str(got.value) == str(want.value)
+
+
+def test_without_a_card_the_engine_raises():
+    if torch.cuda.is_available():
+        pytest.skip("the machine has a card")
+    p, _, _ = pieces(C=4, n=4)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        HierarchicalFederatedEngine(create_model("simple_cnn"),
+                                    port_arrays(p), HierarchicalConfig())

@@ -1,6 +1,7 @@
 """The 2-rank runs of the port's sharded round engine and of the clustered,
-Ditto and async engines that the mesh tests read (``test_torch_mesh.py``,
-``test_torch_mesh_features.py``, ``test_torch_engines_mesh.py``).
+Ditto, async, hierarchical, decentralized, FedDF and HPO engines that the
+mesh tests read (``test_torch_mesh.py``, ``test_torch_mesh_features.py``,
+``test_torch_engines_mesh.py``, ``test_torch_topologies_mesh.py``).
 
 Spawning ranks costs seconds, so each test file's 2-rank cases run in ONE
 launch a test session: :func:`mesh_results` runs :func:`rank_job` on two
@@ -440,6 +441,112 @@ def engines_job(mesh, directory: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the hierarchical, decentralized, FedDF and HPO engines under a mesh
+# (test_torch_topologies_mesh.py)
+# ---------------------------------------------------------------------------
+
+HIER_EDGES = 3          # edge 1 holds clients 3-5: it spans both ranks
+DISTILL_STEPS, DISTILL_BATCH = 3, 8
+HPO_LRS = (0.05, 0.02, 0.1)
+
+
+def hierarchical_run(mesh=None) -> dict:
+    """Two HierFAVG rounds at τ = 2 (dropout live)."""
+    from fl_tpu_torch.fl import (HierarchicalConfig,
+                                 HierarchicalFederatedEngine)
+
+    eng = HierarchicalFederatedEngine(
+        create_model("simple_cnn"), permuted_arrays(),
+        HierarchicalConfig(training=FederatedTrainingConfig(**SGD),
+                           num_edges=HIER_EDGES, global_sync_every=2,
+                           seed=0),
+        mesh=mesh, device=_device(mesh))
+    results, edges = [], []
+    for _ in range(2):
+        results.append(eng.run_round())
+        edges.append(_host(eng.edge_variables))
+    return {"metrics": [(r.train_loss, r.train_accuracy, r.edge_divergence,
+                         r.cloud_synced) for r in results],
+            "edges": edges, "cloud": _host(eng.cloud_variables),
+            "collectives": [tuple(c) for c in eng.round_collectives]}
+
+
+def decentralized_run(mesh=None) -> dict:
+    """Two ring-gossip rounds (dropout live); every client's model."""
+    from fl_tpu_torch.fl import (DecentralizedConfig,
+                                 DecentralizedFederatedEngine)
+
+    eng = DecentralizedFederatedEngine(
+        create_model("simple_cnn"), permuted_arrays(),
+        DecentralizedConfig(training=FederatedTrainingConfig(**SGD), seed=0),
+        mesh=mesh, device=_device(mesh))
+    results = eng.run(2)
+    collectives = [tuple(c) for c in eng.round_collectives]
+    return {"metrics": [(r.train_loss, r.train_accuracy,
+                         r.consensus_distance) for r in results],
+            "clients": _host(eng._axis.gather(eng.client_variables)),
+            "mean": _host(eng.mean_model()),
+            "collectives": collectives}
+
+
+def proxy_set() -> np.ndarray:
+    from fl_tpu_torch.data import load_dataset
+
+    return load_dataset("mnist", n_train_synth=2 * DISTILL_BATCH,
+                        n_test_synth=1, seed=5).train_images
+
+
+def feddf_run(mesh=None) -> dict:
+    """Two FedDF rounds of DISTILL_STEPS SGD steps (dropout live in the
+    local training). SGD, not Adam: the teacher's logit sum is reduced in
+    another order over two ranks, and Adam's normalized step turns that
+    last-bit difference into an lr-sized step wherever a coordinate's
+    gradient is near zero."""
+    from fl_tpu_torch.fl import FedDFConfig, FedDFEngine
+
+    eng = FedDFEngine(
+        create_model("simple_cnn"), permuted_arrays(), proxy_set(),
+        FedDFConfig(training=FederatedTrainingConfig(**SGD),
+                    distill_steps=DISTILL_STEPS, distill_batch=DISTILL_BATCH,
+                    distill_lr=0.05, distill_optimizer="sgd", seed=0),
+        mesh=mesh, device=_device(mesh))
+    results = eng.run(2)
+    return {"metrics": [(r.train_loss, r.train_accuracy, r.distill_kl_before,
+                         r.distill_kl_after) for r in results],
+            "weights": _host(eng.global_variables),
+            "collectives": [tuple(c) for c in eng.round_collectives]}
+
+
+def hpo_run(mesh=None) -> dict:
+    """Three trials, a rung after round 0 (η = 2), two rounds (dropout
+    live)."""
+    from fl_tpu_torch.fl import FederatedHPOEngine, HPOConfig
+
+    splits = load_dataset("mnist", n_train_synth=N_CLIENTS * SPC,
+                          n_test_synth=64)
+    eng = FederatedHPOEngine(
+        create_model("simple_cnn"), arrays(),
+        HPOConfig(training=FederatedTrainingConfig(**SGD),
+                  learning_rates=HPO_LRS, rung_rounds=(0,), eta=2, seed=0),
+        splits.test_images, splits.test_labels, mesh=mesh,
+        device=_device(mesh))
+    first = eng.run_round()
+    collectives = [tuple(c) for c in eng.round_collectives]
+    second = eng.run_round()
+    return {"rounds": [(r.val_accuracies, r.alive_trials, r.best_trial_id,
+                        r.halved) for r in (first, second)],
+            "alive": list(eng._alive_ids),
+            "weights": _host(eng.trial_variables),
+            "collectives": collectives}
+
+
+def topologies_job(mesh) -> dict:
+    return {"hierarchical": hierarchical_run(mesh),
+            "decentralized": decentralized_run(mesh),
+            "feddf": feddf_run(mesh), "hpo": hpo_run(mesh)}
+
+
+# ---------------------------------------------------------------------------
 # the launch
 # ---------------------------------------------------------------------------
 
@@ -454,6 +561,8 @@ def rank_job(mesh, spec: dict) -> dict:
                              for name, cfg in spec["features"].items()}}
     if "engines" in spec:
         return engines_job(mesh, spec["engines"])
+    if "topologies" in spec:
+        return topologies_job(mesh)
     lo, hi = mesh.client_rows(spec["fedavg"]["counts"].shape[0])
     fedavg = {}
     for label, mask in (("masked", spec["fedavg"]["mask"]),
@@ -533,9 +642,12 @@ def jax_init_weights() -> dict:
 def build_spec(part: str, workdir) -> dict:
     """The launch's inputs for one test file: ``"features"`` (the feature
     matrix's configs), ``"engines"`` (a directory under ``workdir`` for
-    the checkpoints) or ``"mesh"`` (everything else)."""
+    the checkpoints), ``"topologies"`` or ``"mesh"`` (everything
+    else)."""
     if part == "engines":
         return {"engines": str(workdir)}
+    if part == "topologies":
+        return {"topologies": True}
     if part == "features":
         from fl_tpu.orchestration.features import FEATURES
 
