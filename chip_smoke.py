@@ -4123,11 +4123,12 @@ def mesh_engine(mesh=None, arrays=None):
         device=None if mesh is not None else DEVICE, mesh=mesh)
 
 
-def mesh_rounds(engine):
+def mesh_rounds(engine, trace_dir=None):
     """A warm-up round, then MESH_ROUNDS pipelined ones: returns (the
     launch counts of the pipelined rounds, rounds/s, peak memory in GiB,
     the losses with the warm-up's first, the collectives of the last
-    round, the weights on the host)."""
+    round, the weights on the host, and with ``trace_dir``
+    :func:`mesh_entry_points`' results, else None)."""
     import torch
 
     from fl_tpu_torch import ops
@@ -4145,16 +4146,46 @@ def mesh_rounds(engine):
             torch.cuda.max_memory_allocated() / 2 ** 30,
             [r.train_loss for r in [warm] + results],
             list(engine.round_collectives),
-            {k: v.cpu() for k, v in engine.get_model_weights().items()})
+            {k: v.cpu() for k, v in engine.get_model_weights().items()},
+            None if trace_dir is None
+            else mesh_entry_points(engine, trace_dir))
 
 
-def mesh_rank_job(mesh):
-    """One gloo rank's share of the bench round (``phase_mesh``)."""
+def mesh_entry_points(engine, trace_dir):
+    """``evaluate_personalized`` (one fine-tune epoch) and ``profile_round``
+    after the rounds: (their launches, the per-client arrays, the summary,
+    the seconds of each, the profiled round's loss, the trace's bytes and
+    path). ``trace_dir=""`` runs the round through ``run_round`` instead
+    (the unsharded reference of the ranks' profiled round)."""
+    import torch
+
+    from fl_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pers = engine.evaluate_personalized()
+    t1 = time.perf_counter()
+    if trace_dir:
+        prof = engine.profile_round(trace_dir)
+        path = engine.last_trace_path
+    else:
+        prof, path = engine.run_round(evaluate=False), None
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    return (counts, pers.pop("per_client"), pers, (t1 - t0, t2 - t1),
+            prof.train_loss, os.path.getsize(path) if path else 0, path)
+
+
+def mesh_rank_job(mesh, trace_dir):
+    """One gloo rank's share of the bench round and of the entry points
+    after it (``phase_mesh``)."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return mesh_rounds(mesh_engine(mesh))
+    return mesh_rounds(mesh_engine(mesh), trace_dir)
 
 
 def check_mesh_counts(label, counts):
@@ -4165,6 +4196,48 @@ def check_mesh_counts(label, counts):
     require(counts == want, f"{label}: launches {counts}, expected {want}")
 
 
+# evaluate_personalized: 2 fine-tune steps and 2 holdout forwards;
+# profile_round: one round
+MESH_ENTRY_LAUNCHES = {"conv_block_fwd": 2 + 2 + 10, "conv_block_bwd": 2 + 10,
+                       "clip_noise": 2}
+
+
+def check_mesh_entry_points(label, got, want):
+    """A rank's ``evaluate_personalized`` and ``profile_round`` against the
+    unsharded engine's: the same launches, holdout sizes and summary keys;
+    the per-client accuracies equal on at least 95% of the clients and the
+    mean accuracies within 0.01 (the model is the bench's noise, σ ≈ 154
+    an element, and the ranks' weights differ from the unsharded ones by
+    ulps of it, which can flip an argmax at a near-tie); the profiled
+    round's loss within 1e-4. Returns the text of its line."""
+    import numpy as np
+
+    counts, per, summary, secs, loss, nbytes, _ = got
+    require(counts == MESH_ENTRY_LAUNCHES,
+            f"{label}: entry points' launches {counts}, expected "
+            f"{MESH_ENTRY_LAUNCHES}")
+    require(set(summary) == set(want[2]) and set(per) == set(want[1])
+            and np.array_equal(per["n_holdout"], want[1]["n_holdout"])
+            and per["n_holdout"].shape == (NUM_CLIENTS,),
+            f"{label}: evaluate_personalized's keys or holdout sizes differ")
+    same = {k: float(np.mean(per[k] == want[1][k]))
+            for k in ("global_accuracy", "personalized_accuracy")}
+    gaps = {k: abs(summary[k] - want[2][k])
+            for k in ("mean_global_accuracy", "mean_personalized_accuracy")}
+    require(min(same.values()) >= 0.95 and max(gaps.values()) <= 0.01,
+            f"{label}: per-client accuracies equal on {same}, mean gaps "
+            f"{gaps}")
+    rel = abs(loss - want[4]) / abs(want[4])
+    require(rel <= 1e-4 and nbytes > 0,
+            f"{label}: profiled loss {loss} against {want[4]}, trace "
+            f"{nbytes} B")
+    return (f"evaluate_personalized {secs[0]:.2f}s (gain "
+            f"{summary['mean_personalization_gain']:+.4f}, accuracies equal "
+            f"to the unsharded on {100 * min(same.values()):.1f}% of the "
+            f"clients), profile_round {secs[1]:.2f}s (loss rel. gap "
+            f"{rel:.1e}, trace {nbytes / 2 ** 20:.1f} MiB)")
+
+
 def phase_mesh(card):
     """The client axis over ranks (``core.mesh``, ``parallel``): the bench
     round unsharded, on a one-rank NCCL mesh (the same code with the
@@ -4173,17 +4246,26 @@ def phase_mesh(card):
     unsharded round: each leaf within 1e-6 + 1e-5 of its largest weight
     (the noised sum's scale), the warm-up round's loss within 1e-5
     relative and the noise-destroyed model's later losses within 1e-4.
-    Every rank must launch K1, K2 and K3; a failing rank fails the
-    run."""
+    After the rounds each gloo rank runs ``evaluate_personalized`` and
+    ``profile_round`` (one trace a rank under ``rank<r>``), held by
+    :func:`check_mesh_entry_points` to the unsharded engine's
+    ``evaluate_personalized`` and the same round through ``run_round``. Every rank must
+    launch K1, K2 and K3; a failing rank fails the run. Returns the
+    entry points' launches on the ranks."""
+    import tempfile
+
     import torch
     import torch.distributed as dist
 
     from fl_tpu_torch.core.mesh import make_mesh, spawn
 
     t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="fl_mesh_traces_")
     arrays = bench_arrays()
-    plain = mesh_rounds(mesh_engine(arrays=arrays))
+    plain = mesh_rounds(mesh_engine(arrays=arrays), "")
     check_mesh_counts("mesh unsharded", plain[0])
+    require(plain[6][0] == MESH_ENTRY_LAUNCHES,
+            f"mesh unsharded: entry points' launches {plain[6][0]}")
     torch.cuda.empty_cache()
 
     mesh = make_mesh()
@@ -4211,8 +4293,8 @@ def phase_mesh(card):
           f"{one[0]} [{card}]", flush=True)
 
     t0 = time.perf_counter()
-    ranks = spawn(mesh_rank_job, MESH_RANKS, backend="gloo",
-                  device="cuda:0")
+    ranks = spawn(mesh_rank_job, MESH_RANKS, os.path.join(tmp.name, "mesh"),
+                  backend="gloo", device="cuda:0")
     spawn_s = time.perf_counter() - t0
     text = []
     for r, got in enumerate(ranks):
@@ -4241,19 +4323,31 @@ def phase_mesh(card):
         rel = [abs(x - y) / abs(y) for x, y in zip(got[3], plain[3])]
         require(rel[0] <= 1e-5 and max(rel) <= 1e-4,
                 f"mesh gloo rank {r}: losses {got[3]} against {plain[3]}")
+        entry = check_mesh_entry_points(f"mesh gloo rank {r}", got[6],
+                                        plain[6])
+        require(os.path.basename(os.path.dirname(got[6][6])) == f"rank{r}",
+                f"mesh gloo rank {r}: trace at {got[6][6]}")
         text.append(f"rank {r}: {NUM_CLIENTS // MESH_RANKS} clients, "
                     f"{got[1]:.3f} rounds/s, peak memory {got[2]:.2f} GiB, "
                     f"launches {got[0]}, max |w - w_unsharded| {worst:.2e} "
                     f"({100 * elementwise:.3f}% of the weights within rtol "
                     f"1e-5 / atol 1e-6 element by element), losses' rel. "
-                    f"gaps {[f'{v:.1e}' for v in rel]}")
+                    f"gaps {[f'{v:.1e}' for v in rel]}; {entry}")
     require(all(torch.equal(ranks[0][5][k], v)
                 for k, v in ranks[1][5].items()),
             "mesh gloo: the ranks' global models differ")
+    tmp.cleanup()
     print(f"mesh gloo world_size={MESH_RANKS} on one card (CUDA tensors "
           f"through gloo; spawn and both ranks {spawn_s:.1f}s): "
-          + "; ".join(text) + f"; phase {time.perf_counter() - t_phase:.1f}s"
+          + "; ".join(text) + f"; unsharded evaluate_personalized "
+          f"{plain[6][3][0]:.2f}s, the same round unprofiled "
+          f"{plain[6][3][1]:.2f}s; phase {time.perf_counter() - t_phase:.1f}s"
           f" [{card}]", flush=True)
+    launched = {}
+    for got in ranks:
+        for k, v in got[6][0].items():
+            launched[k] = launched.get(k, 0) + v
+    return launched
 
 
 # ---------------------------------------------------------------------------
@@ -5403,6 +5497,398 @@ def phase_topologies(card, counts, report):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the simulation entry point, the validation harness, vertical FL and
+# federated analytics
+# ---------------------------------------------------------------------------
+
+VAL_SIM = (5, 10)           # the README's quick start: clients, rounds
+VAL_CLI_ROUNDS = 1          # the command line's rounds (cut from 10: the
+                            # same code as the in-process run, 6.6-8.4 s a
+                            # round)
+VAL_K3_SHAPE = (4, 65_536)  # PrivacyValidator's noise test
+VAL_INV_STEPS = 300         # the inversion attack's Adam steps (2 restarts)
+VAL_HIST = (4096, 16_384)   # dp_histogram: clients x buckets
+VAL_PARTIES = 4             # vertical FL over the 20,000-row synthetic MNIST
+
+
+def _k3_since(label, want):
+    """K3's launches since the last reset, required equal to ``want``;
+    no other kernel may have launched."""
+    got, ok = _launched(clip_noise=want)
+    require(ok, f"{label}: launches {got}, expected clip_noise={want} and "
+            "nothing else")
+    return want
+
+
+def validation_k3_check(card):
+    """K3 through ``clip_noise_matrix`` at the validator's (4, 65,536)
+    shape against ``clip_noise_plain``, row i scaled by 10^i so that rows
+    1-3 lie above the clip norm (row norms about 0.26, 2.6, 26, 256
+    against 1.0): exact at σ = 0 (ε = inf), and its noise at ε = 1 by
+    moments. Comparison launches: not counted."""
+    import torch
+
+    from fl_tpu_torch.ops import dp as dp_ops
+
+    g = torch.Generator(device=DEVICE).manual_seed(19)
+    x = torch.randn(VAL_K3_SHAPE, device=DEVICE, generator=g) * 0.001
+    x *= 10.0 ** torch.arange(VAL_K3_SHAPE[0], device=DEVICE)[:, None]
+    norms = x.square().sum(1).sqrt()
+    clipped = x * torch.clamp(1.0 / norms, max=1.0)[:, None]
+    seeds = [101, 102, 103, 104]
+    got, sens, sig = dp_ops.clip_noise_matrix(x, seeds, math.inf, 1e-5, 1.0)
+    want, wsens, wsig = dp_ops.clip_noise_matrix(x, seeds, math.inf, 1e-5,
+                                                 1.0, use_pallas=False)
+    n_clip = int((norms > 1.0).sum())
+    require(n_clip == 3 and torch.equal(got, want)
+            and torch.equal(sens, wsens)
+            and float(sig.abs().max()) == 0.0
+            and float((got - clipped).abs().max()) < 1e-6,
+            f"validation K3: clip_noise_matrix at sigma 0 differs from "
+            f"clip_noise_plain ({n_clip} rows above the clip norm, max "
+            f"|got - clipped| {float((got - clipped).abs().max())})")
+    noisy, sens, sig = dp_ops.clip_noise_matrix(x, seeds, 1.0, 1e-5, 1.0)
+    resid = noisy - clipped
+    ratio = (resid.std(1) / sig).cpu()
+    mean = (resid.mean(1) / sig).cpu()
+    kurt = ((resid / sig[:, None]) ** 4).mean(1).cpu()
+    require(bool(((ratio - 1).abs() < 0.02).all())
+            and bool((mean.abs() < 5 / 256).all())
+            and bool(((kurt - 3).abs() < 0.1).all()),
+            f"validation K3: noise std/sigma {ratio.tolist()}, mean/sigma "
+            f"{mean.tolist()}, kurtosis {kurt.tolist()}")
+    plain = dp_ops.clip_noise_matrix(x, seeds, 1.0, 1e-5, 1.0,
+                                     use_pallas=False)[0]
+    ms = time_ms(lambda: dp_ops.clip_noise_matrix(x, seeds, 1.0, 1e-5, 1.0))
+    plain_ms = time_ms(lambda: dp_ops.clip_noise_matrix(
+        x, seeds, 1.0, 1e-5, 1.0, use_pallas=False))
+    print(f"validation K3 clip_noise_matrix {VAL_K3_SHAPE}, {n_clip} of "
+          f"{VAL_K3_SHAPE[0]} rows above the clip norm: sigma=0 equal to "
+          f"clip_noise_plain bit for bit; at eps=1 noise std/sigma "
+          f"{min(ratio.tolist()):.4f}..{max(ratio.tolist()):.4f}, kurtosis "
+          f"{min(kurt.tolist()):.3f}..{max(kurt.tolist()):.3f} (plain "
+          f"version's std/sigma "
+          f"{float(((plain - clipped).std(1) / sig).mean()):.4f}); "
+          f"{ms:.3f} ms (plain {plain_ms:.3f} ms) [{card}]", flush=True)
+
+
+def validation_simulation(card):
+    """``run_mnist_simulation(5, 10)`` (the quick start: delta DP at
+    epsilon 1 over 10 rounds, non-IID, heterogeneous epoch budgets) and the
+    command line in a subprocess. Returns K3's launches."""
+    import torch
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.orchestration.simulation import run_mnist_simulation
+
+    clients, rounds = VAL_SIM
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_mnist_simulation(clients, rounds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hist = res["round_history"]
+    # 2 leaf groups a delta-DP round: fc1's kernel alone, the rest together
+    k3 = _k3_since("validation simulation", 2 * len(hist))
+    require(res["rounds_completed"] == rounds
+            and res["stop_reason"] == "round_budget_exhausted"
+            and all(math.isfinite(h["train_loss"]) for h in hist)
+            and abs(res["total_epsilon_spent"] - 1.0) < 1e-9,
+            f"validation simulation: {res['rounds_completed']} rounds, "
+            f"{res['stop_reason']}, eps {res['total_epsilon_spent']}")
+    # the collector's rounds run from start_round to complete_round: the
+    # round with its evaluation, on the host's clock
+    wall_round = res["training_progress"]["avg_round_duration_s"]
+    print(f"validation run_mnist_simulation({clients}, {rounds}): "
+          f"rounds/s {res['rounds_per_sec']:.3f} (the results' formula, "
+          f"rounds over the sum of round_time_s), wall clock "
+          f"{1 / wall_round:.3f} rounds/s (each round with its evaluation; "
+          f"the call {wall:.2f}s with data and build); final "
+          f"accuracy {res['final_accuracy']:.4f} (best "
+          f"{res['best_accuracy']:.4f}), eps spent "
+          f"{res['total_epsilon_spent']:.3f} of "
+          f"{res['privacy_budget']['initial_epsilon']}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; K3 "
+          f"launches {k3} [{card}]", flush=True)
+
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "fl_tpu_torch.orchestration.simulation",
+         "--clients", str(clients), "--rounds", str(VAL_CLI_ROUNDS)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    require(out.returncode == 0,
+            f"validation CLI exited {out.returncode}: {out.stderr[-2000:]}")
+    cli = json.loads(out.stdout)
+    require(cli["rounds_completed"] == VAL_CLI_ROUNDS
+            and cli["stop_reason"] == "round_budget_exhausted",
+            f"validation CLI: {cli['rounds_completed']} rounds, "
+            f"{cli['stop_reason']}")
+    refused = subprocess.run(
+        [sys.executable, "-m", "fl_tpu_torch.orchestration.simulation",
+         "--backend", "grpc"], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    require(refused.returncode != 0 and "services slice" in refused.stderr,
+            "validation CLI: --backend grpc was not refused by name")
+    print(f"validation CLI python -m fl_tpu_torch.orchestration.simulation "
+          f"--clients {clients} --rounds {VAL_CLI_ROUNDS}: exit 0 in "
+          f"{cli_s:.1f}s "
+          f"(process start included), rounds/s {cli['rounds_per_sec']:.3f} "
+          f"(wall {cli['wall_time_s']:.2f}s in the run), final accuracy "
+          f"{cli['final_accuracy']:.4f}, eps spent "
+          f"{cli['total_epsilon_spent']:.3f}; --backend grpc refused by name "
+          f"[{card}]", flush=True)
+    return k3
+
+
+def validation_privacy(card):
+    """``ComprehensiveValidator().run_all()`` on the card: the noise test
+    through ``clip_noise_matrix`` (K3, 4 launches) and the split-budget
+    test through the privacy engine's releases (K3 at scale 1, 5 launches;
+    the 6th is refused before any noise); then numpy gradients through
+    ``create_privacy_engine().add_noise``, which puts them on the card
+    (K3, 1 launch). Returns K3's launches."""
+    import numpy as np
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.fl.privacy import create_privacy_engine, gaussian_sigma
+    from fl_tpu_torch.validation import ComprehensiveValidator
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = ComprehensiveValidator().run_all()
+    dt = time.perf_counter() - t0
+    require(res["all_passed"], f"validation privacy: {res}")
+    grads = {"w": np.full((65_536,), 0.01, np.float32),
+             "b": np.zeros((10,), np.float32)}
+    noisy = create_privacy_engine(seed=0).add_noise(grads, 0.5, 1e-6)
+    k3 = _k3_since("validation privacy", 4 + 5 + 1)
+    resid = noisy["w"] - 0.01 / float(np.sqrt(65_536 * 0.01 ** 2))
+    ratio = float(resid.std()) / gaussian_sigma(1.0, 0.5, 1e-6)
+    require(noisy["w"].is_cuda and abs(ratio - 1) < 0.02,
+            f"validation privacy engine: numpy gradients released on "
+            f"{noisy['w'].device}, noise std/sigma {ratio}")
+    noise = res["noise"]
+    print(f"validation PrivacyValidator: all passed in {dt:.2f}s; noise "
+          f"std/sigma {noise['observed_ratio_min']:.4f}.."
+          f"{noise['observed_ratio_max']:.4f} (band {noise['bounds']}), "
+          f"budget {res['budget']['consumed_epsilon']:.3f} of 1, split "
+          f"budget exhausted and the overdraw refused; numpy gradients "
+          f"through create_privacy_engine().add_noise released on the card "
+          f"(noise std/sigma {ratio:.4f}); K3 launches {k3} [{card}]",
+          flush=True)
+    return k3
+
+
+def validation_attacks(card):
+    """One inversion report (SimpleCNN, unfused: the attack's double
+    backward), one membership report (the ``"residual"`` model trained to
+    memorize 8 clients' 64 images) and one label-flip case (2 of 8
+    attackers, 50x inflated counts): trimmed mean must beat FedAvg.
+    Returns the launches."""
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.core import prng
+    from fl_tpu_torch.data import load_dataset, make_federated_arrays
+    from fl_tpu_torch.fl.local_training import FederatedTrainingConfig
+    from fl_tpu_torch.models import create_model
+    from fl_tpu_torch.orchestration import (FederatedRoundEngine,
+                                            RoundEngineConfig)
+    from fl_tpu_torch.validation import (InversionAttackConfig,
+                                         evaluate_membership_risk,
+                                         evaluate_poisoning_robustness,
+                                         inversion_report)
+
+    totals = {}
+
+    def add(got):
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+
+    ops.reset_launch_counts()
+    splits = load_dataset("mnist", n_train_synth=1024, n_test_synth=512,
+                          seed=3)
+    model = create_model("simple_cnn")
+    variables = {"params": model.init(prng.generator(7, DEVICE), DEVICE)}
+    t0 = time.perf_counter()
+    rep = inversion_report(
+        model, variables, splits.train_images[:1], splits.train_labels[:1],
+        splits.mean, splits.std,
+        attack_config=InversionAttackConfig(steps=VAL_INV_STEPS, restarts=2))
+    inv_s = time.perf_counter() - t0
+    got, ok = _launched(clip_noise=1)  # the DP release
+    require(ok, f"validation inversion: launches {got}")
+    add(got)
+    npv, dpv = rep["non_private"], rep["dp"]
+    require(npv["mse"] < dpv["mse"] and rep["protected"]
+            and npv["label_accuracy"] == 1.0,
+            f"validation inversion: non-private mse {npv['mse']}, DP mse "
+            f"{dpv['mse']}")
+    print(f"validation inversion_report ({VAL_INV_STEPS} steps x 2 "
+          f"restarts, batch 1): non-private PSNR {npv['psnr_db']:.2f} dB "
+          f"(mse {npv['mse']:.4f}, label accuracy {npv['label_accuracy']}), "
+          f"eps=1 DP PSNR {dpv['psnr_db']:.2f} dB (mse {dpv['mse']:.4f}, "
+          f"sigma {dpv['noise_sigma']:.3f}); {inv_s:.2f}s for both attacks "
+          f"({1e3 * inv_s / (2 * VAL_INV_STEPS):.2f} ms a step of 2 "
+          f"restarts); K3 launches 1 [{card}]", flush=True)
+
+    # membership: a model made to memorize its members
+    arrays = make_federated_arrays(splits, num_clients=8, strategy="iid",
+                                   samples_per_client=64, seed=0)
+    cfg = RoundEngineConfig(training=FederatedTrainingConfig(
+        local_epochs=5, batch_size=32, learning_rate=0.003), seed=0,
+        max_clients=8)
+    ops.reset_launch_counts()
+    eng = FederatedRoundEngine(
+        create_model("simple_cnn", fused_conv_block="residual"), arrays,
+        cfg, device=DEVICE)
+    for _ in range(8):
+        eng.run_round(evaluate=False)
+    nonmembers = load_dataset("mnist", n_train_synth=512, n_test_synth=64,
+                              seed=11)
+    t0 = time.perf_counter()
+    mrep = evaluate_membership_risk(eng, nonmembers.train_images,
+                                    nonmembers.train_labels)
+    mem_s = time.perf_counter() - t0
+    # 8 rounds x 5 epochs x 2 steps; the attack's 4 forwards (2 chunks of
+    # 256 members, 2 of non-members)
+    got, ok = _launched(conv_block_fwd=80 + 4, conv_block_bwd=80)
+    require(ok, f"validation membership: launches {got}")
+    add(got)
+    require(mrep.n_members == 512 and 0.0 <= mrep.auc <= 1.0
+            and math.isfinite(mrep.member_loss_mean)
+            and math.isfinite(mrep.nonmember_loss_mean),
+            f"validation membership: {mrep}")
+    print(f"validation membership report (8 clients x 64, 8 rounds of 5 "
+          f"epochs, 'residual'): AUC {mrep.auc:.4f}, advantage "
+          f"{mrep.advantage:.4f}, member / non-member loss "
+          f"{mrep.member_loss_mean:.4f} / {mrep.nonmember_loss_mean:.4f} "
+          f"over {mrep.n_members} / {mrep.n_nonmembers}; the attack's "
+          f"forward {1e3 * mem_s:.1f} ms [{card}]", flush=True)
+    del eng
+
+    # one label-flip case
+    x_test = splits.normalized(splits.test_images)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pois = evaluate_poisoning_robustness(
+        lambda: create_model("simple_cnn", fused_conv_block="residual"),
+        arrays, x_test, splits.test_labels, attacker_ids=[1, 5],
+        training=FederatedTrainingConfig(local_epochs=3, batch_size=16,
+                                         learning_rate=0.05,
+                                         optimizer_type="sgd"),
+        aggregations=("fedavg", "trimmed_mean"), num_rounds=5,
+        inflate_samples=50.0, seed=0)
+    pois_s = time.perf_counter() - t0
+    got = ops.launch_counts()
+    require(got["conv_block_fwd"] > 0 and got["conv_block_bwd"] > 0
+            and got["clip_noise"] == 0,
+            f"validation poisoning: launches {got}")
+    add(got)
+    p = pois["poisoned"]
+    require(p["trimmed_mean"] > p["fedavg"],
+            f"validation poisoning: trimmed mean {p['trimmed_mean']} does "
+            f"not beat FedAvg {p['fedavg']}")
+    print(f"validation label flip (2 of 8 attackers, 50x counts, 5 rounds "
+          f"'residual'): clean FedAvg {pois['clean_fedavg']:.4f}, poisoned "
+          f"FedAvg {p['fedavg']:.4f}, trimmed mean {p['trimmed_mean']:.4f}; "
+          f"{pois_s:.1f}s for the 3 engines [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    return totals
+
+
+def validation_analytics_vertical(card):
+    """``dp_histogram`` at 4,096 clients x 16,384 buckets (a 256 MB int32
+    count matrix summed and noised on the card) and the vertical engine
+    with 4 parties over the 20,000-row synthetic MNIST."""
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.data import load_dataset
+    from fl_tpu_torch.fl import (VerticalConfig, VerticalFLEngine,
+                                 dp_histogram, heavy_hitters, split_features)
+
+    C, D = VAL_HIST
+    rng = np.random.default_rng(0)
+    w = 1.0 / (np.arange(D) + 1.0)
+    sizes = rng.integers(1, 9, size=C)
+    flat = rng.choice(D, size=int(sizes.sum()), p=w / w.sum())
+    items = np.split(flat, np.cumsum(sizes)[:-1])
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = dp_histogram(items, D, epsilon=1.0, delta=1e-6,
+                       max_items_per_client=8, seed=0)
+    hist_s = time.perf_counter() - t0
+    got, ok = _launched()
+    require(ok, f"validation dp_histogram: launches {got}")
+    truth = np.bincount(flat, minlength=D).astype(np.float64)
+    noise = res.counts - truth
+    hh = heavy_hitters(res, k=5, tau=4.0)
+    require(res.participants == C and res.epsilon <= 1.0 + 1e-9
+            and abs(noise.std() / res.sigma - 1) < 0.05
+            and 0 in hh,
+            f"validation dp_histogram: eps {res.epsilon}, noise std "
+            f"{noise.std()} against sigma {res.sigma}, hitters {hh}")
+    print(f"validation dp_histogram {C} clients x {D} buckets (int32 count "
+          f"matrix {C * D * 4 / 2 ** 20:.0f} MiB): {1e3 * hist_s:.1f} ms "
+          f"(host counts, upload, sum and noise), eps {res.epsilon:.4f}, "
+          f"sigma {res.sigma:.3f}, noise std/sigma "
+          f"{noise.std() / res.sigma:.4f}, heavy hitters {sorted(hh)} "
+          f"[{card}]", flush=True)
+
+    splits = load_dataset("mnist", n_train_synth=20_000, n_test_synth=4_000)
+    x = splits.normalized(splits.train_images)
+    xt = splits.normalized(splits.test_images)
+    eng = VerticalFLEngine(split_features(x, VAL_PARTIES),
+                           splits.train_labels, 10, VerticalConfig(),
+                           test_splits=split_features(xt, VAL_PARTIES),
+                           test_labels=splits.test_labels)
+    times, logs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs.append(eng.run_epoch())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ev = eng.evaluate()
+    require(ev["accuracy"] > 0.8 and logs[1]["train_loss"]
+            < logs[0]["train_loss"], f"validation vertical: {logs} {ev}")
+    print(f"validation vertical FL ({VAL_PARTIES} parties x "
+          f"{x[0].size // VAL_PARTIES} columns, 20,000 rows, batch 64): "
+          f"epochs {[round(t, 3) for t in times]} s "
+          f"({int(20_000 // 64) / times[1]:.0f} steps/s), train loss "
+          f"{[round(l['train_loss'], 4) for l in logs]}, test accuracy "
+          f"{ev['accuracy']:.4f}; exchanged {eng.exchanged_bytes_per_epoch()}"
+          f" B an epoch against {eng.raw_feature_bytes()} B of raw columns "
+          f"[{card}]", flush=True)
+
+
+def phase_validation(card, counts):
+    """The simulation entry point, the validation harness (privacy,
+    security, inversion, membership, poisoning), federated analytics and
+    vertical FL on the card. K3's launches on the new paths (the
+    simulation's delta-DP rounds, the validators' releases, the inversion
+    report's DP release) join ``counts``, and so do K1/K2's."""
+    t_phase = time.perf_counter()
+    validation_k3_check(card)
+    k3 = validation_simulation(card)
+    k3 += validation_privacy(card)
+    attacks = validation_attacks(card)
+    validation_analytics_vertical(card)
+    for k, v in attacks.items():
+        counts[k] = counts.get(k, 0) + v
+    counts["clip_noise"] = counts.get("clip_noise", 0) + k3
+    print(f"validation: K3 launches on the new paths {k3 + attacks['clip_noise']}"
+          f" (simulation, validators, inversion); phase "
+          f"{time.perf_counter() - t_phase:.1f}s [{card}]", flush=True)
+
+
 def kernel_report():
     src_cu = "fl_tpu_torch/csrc/conv_block.cu"
     rows = (
@@ -5510,12 +5996,17 @@ def main() -> int:
     # ViT with LoRA, the MobileNet; K3 at their groups
     phase_zoo(card)
 
-    # 5i. the client axis sharded over ranks
-    phase_mesh(card)
+    # 5i. the client axis sharded over ranks, with evaluate_personalized and
+    # profile_round on the ranks
+    for k, v in phase_mesh(card).items():
+        counts[k] = counts.get(k, 0) + v
     # 5j. the clustered (IFCA), Ditto and async (FedBuff) engines
     phase_engines(card, counts)
     # 5k. the hierarchical, decentralized, FedDF and HPO engines
     phase_topologies(card, counts, report)
+    # 5l. the simulation entry point, the validators and attacks, federated
+    # analytics and vertical FL
+    phase_validation(card, counts)
 
     # 6. learning checks
     learning_check("residual")

@@ -16,13 +16,20 @@ find, and imports torch and never JAX:
                                  adaptive clipping, FedAvg, convergence,
                                  partitioning, uplink compression with
                                  error feedback (int8, top-k, PowerSGD),
-                                 the wire codecs
+                                 the wire codecs, the topology engines,
+                                 vertical FL and federated analytics
 - ``fl_tpu_torch.native``        the LZ4 codec (C++, built by g++ at first
                                  use, bound with ctypes)
-- ``fl_tpu_torch.orchestration`` the round engine
+- ``fl_tpu_torch.orchestration`` the round engine, its checkpoints, the
+                                 metrics collector and the simulation
+                                 (``python -m fl_tpu_torch.orchestration.
+                                 simulation``)
 - ``fl_tpu_torch.parallel``      the client axis sharded over GPUs: one
                                  ``torch.distributed`` rank a shard
-- ``fl_tpu_torch.validation``    the client-level membership audit
+- ``fl_tpu_torch.validation``    the privacy, security and performance
+                                 validators, the membership audit and the
+                                 inversion, membership and poisoning
+                                 attacks
 
 Parameters keep the JAX layouts and flax names; client state is stacked
 ``(C, ...)`` tensors with the client axis written out.

@@ -1,12 +1,26 @@
 """Host-side configuration types of the port.
 
-Only :class:`PrivacyConfig` is ported so far (``fl_tpu.core.types``); the
-wire payload classes follow with the services layer.
+:class:`PrivacyConfig` and :class:`ComputePowerLevel` are ported so far
+(``fl_tpu.core.types``); the wire payload classes follow with the
+services layer.
 """
 
 from __future__ import annotations
 
+import enum
 from dataclasses import dataclass
+
+
+class ComputePowerLevel(enum.Enum):
+    """Client compute class used for capability-adaptive round configs.
+
+    ref: src/shared/models.py:13-17 and the proto enum ComputePowerLevel
+    (proto/federated_learning.proto:66-71).
+    """
+
+    LOW = "low"
+    MEDIUM = "medium"
+    HIGH = "high"
 
 
 @dataclass

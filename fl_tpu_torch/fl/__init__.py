@@ -1,9 +1,16 @@
 """Federated core: local training, delta and client-level DP with their
-accountants, FedAvg, convergence, partitioning, compression, and the
+accountants, FedAvg, convergence, partitioning, compression, the
 clustered (IFCA), Ditto, asynchronous (FedBuff), hierarchical (HierFAVG),
-decentralized (D-PSGD), FedDF and federated-HPO engines (port of
-fl_tpu.fl)."""
+decentralized (D-PSGD), FedDF, federated-HPO and vertical (SplitNN)
+engines, and federated analytics (port of fl_tpu.fl)."""
 
+from fl_tpu_torch.fl.analytics import (  # noqa: F401
+    AnalyticsResult,
+    RandomizedResponse,
+    dp_histogram,
+    dp_quantiles,
+    heavy_hitters,
+)
 from fl_tpu_torch.fl.async_fl import (  # noqa: F401
     AsyncConfig,
     AsyncFederatedEngine,
@@ -49,4 +56,9 @@ from fl_tpu_torch.fl.peft import (  # noqa: F401
     lora_trainable_patterns,
     merge_lora,
     trainable_mask,
+)
+from fl_tpu_torch.fl.vertical import (  # noqa: F401
+    VerticalConfig,
+    VerticalFLEngine,
+    split_features,
 )

@@ -76,19 +76,20 @@ def make_federated_eval_fn(model, samples_per_client: int, mean, std,
     return evaluate
 
 
-def gather_scores(engine, out: Dict[str, torch.Tensor]
-                  ) -> Dict[str, np.ndarray]:
-    """A federated evaluation's (CL,) ``loss`` / ``accuracy`` / ``n`` of
-    this rank's rows as (C,) host arrays in global order: one all-reduce
-    of the three packed under a mesh (the engine's client axis), a copy
-    without one."""
+def gather_scores(engine, out: Dict[str, torch.Tensor],
+                  count: str = "n") -> Dict[str, np.ndarray]:
+    """An evaluation's (CL,) per-client metrics of this rank's rows (a
+    federated evaluation's ``loss`` / ``accuracy`` / ``n``, the
+    personalization's five) as (C,) host arrays in global order: one
+    all-reduce of them packed under a mesh (the engine's client axis), a
+    copy without one. ``count`` names the integer one."""
     if engine.mesh is None:
         return {k: v.cpu().numpy() for k, v in out.items()}
-    keys = ("loss", "accuracy", "n")
+    keys = list(out)
     packed = engine._axis.psum(torch.stack(
         [engine._axis.per_client(out[k].float()) for k in keys])).cpu().numpy()
     got = dict(zip(keys, packed))
-    got["n"] = got["n"].astype(np.int32)
+    got[count] = got[count].astype(np.int32)
     return got
 
 

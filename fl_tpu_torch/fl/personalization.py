@@ -17,6 +17,12 @@ epoch; per-client streams below it).
 A BatchNorm model fine-tunes its running statistics with its parameters,
 as the trainer carries them: the global model is scored with the global
 statistics, the personalized one with its own.
+
+Under a client mesh each rank fine-tunes and scores its own rows (the
+trainer's ``rows=(first, total)``: a client draws what it draws in one
+process), and the per-client results come back in global order through
+one all-reduce of the five packed (each rank's rows at their offset of a
+zeroed (C,) vector), so every rank returns the single-process dict.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch.nn.functional as F
 
 from fl_tpu_torch.core import prng
 from fl_tpu_torch.core.pytree import tree_map
+from fl_tpu_torch.fl.federated_eval import gather_scores
 from fl_tpu_torch.fl.local_training import (
     FederatedTrainingConfig,
     make_local_train_fn,
@@ -45,7 +52,8 @@ def make_personalization_fn(model, training: FederatedTrainingConfig,
     batch_stats=None) -> metrics`` over the stacked client axis
     (``batch_stats``: a BatchNorm model's (C, ...) running statistics).
 
-    Each client's padded shard is split positionally: the first
+    ``rows``: the trainer's ``(first, total)`` of a shard of the client
+    axis. Each client's padded shard is split positionally: the first
     ``⌊finetune_fraction·n⌋`` valid samples fine-tune the global model for
     ``finetune_epochs`` (the trainer of ``training``), the remaining valid
     samples are the held-out set for both the global and the personalized
@@ -74,7 +82,7 @@ def make_personalization_fn(model, training: FederatedTrainingConfig,
         return loss, acc
 
     def personalize(params, images_u8, labels, n_valid, seed: int,
-                    batch_stats=None):
+                    batch_stats=None, rows=None):
         n = torch.clamp(n_valid.to(torch.int32), min=1)
         # ≥1 fine-tune sample and ≥1 holdout sample whenever n ≥ 2; n == 1
         # has no valid split: n_ft = 1 and an empty holdout, which weighs
@@ -84,12 +92,13 @@ def make_personalization_fn(model, training: FederatedTrainingConfig,
                         min=1),
             torch.clamp(n - 1, min=1))
         if batch_stats is None:
-            tuned, _ = local_train(params, images_u8, labels, n_ft, seed)
+            tuned, _ = local_train(params, images_u8, labels, n_ft, seed,
+                                   rows=rows)
             tuned_stats = None
         else:
             tuned, _, extra = local_train(
                 params, images_u8, labels, n_ft, seed,
-                extra={"batch_stats": batch_stats})
+                extra={"batch_stats": batch_stats}, rows=rows)
             tuned_stats = extra["batch_stats"]
         g_loss, g_acc = holdout_metrics(params, images_u8, labels, n_ft, n,
                                         batch_stats)
@@ -121,15 +130,18 @@ def evaluate_personalization(engine, finetune_epochs: int = 1,
         finetune_epochs=finetune_epochs,
         finetune_fraction=finetune_fraction)
 
-    C = engine.num_clients
-    stacked = tree_map(lambda v: v[None].expand(C, *v.shape),
+    rows = engine.data.images.shape[0]  # CL under a mesh
+    stacked = tree_map(lambda v: v[None].expand(rows, *v.shape),
                        engine.global_variables)
     seed = prng.stream_seed(prng.round_seed(engine._root,
                                             engine.round_number),
                             prng.Stream.PERSONALIZE)
+    shard = (None if engine.mesh is None
+             else (engine._rows[0], engine.num_clients))
     out = run(stacked["params"], engine.data.images, engine.data.labels,
-              engine.data.num_samples, seed, stacked.get("batch_stats"))
-    out = {k: v.cpu().numpy() for k, v in out.items()}
+              engine.data.num_samples, seed, stacked.get("batch_stats"),
+              rows=shard)
+    out = gather_scores(engine, out, count="n_holdout")
 
     w = out["n_holdout"].astype(np.float64)
     w = w / max(w.sum(), 1.0)

@@ -44,27 +44,41 @@ kinds are the dense and 3x3 conv layers and GroupNorm (CIFAR10CNN's
 sums of dy·x̂ and dy, x̂ recomputed from the captured input.
 
 :class:`PrivacyBudgetTracker` and :class:`PrivacyAccountant` are host-side
-copies of the reference's ledgers, with the methods the round engine uses
-(status reports, export and checkpoint state come with checkpointing).
+copies of the reference's ledgers. The host API (``privacy.py:51-137`` and
+``:701-917`` of the reference) follows them: the Gaussian mechanism's math,
+the one-client release :func:`clip_and_noise_tree` (the tree flattened to
+one (1, D) row through ``ops.dp.clip_noise_matrix``, so K3 carries it on a
+card; σ from the CLIPPED norm) and :func:`clip_and_noise_tree_at_sigma`
+(an explicit σ; returns the PRE-clip norm), and the reference's facades
+:class:`GradientClipper`, :class:`GaussianNoiseGenerator` (seeded draws
+k = 1, 2, … from fold(seed, k); its tree noise goes through the kernel at
+scale 1) and :class:`DifferentialPrivacyEngine`.
 """
 
 from __future__ import annotations
 
+import logging
+import math
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from fl_tpu_torch.core import prng
+from fl_tpu_torch.core.mesh import resolve_device
 from fl_tpu_torch.core.pytree import (
-    clip_by_global_norm, tree_from_leaves, tree_get, tree_leaves, tree_map,
-    tree_paths)
+    clip_by_global_norm, global_norm, tree_from_leaves, tree_get,
+    tree_leaves, tree_map, tree_paths)
+from fl_tpu_torch.core.types import PrivacyConfig
 from fl_tpu_torch.core.transfer import to_device
 from fl_tpu_torch.fl.local_training import per_example_losses
 from fl_tpu_torch.ops import dp as dp_ops
 
 STANDALONE_MIN = 1 << 16
+
+logger = logging.getLogger(__name__)
 
 
 class PrivacyError(Exception):
@@ -100,11 +114,8 @@ def dp_noise_client_deltas(stacked_deltas, rseed: int, epsilon: float,
     tensor raises), False the plain version (the reference's
     ``use_pallas_dp``). Returns (noisy tree, sensitivity (C,), sigma
     (C,))."""
-    clip_noise = {None: dp_ops.clip_noise, True: dp_ops.clip_noise_cuda,
-                  False: dp_ops.clip_noise_plain}[use_kernel]
-    norms = client_norms(stacked_deltas)
-    scale = torch.clamp(max_norm / torch.clamp(norms, min=1e-12), max=1.0)
-    sens = torch.clamp(norms, max=max_norm)
+    clip_noise = dp_ops.clip_noise_route(use_kernel)
+    scale, sens = dp_ops.clip_factors(client_norms(stacked_deltas), max_norm)
     sigma = sens * dp_ops.gaussian_factor(epsilon, delta)
 
     paths, noisy = [], []
@@ -140,7 +151,7 @@ def clipped_masked_mean(stacked_deltas, max_norm, mask: torch.Tensor,
     min(1, C / max(‖Δₖ‖, 1e-12)) folded into its weight. ``max_norm`` may
     be a 0-d tensor (the adaptive clip norm)."""
     norms = client_norms(stacked_deltas)
-    scale = torch.clamp(max_norm / torch.clamp(norms, min=1e-12), max=1.0)
+    scale = dp_ops.clip_factors(norms, max_norm)[0]
     w = mask.float() * scale / expected_count
     mean = tree_map(lambda d: torch.tensordot(w, d.float(), dims=1),
                     stacked_deltas)
@@ -470,6 +481,7 @@ class PrivacyBudgetTracker:
         self.consumed_epsilon = 0.0
         self.consumed_delta = 0.0
         self.consumption_history: List[Dict[str, Any]] = []
+        self.start_time = time.time()
 
     def consume_budget(self, epsilon: float, delta: float,
                        operation: str = "training") -> None:
@@ -498,6 +510,27 @@ class PrivacyBudgetTracker:
         tol_e = 1e-9 * max(self.initial_epsilon, 1.0)
         tol_d = 1e-9 * max(self.initial_delta, 1e-12)
         return rem_e < required_epsilon - tol_e or rem_d < required_delta - tol_d
+
+    def get_budget_status(self) -> Dict[str, Any]:
+        rem_e, rem_d = self.get_remaining_budget()
+        return {
+            "initial_epsilon": self.initial_epsilon,
+            "initial_delta": self.initial_delta,
+            "consumed_epsilon": self.consumed_epsilon,
+            "consumed_delta": self.consumed_delta,
+            "remaining_epsilon": rem_e,
+            "remaining_delta": rem_d,
+            "epsilon_utilization": (
+                self.consumed_epsilon / self.initial_epsilon
+                if self.initial_epsilon else 0.0
+            ),
+            "delta_utilization": (
+                self.consumed_delta / self.initial_delta
+                if self.initial_delta else 0.0
+            ),
+            "operations_count": len(self.consumption_history),
+            "tracking_duration": time.time() - self.start_time,
+        }
 
     # state for checkpoint/resume (the checkpoint's meta.json holds it)
     def state_dict(self) -> Dict[str, Any]:
@@ -544,3 +577,303 @@ class PrivacyAccountant:
 
     def get_privacy_ledger(self) -> List[Dict[str, Any]]:
         return list(self.privacy_ledger)
+
+
+# ---------------------------------------------------------------------------
+# The host API: the Gaussian mechanism's math, the one-client release and
+# the reference's facades (ref: fl_tpu/fl/privacy.py:51-137, :701-917)
+# ---------------------------------------------------------------------------
+
+def gaussian_sigma(sensitivity, epsilon: float, delta: float):
+    """Gaussian-mechanism noise scale σ = s·√(2·ln(1.25/δ))/ε
+    (ref: src/shared/privacy.py:209). Works on floats and tensors."""
+    return sensitivity * math.sqrt(2.0 * math.log(1.25 / delta)) / epsilon
+
+
+def validate_privacy_parameters(epsilon: float, delta: float) -> bool:
+    """ref: validate_privacy_parameters, privacy.py:335-356."""
+    if epsilon <= 0:
+        logger.error("Epsilon must be positive")
+        return False
+    if epsilon > 10.0:
+        logger.warning("Epsilon %s is very high, privacy may be weak", epsilon)
+    if delta <= 0 or delta >= 1:
+        logger.error("Delta must be in (0, 1)")
+        return False
+    if delta > 1e-3:
+        logger.warning("Delta %s is high, privacy may be weak", delta)
+    return True
+
+
+def advanced_composition_epsilon(epsilon: float, delta: float,
+                                 steps: int) -> float:
+    """Simplified advanced-composition estimate
+    ε' = ε·√(2·k·ln(1/δ)) + k·ε·(e^ε − 1)
+    (ref: calculate_privacy_budget, privacy.py:319-333)."""
+    if steps <= 1:
+        return epsilon
+    eps = epsilon * math.sqrt(2.0 * steps * math.log(1.0 / delta))
+    eps += steps * epsilon * (math.exp(epsilon) - 1.0)
+    return eps
+
+
+def _as_row(tree) -> Tuple[List[tuple], List[torch.Tensor], torch.Tensor]:
+    """A tree's paths, leaves and its leaves flattened into one (1, D) f32
+    row."""
+    paths, leaves = tree_paths(tree), tree_leaves(tree)
+    row = torch.cat([t.reshape(-1).float() for t in leaves])[None]
+    return paths, leaves, row
+
+
+def _from_row(paths, leaves, row: torch.Tensor):
+    parts = torch.split(row[0], [t.numel() for t in leaves])
+    return tree_from_leaves(paths, [p.reshape(t.shape).to(t.dtype)
+                                    for p, t in zip(parts, leaves)])
+
+
+def _seed_row(seed: int, device) -> torch.Tensor:
+    return to_device(prng.as_int64(np.asarray([seed], np.uint64)), device)
+
+
+def clip_and_noise_tree(tree, seed: int, epsilon: float, delta: float,
+                        max_norm: float, use_pallas: Optional[bool] = None
+                        ) -> Tuple[Any, torch.Tensor, torch.Tensor]:
+    """Reference-mode DP on one client's weight-delta tree: clip the global
+    L2 norm to ``max_norm``, σ from the CLIPPED norm (privacy.py:296-301),
+    i.i.d. Gaussian noise on every element. The tree is flattened into one
+    (1, D) row through :func:`fl_tpu_torch.ops.dp.clip_noise_matrix`, so
+    on a card K3 carries the release (``use_pallas`` as there); ``seed``
+    keys the noise. Returns (noisy tree, clipped norm, sigma), 0-d
+    tensors."""
+    paths, leaves, row = _as_row(tree)
+    noisy, sens, sigma = dp_ops.clip_noise_matrix(
+        row, _seed_row(seed, row.device), epsilon, delta, max_norm,
+        use_pallas=use_pallas)
+    return _from_row(paths, leaves, noisy), sens[0], sigma[0]
+
+
+def clip_and_noise_tree_at_sigma(tree, seed: int, max_norm: float,
+                                 sigma: float,
+                                 use_pallas: Optional[bool] = None
+                                 ) -> Tuple[Any, torch.Tensor]:
+    """Clip a delta tree to global L2 ≤ ``max_norm`` and add i.i.d.
+    N(0, σ²) with an EXPLICIT σ (the caller owns the accounting: wire
+    adaptive clipping's inflated z_Δ·C). Returns (noisy tree, PRE-clip
+    norm)."""
+    paths, leaves, row = _as_row(tree)
+    pre_norm = row.square().sum().sqrt()
+    scale = dp_ops.clip_factors(pre_norm.reshape(1), max_norm)[0]
+    sig = torch.full((1,), float(sigma), dtype=torch.float32,
+                     device=row.device)
+    noisy = dp_ops.clip_noise_route(use_pallas)(row, scale, sig,
+                                                _seed_row(seed, row.device))
+    return _from_row(paths, leaves, noisy), pre_norm
+
+
+def _as_tensors(owner: str, gradients, device=None):
+    """A gradient dict (tensors or arrays, nested or flat) as tensors: a
+    tensor stays on its device, any other leaf goes to ``device`` (None:
+    the card; without one this raises, as :func:`resolve_device` does)."""
+    def leaf(v):
+        if isinstance(v, torch.Tensor):
+            return v
+        return torch.as_tensor(np.asarray(v),
+                               device=resolve_device(owner, device, None))
+
+    return tree_map(leaf, dict(gradients))
+
+
+class GradientClipper:
+    """Host facade over the clip (ref: GradientClipper,
+    privacy.py:95-168). Array leaves go to ``device`` (None: the card);
+    tensors are clipped where they lie."""
+
+    def __init__(self, max_grad_norm: float, device=None):
+        self.max_grad_norm = max_grad_norm
+        self.device = device
+
+    def clip_gradients(self, gradients) -> Tuple[Any, float]:
+        clipped, sens = clip_by_global_norm(
+            _as_tensors("GradientClipper", gradients, self.device),
+            self.max_grad_norm)
+        return clipped, float(sens)
+
+    def estimate_sensitivity(self, gradients_batch: List[Any]) -> float:
+        """Max global norm across a batch of gradient dicts
+        (ref: privacy.py:146-168)."""
+        if not gradients_batch:
+            return 0.0
+        return max(float(global_norm(
+            _as_tensors("GradientClipper", g, self.device)))
+            for g in gradients_batch)
+
+
+class GaussianNoiseGenerator:
+    """Gaussian-mechanism noise (ref: GaussianNoiseGenerator,
+    privacy.py:171-254), keyed by an explicit seed instead of global RNG
+    state: draw k takes fold(seed, k). Noise on a gradient tree goes
+    through the clip+noise kernel (K3 on a card) at scale 1. Array leaves
+    and fresh noise go to ``device`` (None: the card); tensors are noised
+    where they lie."""
+
+    def __init__(self, seed: Optional[int] = None, device=None):
+        self._seed = prng.root_seed(0 if seed is None else seed)
+        self._draws = 0
+        self.device = device
+
+    def _next_seed(self) -> int:
+        self._draws += 1
+        return prng.fold(self._seed, self._draws)
+
+    def generate_noise(self, shape, sensitivity: float, epsilon: float,
+                       delta: float, device=None) -> torch.Tensor:
+        """σ·N(0, 1) of ``shape`` on ``device`` (None: the generator's
+        device)."""
+        if epsilon <= 0:
+            raise PrivacyError("Epsilon must be positive")
+        if delta <= 0 or delta >= 1:
+            raise PrivacyError("Delta must be in (0, 1)")
+        device = resolve_device("GaussianNoiseGenerator",
+                                self.device if device is None
+                                else device, None)
+        sigma = gaussian_sigma(sensitivity, epsilon, delta)
+        g = prng.generator(self._next_seed(), device)
+        return sigma * torch.randn(tuple(shape), generator=g, device=device)
+
+    def add_noise_to_gradients(self, gradients, sensitivity: float,
+                               epsilon: float, delta: float):
+        paths, leaves, row = _as_row(_as_tensors(
+            "GaussianNoiseGenerator", gradients, self.device))
+        sigma = torch.full((1,), float(gaussian_sigma(sensitivity, epsilon,
+                                                      delta)),
+                           dtype=torch.float32, device=row.device)
+        noisy = dp_ops.clip_noise(
+            row, torch.ones((1,), dtype=torch.float32, device=row.device),
+            sigma, _seed_row(self._next_seed(), row.device))
+        return _from_row(paths, leaves, noisy)
+
+
+class DifferentialPrivacyEngine:
+    """Host DP engine mirroring the reference
+    (ref: DifferentialPrivacyEngine, privacy.py:257-416): validate →
+    budget-check → clip → noise with sensitivity = clipped norm →
+    consume. Array gradients go to ``device`` (None: the card), so the
+    release runs K3 there; tensors are released where they lie."""
+
+    def __init__(self, privacy_config: PrivacyConfig,
+                 seed: Optional[int] = None, device=None):
+        self.config = privacy_config
+        self.device = device
+        self.clipper = GradientClipper(privacy_config.max_grad_norm, device)
+        self.noise_generator = GaussianNoiseGenerator(seed, device)
+        self.budget_tracker = PrivacyBudgetTracker(
+            privacy_config.epsilon, privacy_config.delta)
+
+    def add_noise(self, gradients, epsilon: float, delta: float):
+        if not validate_privacy_parameters(epsilon, delta):
+            raise PrivacyError("Invalid privacy parameters")
+        if self.budget_tracker.is_budget_exhausted(epsilon, delta):
+            raise PrivacyError("Privacy budget exhausted")
+        clipped, actual_norm = self.clipper.clip_gradients(gradients)
+        noisy = self.noise_generator.add_noise_to_gradients(
+            clipped, actual_norm, epsilon, delta)
+        self.budget_tracker.consume_budget(epsilon, delta, "gradient_noise")
+        return noisy
+
+    def clip_gradients(self, gradients, max_norm: float):
+        clipped, _ = GradientClipper(max_norm,
+                                     self.device).clip_gradients(gradients)
+        return clipped
+
+    def calculate_privacy_budget(self, epsilon: float, delta: float,
+                                 steps: int) -> float:
+        return advanced_composition_epsilon(epsilon, delta, steps)
+
+    def validate_privacy_parameters(self, epsilon: float,
+                                    delta: float) -> bool:
+        return validate_privacy_parameters(epsilon, delta)
+
+    def get_privacy_analysis(self) -> Dict[str, Any]:
+        """ref: get_privacy_analysis, privacy.py:358-402."""
+        strength_order = ["strong", "moderate", "weak"]
+        eps_strength = ("strong" if self.config.epsilon < 1.0
+                        else "moderate" if self.config.epsilon < 5.0
+                        else "weak")
+        delta_strength = ("strong" if self.config.delta < 1e-5
+                          else "moderate" if self.config.delta < 1e-3
+                          else "weak")
+        recommendations = []
+        if self.config.epsilon > 5.0:
+            recommendations.append(
+                "Consider reducing epsilon for stronger privacy")
+        if self.config.delta > 1e-3:
+            recommendations.append(
+                "Consider reducing delta for better privacy guarantees")
+        if self.config.max_grad_norm > 10.0:
+            recommendations.append("Consider reducing gradient clipping norm")
+        rem_e, _ = self.budget_tracker.get_remaining_budget()
+        if rem_e < self.config.epsilon * 0.1:
+            recommendations.append("Privacy budget nearly exhausted")
+        if not recommendations:
+            recommendations.append("Privacy configuration looks good")
+        return {
+            "privacy_config": {
+                "epsilon": self.config.epsilon,
+                "delta": self.config.delta,
+                "max_grad_norm": self.config.max_grad_norm,
+                "noise_multiplier": self.config.noise_multiplier,
+            },
+            "budget_status": self.budget_tracker.get_budget_status(),
+            "privacy_strength": {
+                "epsilon_strength": eps_strength,
+                "delta_strength": delta_strength,
+                "overall_strength": max(eps_strength, delta_strength,
+                                        key=strength_order.index),
+            },
+            "recommendations": recommendations,
+        }
+
+    def reset_budget(self, new_epsilon: Optional[float] = None,
+                     new_delta: Optional[float] = None) -> None:
+        epsilon = new_epsilon or self.config.epsilon
+        delta = new_delta or self.config.delta
+        self.budget_tracker = PrivacyBudgetTracker(epsilon, delta)
+        if new_epsilon:
+            self.config.epsilon = new_epsilon
+        if new_delta:
+            self.config.delta = new_delta
+
+
+def create_privacy_engine(epsilon: float = 1.0, delta: float = 1e-5,
+                          max_grad_norm: float = 1.0,
+                          noise_multiplier: float = 1.0,
+                          seed: Optional[int] = None, device=None
+                          ) -> DifferentialPrivacyEngine:
+    """Factory (ref: create_privacy_engine, privacy.py:487-512);
+    ``device`` as :class:`DifferentialPrivacyEngine`'s."""
+    return DifferentialPrivacyEngine(
+        PrivacyConfig(epsilon=epsilon, delta=delta,
+                      max_grad_norm=max_grad_norm,
+                      noise_multiplier=noise_multiplier),
+        seed=seed, device=device)
+
+
+def estimate_privacy_parameters(target_accuracy: float = 0.9,
+                                dataset_size: int = 10_000,
+                                num_rounds: int = 100) -> Dict[str, float]:
+    """Heuristic parameter suggestion
+    (ref: estimate_privacy_parameters, privacy.py:515-557)."""
+    base_epsilon = 1.0 if dataset_size > 5000 else 2.0
+    if target_accuracy > 0.95:
+        epsilon = base_epsilon * 2
+    elif target_accuracy < 0.85:
+        epsilon = base_epsilon * 0.5
+    else:
+        epsilon = base_epsilon
+    epsilon = epsilon / math.sqrt(num_rounds)
+    return {
+        "epsilon": epsilon,
+        "delta": 1.0 / dataset_size,
+        "max_grad_norm": 1.0 if target_accuracy > 0.9 else 2.0,
+        "noise_multiplier": 1.0,
+    }

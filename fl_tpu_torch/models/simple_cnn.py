@@ -14,9 +14,11 @@ HWC order exactly as flax flattens it.
 
 Precision follows flax at ``dtype``: parameters stay f32, the image, the
 weights and the biases are cast to the compute dtype; fc1 → relu → dropout
-→ fc2 run in it; logits come back as f32. The two dense layers are batched
-GEMMs over clients (``torch.bmm``), which the reference also leaves to the
-compiler.
+→ fc2 run in it; logits come back as f32. ``dtype=torch.float64`` (the
+unfused chain only) computes and returns float64 throughout, for the
+float64 gradient checks (``torch.autograd.gradcheck``). The two dense
+layers are batched GEMMs over clients (``torch.bmm``), which the
+reference also leaves to the compiler.
 
 ``fused_conv_block`` chooses how the conv segment is computed; the
 parameter tree and the values (up to rounding) are the same for all three:
@@ -136,13 +138,17 @@ class SimpleCNN(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  fused_conv_block: Union[bool, str] = False):
         super().__init__()
-        if dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        if dtype not in (torch.float32, torch.bfloat16, torch.float64):
+            raise ValueError("dtype must be float32 or bfloat16 (or "
+                             f"float64, unfused), got {dtype}")
         if not (isinstance(fused_conv_block, bool)
                 or fused_conv_block == "residual"):
             raise ValueError(
                 f"fused_conv_block must be one of {FUSED_CONV_BLOCK}, got "
                 f"{fused_conv_block!r}")
+        if dtype == torch.float64 and fused_conv_block:
+            raise ValueError("float64 runs the unfused chain only "
+                             "(fused_conv_block=False)")
         self.fused_conv_block = fused_conv_block
         self.num_classes = num_classes
         self.dropout_rate = dropout_rate
@@ -229,7 +235,7 @@ class SimpleCNN(nn.Module):
         captures["fc2"] = h
         h = pert("fc2", torch.bmm(h, params["fc2"]["kernel"].to(cdt))
                  + params["fc2"]["bias"].to(cdt)[:, None, :])
-        out = h.float()
+        out = h if cdt == torch.float64 else h.float()
         return (out, captures) if dp_capture else out
 
 

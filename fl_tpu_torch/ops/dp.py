@@ -40,8 +40,9 @@ leave registers. (Counts: ``tools/rng_kernels.py isa``.)
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 # Philox calls (lanes) a program makes; it covers 4·BQ elements of a row
@@ -54,6 +55,14 @@ LAUNCHES = {"clip_noise": 0}
 def gaussian_factor(epsilon: float, delta: float) -> float:
     """σ/sensitivity of the Gaussian mechanism (ref: privacy.py:209)."""
     return math.sqrt(2.0 * math.log(1.25 / delta)) / epsilon
+
+
+def clip_factors(norms: torch.Tensor, max_norm
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each row's clip scale min(1, C / max(‖row‖, 1e-12)) and its clipped
+    norm min(‖row‖, C), the release's sensitivity, from the (C,) norms."""
+    scale = torch.clamp(max_norm / torch.clamp(norms, min=1e-12), max=1.0)
+    return scale, torch.clamp(norms, max=max_norm)
 
 
 def _check(x, scale, sigma, seeds):
@@ -183,3 +192,43 @@ def clip_noise(x: torch.Tensor, scale: torch.Tensor, sigma: torch.Tensor,
     if x.is_cuda:
         return clip_noise_cuda(x.contiguous(), scale, sigma, seeds)
     return clip_noise_plain(x, scale, sigma, seeds)
+
+
+def clip_noise_route(use_pallas: Optional[bool]):
+    """The clip+noise function ``use_pallas`` asks for: None is
+    :func:`clip_noise` (K3 on a CUDA tensor, the plain version on a CPU
+    one), True K3 (a CPU tensor raises), False the plain version."""
+    return {None: clip_noise, True: clip_noise_cuda,
+            False: clip_noise_plain}[use_pallas]
+
+
+def clip_noise_matrix(x: torch.Tensor, seeds, epsilon: float, delta: float,
+                      max_norm: float, d_valid: Optional[int] = None,
+                      use_pallas: Optional[bool] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Reference-mode DP over a (C, D) flat update matrix, the port of
+    ``fl_tpu.ops.dp.clip_noise_matrix``.
+
+    Per client: clip the row's L2 norm to ``max_norm``, set σ =
+    min(‖row‖, max_norm)·√(2·ln(1.25/δ))/ε (sensitivity = the clipped
+    norm), add N(0, σ²) to every element. ``d_valid`` restricts the norm
+    to the unpadded prefix. ``seeds`` are the clients' (C,) noise seeds
+    (ints, a numpy array or an int64 tensor). ``use_pallas`` as
+    :func:`clip_noise_route`.
+
+    Returns (noisy matrix, sensitivity (C,), sigma (C,))."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be (C, D), got {tuple(x.shape)}")
+    C, D = x.shape
+    x = x.float().contiguous()
+    rows = x if d_valid is None or d_valid == D else x[:, :d_valid]
+    scale, sens = clip_factors(rows.square().sum(1).sqrt(), max_norm)
+    sigma = sens * gaussian_factor(epsilon, delta)
+    if isinstance(seeds, torch.Tensor):
+        seeds = seeds.to(device=x.device, dtype=torch.int64)
+    else:
+        seeds = torch.as_tensor(
+            np.asarray(seeds, np.uint64).view(np.int64)).to(x.device)
+    return (clip_noise_route(use_pallas)(x, scale.contiguous(),
+                                         sigma.contiguous(), seeds),
+            sens, sigma)

@@ -102,8 +102,9 @@ replicated, as the reference's do. The hooks are the identity without a
 mesh, so the unsharded round is the same code. ``evaluate_federated``
 scores each rank's rows and gathers them; the checkpoints gather the
 per-client state to rank 0's files and give each rank its rows back
-(``orchestration.checkpoint``). ``evaluate_personalized`` and
-``profile_round`` refuse a mesh ("not ported under a mesh yet").
+(``orchestration.checkpoint``). ``evaluate_personalized`` fine-tunes
+and scores each rank's rows and gathers them the same way, and
+``profile_round`` writes one trace a rank, under ``trace_dir/rank<r>``.
 """
 
 from __future__ import annotations
@@ -810,15 +811,6 @@ class FederatedRoundEngine:
                     "norm='group')")
         self.history: List[RoundResult] = []
         self.detector = ConvergenceDetector()
-
-    def _refuse_mesh(self, name: str) -> None:
-        """An engine over a client mesh holds only its rank's clients:
-        ``evaluate_personalized`` and ``profile_round``, not ported under
-        a mesh, refuse it."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{name} is not ported under a mesh yet; run it on an "
-                "engine built without mesh=")
 
     @property
     def _round_rdp(self) -> np.ndarray:
@@ -1906,10 +1898,13 @@ class FederatedRoundEngine:
         """Run one round under ``torch.profiler`` (host and, on a GPU, the
         device's activity) and write its Chrome trace into ``trace_dir``
         as ``round_<n>.trace.json`` (Perfetto or chrome://tracing read
-        it); the path is kept in ``last_trace_path``."""
+        it); the path is kept in ``last_trace_path``. Under a mesh every
+        rank runs the round under its own profiler and writes its trace
+        under ``trace_dir/rank<r>``."""
         from torch.profiler import ProfilerActivity, profile
 
-        self._refuse_mesh("profile_round")
+        if self.mesh is not None:
+            trace_dir = os.path.join(trace_dir, f"rank{self.mesh.rank}")
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
@@ -1944,8 +1939,8 @@ class FederatedRoundEngine:
                               finetune_fraction: float = 0.8
                               ) -> Dict[str, Any]:
         """Per-client fine-tune gain on held-out shard tails, all clients
-        at once (see fl_tpu_torch.fl.personalization)."""
-        self._refuse_mesh("evaluate_personalized")
+        at once (see fl_tpu_torch.fl.personalization); under a mesh each
+        rank fine-tunes its own clients and every rank gets all C."""
         return evaluate_personalization(
             self, finetune_epochs=finetune_epochs,
             finetune_fraction=finetune_fraction)

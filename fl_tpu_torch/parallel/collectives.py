@@ -17,7 +17,10 @@ which robust and secure aggregation need. It records every call it makes
 invariant, read from the calls instead of parsed from compiled HLO (the
 port issues its collectives itself; XLA's HLO parsing has no
 counterpart). The FedAvg round makes exactly two all-reduces, the packed
-model delta and the packed metrics.
+model delta and the packed metrics; ``evaluate_federated`` and
+``evaluate_personalized`` gather their per-client results with one
+all-reduce each (three and five packed (C,) rows), and ``profile_round``
+makes its round's own.
 """
 
 from __future__ import annotations

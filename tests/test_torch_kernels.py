@@ -746,6 +746,62 @@ def test_clip_noise_kernel(cuda):
     assert abs(float(torch.corrcoef(z[:2])[0, 1])) <= 5e-3
 
 
+@pytest.mark.cuda
+def test_clip_noise_matrix_runs_k3_on_the_card(cuda):
+    """The DP host API's (C, D) entry (``ops.dp.clip_noise_matrix``) at
+    the privacy validator's (4, 65,536) shape, row i scaled by 10^i so
+    that rows 1-3 lie above the clip norm: K3 by default and with
+    ``use_pallas=True`` (one launch each), the plain version only with
+    ``use_pallas=False``; bit-equal to it at σ = 0 (ε = inf), clipped
+    rows included; the noise's std within 2% of σ (the one-client tree
+    release goes through it too)."""
+    from fl_tpu_torch.fl import privacy as tdp
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((4, 65_536), generator=g, device=cuda) * 1e-3
+    x *= 10.0 ** torch.arange(4, device=cuda)[:, None]
+    norms = x.square().sum(1).sqrt()
+    clipped = x * torch.clamp(1.0 / norms, max=1.0)[:, None]
+    assert int((norms > 1.0).sum()) == 3
+    seeds = [3, 4, 5, 6]
+    ops.reset_launch_counts()
+    got, sens, sig = dpo.clip_noise_matrix(x, seeds, float("inf"), 1e-5, 1.0)
+    want, _, _ = dpo.clip_noise_matrix(x, seeds, float("inf"), 1e-5, 1.0,
+                                       use_pallas=False)
+    assert ops.launch_counts()["clip_noise"] == 1
+    assert torch.equal(got, want) and float(sig.abs().max()) == 0.0
+    torch.testing.assert_close(got, clipped, rtol=0, atol=1e-6)
+    noisy, sens, sig = dpo.clip_noise_matrix(x, seeds, 1.0, 1e-5, 1.0,
+                                             use_pallas=True)
+    assert ops.launch_counts()["clip_noise"] == 2
+    assert torch.all(((noisy - clipped).std(1) / sig - 1).abs() < 0.02)
+    tree = {"a": {"w": x[0].reshape(256, 256)}, "b": x[1, :10]}
+    released, norm, sigma = tdp.clip_and_noise_tree(tree, 9, 1.0, 1e-5, 1.0)
+    assert ops.launch_counts()["clip_noise"] == 3
+    assert released["a"]["w"].shape == (256, 256)
+    assert float(sigma) == pytest.approx(
+        float(norm) * tdp.gaussian_sigma(1.0, 1.0, 1e-5), rel=1e-6)
+
+
+@pytest.mark.cuda
+def test_privacy_engine_releases_numpy_gradients_through_k3(cuda):
+    """``create_privacy_engine().add_noise`` on numpy gradients puts them
+    on the card (the facades' default device) and releases them through
+    K3: one launch, clipped to C = 1, noised at the clipped norm's σ."""
+    from fl_tpu_torch.fl import privacy as tdp
+
+    grads = {"w": np.full((4096,), 0.05, np.float32),
+             "b": np.zeros((10,), np.float32)}
+    eng = tdp.create_privacy_engine(2.0, 1e-5, seed=0)
+    ops.reset_launch_counts()
+    noisy = eng.add_noise(grads, 0.5, 1e-6)
+    assert ops.launch_counts()["clip_noise"] == 1
+    assert all(t.is_cuda for t in noisy.values())
+    sigma = tdp.gaussian_sigma(1.0, 0.5, 1e-6)
+    resid = noisy["w"].cpu() - 0.05 / np.sqrt(4096 * 0.05 ** 2)
+    assert float(resid.std()) == pytest.approx(sigma, rel=0.05)
+
+
 def _corr(a, b):
     return float(torch.corrcoef(torch.stack([a.flatten(), b.flatten()]))[0, 1])
 

@@ -186,15 +186,33 @@ def test_audit_runs_under_a_mesh(ranks):
 
 
 @pytest.mark.parametrize("name", ["evaluate_personalized", "profile_round"])
-def test_unported_entry_points_refuse_a_mesh(name, monkeypatch):
-    engine = FederatedRoundEngine(
-        create_model("simple_cnn"), jobs.arrays(4), RoundEngineConfig(),
-        device="cpu")
-    monkeypatch.setattr(engine, "mesh", _cpu_mesh(1))
-    args = ("unused",) if name == "profile_round" else ()
-    with pytest.raises(NotImplementedError,
-                       match="not ported under a mesh yet"):
-        getattr(engine, name)(*args)
+def test_unported_entry_points_refuse_a_mesh(name, monkeypatch, tmp_path):
+    """Both entry points run under a mesh now (the test keeps the name it
+    had while they refused one): on a one-rank mesh each gives what it
+    gives without one, and the profiler's trace lands under ``rank0``.
+    The 2-rank cases are in ``test_torch_validation_mesh.py``."""
+    def engine(mesh):
+        eng = FederatedRoundEngine(
+            create_model("simple_cnn"), jobs.arrays(4), RoundEngineConfig(
+                training=FederatedTrainingConfig(local_epochs=1,
+                                                 batch_size=8)),
+            device="cpu")
+        if mesh:
+            monkeypatch.setattr(eng, "mesh", _cpu_mesh(1))
+        return eng
+
+    if name == "profile_round":
+        got = engine(True).profile_round(str(tmp_path))
+        want = engine(False).run_round(evaluate=False)
+        assert got.train_loss == want.train_loss
+        assert (tmp_path / "rank0" / "round_00000000.trace.json").exists()
+        return
+    got = engine(True).evaluate_personalized()
+    want = engine(False).evaluate_personalized()
+    assert got["mean_personalization_gain"] == \
+        want["mean_personalization_gain"]
+    for k, v in want["per_client"].items():
+        np.testing.assert_array_equal(got["per_client"][k], v, err_msg=k)
 
 
 def test_checkpoint_refuses_a_mesh(tmp_path, monkeypatch):

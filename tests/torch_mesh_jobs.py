@@ -1,7 +1,8 @@
 """The 2-rank runs of the port's sharded round engine and of the clustered,
 Ditto, async, hierarchical, decentralized, FedDF and HPO engines that the
 mesh tests read (``test_torch_mesh.py``, ``test_torch_mesh_features.py``,
-``test_torch_engines_mesh.py``, ``test_torch_topologies_mesh.py``).
+``test_torch_engines_mesh.py``, ``test_torch_topologies_mesh.py``,
+``test_torch_validation_mesh.py``).
 
 Spawning ranks costs seconds, so each test file's 2-rank cases run in ONE
 launch a test session: :func:`mesh_results` runs :func:`rank_job` on two
@@ -540,6 +541,24 @@ def hpo_run(mesh=None) -> dict:
             "collectives": collectives}
 
 
+def validation_run(mesh=None, directory=None) -> dict:
+    """One round of the entry points' engine, then ``evaluate_personalized``
+    (with the communicator's calls it made) and ``profile_round`` (its
+    trace under ``directory``)."""
+    engine = entry_point_engine(mesh)
+    engine.run_round(evaluate=False)
+    before = len(engine._axis.calls)
+    personalized = engine.evaluate_personalized()
+    calls = engine._axis.calls[before:]
+    result = engine.profile_round(directory)
+    return {"personalized": personalized,
+            "personalize_calls": [tuple(c) for c in calls],
+            "profile_loss": result.train_loss,
+            "trace": engine.last_trace_path,
+            "weights": {k: v.cpu().numpy()
+                        for k, v in engine.get_model_weights().items()}}
+
+
 def topologies_job(mesh) -> dict:
     return {"hierarchical": hierarchical_run(mesh),
             "decentralized": decentralized_run(mesh),
@@ -563,6 +582,8 @@ def rank_job(mesh, spec: dict) -> dict:
         return engines_job(mesh, spec["engines"])
     if "topologies" in spec:
         return topologies_job(mesh)
+    if "validation" in spec:
+        return validation_run(mesh, spec["validation"])
     lo, hi = mesh.client_rows(spec["fedavg"]["counts"].shape[0])
     fedavg = {}
     for label, mask in (("masked", spec["fedavg"]["mask"]),
@@ -648,6 +669,8 @@ def build_spec(part: str, workdir) -> dict:
         return {"engines": str(workdir)}
     if part == "topologies":
         return {"topologies": True}
+    if part == "validation":
+        return {"validation": str(workdir)}
     if part == "features":
         from fl_tpu.orchestration.features import FEATURES
 
