@@ -236,6 +236,26 @@ line each; any failure exits non-zero:
    engine's first round on two gloo ranks sharing the card within 1e-5
    of each leaf's largest weight of the single-process round (FedDF with
    8 SGD distill steps), every rank's launches and collectives printed;
+   then the quick start, the validators, the attacks, analytics and
+   vertical FL (``phase_validation``); then the deployment round
+   (``phase_deployment``): 8 ``FederatedTrainer`` threads (the client
+   FSM at SimpleCNN's full width, non-IID over 8,192 synthetic images,
+   one epoch at batch 32, delta DP at (3, 1e-5) over 3 rounds) against
+   the port's ``RoundManager`` with ``FedAvgAggregator`` on the card and
+   the servicer's DP-widened validator, through ``LoopbackClient``, an
+   in-process stand-in for the gRPC stub that carries every weight dict
+   through ``ModelWeightSerializer`` bytes both ways: K3 launches = 8 x
+   3, each round's global model within 1e-6 (of a leaf's largest value)
+   of the float64 sample-weighted mean of the decoded uploads, the wire
+   bit-equal, ε 1.0 a round a client, finite losses; one client's delta
+   through ``clip_and_noise_tree`` bit-equal to ``use_pallas=False`` at
+   σ = 0 with the row clipped and std/σ within 2% at the real budget;
+   rounds/s on the wall clock, the median ms of a client's train / DP /
+   compress / serialize stages and of the aggregation, peak memory, K3's
+   and the plain version's ms at (1, 421,642); then
+   ``FederatedLearningSimulation(backend="grpc")`` for one round where
+   ``grpc`` and ``google.protobuf`` import (one line naming what is
+   missing where not);
 6. learning check: 10 non-IID clients, 3 rounds, test accuracy > 0.5, with
    ``fused_conv_block="residual"`` and with ``True``, and with
    ``"residual"`` under SCAFFOLD (SGD lr 0.05), under FedNova (SGD lr
@@ -286,6 +306,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -5576,7 +5597,9 @@ def validation_k3_check(card):
 def validation_simulation(card):
     """``run_mnist_simulation(5, 10)`` (the quick start: delta DP at
     epsilon 1 over 10 rounds, non-IID, heterogeneous epoch budgets) and the
-    command line in a subprocess. Returns K3's launches."""
+    command line in a subprocess, with its onchip backend and, where
+    ``grpcio`` imports, its grpc backend (else its refusal naming
+    ``grpcio``). Returns K3's launches."""
     import torch
 
     from fl_tpu_torch import ops
@@ -5626,20 +5649,53 @@ def validation_simulation(card):
             and cli["stop_reason"] == "round_budget_exhausted",
             f"validation CLI: {cli['rounds_completed']} rounds, "
             f"{cli['stop_reason']}")
-    refused = subprocess.run(
-        [sys.executable, "-m", "fl_tpu_torch.orchestration.simulation",
-         "--backend", "grpc"], cwd=ROOT, capture_output=True, text=True,
-        timeout=300)
-    require(refused.returncode != 0 and "services slice" in refused.stderr,
-            "validation CLI: --backend grpc was not refused by name")
+    from fl_tpu_torch.orchestration.simulation import require_grpc
+
+    try:
+        require_grpc()
+        missing = None
+    except ImportError as e:
+        missing = str(e)
+    if missing is None:
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "grpc.json")
+            t1 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "fl_tpu_torch.orchestration.simulation",
+                 "--backend", "grpc", "--clients", "2", "--rounds", "1",
+                 "--export", path], cwd=ROOT, capture_output=True, text=True,
+                timeout=300)
+            grpc_s = time.perf_counter() - t1
+            require(out.returncode == 0,
+                    f"validation CLI --backend grpc exited {out.returncode}: "
+                    f"{out.stderr[-2000:]}")
+            with open(path) as f:
+                full = json.load(f)
+        spent = [c["budget"]["consumed_epsilon"]
+                 for c in full["client_results"].values()]
+        require(full["rounds_completed"] == 1 and len(spent) == 2
+                and all(abs(e - 1.0) < 1e-9 for e in spent),
+                f"validation CLI --backend grpc: {full['rounds_completed']} "
+                f"rounds, eps spent {spent}")
+        grpc_note = (f"--backend grpc --clients 2 --rounds 1: exit 0 in "
+                     f"{grpc_s:.1f}s, 1 round, eps spent {spent}")
+    else:
+        refused = subprocess.run(
+            [sys.executable, "-m", "fl_tpu_torch.orchestration.simulation",
+             "--backend", "grpc"], cwd=ROOT, capture_output=True,
+            text=True, timeout=300)
+        require(refused.returncode != 0 and "grpcio" in refused.stderr,
+                "validation CLI: --backend grpc without grpcio was not "
+                "refused naming it")
+        grpc_note = f"--backend grpc refused naming grpcio ({missing})"
     print(f"validation CLI python -m fl_tpu_torch.orchestration.simulation "
           f"--clients {clients} --rounds {VAL_CLI_ROUNDS}: exit 0 in "
           f"{cli_s:.1f}s "
           f"(process start included), rounds/s {cli['rounds_per_sec']:.3f} "
           f"(wall {cli['wall_time_s']:.2f}s in the run), final accuracy "
           f"{cli['final_accuracy']:.4f}, eps spent "
-          f"{cli['total_epsilon_spent']:.3f}; --backend grpc refused by name "
-          f"[{card}]", flush=True)
+          f"{cli['total_epsilon_spent']:.3f}; {grpc_note} [{card}]",
+          flush=True)
     return k3
 
 
@@ -5889,6 +5945,500 @@ def phase_validation(card, counts):
           f"{time.perf_counter() - t_phase:.1f}s [{card}]", flush=True)
 
 
+# the deployment round (phase_deployment): the reference's backend="grpc"
+# topology, 8 FederatedTrainer threads on one card against the coordinator
+# servicer over localhost gRPC, delta DP at (3, 1e-5) over 3 rounds
+DEPLOY_CLIENTS = 8
+DEPLOY_ROUNDS = 3
+DEPLOY_SYNTH = 8_192        # the synthetic MNIST's training images
+DEPLOY_BATCH = 32
+DEPLOY_EPS, DEPLOY_DELTA = 3.0, 1e-5
+DEPLOY_AGG_TOL = 1e-6       # the global model against float64, of a leaf's
+                            # largest value
+SIMPLE_CNN_PARAMS = 421_642
+DEPLOY_POLL_S = 0.02        # the FSM's status poll while it waits
+
+
+class DeployRecord:
+    """What crossed the wire in a deployment run: the weights the
+    coordinator served each round, each client's decoded download and its
+    upload as sent, each aggregation's decoded uploads, result and
+    seconds, and every transfer whose decoded arrays were not bit-equal
+    (values and dtypes) to what the other side sent."""
+
+    def __init__(self):
+        import threading
+
+        self.lock = threading.Lock()
+        self.served = {}      # round -> the global weights served
+        self.downloads = {}   # (client, round) -> the decoded download
+        self.sent = {}        # (client, round) -> the upload as sent
+        self.uploads = {}     # round -> [(client, samples, decoded upload)]
+        self.results = {}     # round -> the aggregated weights
+        self.aggregate_s = []
+        self.mismatches = []
+
+    @staticmethod
+    def _numpy(weights):
+        from fl_tpu_torch.core.types import to_numpy
+
+        return {k: to_numpy(v) for k, v in weights.items()}
+
+    def same(self, sent, back, what):
+        import numpy as np
+
+        if set(back) != set(sent) or not all(
+                back[k].dtype == sent[k].dtype
+                and np.array_equal(back[k], sent[k]) for k in sent):
+            with self.lock:
+                self.mismatches.append(what)
+
+    def watch_initial(self, servicer):
+        """The servicer's lazy initial model, recorded as round 0's."""
+        make = servicer._create_initial_global_model
+
+        def initial():
+            gm = make()
+            self.served[0] = self._numpy(gm.model_weights)
+            return gm
+
+        servicer._create_initial_global_model = initial
+
+    def watch_coordinator(self, aggregator):
+        """Each aggregation's decoded uploads, result and seconds (the card
+        synchronized at both ends); its result is the next round's served
+        model."""
+        import torch
+
+        inner = aggregator.aggregate_updates
+
+        def aggregate_updates(updates):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = inner(updates)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            rnd = updates[0].round_number
+            result = self._numpy(model.model_weights)
+            with self.lock:
+                self.aggregate_s.append(dt)
+                self.uploads[rnd] = [(u.client_id, u.num_samples,
+                                      self._numpy(u.model_weights))
+                                     for u in updates]
+                self.results[rnd] = result
+                self.served[rnd + 1] = result
+            return model
+
+        aggregator.aggregate_updates = aggregate_updates
+
+    def watch_client(self, client):
+        """A client's download held to what was served; its upload kept as
+        sent."""
+        get, submit = client.get_global_model, client.submit_model_update
+
+        def get_global_model(round_number=-1, *args, **kwargs):
+            gm = get(round_number, *args, **kwargs)
+            self.same(self.served.get(round_number, {}), gm.model_weights,
+                       f"{client.client_id}'s download of round "
+                       f"{round_number}")
+            with self.lock:
+                self.downloads[(client.client_id, round_number)] = \
+                    gm.model_weights
+            return gm
+
+        def submit_model_update(update):
+            with self.lock:
+                self.sent[(update.client_id, update.round_number)] = \
+                    self._numpy(update.model_weights)
+            return submit(update)
+
+        client.get_global_model = get_global_model
+        client.submit_model_update = submit_model_update
+
+    def check_wire(self, clients, rounds):
+        """Every upload that was sent reached its round's aggregation
+        bit-equal, and every download was what was served."""
+        for (cid, rnd), sent in self.sent.items():
+            back = [w for c, _, w in self.uploads.get(rnd, []) if c == cid]
+            self.same(sent, back[0] if back else {},
+                       f"{cid}'s upload of round {rnd}")
+        require(len(self.sent) == clients * rounds
+                and len(self.downloads) == clients * rounds
+                and all(len(self.uploads.get(r, ())) == clients
+                        for r in range(rounds)),
+                f"deployment: {len(self.sent)} uploads sent, "
+                f"{len(self.downloads)} downloads, aggregated "
+                f"{[len(self.uploads.get(r, ())) for r in range(rounds)]}")
+        require(not self.mismatches,
+                f"deployment: the wire changed {self.mismatches[:3]}")
+
+    def mean_gap(self, rounds):
+        """The largest |global − float64 sample-weighted mean of the
+        decoded uploads| over rounds, of each leaf's largest |mean|;
+        required within DEPLOY_AGG_TOL."""
+        import numpy as np
+
+        worst = 0.0
+        for rnd in range(rounds):
+            ups = self.uploads[rnd]
+            total = float(sum(n for _, n, _ in ups))
+            for k, got in self.results[rnd].items():
+                want = sum((n / total) * w[k].astype(np.float64)
+                           for _, n, w in ups)
+                gap = np.abs(got.astype(np.float64) - want).max()
+                worst = max(worst,
+                            float(gap / max(np.abs(want).max(), 1e-30)))
+        require(worst <= DEPLOY_AGG_TOL,
+                f"deployment: global model vs float64 mean {worst}")
+        return worst
+
+
+class LoopbackClient:
+    """The RPCs of the client FSM's loop (``register``,
+    ``get_training_status``, ``join_training_round``, ``get_global_model``,
+    ``submit_model_update``; ``connect``, ``close`` and ``health_check``
+    for its connection manager) answered in process by a
+    :class:`LoopbackHub`. Stands in for the gRPC stub where ``grpcio``
+    does not import."""
+
+    def __init__(self, hub, client_id):
+        self.hub = hub
+        self.client_id = client_id
+
+    def connect(self):
+        pass
+
+    def close(self):
+        pass
+
+    def health_check(self):
+        return True
+
+    def register(self, capabilities, metadata=None):
+        self.hub.manager.register_client(
+            self.client_id,
+            {"available_samples": capabilities.available_samples})
+        return {"client_id": self.client_id, "global_model_version": 0}
+
+    def get_training_status(self):
+        return self.hub.status()
+
+    def join_training_round(self, requested_round=-1):
+        return self.hub.round_config(requested_round)
+
+    def get_global_model(self, round_number=-1):
+        return self.hub.download(round_number)
+
+    def submit_model_update(self, update):
+        return self.hub.upload(update)
+
+
+class LoopbackHub:
+    """The coordinator where ``grpcio`` does not import: the port's
+    ``RoundManager`` (auto-start on a 20 ms tick, the synchronous
+    aggregation on the last submitter's thread) with ``FedAvgAggregator``
+    on the card and the servicer's DP-widened validator. Every weight dict
+    crosses as ``ModelWeightSerializer`` bytes, both ways."""
+
+    def __init__(self, init_weights, round_config):
+        from fl_tpu_torch.core.types import GlobalModel
+        from fl_tpu_torch.fl.fedavg import FedAvgAggregator
+        from fl_tpu_torch.orchestration.round_manager import RoundManager
+        from fl_tpu_torch.services.serialization import ModelWeightSerializer
+        from fl_tpu_torch.utils.validation import dp_widened_validator
+
+        n = round_config.max_clients
+        self.manager = RoundManager(
+            round_config=round_config, auto_start=True, tick_interval_s=0.02,
+            aggregator=FedAvgAggregator(
+                min_clients=n, max_clients=n, device=DEVICE,
+                validator=dp_widened_validator(round_config.privacy_config)))
+        self.manager.global_model = GlobalModel(0, dict(init_weights))
+        self.codec = ModelWeightSerializer()
+
+    def _wire(self, weights):
+        return self.codec.deserialize_weights(self.codec.serialize_weights(
+            DeployRecord._numpy(weights)))
+
+    def status(self):
+        from fl_tpu_torch.core.types import TrainingStatus
+
+        s = self.manager.get_training_status()
+        # between rounds the last one is current: the FSM waits
+        idle = s["round_state"] == "idle"
+        return TrainingStatus(
+            current_round=s["current_round"] - int(idle),
+            active_clients=s["registered_clients"], round_progress=0.0,
+            global_accuracy=0.0, convergence_score=0.0)
+
+    def round_config(self, requested_round):
+        import dataclasses
+
+        return dataclasses.replace(self.manager.round_config,
+                                   round_number=requested_round)
+
+    def download(self, round_number):
+        from fl_tpu_torch.core.types import GlobalModel
+
+        return GlobalModel(round_number, self._wire(
+            self.manager.global_model.model_weights))
+
+    def upload(self, update):
+        import dataclasses
+
+        ok = self.manager.submit_update(dataclasses.replace(
+            update, model_weights=self._wire(update.model_weights)))
+        return {"success": ok, "message": "accepted" if ok else
+                f"round {update.round_number} is not collecting"}
+
+
+def deployment_k3_check(card, rec, privacy, eps_r, delta_r):
+    """K3 at the FSM's release shape (1, 421,642): one client's delta (its
+    round-0 upload less the global model it downloaded), whose norm lies
+    above the clip norm, through ``clip_and_noise_tree`` at sigma 0 (eps
+    inf) bit-equal to ``use_pallas=False``; at the round's (eps_r,
+    delta_r) the noise's std/sigma within 2%; K3's and the plain version's
+    ms. Comparison launches: not counted."""
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch.fl.privacy import clip_and_noise_tree
+    from fl_tpu_torch.ops import dp as dp_ops
+
+    cid = min(c for c, r in rec.sent if r == 0)
+    up, base = rec.sent[(cid, 0)], rec.downloads[(cid, 0)]
+    delta = {k: torch.as_tensor(up[k] - np.asarray(base[k])).to(DEVICE)
+             for k in up}
+    norm = float(torch.sqrt(sum(v.double().square().sum()
+                                for v in delta.values())))
+    c = privacy.max_grad_norm
+    got, sens, sig = clip_and_noise_tree(delta, 7, math.inf, delta_r, c)
+    want, wsens, wsig = clip_and_noise_tree(delta, 7, math.inf, delta_r, c,
+                                            use_pallas=False)
+    equal = all(torch.equal(got[k], want[k]) for k in got)
+    require(norm > c and equal and float(sig) == 0.0
+            and torch.equal(sens, wsens),
+            f"deployment K3: the sigma-0 release differs from the plain "
+            f"version (delta norm {norm}, clip {c}, sigma {float(sig)})")
+    noisy, sens, sig = clip_and_noise_tree(delta, 8, eps_r, delta_r, c)
+    scale = c / norm
+    resid = torch.cat([(noisy[k] - delta[k] * scale).reshape(-1)
+                       for k in noisy]).double()
+    ratio = float(resid.std() / sig)
+    require(abs(ratio - 1.0) < 0.02 and abs(float(resid.mean() / sig))
+            < 5.0 / math.sqrt(SIMPLE_CNN_PARAMS),
+            f"deployment K3: noise std/sigma {ratio}")
+    row = torch.cat([v.reshape(-1) for v in delta.values()])[None]
+    ms = time_ms(lambda: dp_ops.clip_noise_matrix(row, [9], eps_r, delta_r,
+                                                  c))
+    plain_ms = time_ms(lambda: dp_ops.clip_noise_matrix(
+        row, [9], eps_r, delta_r, c, use_pallas=False))
+    b_ms, b_by = bound(8 * row.numel() + 2 * 16, 10 * row.numel(),
+                       F32_FLOPS)
+    print(f"deployment K3 clip_and_noise_tree (1, {row.shape[1]:,}), delta "
+          f"norm {norm:.1f} over clip {c}: sigma=0 bit-equal to the plain "
+          f"version; at eps_r={eps_r} noise std/sigma {ratio:.4f}; "
+          f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms by "
+          f"{b_by}) [{card}]", flush=True)
+
+
+def deployment_simulation_smoke(card):
+    """``FederatedLearningSimulation(backend="grpc")`` for one round of 2
+    clients over localhost: its servicer's aggregate held to the float64
+    mean of the decoded uploads, each client's eps spent 1.0. A smoke, not
+    a measurement. Returns K3's launches."""
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.orchestration.simulation import (
+        FederatedLearningSimulation, SimulationConfig)
+    from fl_tpu_torch.services import grpc_server
+
+    rec, made = DeployRecord(), []
+    init_fn = grpc_server.FederatedLearningServicer.__init__
+
+    def watched(self, *args, **kwargs):
+        init_fn(self, *args, **kwargs)
+        rec.watch_initial(self)
+        rec.watch_coordinator(self.aggregator)
+        made.append(self)
+
+    grpc_server.FederatedLearningServicer.__init__ = watched
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        res = FederatedLearningSimulation(SimulationConfig(
+            backend="grpc", num_clients=2, num_rounds=1, local_epochs=1,
+            n_train_synth=2_048, timeout_s=300),
+            device=DEVICE).run_simulation()
+    finally:
+        grpc_server.FederatedLearningServicer.__init__ = init_fn
+    wall = time.perf_counter() - t0
+    k3 = ops.launch_counts()["clip_noise"]
+    spent = [c["budget"]["consumed_epsilon"]
+             for c in res["client_results"].values()]
+    require(res["rounds_completed"] == 1 and k3 == 2 and len(made) == 1
+            and len(rec.uploads.get(0, ())) == 2
+            and all(abs(e - 1.0) < 1e-9 for e in spent),
+            f"deployment simulation: {res['rounds_completed']} rounds, K3 "
+            f"{k3}, aggregated {len(rec.uploads.get(0, ()))}, eps {spent}")
+    final = DeployRecord._numpy(made[0].global_model.model_weights)
+    rec.same(rec.results[0], final, "the servicer's global model")
+    require(not rec.mismatches, "deployment simulation: the servicer's "
+            "global model is not its aggregate")
+    gap = rec.mean_gap(1)
+    print(f"deployment smoke FederatedLearningSimulation(backend='grpc', 2 "
+          f"clients, 1 round) over localhost: {res['stop_reason']}, "
+          f"{wall:.2f}s, the servicer's global vs float64 mean {gap:.2e}, "
+          f"eps spent {spent}, K3 launches {k3} [{card}]", flush=True)
+    return k3
+
+
+def phase_deployment(card, counts):
+    """The deployment round on the card: 8 ``FederatedTrainer`` threads
+    (mnist, non-IID over 8,192 synthetic images, local_epochs 1, batch 32,
+    delta DP at (3, 1e-5) over 3 rounds) against the port's
+    ``FederatedLearningServicer`` (FedAvgAggregator on the card, the
+    DP-widened validator, aggregation on its one-worker executor) over
+    localhost gRPC; where ``grpcio`` does not import, against the port's
+    ``RoundManager`` through ``LoopbackClient``. K3 carries each client's
+    release, DEPLOY_CLIENTS x DEPLOY_ROUNDS launches; then the grpc
+    backend's simulation smoke. The launches join ``counts``."""
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.core.types import PrivacyConfig, RoundConfig
+    from fl_tpu_torch.ops import dp as dp_ops
+    from fl_tpu_torch.orchestration.simulation import require_grpc
+    from fl_tpu_torch.services.federated_trainer import FederatedTrainer
+
+    t_phase = time.perf_counter()
+    privacy = PrivacyConfig(DEPLOY_EPS, DEPLOY_DELTA)
+    eps_r, delta_r = DEPLOY_EPS / DEPLOY_ROUNDS, DEPLOY_DELTA / DEPLOY_ROUNDS
+    cfg = RoundConfig(min_clients=DEPLOY_CLIENTS,
+                      max_clients=DEPLOY_CLIENTS, local_epochs=1,
+                      batch_size=DEPLOY_BATCH, learning_rate=1e-3,
+                      privacy_config=privacy)
+    rec = DeployRecord()
+    try:
+        require_grpc()
+        missing = None
+    except ImportError as e:
+        missing = str(e)
+    if missing is None:
+        from fl_tpu_torch.services.grpc_server import (
+            CoordinatorGRPCServer, FederatedLearningServicer)
+
+        servicer = FederatedLearningServicer(round_config=cfg, device=DEVICE)
+        rec.watch_initial(servicer)
+        rec.watch_coordinator(servicer.aggregator)
+        server = CoordinatorGRPCServer(servicer, host="127.0.0.1", port=0)
+        port = server.start()
+        route = "FederatedLearningServicer over localhost gRPC"
+    else:
+        from fl_tpu_torch.models import create_model, init_variables
+        from fl_tpu_torch.models.factory import get_model_weights
+        from fl_tpu_torch.services.grpc_client import ClientConnectionManager
+
+        print(f"deployment: the loopback coordinator, since {missing} "
+              f"[{card}]", flush=True)
+        rec.served[0] = DeployRecord._numpy(get_model_weights(
+            init_variables(create_model("simple_cnn"), seed=0,
+                           device=DEVICE)))
+        hub = LoopbackHub(rec.served[0], cfg)
+        rec.watch_coordinator(hub.manager.aggregator)
+        port = 0
+        route = "RoundManager through LoopbackClient"
+    trainers = []
+    for i in range(DEPLOY_CLIENTS):
+        t = FederatedTrainer(
+            client_id=f"edge_{i}", coordinator_host="127.0.0.1",
+            coordinator_port=port, dataset="mnist", privacy=privacy,
+            epsilon_per_round=eps_r, delta_per_round=delta_r,
+            client_index=i, num_clients=DEPLOY_CLIENTS,
+            partition_strategy="non_iid", poll_interval_s=DEPLOY_POLL_S,
+            max_rounds=DEPLOY_ROUNDS, n_train_synth=DEPLOY_SYNTH,
+            n_test_synth=1_024, device=DEVICE)
+        t.initialize()
+        if missing is not None:
+            t.client = LoopbackClient(hub, t.client_id)
+            t.connection = ClientConnectionManager(t.client)
+        rec.watch_client(t.client)
+        trainers.append(t)
+    # K3 compiled before the threads start (its first call compiles)
+    dp_ops.clip_noise_matrix(torch.zeros((1, 4096), device=DEVICE), [1],
+                             1.0, 1e-5, 1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if missing is not None:
+        hub.manager.start()
+    for t in trainers:
+        t.start_training()
+    while time.perf_counter() < t0 + 240 and (
+            len(rec.results) < DEPLOY_ROUNDS
+            or any(t.rounds_completed < DEPLOY_ROUNDS for t in trainers)):
+        time.sleep(0.005)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3 = ops.launch_counts()["clip_noise"]
+    got, only_k3 = _launched(clip_noise=k3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for t in trainers:
+        t.stop_training()
+    if missing is None:
+        server.stop()
+    else:
+        hub.manager.stop()
+    hist = [h for t in trainers for h in t.training_history]
+    require(len(rec.results) == DEPLOY_ROUNDS
+            and all(t.rounds_completed == DEPLOY_ROUNDS for t in trainers),
+            f"deployment: aggregated rounds {sorted(rec.results)}, client "
+            f"rounds {[t.rounds_completed for t in trainers]}, states "
+            f"{[t.state.value for t in trainers]}")
+    require(sum(v.size for v in rec.served[0].values())
+            == SIMPLE_CNN_PARAMS, "deployment: SimpleCNN is not at full "
+            "width")
+    require(k3 == DEPLOY_CLIENTS * DEPLOY_ROUNDS and only_k3,
+            f"deployment: launches {got}, expected clip_noise="
+            f"{DEPLOY_CLIENTS * DEPLOY_ROUNDS} and nothing else")
+    rec.check_wire(DEPLOY_CLIENTS, DEPLOY_ROUNDS)
+    gap = rec.mean_gap(DEPLOY_ROUNDS)
+    for t in trainers:
+        spent = [e["epsilon"] for e in
+                 t.budget_tracker.consumption_history]
+        require(spent == [eps_r] * DEPLOY_ROUNDS
+                and abs(t.budget_tracker.consumed_epsilon - DEPLOY_EPS)
+                < 1e-9,
+                f"deployment: {t.client_id} spent {spent}")
+    require(all(math.isfinite(h["loss"]) for h in hist),
+            f"deployment: losses {[h['loss'] for h in hist]}")
+    deployment_k3_check(card, rec, privacy, eps_r, delta_r)
+    med = lambda xs: 1e3 * float(np.median(xs))  # noqa: E731
+    print(f"deployment {DEPLOY_CLIENTS} FederatedTrainer threads x "
+          f"{DEPLOY_ROUNDS} rounds (SimpleCNN {SIMPLE_CNN_PARAMS:,} "
+          f"params, non-IID over {DEPLOY_SYNTH} images, batch "
+          f"{DEPLOY_BATCH}, delta DP eps {DEPLOY_EPS} over "
+          f"{DEPLOY_ROUNDS} rounds) against {route}: "
+          f"{DEPLOY_ROUNDS / wall:.3f} rounds/s wall clock ({wall:.2f}s); "
+          f"median ms a client: train {med([h['train_s'] for h in hist]):.1f}"
+          f", DP {med([h['privacy_s'] for h in hist]):.2f}, compress "
+          f"{med([h['compress_s'] for h in hist]):.1f}, upload (encode, "
+          f"send, decode) {med([h['upload_s'] for h in hist]):.2f}, whole "
+          f"round {med([h['time_s'] for h in hist]):.1f}; aggregation "
+          f"{med(rec.aggregate_s):.2f} ms (median of {len(rec.aggregate_s)})"
+          f"; peak memory {peak:.3f} GiB; K3 launches {k3}; global vs "
+          f"float64 mean {gap:.2e} of a leaf's largest; wire bit-equal both "
+          f"ways; eps spent {eps_r} a round a client; losses "
+          f"{[round(h['loss'], 2) for h in hist[:DEPLOY_ROUNDS]]} "
+          f"(edge_0) [{card}]", flush=True)
+    if missing is None:
+        k3 += deployment_simulation_smoke(card)
+    counts["clip_noise"] = counts.get("clip_noise", 0) + k3
+    print(f"deployment: K3 launches on the new path {k3}; phase "
+          f"{time.perf_counter() - t_phase:.1f}s [{card}]", flush=True)
+
+
 def kernel_report():
     src_cu = "fl_tpu_torch/csrc/conv_block.cu"
     rows = (
@@ -6007,6 +6557,9 @@ def main() -> int:
     # 5l. the simulation entry point, the validators and attacks, federated
     # analytics and vertical FL
     phase_validation(card, counts)
+    # 5m. the deployment round: the client FSM, the round manager and the
+    # host FedAvg on the card, K3 in each client's release
+    phase_deployment(card, counts)
 
     # 6. learning checks
     learning_check("residual")

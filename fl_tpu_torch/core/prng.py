@@ -75,6 +75,17 @@ def root_seed(seed: int) -> int:
     return _mix((int(seed) * _GOLDEN + 0x632BE59BD9B4E019) & _MASK64)
 
 
+def root_seed_from_digest(digest: bytes) -> int:
+    """A root seed carrying 128 bits of a hash digest: the first 8 bytes
+    through :func:`root_seed`, the next 8 folded in (ref:
+    ``root_key_from_digest``, which folds four 31-bit words, so that two
+    clients' roots do not collide)."""
+    if len(digest) < 16:
+        raise ValueError("root_seed_from_digest needs >= 16 digest bytes")
+    return fold(root_seed(int.from_bytes(digest[:8], "big")),
+                int.from_bytes(digest[8:16], "big"))
+
+
 def round_seed(root: int, round_number: int) -> int:
     return fold(root, round_number)
 

@@ -563,24 +563,36 @@ def model_kwargs(batch_stats) -> Dict[str, Any]:
 @torch.no_grad()
 def evaluate_test_set(model, params, images: torch.Tensor,
                       labels: torch.Tensor, batch_size: int = 512,
-                      batch_stats=None) -> Dict[str, float]:
+                      batch_stats=None, per_class: bool = False
+                      ) -> Dict[str, Any]:
     """Loss and accuracy of one (unstacked) model on normalized images,
     averaged over full batches as ``fl_tpu``'s ``make_eval_fn`` does; a
-    BatchNorm model normalizes with its running ``batch_stats``."""
+    BatchNorm model normalizes with its running ``batch_stats``. With
+    ``per_class``, also ``per_class_accuracy``: each class's correct count
+    over its count in those batches (0 where a class is absent)."""
     n = images.shape[0]
     bs = min(batch_size, n)
     stacked = tree_map(lambda v: v[None], params)
     kw = model_kwargs(None if batch_stats is None
                       else tree_map(lambda v: v[None], batch_stats))
-    losses, accs = [], []
+    losses, accs, correct_by, total_by = [], [], 0.0, 0.0
     for i in range(max(1, n // bs)):
         xb = images[None, i * bs:(i + 1) * bs]
         yb = labels[None, i * bs:(i + 1) * bs]
         logits = model(stacked, xb, **kw)
         losses.append(cross_entropy_loss(logits, yb))
-        accs.append((logits.argmax(-1) == yb).float().mean(1))
-    return {"loss": float(torch.cat(losses).mean()),
-            "accuracy": float(torch.cat(accs).mean())}
+        hit = (logits.argmax(-1) == yb).float()
+        accs.append(hit.mean(1))
+        if per_class:
+            onehot = F.one_hot(yb[0], logits.shape[-1]).float()
+            correct_by = correct_by + (hit[0, :, None] * onehot).sum(0)
+            total_by = total_by + onehot.sum(0)
+    out = {"loss": float(torch.cat(losses).mean()),
+           "accuracy": float(torch.cat(accs).mean())}
+    if per_class:
+        out["per_class_accuracy"] = (
+            correct_by / torch.clamp(total_by, min=1.0)).tolist()
+    return out
 
 
 def train_variables(local_train: Callable, variables, images_u8, labels,
@@ -599,7 +611,7 @@ def train_variables(local_train: Callable, variables, images_u8, labels,
 
 
 def evaluate_u8_test_set(model, variables, images_u8, labels, mean, std,
-                         device) -> Dict[str, float]:
+                         device, per_class: bool = False) -> Dict[str, Any]:
     """:func:`evaluate_test_set` of one model's variables on a uint8 test
     set, normalized on the host with the data's ``mean`` / ``std`` (the
     reference's ``evaluate_test_set`` of the clustered and async
@@ -611,4 +623,4 @@ def evaluate_u8_test_set(model, variables, images_u8, labels, mean, std,
         model, variables["params"],
         torch.as_tensor(x, dtype=torch.float32).to(device),
         torch.as_tensor(np.asarray(labels, np.int64)).to(device),
-        batch_stats=variables.get("batch_stats"))
+        batch_stats=variables.get("batch_stats"), per_class=per_class)

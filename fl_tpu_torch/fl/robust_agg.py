@@ -21,13 +21,17 @@ they sort past every real value. Krum's distances are one Gram product,
 ‖a‖² + ‖b‖² − 2⟨a, b⟩, which cancels: it is computed in full f32, never
 TF32, whatever ``torch.backends.cuda.matmul.allow_tf32`` says.
 
-Plain PyTorch, as the reference's is XLA. The host aggregator class of the
-reference is not ported here.
+Plain PyTorch, as the reference's is XLA. :class:`RobustAggregator` is
+the deployment coordinator's host class (ref: ``RobustAggregator``,
+``fl_tpu/fl/robust_agg.py:103-230``): a drop-in for
+``fl.fedavg.FedAvgAggregator`` that combines full client weight dicts with
+these rules on its device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 
 import torch
 
@@ -114,6 +118,131 @@ def krum_matrix(mat: torch.Tensor, mask: torch.Tensor, f: int,
     :func:`krum_select` rows; ``m_select`` = 1 is classic Krum."""
     picked = mat[krum_select(mat, mask, f, m_select)]
     return picked.sum(0) / float(max(picked.shape[0], 1))
+
+
+class RobustAggregator:
+    """Host-tier robust aggregator for the deployment coordinator: a
+    drop-in for :class:`fl_tpu_torch.fl.fedavg.FedAvgAggregator` (the gRPC
+    servicer accepts any object with its ``aggregate_updates`` surface)
+    that combines full client weight dicts with trimmed mean / median /
+    Krum.
+
+    Works on FULL weights, no reference model needed: all three rules are
+    shift-equivariant (per-coordinate sort order is invariant to adding
+    the common global θ_g, and Krum's pairwise distances satisfy
+    ‖θ_i−θ_j‖ = ‖Δ_i−Δ_j‖), so combining full weights equals θ_g +
+    combining deltas. Sample counts are IGNORED by design
+    (attacker-controlled metadata). ``device``: where the rules run; None
+    is the card.
+    """
+
+    def __init__(self, method: str = "median", trim_k: int = 1,
+                 krum_f: int = 1, krum_m: int = 1, min_clients: int = 2,
+                 validate_updates: bool = True, device=None):
+        if method not in ("trimmed_mean", "median", "krum"):
+            raise ValueError(
+                f"method={method!r} not in "
+                "('trimmed_mean', 'median', 'krum')")
+        # fail at config time: aggregation triggers at exactly
+        # min_clients, so the threshold itself must be feasible
+        if method == "trimmed_mean" and min_clients - 2 * trim_k < 1:
+            raise ValueError(
+                f"trimmed_mean(trim_k={trim_k}) needs min_clients >= "
+                f"{2 * trim_k + 1}, got {min_clients}")
+        if method == "krum" and min_clients < 2 * krum_f + 3:
+            raise ValueError(
+                f"krum(f={krum_f}) needs min_clients >= 2f+3="
+                f"{2 * krum_f + 3} (Blanchard et al. resilience "
+                f"condition), got {min_clients}")
+        from fl_tpu_torch.fl.fedavg import FedAvgAggregator
+
+        self.method = method
+        self.trim_k = trim_k
+        self.krum_f = krum_f
+        self.krum_m = krum_m
+        # the host facade's validation, filter and history machinery
+        self._base = FedAvgAggregator(
+            min_clients=min_clients, validate_updates=validate_updates,
+            device=device)
+        self.device = self._base.device
+        self.min_clients = min_clients
+
+    @property
+    def aggregation_history(self):
+        # a property, not an alias: _record_stats REASSIGNS the base list
+        # when it truncates the history
+        return self._base.aggregation_history
+
+    # -- FedAvgAggregator API surface ----------------------------------
+    def validate_update(self, update):
+        return self._base.validate_update(update)
+
+    def calculate_convergence_metrics(self, old_model, new_model):
+        return self._base.calculate_convergence_metrics(old_model,
+                                                        new_model)
+
+    def get_aggregation_stats(self):
+        return self._base.get_aggregation_stats()
+
+    def aggregate_updates(self, updates, weights=None):
+        from fl_tpu_torch.core.types import GlobalModel
+        from fl_tpu_torch.fl.fedavg import FedAvgError, weight_tensor
+
+        del weights  # robust rules are unweighted by design
+        t0 = time.perf_counter()
+        if not updates:
+            raise FedAvgError("No model updates provided")
+        valid = self._base._filter_updates(updates)
+        m = len(valid)
+        if m < self.min_clients:
+            raise FedAvgError(
+                f"Insufficient valid updates: {m} < {self.min_clients}")
+        if self.method == "trimmed_mean" and m - 2 * self.trim_k < 1:
+            raise FedAvgError(
+                f"trimmed_mean(trim_k={self.trim_k}) needs more than "
+                f"{2 * self.trim_k} updates; got {m}")
+        if self.method == "krum" and m < 2 * self.krum_f + 3:
+            # Blanchard et al. 2017's resilience condition n >= 2f+3
+            raise FedAvgError(
+                f"krum(f={self.krum_f}) needs at least 2f+3="
+                f"{2 * self.krum_f + 3} updates; got {m}")
+
+        keys = list(valid[0].model_weights.keys())
+        stacked = {
+            k: torch.stack([weight_tensor(u.model_weights[k], self.device)
+                            .float() for u in valid])
+            for k in keys
+        }
+        mat, spec = stack_flatten(stacked)
+        del stacked
+        mask = torch.ones((m,), dtype=torch.float32, device=self.device)
+        if self.method == "trimmed_mean":
+            combined = trimmed_mean_matrix(mat, mask, self.trim_k)
+        elif self.method == "median":
+            combined = median_matrix(mat, mask)
+        else:
+            combined = krum_matrix(mat, mask, self.krum_f, self.krum_m)
+        tree = stack_unflatten(combined[None], spec)
+        averaged = {k: v[0] for k, v in tree.items()}
+
+        acc_metrics = {}
+        reported = [u.training_metrics.accuracy for u in valid
+                    if u.training_metrics is not None]
+        if reported:  # UNWEIGHTED mean: counts are attacker-controlled
+            acc_metrics["train_accuracy"] = float(
+                sum(reported) / len(reported))
+        avg_loss = float(sum(u.training_loss for u in valid) / m)
+        self._base._record_stats(
+            valid, [1.0 / m] * m,
+            int(sum(u.num_samples for u in valid)), avg_loss,
+            time.perf_counter() - t0)
+        return GlobalModel(
+            round_number=valid[0].round_number,
+            model_weights=averaged,
+            accuracy_metrics=acc_metrics,
+            participating_clients=[u.client_id for u in valid],
+            convergence_score=0.0,
+        )
 
 
 def robust_combine_deltas(global_params, new_stacked, mask: torch.Tensor,

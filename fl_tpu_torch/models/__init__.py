@@ -17,6 +17,7 @@ from fl_tpu_torch.models.factory import (  # noqa: F401
     init_variables,
     list_available_models,
     model_info,
+    set_model_weights,
     validate_model_compatibility,
 )
 from fl_tpu_torch.models.mobilenet import (  # noqa: F401

@@ -12,12 +12,15 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from fl_tpu_torch.core.pytree import (
+    assert_same_structure,
     flatten_dict,
     tree_leaves,
     tree_map,
+    unflatten_dict,
 )
 from fl_tpu_torch.models.cifar10_cnn import CIFAR10CNN
 from fl_tpu_torch.models.mobilenet import LightweightMobileNet
@@ -239,3 +242,21 @@ def get_model_weights(variables) -> Dict[str, Any]:
     ``fl_tpu.models.base.FLModel.get_model_weights``)."""
     return flatten_dict({k: v for k, v in variables.items()
                          if k in ("params", "batch_stats")})
+
+
+def set_model_weights(variables, weights: Dict[str, Any]) -> Dict[str, Any]:
+    """Variables rebuilt from a flat weight dict of the same keys and
+    shapes (numpy arrays or tensors, copied), each leaf on the device and
+    in the dtype of the one it replaces; a mismatch raises (ref:
+    ``FLModel.set_model_weights``, ``fl_tpu/models/base.py:80-86``)."""
+    current = get_model_weights(variables)
+    assert_same_structure(current, weights)
+
+    def leaf(v, like):
+        if isinstance(v, torch.Tensor):
+            return v.to(device=like.device, dtype=like.dtype, copy=True)
+        return torch.from_numpy(np.array(v)).to(device=like.device,
+                                                dtype=like.dtype)
+
+    return unflatten_dict({k: leaf(v, current[k])
+                           for k, v in weights.items()})

@@ -40,6 +40,7 @@ leave registers. (Counts: ``tools/rng_kernels.py isa``.)
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -50,6 +51,9 @@ BQ = 512
 NUM_WARPS = 4
 MAX_D = (1 << 31) - 1 - 4 * BQ
 LAUNCHES = {"clip_noise": 0}
+# the deployment round's client threads launch K3 concurrently: the lazy
+# compile and the count's read-modify-write are made under this lock
+_lock = threading.Lock()
 
 
 def gaussian_factor(epsilon: float, delta: float) -> float:
@@ -174,13 +178,15 @@ def clip_noise_cuda(x, scale, sigma, seeds):
     if D > MAX_D:
         raise ValueError(f"D={D} must be at most {MAX_D} (the kernel's "
                          "column offsets are 32-bit)")
-    if _compiled is None:
-        _compiled = _kernel()
+    with _lock:
+        if _compiled is None:
+            _compiled = _kernel()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         _compiled[(-(-D // (4 * BQ)), C)](x, out, scale, sigma, seeds, D,
                                           BQ=BQ, num_warps=NUM_WARPS)
-    LAUNCHES["clip_noise"] += 1
+    with _lock:
+        LAUNCHES["clip_noise"] += 1
     return out
 
 

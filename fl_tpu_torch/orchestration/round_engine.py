@@ -122,13 +122,7 @@ import torch
 
 from fl_tpu_torch.core import prng
 from fl_tpu_torch.core.mesh import replicate_tree, resolve_device
-from fl_tpu_torch.core.pytree import (
-    assert_same_structure,
-    global_norm,
-    tree_leaves,
-    tree_map,
-    unflatten_dict,
-)
+from fl_tpu_torch.core.pytree import global_norm, tree_leaves, tree_map
 from fl_tpu_torch.core.transfer import to_device
 from fl_tpu_torch.core.types import PrivacyConfig
 from fl_tpu_torch.data.federated import FederatedArrays
@@ -173,7 +167,7 @@ from fl_tpu_torch.fl.uplink import (
     make_uplink_fn,
 )
 from fl_tpu_torch.models.factory import (
-    get_model_weights, init_model_variables)
+    get_model_weights, init_model_variables, set_model_weights)
 from fl_tpu_torch.ops.flatten import (
     flat_dim,
     padded_dim,
@@ -1956,12 +1950,5 @@ class FederatedRoundEngine:
     def set_model_weights(self, weights: Dict[str, Any]) -> None:
         """Replace the global model from a flat weight dict of the same
         keys and shapes (numpy arrays or tensors); a mismatch raises."""
-        current = get_model_weights(self.global_variables)
-        assert_same_structure(current, weights)
-        def leaf(v, like):
-            t = v if isinstance(v, torch.Tensor) else torch.tensor(
-                np.asarray(v))
-            return t.to(device=self.device, dtype=like.dtype).clone()
-
-        self.global_variables = unflatten_dict(
-            {k: leaf(v, current[k]) for k, v in weights.items()})
+        self.global_variables = set_model_weights(self.global_variables,
+                                                  weights)

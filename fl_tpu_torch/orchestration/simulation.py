@@ -15,9 +15,13 @@ one device (the card unless the caller asks for the CPU): the reference's
 heterogeneity (LOW/MEDIUM/HIGH power, 5-50 Mbps, ref :247-249) maps to
 per-client epoch budgets, stragglers and failures to participation-mask
 dropout. Under the default ``dp_mode="delta"`` each round's release is the
-clip+noise kernel (K3 on a card). The ``grpc`` backend (an in-process
-coordinator and N client threads over localhost) needs the services layer,
-which is not ported: it raises.
+clip+noise kernel (K3 on a card). The ``grpc`` backend is the reference's
+deployment topology (ref :309-318): an in-process coordinator (the gRPC
+servicer) and N ``FederatedTrainer`` client threads over localhost, each
+client training and releasing on the same device; it needs the
+``grpcio`` and ``protobuf`` packages and raises naming them where they are
+missing. Secure aggregation and distributed DP over the wire raise by name
+(``services.SECAGG_NOT_PORTED``).
 
 Exit criteria match the reference (:362-428): target accuracy reached |
 round budget exhausted | wall-clock timeout. ``rounds_per_sec`` in the
@@ -29,10 +33,11 @@ results is the reference's formula, rounds over the sum of the rounds'
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import logging
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -60,17 +65,30 @@ CAPABILITY_CYCLE = (
     {"compute_power": ComputePowerLevel.MEDIUM, "network_bandwidth": 50},
 )
 
-GRPC_MESSAGE = (
-    "backend='grpc' runs the coordinator and clients over gRPC, which "
-    "comes with the port's services slice (not ported yet); use "
+GRPC_MISSING = (
+    "backend='grpc' runs the coordinator and clients over gRPC and needs "
+    "the grpcio and protobuf packages ({missing}); install them or use "
     "backend='onchip'")
+
+
+def require_grpc() -> None:
+    """Raise an ImportError naming grpcio (and protobuf) unless both
+    import."""
+    missing = []
+    for module, package in (("grpc", "grpcio"),
+                            ("google.protobuf", "protobuf")):
+        try:
+            __import__(module)
+        except ImportError:
+            missing.append(f"{package} is not installed")
+    if missing:
+        raise ImportError(GRPC_MISSING.format(missing="; ".join(missing)))
 
 
 @dataclasses.dataclass
 class SimulationConfig:
     """ref: SimulationConfig, federated_simulation.py:29-83 (the fields of
-    ``fl_tpu.orchestration.simulation.SimulationConfig``; the grpc
-    backend's are kept so a config carries across)."""
+    ``fl_tpu.orchestration.simulation.SimulationConfig``)."""
 
     dataset: str = "mnist"
     num_clients: int = 5
@@ -91,7 +109,7 @@ class SimulationConfig:
     straggler_dropout_rate: float = 0.0
     heterogeneous_clients: bool = True
     seed: int = 0
-    backend: str = "onchip"  # "onchip" (| "grpc", not ported)
+    backend: str = "onchip"  # "onchip" | "grpc"
     secure_aggregation: bool = False
     distributed_dp: bool = False
     ddp_bits: int = 14
@@ -114,7 +132,8 @@ class SimulationConfig:
 
 class FederatedLearningSimulation:
     """ref: FederatedLearningSimulation, federated_simulation.py:194-528.
-    ``device``: where the engine runs; None is the card."""
+    ``device``: where the engine (onchip) or the coordinator and clients
+    (grpc) run; None is the card."""
 
     def __init__(self, config: Optional[SimulationConfig] = None,
                  device=None):
@@ -127,15 +146,14 @@ class FederatedLearningSimulation:
     def run_simulation(self) -> Dict[str, Any]:
         """ref: run_simulation, federated_simulation.py:362-428."""
         cfg = self.config
-        if cfg.backend == "grpc":
-            raise NotImplementedError(GRPC_MESSAGE)
-        if cfg.backend != "onchip":
+        if cfg.backend not in ("onchip", "grpc"):
             raise ValueError(f"backend must be 'onchip' or 'grpc', got "
                              f"{cfg.backend!r}")
         logger.info("simulation: %d clients, %s, backend=%s",
                     cfg.num_clients, cfg.dataset, cfg.backend)
         t0 = time.time()
-        results = self._run_onchip()
+        results = (self._run_grpc() if cfg.backend == "grpc"
+                   else self._run_onchip())
         results["wall_time_s"] = time.time() - t0
         results["config"] = dataclasses.asdict(self.config)
         self.results = results
@@ -246,6 +264,123 @@ class FederatedLearningSimulation:
             "round_history": [dataclasses.asdict(r) for r in hist],
             "training_progress": self.metrics.get_training_progress(),
         }
+
+    # -- grpc backend (the reference's deployment topology) -------------------
+    def _run_grpc(self) -> Dict[str, Any]:
+        """ref: _run_grpc, fl_tpu/orchestration/simulation.py:262-360."""
+        require_grpc()
+        from fl_tpu_torch.core.types import RoundConfig
+        from fl_tpu_torch.services.federated_trainer import FederatedTrainer
+        from fl_tpu_torch.services.grpc_server import (
+            CoordinatorGRPCServer,
+            FederatedLearningServicer,
+        )
+
+        cfg = self.config
+        privacy = (PrivacyConfig(cfg.privacy_epsilon, cfg.privacy_delta,
+                                 cfg.max_grad_norm,
+                                 noise_multiplier=cfg.noise_multiplier)
+                   if cfg.privacy_epsilon
+                   and (cfg.dp_mode != "none" or cfg.distributed_dp)
+                   else None)
+        servicer = FederatedLearningServicer(
+            round_config=RoundConfig(
+                min_clients=(cfg.num_clients if cfg.secure_aggregation
+                             else min(2, cfg.num_clients)),
+                max_clients=cfg.num_clients,
+                local_epochs=cfg.local_epochs, batch_size=cfg.batch_size,
+                learning_rate=cfg.learning_rate, privacy_config=privacy,
+            ),
+            secure_aggregation=cfg.secure_aggregation,
+            distributed_dp=cfg.distributed_dp,
+            adaptive_clipping=cfg.adaptive_clipping,
+            clip_target_quantile=cfg.clip_target_quantile,
+            clip_learning_rate=cfg.clip_learning_rate,
+            clip_count_stddev=cfg.clip_count_stddev,
+            device=self.device,
+        )
+        server = CoordinatorGRPCServer(servicer, host="127.0.0.1", port=0)
+        port = server.start()
+        clients: List[FederatedTrainer] = []
+        try:
+            for i in range(cfg.num_clients):
+                t = FederatedTrainer(
+                    client_id=f"sim_{i}", coordinator_host="127.0.0.1",
+                    coordinator_port=port, dataset=cfg.dataset,
+                    privacy=privacy,
+                    epsilon_per_round=(cfg.privacy_epsilon
+                                       / max(cfg.num_rounds, 1)
+                                       if privacy else None),
+                    delta_per_round=(cfg.privacy_delta
+                                     / max(cfg.num_rounds, 1)
+                                     if privacy else None),
+                    client_index=i, num_clients=cfg.num_clients,
+                    partition_strategy=cfg.partition_strategy,
+                    poll_interval_s=0.5, max_rounds=cfg.num_rounds,
+                    data_seed=cfg.seed,
+                    n_train_synth=cfg.n_train_synth,
+                    n_test_synth=cfg.n_test_synth,
+                    secure_aggregation=cfg.secure_aggregation,
+                    distributed_dp=cfg.distributed_dp,
+                    adaptive_clipping=cfg.adaptive_clipping,
+                    clip_count_stddev=cfg.clip_count_stddev,
+                    dp_noise_secret=(
+                        hashlib.sha256(
+                            f"{cfg.dp_noise_seed}:{i}".encode()).digest()
+                        if cfg.dp_noise_seed is not None else None),
+                    device=self.device,
+                )
+                t.initialize()
+                t.start_training()
+                clients.append(t)
+            deadline = time.time() + cfg.timeout_s
+            reason = "round_budget_exhausted"
+            while time.time() < deadline:
+                if all(c.rounds_completed >= cfg.num_rounds for c in clients):
+                    break
+                if servicer.global_model is not None:
+                    gm = servicer.global_model
+                    acc = gm.get_accuracy()
+                    if acc is None:
+                        acc = gm.get_accuracy("train")
+                    if acc is not None and acc >= cfg.target_accuracy:
+                        reason = "target_accuracy_reached"
+                        break
+                time.sleep(0.5)
+            else:
+                reason = "timeout"
+            # clients count a round done at upload; the servicer's
+            # aggregation thread may still be averaging the final round:
+            # drain it so current_round / global_model reflect every
+            # submitted update
+            while (servicer.current_round < cfg.num_rounds
+                   and (servicer._aggregating
+                        or any(servicer.pending_updates.values()))
+                   and time.time() < deadline):
+                time.sleep(0.5)
+            gm = servicer.global_model
+            return {
+                "backend": "grpc",
+                "stop_reason": reason,
+                "rounds_completed": servicer.current_round,
+                "final_accuracy": (
+                    gm.get_accuracy() if gm is not None
+                    and gm.get_accuracy() is not None
+                    else gm.get_accuracy("train") if gm is not None
+                    else None),
+                "client_results": {c.client_id: c.get_status()
+                                   for c in clients},
+                # wire adaptive clipping: the coordinator's clip-norm
+                # trajectory (one entry per aggregation that saw
+                # indicators)
+                "clip_norm_history": [
+                    v for _, v in
+                    servicer.metrics_history.get("clip_norm", [])],
+            }
+        finally:
+            for c in clients:
+                c.stop_training()
+            server.stop()
 
     def export_results(self, filepath: str) -> None:
         """ref: export at federated_simulation.py:518-528."""

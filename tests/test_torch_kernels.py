@@ -1076,3 +1076,71 @@ def test_one_nccl_rank_is_the_unsharded_round(cuda):
     want = plain.get_model_weights()
     for k, v in sharded.get_model_weights().items():
         assert torch.equal(v, want[k]), k
+
+
+@pytest.mark.cuda
+def test_k3_launch_count_is_exact_under_threads(cuda):
+    """The deployment round's client threads launch K3 concurrently: 12
+    threads x 40 launches, a 1 µs switch interval, count exactly 480."""
+    import sys
+    import threading
+
+    x = torch.randn((1, 4096), device=cuda)
+    dpo.clip_noise_matrix(x, [1], 1.0, 1e-5, 1.0)  # compiled before
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda i=i: [
+            dpo.clip_noise_matrix(x, [i], 1.0, 1e-5, 1.0)
+            for _ in range(40)]) for i in range(12)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["clip_noise"] == 480
+
+
+@pytest.mark.cuda
+def test_client_fsm_release_runs_k3_once_a_round(cuda):
+    """``FederatedTrainer._run_one_round`` on the card with an in-process
+    client: one K3 launch (the (1, 421,642) release) and nothing else, an
+    upload of numpy arrays, ε charged once."""
+    from fl_tpu_torch.core.types import GlobalModel, PrivacyConfig, RoundConfig
+    from fl_tpu_torch.models import create_model, init_variables
+    from fl_tpu_torch.models.factory import get_model_weights
+    from fl_tpu_torch.services.federated_trainer import FederatedTrainer
+
+    init = {k: v.cpu().numpy() for k, v in get_model_weights(
+        init_variables(create_model("simple_cnn"), seed=0)).items()}
+    sent = []
+
+    class Client:
+        def join_training_round(self, r):
+            return RoundConfig(round_number=r, local_epochs=1, batch_size=32)
+
+        def get_global_model(self, r):
+            return GlobalModel(r, dict(init))
+
+        def submit_model_update(self, update):
+            sent.append(update)
+            return {"success": True, "message": "ok"}
+
+    t = FederatedTrainer("card", privacy=PrivacyConfig(1.0, 1e-5),
+                         n_train_synth=1024, n_test_synth=64, num_clients=4,
+                         device=cuda)
+    t.initialize()
+    t.client = Client()
+    ops.reset_launch_counts()
+    t._run_one_round(0)
+    got = ops.launch_counts()
+    assert got["clip_noise"] == 1
+    assert sum(got.values()) == 1
+    assert all(isinstance(v, np.ndarray) and np.isfinite(v).all()
+               for v in sent[0].model_weights.values())
+    assert t.budget_tracker.consumed_epsilon == pytest.approx(1.0)

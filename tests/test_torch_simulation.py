@@ -16,8 +16,11 @@ shards), and so do the results' key set, ``stop_reason``, the rounds,
 the participants, ε spent and the privacy budget's status (but its
 clock); each round's train and test losses within the port's f32 engine
 tolerance (rtol 1e-5, ``test_torch_engine.py``) and its accuracies within
-one test image. ``backend="grpc"`` raises by name, ``device`` defaults to
-the card, and the command line runs (in-process, on the CPU).
+one test image. ``backend="grpc"`` runs a round over localhost gRPC (its
+parity with the reference is ``tests/test_torch_deployment.py``'s) and,
+where ``grpc`` cannot be imported, raises naming ``grpcio``; ``device``
+defaults to the card, and the command line runs (in-process, on the
+CPU).
 """
 
 import dataclasses
@@ -164,12 +167,31 @@ def test_config_defaults_equal_the_reference():
         dataclasses.asdict(jsim.SimulationConfig())
 
 
-def test_grpc_backend_is_refused_by_name():
+def test_grpc_backend_runs_a_round():
+    sim = tsim.FederatedLearningSimulation(tsim.SimulationConfig(
+        backend="grpc", num_clients=2, num_rounds=1, n_train_synth=64,
+        n_test_synth=16, local_epochs=1, batch_size=8, timeout_s=120,
+        target_accuracy=0.999), device="cpu")
+    results = sim.run_simulation()
+    assert results["backend"] == "grpc"
+    assert results["rounds_completed"] == 1
+    assert results["stop_reason"] == "round_budget_exhausted"
+    for status in results["client_results"].values():
+        assert status["rounds_completed"] == 1
+        assert status["budget"]["consumed_epsilon"] == pytest.approx(1.0)
+    assert results["final_accuracy"] is not None
+    assert results["config"]["backend"] == "grpc"
+
+
+def test_grpc_backend_names_grpcio_when_it_cannot_be_imported(monkeypatch):
+    import sys
+
+    monkeypatch.setitem(sys.modules, "grpc", None)
     sim = tsim.FederatedLearningSimulation(
         tsim.SimulationConfig(backend="grpc"), device="cpu")
-    with pytest.raises(NotImplementedError, match="services slice"):
+    with pytest.raises(ImportError, match="grpcio"):
         sim.run_simulation()
-    with pytest.raises(NotImplementedError, match="services slice"):
+    with pytest.raises(ImportError, match="grpcio"):
         tsim.main(["--backend", "grpc", "--device", "cpu"])
 
 
