@@ -241,10 +241,9 @@ line each; any failure exits non-zero:
    (``phase_deployment``): 8 ``FederatedTrainer`` threads (the client
    FSM at SimpleCNN's full width, non-IID over 8,192 synthetic images,
    one epoch at batch 32, delta DP at (3, 1e-5) over 3 rounds) against
-   the port's ``RoundManager`` with ``FedAvgAggregator`` on the card and
-   the servicer's DP-widened validator, through ``LoopbackClient``, an
-   in-process stand-in for the gRPC stub that carries every weight dict
-   through ``ModelWeightSerializer`` bytes both ways: K3 launches = 8 x
+   the port's ``FederatedLearningServicer`` over localhost gRPC
+   (``FedAvgAggregator`` on the card, the DP-widened validator; the run
+   fails naming ``grpcio`` where it does not import): K3 launches = 8 x
    3, each round's global model within 1e-6 (of a leaf's largest value)
    of the float64 sample-weighted mean of the decoded uploads, the wire
    bit-equal, ε 1.0 a round a client, finite losses; one client's delta
@@ -253,9 +252,20 @@ line each; any failure exits non-zero:
    rounds/s on the wall clock, the median ms of a client's train / DP /
    compress / serialize stages and of the aggregation, peak memory, K3's
    and the plain version's ms at (1, 421,642); then
-   ``FederatedLearningSimulation(backend="grpc")`` for one round where
-   ``grpc`` and ``google.protobuf`` import (one line naming what is
-   missing where not);
+   ``FederatedLearningSimulation(backend="grpc")`` for one round; then
+   the secure deployment (``phase_secure_deployment``; a line saying it
+   did not run where ``cryptography`` does not import): the same 8 FSMs
+   under Bonawitz secure aggregation at delta DP ε_r 20 for 2 rounds
+   (each unmasked aggregate within 8 · 2^-16 of the float64 mean of the
+   pre-mask payloads, K3 = 16 and nothing else), a servicer restarted on
+   the persisted directory (round and global model bit-equal), a round
+   with one client stopped after the share phase (completed on the 7
+   survivors' mean), a distributed-DP round (no kernel, ε charged at the
+   threshold and by the coordinator equal, the decoded noise std within
+   5% of the plan's σ) and the two command lines' services for one round
+   with /health, /status and /metrics/prometheus read over HTTP and the
+   shutdown order checked; rounds/s, a client's roster / share / mask /
+   reveal ms against its train stage, the unmask ms, peak memory;
 6. learning check: 10 non-IID clients, 3 rounds, test accuracy > 0.5, with
    ``fused_conv_block="residual"`` and with ``True``, and with
    ``"residual"`` under SCAFFOLD (SGD lr 0.05), under FedNova (SGD lr
@@ -6093,103 +6103,15 @@ class DeployRecord:
         return worst
 
 
-class LoopbackClient:
-    """The RPCs of the client FSM's loop (``register``,
-    ``get_training_status``, ``join_training_round``, ``get_global_model``,
-    ``submit_model_update``; ``connect``, ``close`` and ``health_check``
-    for its connection manager) answered in process by a
-    :class:`LoopbackHub`. Stands in for the gRPC stub where ``grpcio``
-    does not import."""
+def require_deployment_packages():
+    """The deployment phases need ``grpcio`` and ``protobuf``: fail the run
+    naming them where they do not import."""
+    from fl_tpu_torch.orchestration.simulation import require_grpc
 
-    def __init__(self, hub, client_id):
-        self.hub = hub
-        self.client_id = client_id
-
-    def connect(self):
-        pass
-
-    def close(self):
-        pass
-
-    def health_check(self):
-        return True
-
-    def register(self, capabilities, metadata=None):
-        self.hub.manager.register_client(
-            self.client_id,
-            {"available_samples": capabilities.available_samples})
-        return {"client_id": self.client_id, "global_model_version": 0}
-
-    def get_training_status(self):
-        return self.hub.status()
-
-    def join_training_round(self, requested_round=-1):
-        return self.hub.round_config(requested_round)
-
-    def get_global_model(self, round_number=-1):
-        return self.hub.download(round_number)
-
-    def submit_model_update(self, update):
-        return self.hub.upload(update)
-
-
-class LoopbackHub:
-    """The coordinator where ``grpcio`` does not import: the port's
-    ``RoundManager`` (auto-start on a 20 ms tick, the synchronous
-    aggregation on the last submitter's thread) with ``FedAvgAggregator``
-    on the card and the servicer's DP-widened validator. Every weight dict
-    crosses as ``ModelWeightSerializer`` bytes, both ways."""
-
-    def __init__(self, init_weights, round_config):
-        from fl_tpu_torch.core.types import GlobalModel
-        from fl_tpu_torch.fl.fedavg import FedAvgAggregator
-        from fl_tpu_torch.orchestration.round_manager import RoundManager
-        from fl_tpu_torch.services.serialization import ModelWeightSerializer
-        from fl_tpu_torch.utils.validation import dp_widened_validator
-
-        n = round_config.max_clients
-        self.manager = RoundManager(
-            round_config=round_config, auto_start=True, tick_interval_s=0.02,
-            aggregator=FedAvgAggregator(
-                min_clients=n, max_clients=n, device=DEVICE,
-                validator=dp_widened_validator(round_config.privacy_config)))
-        self.manager.global_model = GlobalModel(0, dict(init_weights))
-        self.codec = ModelWeightSerializer()
-
-    def _wire(self, weights):
-        return self.codec.deserialize_weights(self.codec.serialize_weights(
-            DeployRecord._numpy(weights)))
-
-    def status(self):
-        from fl_tpu_torch.core.types import TrainingStatus
-
-        s = self.manager.get_training_status()
-        # between rounds the last one is current: the FSM waits
-        idle = s["round_state"] == "idle"
-        return TrainingStatus(
-            current_round=s["current_round"] - int(idle),
-            active_clients=s["registered_clients"], round_progress=0.0,
-            global_accuracy=0.0, convergence_score=0.0)
-
-    def round_config(self, requested_round):
-        import dataclasses
-
-        return dataclasses.replace(self.manager.round_config,
-                                   round_number=requested_round)
-
-    def download(self, round_number):
-        from fl_tpu_torch.core.types import GlobalModel
-
-        return GlobalModel(round_number, self._wire(
-            self.manager.global_model.model_weights))
-
-    def upload(self, update):
-        import dataclasses
-
-        ok = self.manager.submit_update(dataclasses.replace(
-            update, model_weights=self._wire(update.model_weights)))
-        return {"success": ok, "message": "accepted" if ok else
-                f"round {update.round_number} is not collecting"}
+    try:
+        require_grpc()
+    except ImportError as e:
+        raise SmokeFailure(f"deployment: {e}") from e
 
 
 def deployment_k3_check(card, rec, privacy, eps_r, delta_r):
@@ -6298,20 +6220,23 @@ def phase_deployment(card, counts):
     delta DP at (3, 1e-5) over 3 rounds) against the port's
     ``FederatedLearningServicer`` (FedAvgAggregator on the card, the
     DP-widened validator, aggregation on its one-worker executor) over
-    localhost gRPC; where ``grpcio`` does not import, against the port's
-    ``RoundManager`` through ``LoopbackClient``. K3 carries each client's
-    release, DEPLOY_CLIENTS x DEPLOY_ROUNDS launches; then the grpc
-    backend's simulation smoke. The launches join ``counts``."""
+    localhost gRPC; the phase fails naming ``grpcio`` where it does not
+    import. K3 carries each client's release, DEPLOY_CLIENTS x
+    DEPLOY_ROUNDS launches; then the grpc backend's simulation smoke. The
+    launches join ``counts``."""
     import numpy as np
     import torch
 
     from fl_tpu_torch import ops
     from fl_tpu_torch.core.types import PrivacyConfig, RoundConfig
     from fl_tpu_torch.ops import dp as dp_ops
-    from fl_tpu_torch.orchestration.simulation import require_grpc
     from fl_tpu_torch.services.federated_trainer import FederatedTrainer
 
     t_phase = time.perf_counter()
+    require_deployment_packages()
+    from fl_tpu_torch.services.grpc_server import (
+        CoordinatorGRPCServer, FederatedLearningServicer)
+
     privacy = PrivacyConfig(DEPLOY_EPS, DEPLOY_DELTA)
     eps_r, delta_r = DEPLOY_EPS / DEPLOY_ROUNDS, DEPLOY_DELTA / DEPLOY_ROUNDS
     cfg = RoundConfig(min_clients=DEPLOY_CLIENTS,
@@ -6319,35 +6244,11 @@ def phase_deployment(card, counts):
                       batch_size=DEPLOY_BATCH, learning_rate=1e-3,
                       privacy_config=privacy)
     rec = DeployRecord()
-    try:
-        require_grpc()
-        missing = None
-    except ImportError as e:
-        missing = str(e)
-    if missing is None:
-        from fl_tpu_torch.services.grpc_server import (
-            CoordinatorGRPCServer, FederatedLearningServicer)
-
-        servicer = FederatedLearningServicer(round_config=cfg, device=DEVICE)
-        rec.watch_initial(servicer)
-        rec.watch_coordinator(servicer.aggregator)
-        server = CoordinatorGRPCServer(servicer, host="127.0.0.1", port=0)
-        port = server.start()
-        route = "FederatedLearningServicer over localhost gRPC"
-    else:
-        from fl_tpu_torch.models import create_model, init_variables
-        from fl_tpu_torch.models.factory import get_model_weights
-        from fl_tpu_torch.services.grpc_client import ClientConnectionManager
-
-        print(f"deployment: the loopback coordinator, since {missing} "
-              f"[{card}]", flush=True)
-        rec.served[0] = DeployRecord._numpy(get_model_weights(
-            init_variables(create_model("simple_cnn"), seed=0,
-                           device=DEVICE)))
-        hub = LoopbackHub(rec.served[0], cfg)
-        rec.watch_coordinator(hub.manager.aggregator)
-        port = 0
-        route = "RoundManager through LoopbackClient"
+    servicer = FederatedLearningServicer(round_config=cfg, device=DEVICE)
+    rec.watch_initial(servicer)
+    rec.watch_coordinator(servicer.aggregator)
+    server = CoordinatorGRPCServer(servicer, host="127.0.0.1", port=0)
+    port = server.start()
     trainers = []
     for i in range(DEPLOY_CLIENTS):
         t = FederatedTrainer(
@@ -6359,9 +6260,6 @@ def phase_deployment(card, counts):
             max_rounds=DEPLOY_ROUNDS, n_train_synth=DEPLOY_SYNTH,
             n_test_synth=1_024, device=DEVICE)
         t.initialize()
-        if missing is not None:
-            t.client = LoopbackClient(hub, t.client_id)
-            t.connection = ClientConnectionManager(t.client)
         rec.watch_client(t.client)
         trainers.append(t)
     # K3 compiled before the threads start (its first call compiles)
@@ -6371,8 +6269,6 @@ def phase_deployment(card, counts):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    if missing is not None:
-        hub.manager.start()
     for t in trainers:
         t.start_training()
     while time.perf_counter() < t0 + 240 and (
@@ -6386,10 +6282,7 @@ def phase_deployment(card, counts):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for t in trainers:
         t.stop_training()
-    if missing is None:
-        server.stop()
-    else:
-        hub.manager.stop()
+    server.stop()
     hist = [h for t in trainers for h in t.training_history]
     require(len(rec.results) == DEPLOY_ROUNDS
             and all(t.rounds_completed == DEPLOY_ROUNDS for t in trainers),
@@ -6419,7 +6312,8 @@ def phase_deployment(card, counts):
           f"{DEPLOY_ROUNDS} rounds (SimpleCNN {SIMPLE_CNN_PARAMS:,} "
           f"params, non-IID over {DEPLOY_SYNTH} images, batch "
           f"{DEPLOY_BATCH}, delta DP eps {DEPLOY_EPS} over "
-          f"{DEPLOY_ROUNDS} rounds) against {route}: "
+          f"{DEPLOY_ROUNDS} rounds) against FederatedLearningServicer over "
+          f"localhost gRPC: "
           f"{DEPLOY_ROUNDS / wall:.3f} rounds/s wall clock ({wall:.2f}s); "
           f"median ms a client: train {med([h['train_s'] for h in hist]):.1f}"
           f", DP {med([h['privacy_s'] for h in hist]):.2f}, compress "
@@ -6432,11 +6326,493 @@ def phase_deployment(card, counts):
           f"ways; eps spent {eps_r} a round a client; losses "
           f"{[round(h['loss'], 2) for h in hist[:DEPLOY_ROUNDS]]} "
           f"(edge_0) [{card}]", flush=True)
-    if missing is None:
-        k3 += deployment_simulation_smoke(card)
+    k3 += deployment_simulation_smoke(card)
     counts["clip_noise"] = counts.get("clip_noise", 0) + k3
     print(f"deployment: K3 launches on the new path {k3}; phase "
           f"{time.perf_counter() - t_phase:.1f}s [{card}]", flush=True)
+
+
+# the secure deployment (phase_secure_deployment): the deployment round's
+# 8 FSM threads at SimpleCNN's full width, masked by Bonawitz secure
+# aggregation over localhost gRPC. Delta DP at eps_r = 20 (sigma 0.249 on
+# the noised weights) keeps every upload inside fp_encode's bound
+# |n theta| 2^16 < 2^31 / 8, i.e. |theta| < 2.80 at the largest non-IID
+# shard (1,461 images); the deployment round's eps_r = 1 (sigma ~5) is
+# refused there, as in the reference
+SECURE_ROUNDS = 2
+SECURE_EPS, SECURE_DELTA = 40.0, 1e-5
+SECURE_GRACE_S = 1.0        # the dropout round's wait for stragglers
+DDP_Z, DDP_BITS = 1.0, 14   # distributed DP: sigma 0.130 on the average
+DDP_BUDGET = 8.0            # the client's ledger; one round charges 5.30
+CLI_CLIENTS = 2
+CLI_SHARDS = 16             # the client CLI's split of its 20,000 images
+
+
+class SecureRecord:
+    """What the secure rounds released and unmasked: each client's
+    pre-mask payload (the weights ``mask_payload`` was given, with its
+    sample count), each ``unmask_aggregate``'s result and host seconds,
+    and each distributed-DP client's delta and plan. Wraps the protocol's
+    classes for the phase; ``restore`` puts them back."""
+
+    def __init__(self):
+        import threading
+
+        from fl_tpu_torch.services import federated_trainer, secagg_wire
+
+        self.lock = threading.Lock()
+        self.payloads = {}   # round -> {client: (n, weights)}
+        self.unmasked = {}   # round -> (weights, seconds)
+        self.ddp = {}        # client -> (flat delta, plan)
+        self._saved = [
+            (secagg_wire.SecAggClientSession, "mask_payload"),
+            (secagg_wire.SecAggServerRound, "unmask_aggregate"),
+            (federated_trainer, "host_client_integer_payload")]
+        self._saved = [(o, n, getattr(o, n)) for o, n in self._saved]
+        rec = self
+        mask, unmask, ddp = (f for _, _, f in self._saved)
+
+        def mask_payload(session, weights, num_samples):
+            import numpy as np
+
+            with rec.lock:
+                rec.payloads.setdefault(session.round_number, {})[
+                    session.client_id] = (int(num_samples), {
+                        k: np.array(v) for k, v in weights.items()})
+            return mask(session, weights, num_samples)
+
+        def unmask_aggregate(rnd, updates):
+            t0 = time.perf_counter()
+            model = unmask(rnd, updates)
+            dt = time.perf_counter() - t0
+            with rec.lock:
+                rec.unmasked[rnd.round_number] = (dict(model.model_weights),
+                                                  dt)
+            return model
+
+        def host_client_integer_payload(delta, plan, rng):
+            import numpy as np
+
+            flat = np.concatenate([np.asarray(delta[k], np.float64).ravel()
+                                   for k in sorted(delta)])
+            with rec.lock:
+                rec.ddp[len(rec.ddp)] = (flat, plan)
+            return ddp(delta, plan, rng)
+
+        for (o, n, _), f in zip(self._saved, (mask_payload, unmask_aggregate,
+                                              host_client_integer_payload)):
+            setattr(o, n, f)
+
+    def restore(self):
+        for o, n, f in self._saved:
+            setattr(o, n, f)
+
+    def mean_gap(self, rnd, survivors):
+        """The largest |unmasked - float64 sample-weighted mean of the
+        survivors' pre-mask payloads| of round ``rnd``."""
+        import numpy as np
+
+        got, _ = self.unmasked[rnd]
+        ups = [self.payloads[rnd][c] for c in survivors]
+        total = float(sum(n for n, _ in ups))
+        worst = 0.0
+        for k, v in got.items():
+            want = sum(n * w[k].astype(np.float64) for n, w in ups) / total
+            worst = max(worst, float(np.abs(v.astype(np.float64)
+                                            - want).max()))
+        return worst
+
+    def largest_upload(self):
+        """max |n theta| over every recorded payload, and its share of
+        fp_encode's per-client limit 2^31 / (roster 2^16)."""
+        import numpy as np
+
+        worst = max(n * float(np.abs(v).max())
+                    for per in self.payloads.values()
+                    for n, w in per.values() for v in w.values())
+        return worst, worst / (2.0 ** 31 / (DEPLOY_CLIENTS * 2 ** 16))
+
+
+def secure_trainers(port, rounds, privacy, eps_r, delta_r, **kw):
+    """The deployment round's 8 FSMs, secure, against ``port``."""
+    from fl_tpu_torch.services.federated_trainer import FederatedTrainer
+
+    trainers = []
+    for i in range(DEPLOY_CLIENTS):
+        t = FederatedTrainer(
+            client_id=f"edge_{i}", coordinator_host="127.0.0.1",
+            coordinator_port=port, dataset="mnist", privacy=privacy,
+            epsilon_per_round=eps_r, delta_per_round=delta_r,
+            client_index=i, num_clients=DEPLOY_CLIENTS,
+            partition_strategy="non_iid", poll_interval_s=DEPLOY_POLL_S,
+            max_rounds=rounds, n_train_synth=DEPLOY_SYNTH,
+            n_test_synth=1_024, secure_aggregation=True, device=DEVICE,
+            **kw)
+        t.initialize()
+        trainers.append(t)
+    return trainers
+
+
+def run_trainers(trainers, servicer, until_round, what, limit_s=240):
+    """Start the FSMs and wait until the servicer reached ``until_round``
+    and every live FSM completed its rounds; returns the wall seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    for t in trainers:
+        t.start_training()
+    while time.perf_counter() < t0 + limit_s and (
+            servicer.current_round < until_round or servicer._aggregating
+            or any(t.rounds_completed < t.max_rounds for t in trainers
+                   if not t._stop.is_set())):
+        time.sleep(0.005)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for t in trainers:
+        t.stop_training()
+    require(servicer.current_round == until_round,
+            f"{what}: the servicer is at round {servicer.current_round}, "
+            f"expected {until_round}; client states "
+            f"{[t.state.value for t in trainers]}")
+    return wall
+
+
+def secure_servicer(model_dir=None, **kw):
+    """The port's servicer at the deployment round's config, secure, with
+    its gRPC server on a free localhost port; persistence in
+    ``model_dir`` where given."""
+    from fl_tpu_torch.core.types import RoundConfig
+    from fl_tpu_torch.services.grpc_server import (
+        CoordinatorGRPCServer, FederatedLearningServicer)
+    from fl_tpu_torch.services.persistence import CoordinatorPersistence
+
+    pc = kw.pop("privacy_config", None)
+    cfg = RoundConfig(min_clients=DEPLOY_CLIENTS, max_clients=DEPLOY_CLIENTS,
+                      local_epochs=1, batch_size=DEPLOY_BATCH,
+                      learning_rate=1e-3, privacy_config=pc)
+    servicer = FederatedLearningServicer(
+        round_config=cfg, secure_aggregation=True, device=DEVICE,
+        persistence=(CoordinatorPersistence(model_dir) if model_dir
+                     else None), **kw)
+    server = CoordinatorGRPCServer(servicer, host="127.0.0.1", port=0)
+    return servicer, server, server.start()
+
+
+def secure_cli_services(card, model_dir):
+    """The two command lines' services in process, from dict configs: a
+    ``CoordinatorService`` (gRPC and REST on free ports, persistence in
+    ``model_dir``) and 2 ``ClientService``s (their trainers on the card,
+    delta DP at eps 8) for one round; then /health, /status and
+    /metrics/prometheus over HTTP and the reverse-order shutdown. Returns
+    (K3 launches, seconds)."""
+    import threading
+    import urllib.request
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.services import client_main, coordinator_main
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    coord = coordinator_main.CoordinatorService({
+        "server": {"host": "127.0.0.1", "grpc_port": 0, "http_port": 0},
+        "training": {"min_clients": CLI_CLIENTS, "max_clients": CLI_CLIENTS,
+                     "local_epochs": 1, "batch_size": DEPLOY_BATCH,
+                     "learning_rate": 1e-3},
+        "privacy": {"enabled": True, "epsilon": 8.0, "delta": 1e-5},
+        "storage": {"model_dir": model_dir}}, device=DEVICE)
+    coord.start()
+    order = []
+    for name, stop in (("rest_api", "stop_server"), ("grpc_server", "stop"),
+                       ("metrics_tracker", "stop"), ("round_manager", "stop"),
+                       ("database", "close")):
+        comp = getattr(coord, name)
+        inner = getattr(comp, stop)
+
+        def wrapped(*a, _inner=inner, _name=name, **kw):
+            order.append(_name)
+            return _inner(*a, **kw)
+
+        setattr(comp, stop, wrapped)
+    services = [client_main.ClientService({
+        "client": {"id": f"cli_{i}", "coordinator_host": "127.0.0.1",
+                   "coordinator_port": coord.grpc_server.port},
+        "privacy": {"enabled": True, "epsilon": 8.0, "delta": 1e-5},
+        "data": {"num_clients": CLI_SHARDS, "partition_strategy": "iid"}},
+        device=DEVICE) for i in range(CLI_CLIENTS)]
+    threads = [threading.Thread(target=svc.start, daemon=True)
+               for svc in services]
+    for th in threads:
+        th.start()
+    servicer = coord.grpc_server.servicer
+    while time.perf_counter() < t0 + 240 and (
+            servicer.current_round < 1 or any(
+                svc.trainer is None or svc.trainer.rounds_completed < 1
+                for svc in services)):
+        time.sleep(0.01)
+    base = f"http://127.0.0.1:{coord.rest_api.port}"
+    with urllib.request.urlopen(base + "/health", timeout=10) as r:
+        health = json.load(r)
+    with urllib.request.urlopen(base + "/status", timeout=10) as r:
+        status = json.load(r)
+    with urllib.request.urlopen(base + "/metrics/prometheus",
+                                timeout=10) as r:
+        prom = r.read().decode()
+    for svc in services:
+        svc.stop()
+    for th in threads:
+        th.join(timeout=30)
+    coord.stop()
+    k3 = ops.launch_counts()["clip_noise"]
+    require(servicer.current_round == 1 and status["grpc"] == {
+        "current_round": 1, "registered_clients": ["cli_0", "cli_1"],
+        "pending_updates": 0, "global_model_round": 0},
+        f"secure deployment CLIs: round {servicer.current_round}, REST "
+        f"/status {status.get('grpc')}")
+    require(health["status"] == "healthy"
+            and "# TYPE fl_current_round gauge" in prom
+            and "fl_registered_clients" in prom,
+            f"secure deployment CLIs: /health {health}, prometheus {prom!r}")
+    require(order == ["rest_api", "grpc_server", "metrics_tracker",
+                      "round_manager", "database"]
+            and not any(th.is_alive() for th in threads),
+            f"secure deployment CLIs: shutdown order {order}")
+    require(k3 == CLI_CLIENTS, f"secure deployment CLIs: K3 {k3}")
+    wall = time.perf_counter() - t0
+    print(f"secure deployment CLIs: CoordinatorService (gRPC :"
+          f"{coord.grpc_server.port}, REST :{coord.rest_api.port}, "
+          f"persistence) + {CLI_CLIENTS} ClientService threads, one round "
+          f"in {wall:.2f}s; /health, /status (the servicer at round 1, "
+          f"clients {status['grpc']['registered_clients']}) and "
+          f"/metrics/prometheus ({len(prom.splitlines())} lines) answered; "
+          f"shutdown REST -> gRPC -> metrics -> rounds -> database; K3 "
+          f"launches {k3} [{card}]", flush=True)
+    return k3
+
+
+def phase_secure_deployment(card, counts):
+    """The secure deployment on the card (DEPLOY_CLIENTS FSM threads,
+    SimpleCNN's full width, localhost gRPC):
+
+    (a) SECURE_ROUNDS masked rounds at delta DP (SECURE_EPS over the
+        rounds) against a servicer that persists each global model: each
+        unmasked aggregate within roster 2^-16 of the float64 sample-
+        weighted mean of the pre-mask payloads, K3 exactly clients x
+        rounds and nothing else;
+    (d) a servicer restarted on the same directory resumes at the next
+        round with the global model bit-equal;
+    (b) on it, one round in which one client stops after the share phase:
+        it completes on the 7 survivors' mean;
+    (c) one distributed-DP round: no K3 launch, each client charged
+        ``distributed_epsilon`` at the threshold, ``ddp_epsilon_total``
+        the realized charge, the decoded average's noise std within 5% of
+        the plan's sigma;
+    (e) the two command lines' services for one round, REST read over
+        HTTP.
+
+    Where ``cryptography`` does not import, prints that the phase did not
+    run. The launches join ``counts``."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.core.types import PrivacyConfig, to_numpy
+    from fl_tpu_torch.fl.distributed_dp import distributed_epsilon
+    from fl_tpu_torch.ops import dp as dp_ops
+
+    try:
+        import cryptography  # noqa: F401
+    except ImportError as e:
+        print(f"secure deployment: NOT RUN, the cryptography package does "
+              f"not import ({e}) [{card}]", flush=True)
+        return
+    t_phase = time.perf_counter()
+    require_deployment_packages()
+    model_dir = tempfile.mkdtemp(prefix="fl_secure_")
+    rec = SecureRecord()
+    try:
+        # (a) the masked rounds
+        privacy = PrivacyConfig(SECURE_EPS, SECURE_DELTA)
+        eps_r = SECURE_EPS / SECURE_ROUNDS
+        delta_r = SECURE_DELTA / SECURE_ROUNDS
+        servicer, server, port = secure_servicer(
+            model_dir, privacy_config=privacy,
+            secagg_threshold=DEPLOY_CLIENTS)
+        trainers = secure_trainers(port, SECURE_ROUNDS, privacy, eps_r,
+                                   delta_r)
+        dp_ops.clip_noise_matrix(torch.zeros((1, 4096), device=DEVICE), [1],
+                                 1.0, 1e-5, 1.0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        wall = run_trainers(trainers, servicer, SECURE_ROUNDS,
+                            "secure deployment (a)")
+        k3 = ops.launch_counts()["clip_noise"]
+        got, only_k3 = _launched(clip_noise=k3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        final = {k: to_numpy(v)
+                 for k, v in servicer.global_model.model_weights.items()}
+        server.stop()
+        servicer.persistence.repository.db.close()
+        require(k3 == DEPLOY_CLIENTS * SECURE_ROUNDS and only_k3,
+                f"secure deployment (a): launches {got}, expected "
+                f"clip_noise={DEPLOY_CLIENTS * SECURE_ROUNDS} and nothing "
+                "else")
+        require(sum(v.size for v in final.values()) == SIMPLE_CNN_PARAMS,
+                "secure deployment: SimpleCNN is not at full width")
+        ids = [t.client_id for t in trainers]
+        grid = DEPLOY_CLIENTS * 2.0 ** -16
+        gaps = [rec.mean_gap(r, ids) for r in range(SECURE_ROUNDS)]
+        require(sorted(rec.unmasked) == list(range(SECURE_ROUNDS))
+                and all(g <= grid for g in gaps)
+                and all(np.isfinite(v).all() for v in final.values()),
+                f"secure deployment (a): unmasked rounds "
+                f"{sorted(rec.unmasked)}, gaps to the float64 mean {gaps} "
+                f"(grid {grid})")
+        last, _ = rec.unmasked[SECURE_ROUNDS - 1]
+        require(all(np.array_equal(last[k], final[k]) for k in final),
+                "secure deployment (a): the global model is not the "
+                "unmasked aggregate")
+        for t in trainers:
+            spent = [e["epsilon"] for e in
+                     t.budget_tracker.consumption_history]
+            require(spent == [eps_r] * SECURE_ROUNDS,
+                    f"secure deployment (a): {t.client_id} spent {spent}")
+        upload, share = rec.largest_upload()
+        hist = [h for t in trainers for h in t.training_history]
+        med = lambda key: 1e3 * float(np.median(  # noqa: E731
+            [h[key] for h in hist]))
+        unmask_ms = [1e3 * rec.unmasked[r][1] for r in range(SECURE_ROUNDS)]
+        print(f"secure deployment (a) {DEPLOY_CLIENTS} FederatedTrainer "
+              f"threads x {SECURE_ROUNDS} masked rounds (SimpleCNN "
+              f"{SIMPLE_CNN_PARAMS:,} params, non-IID over {DEPLOY_SYNTH} "
+              f"images, threshold {DEPLOY_CLIENTS}, delta DP eps_r {eps_r} "
+              f"on K3) over localhost gRPC: {SECURE_ROUNDS / wall:.3f} "
+              f"rounds/s wall clock ({wall:.2f}s); median ms a client: "
+              f"train {med('train_s'):.1f}, DP {med('privacy_s'):.2f}, "
+              f"roster {med('secagg_roster_s'):.1f}, shares "
+              f"{med('secagg_share_s'):.1f}, mask {med('secagg_mask_s'):.1f}"
+              f", upload {med('upload_s'):.1f}, reveal "
+              f"{med('secagg_reveal_s'):.1f}, whole round "
+              f"{med('time_s'):.1f}; unmask {unmask_ms[0]:.1f} / "
+              f"{unmask_ms[1]:.1f} ms on the host; unmasked vs float64 mean "
+              f"{max(gaps):.2e} (grid {grid:.2e}); largest |n theta| "
+              f"{upload:.1f}, {share:.3f} of fp_encode's limit; peak memory "
+              f"{peak:.3f} GiB; K3 launches {k3} [{card}]", flush=True)
+
+        # (d) the restart, then (b) the dropout round on it
+        servicer, server, port = secure_servicer(
+            model_dir, privacy_config=privacy,
+            secagg_threshold=DEPLOY_CLIENTS - 1,
+            secagg_grace_s=SECURE_GRACE_S)
+        resumed = {k: np.asarray(v)
+                   for k, v in servicer.global_model.model_weights.items()}
+        require(servicer.current_round == SECURE_ROUNDS
+                and all(resumed[k].dtype == final[k].dtype
+                        and np.array_equal(resumed[k], final[k])
+                        for k in final),
+                f"secure deployment (d): the restart resumed at round "
+                f"{servicer.current_round}, model bit-equal "
+                f"{[k for k in final if np.array_equal(resumed[k], final[k])]}")
+        print(f"secure deployment (d) restart: a new servicer on the same "
+              f"model_dir resumed at round {servicer.current_round} with "
+              f"the global model bit-equal ({len(final)} tensors) "
+              f"[{card}]", flush=True)
+        trainers = secure_trainers(port, 1, privacy, eps_r, delta_r)
+        victim = trainers[3]
+        shares = victim.client.get_secagg_shares
+
+        def die_after_shares(round_number):
+            out = shares(round_number)
+            if out[0]:
+                victim._stop.set()
+                raise RuntimeError("stopped after the share phase")
+            return out
+
+        victim.client.get_secagg_shares = die_after_shares
+        ops.reset_launch_counts()
+        wall = run_trainers(trainers, servicer, SECURE_ROUNDS + 1,
+                            "secure deployment (b)")
+        k3 = ops.launch_counts()["clip_noise"]
+        gm = servicer.global_model
+        survivors = [t.client_id for t in trainers if t is not victim]
+        gap = rec.mean_gap(SECURE_ROUNDS, survivors)
+        server.stop()
+        servicer.persistence.repository.db.close()
+        require(gm.participating_clients == survivors
+                and victim.client_id not in rec.payloads[SECURE_ROUNDS]
+                and gap <= grid and k3 == DEPLOY_CLIENTS
+                and victim.rounds_completed == 0,
+                f"secure deployment (b): participants "
+                f"{gm.participating_clients}, gap {gap}, K3 {k3}")
+        print(f"secure deployment (b) {victim.client_id} stopped after the "
+              f"share phase: round {SECURE_ROUNDS} completed on "
+              f"{len(survivors)} survivors (threshold "
+              f"{DEPLOY_CLIENTS - 1}, its pair masks rebuilt from its "
+              f"Shamir-shared key) in {wall:.2f}s; unmask "
+              f"{1e3 * rec.unmasked[SECURE_ROUNDS][1]:.1f} ms; unmasked vs "
+              f"the survivors' float64 mean {gap:.2e}; K3 launches {k3} "
+              f"[{card}]", flush=True)
+        k3_total = DEPLOY_CLIENTS * SECURE_ROUNDS + k3
+
+        # (c) distributed DP
+        ddp_pc = PrivacyConfig(DDP_BUDGET, SECURE_DELTA, max_grad_norm=1.0,
+                               noise_multiplier=DDP_Z)
+        servicer, server, port = secure_servicer(
+            privacy_config=ddp_pc, distributed_dp=True, ddp_bits=DDP_BITS,
+            secagg_threshold=DEPLOY_CLIENTS)
+        trainers = secure_trainers(port, 1, ddp_pc, None, None,
+                                   distributed_dp=True, ddp_bits=DDP_BITS)
+        # the model the integer deltas apply to, served from round 0 on
+        start = servicer.global_model = \
+            servicer._create_initial_global_model()
+        ops.reset_launch_counts()
+        wall = run_trainers(trainers, servicer, 1,
+                            "secure deployment (c)")
+        got, none = _launched()
+        gm = servicer.global_model
+        server.stop()
+        plan = rec.ddp[0][1]
+        want_eps = distributed_epsilon(plan, 1, SECURE_DELTA,
+                                       realized=DEPLOY_CLIENTS)
+        charges = [[e["epsilon"] for e in
+                    t.budget_tracker.consumption_history] for t in trainers]
+        signal = sum(min(1.0, plan.clip_norm / np.linalg.norm(d)) * d
+                     for d, _ in rec.ddp.values()) / plan.expected_clients
+        avg = np.concatenate([
+            to_numpy(gm.model_weights[k]).astype(np.float64).ravel()
+            - to_numpy(start.model_weights[k]).astype(np.float64).ravel()
+            for k in sorted(gm.model_weights)])
+        sigma = plan.central_sigma_float(DEPLOY_CLIENTS)
+        ratio = float((avg - signal).std() / sigma)
+        require(none and len(rec.ddp) == DEPLOY_CLIENTS,
+                f"secure deployment (c): launches {got}, "
+                f"{len(rec.ddp)} integer payloads")
+        require(all(c == [want_eps] for c in charges)
+                and servicer.ddp_epsilon_total == want_eps
+                and gm.accuracy_metrics["ddp_epsilon_total"] == want_eps,
+                f"secure deployment (c): charges {charges}, total "
+                f"{servicer.ddp_epsilon_total}, want {want_eps}")
+        require(abs(ratio - 1.0) <= 0.05,
+                f"secure deployment (c): noise std / sigma {ratio}")
+        print(f"secure deployment (c) distributed DP ({DEPLOY_CLIENTS} "
+              f"clients, z {DDP_Z}, {DDP_BITS} bits, gamma "
+              f"{plan.gamma:.3e}): one round in {wall:.2f}s, no kernel "
+              f"launched; each client charged eps {want_eps:.4f} at the "
+              f"threshold, ddp_epsilon_total {servicer.ddp_epsilon_total:.4f}"
+              f"; the decoded average's noise std / the plan's sigma "
+              f"{sigma:.4f} = {ratio:.4f} [{card}]", flush=True)
+
+        # (e) the command lines' services
+        k3_total += secure_cli_services(card,
+                                        os.path.join(model_dir, "cli"))
+    finally:
+        rec.restore()
+        shutil.rmtree(model_dir, ignore_errors=True)
+    counts["clip_noise"] = counts.get("clip_noise", 0) + k3_total
+    print(f"secure deployment: K3 launches on the new paths {k3_total}; "
+          f"phase {time.perf_counter() - t_phase:.1f}s [{card}]", flush=True)
 
 
 def kernel_report():
@@ -6560,6 +6936,9 @@ def main() -> int:
     # 5m. the deployment round: the client FSM, the round manager and the
     # host FedAvg on the card, K3 in each client's release
     phase_deployment(card, counts)
+    # 5n. the secure deployment: Bonawitz masking with K3 in each masked
+    # client, dropout recovery, distributed DP, restart, the command lines
+    phase_secure_deployment(card, counts)
 
     # 6. learning checks
     learning_check("residual")

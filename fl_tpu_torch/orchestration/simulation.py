@@ -20,8 +20,10 @@ deployment topology (ref :309-318): an in-process coordinator (the gRPC
 servicer) and N ``FederatedTrainer`` client threads over localhost, each
 client training and releasing on the same device; it needs the
 ``grpcio`` and ``protobuf`` packages and raises naming them where they are
-missing. Secure aggregation and distributed DP over the wire raise by name
-(``services.SECAGG_NOT_PORTED``).
+missing. ``secure_aggregation=True`` masks the uploads over the wire
+(``services.secagg_wire``; ``cryptography`` needed), ``distributed_dp=True``
+ships Skellam-noised integers through the masked pipeline instead of the
+per-client Gaussian release.
 
 Exit criteria match the reference (:362-428): target accuracy reached |
 round budget exhausted | wall-clock timeout. ``rounds_per_sec`` in the
@@ -293,10 +295,14 @@ class FederatedLearningSimulation:
             ),
             secure_aggregation=cfg.secure_aggregation,
             distributed_dp=cfg.distributed_dp,
+            ddp_bits=cfg.ddp_bits,
             adaptive_clipping=cfg.adaptive_clipping,
             clip_target_quantile=cfg.clip_target_quantile,
             clip_learning_rate=cfg.clip_learning_rate,
             clip_count_stddev=cfg.clip_count_stddev,
+            # cooperative local clients: give stragglers half the round
+            # timeout before declaring dropouts
+            secagg_grace_s=max(30.0, cfg.timeout_s / 2),
             device=self.device,
         )
         server = CoordinatorGRPCServer(servicer, host="127.0.0.1", port=0)
@@ -322,6 +328,7 @@ class FederatedLearningSimulation:
                     n_test_synth=cfg.n_test_synth,
                     secure_aggregation=cfg.secure_aggregation,
                     distributed_dp=cfg.distributed_dp,
+                    ddp_bits=cfg.ddp_bits,
                     adaptive_clipping=cfg.adaptive_clipping,
                     clip_count_stddev=cfg.clip_count_stddev,
                     dp_noise_secret=(

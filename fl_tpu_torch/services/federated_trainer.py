@@ -11,7 +11,11 @@ The compute path runs on the trainer's device (the card unless
 ``device="cpu"``): one client's local training is the round engines' own
 ``fl.local_training.make_local_train_fn`` at one client, and its delta-DP
 release is ``fl.privacy.clip_and_noise_tree``, one (1, D) row through the
-clip+noise kernel (K3 on a card). The reference's hardcoded 0.8
+clip+noise kernel (K3 on a card). Under secure aggregation that release
+stays on K3 and the noised weights are then masked on the host
+(``services.secagg_wire``; masking is post-processing); under distributed
+DP the release is the integer pipeline on the host instead (clip, γ-grid,
+Skellam share, mask), and K3 does not run. The reference's hardcoded 0.8
 compression ratio (federated_trainer.py:484: the service is constructed
 but never applied) is not reproduced: the ratio reported is the one the
 configured compression actually reaches on the upload.
@@ -20,12 +24,12 @@ Random streams: the shuffle and dropout of round r descend from a root
 seed that is a digest of the public client id (a restarted client replays
 them), every DP draw from a SECRET root (``dp_noise_secret``, a
 ``dp_secret_path`` file or ``os.urandom``): root → round → client index →
-``DP_NOISE``.
+``DP_NOISE`` (``DISTRIBUTED_DP`` for the Skellam share).
 
 ``grpcio`` and ``protobuf`` are not needed to import this module or to
 construct a trainer: the gRPC client imports them at its first RPC.
-Secure aggregation and distributed DP over the wire raise by name
-(``services.SECAGG_NOT_PORTED``).
+``cryptography`` is needed from the first secure round on (the keypair is
+drawn at construction).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from fl_tpu_torch.core import prng
@@ -55,6 +60,11 @@ from fl_tpu_torch.core.types import (
     to_numpy,
 )
 from fl_tpu_torch.fl.compression import create_compression_service
+from fl_tpu_torch.fl.distributed_dp import (
+    DistributedDPPlan,
+    distributed_epsilon,
+    host_client_integer_payload,
+)
 from fl_tpu_torch.fl.local_training import (
     FederatedTrainingConfig,
     create_adaptive_config,
@@ -73,7 +83,10 @@ from fl_tpu_torch.models.factory import (
     init_variables,
     set_model_weights,
 )
-from fl_tpu_torch.services import SECAGG_NOT_PORTED
+from fl_tpu_torch.services.secagg_wire import (
+    PUBKEY_METADATA_KEY,
+    SecAggClientSession,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -123,17 +136,15 @@ class FederatedTrainer:
         tls_cert_path: Optional[str] = None,
         tls_key_path: Optional[str] = None,
         secure_aggregation: bool = False,
+        secagg_phase_timeout_s: float = 60.0,
         distributed_dp: bool = False,
+        ddp_bits: int = 14,
         adaptive_clipping: bool = False,
         clip_count_stddev: float = 0.5,
         dp_noise_secret: Optional[bytes] = None,
         dp_secret_path: Optional[str] = None,
         device=None,
     ):
-        """``secure_aggregation`` and ``distributed_dp`` are the
-        reference's and raise here by name."""
-        if secure_aggregation or distributed_dp:
-            raise NotImplementedError(SECAGG_NOT_PORTED)
         from fl_tpu_torch.services.grpc_client import (
             ClientConnectionManager,
             FederatedLearningClient,
@@ -172,6 +183,35 @@ class FederatedTrainer:
             tls_root_cert_path=tls_root_cert_path,
             tls_cert_path=tls_cert_path, tls_key_path=tls_key_path,
         )
+        # secure aggregation over the wire (services/secagg_wire.py,
+        # Bonawitz CCS'17): an X25519 keypair a trainer; the pubkey rides
+        # the registration metadata; uploads are sample-scaled,
+        # double-masked mod 2^32, with Shamir shares ferried through the
+        # coordinator for dropout recovery
+        self.secure_aggregation = secure_aggregation
+        self.secagg_phase_timeout_s = float(secagg_phase_timeout_s)
+        self._secagg_sk = self._secagg_pk = None
+        if secure_aggregation:
+            from fl_tpu_torch.services.secagg_crypto import generate_keypair
+
+            self._secagg_sk, self._secagg_pk = generate_keypair()
+        # distributed DP over the wire (fl.distributed_dp): the client
+        # clips its DELTA, adds its own Skellam noise share, and ships
+        # integers through the masked pipeline; the coordinator (which
+        # must run with the same distributed_dp=True and ddp_bits) decodes
+        # only the modular sum. The plan's expected cohort is the frozen
+        # roster size, known identically to every party; z and the clip
+        # norm come from the shared PrivacyConfig.
+        self.distributed_dp = bool(distributed_dp)
+        self.ddp_bits = int(ddp_bits)
+        if self.distributed_dp:
+            if not secure_aggregation:
+                raise ValueError(
+                    "distributed_dp releases only the integer SUM; it "
+                    "requires secure_aggregation=True (the masked wire)")
+            if privacy is None:
+                raise ValueError("distributed_dp needs a PrivacyConfig "
+                                 "(clip norm + noise multiplier)")
         # wire adaptive clipping (Andrew et al. 2021 over the deployment
         # path): the coordinator steers the clip norm C through the
         # per-round RoundConfig.privacy_config broadcast; this client clips
@@ -186,6 +226,21 @@ class FederatedTrainer:
         if self.adaptive_clipping:
             if privacy is None:
                 raise ValueError("adaptive_clipping needs a PrivacyConfig")
+            if self.distributed_dp:
+                raise ValueError(
+                    "adaptive_clipping cannot compose with distributed_dp "
+                    "on the wire: the integer pipeline's quantization grid "
+                    "is derived from a FIXED clip norm shared by every "
+                    "party at plan time")
+            if secure_aggregation:
+                raise ValueError(
+                    "adaptive_clipping cannot compose with "
+                    "secure_aggregation on the wire: training metrics are "
+                    "withheld under secagg (masked payloads must not ship "
+                    "next to plaintext per-client signals), so the "
+                    "indicator channel does not exist; a secagg-compatible "
+                    "variant would aggregate indicators through the masked "
+                    "sum itself")
             # fail at construction, not mid-round: Theorem 1 needs
             # 2σ_b > z for the joint mechanism to be realizable
             _z = (math.sqrt(2.0 * math.log(1.25 / self.del_r))
@@ -216,7 +271,8 @@ class FederatedTrainer:
         #    stable digest (NOT hash(): Python string hashing is randomized
         #    per process), so a restarted client replays the same shuffle
         #    for the same (client_id, round).
-        # 2. _dp_root_seed: every privacy-bearing stream (DP_NOISE).
+        # 2. _dp_root_seed: every privacy-bearing stream (DP_NOISE,
+        #    DISTRIBUTED_DP).
         #    Derived by keying the digest with SECRET per-client entropy:
         #    were the noise seed computable from the public client_id,
         #    anyone knowing (client_id, client_index, round), e.g. the
@@ -257,12 +313,14 @@ class FederatedTrainer:
             os.close(fd)
         return secret
 
-    def dp_noise_seed(self, round_number: int) -> int:
+    def dp_noise_seed(self, round_number: int,
+                      stream: prng.Stream = prng.Stream.DP_NOISE) -> int:
         """The seed of this client's DP noise in a round: secret root →
-        round → client index → ``DP_NOISE``."""
+        round → client index → ``stream`` (``DP_NOISE`` for the Gaussian
+        release, ``DISTRIBUTED_DP`` for the Skellam share)."""
         return prng.stream_seed(prng.client_seed(
             prng.round_seed(self._dp_root_seed, round_number),
-            self.client_index), prng.Stream.DP_NOISE)
+            self.client_index), stream)
 
     # -- initialization (ref: initialize, federated_trainer.py:109-207) -------
     def initialize(self) -> None:
@@ -353,7 +411,10 @@ class FederatedTrainer:
         try:
             self.state = ClientState.CONNECTING
             self.connection.start()
-            self.client.register(self.capabilities)
+            metadata = None
+            if self.secure_aggregation:
+                metadata = {PUBKEY_METADATA_KEY: self._secagg_pk.hex()}
+            self.client.register(self.capabilities, metadata=metadata)
             self.state = ClientState.REGISTERED
         except Exception as e:
             logger.error("%s failed to connect: %s", self.client_id, e)
@@ -428,8 +489,18 @@ class FederatedTrainer:
         t_dp = time.time()
         eps_used = 0.0
         upload_weights = get_model_weights(new_vars)
+        ddp_delta = None
         adaptive_report: Dict[str, float] = {}
-        if self.privacy is not None:
+        if self.distributed_dp:
+            # the DP release is the integer pipeline inside the secagg
+            # block below (clip -> grid -> Skellam share -> mask); the
+            # per-client Gaussian noising does not apply
+            old_w = get_model_weights(variables)
+            ddp_delta = {k: to_numpy(upload_weights[k] - old_w[k])
+                         for k in upload_weights}
+            upload_weights = {k: to_numpy(v)
+                              for k, v in upload_weights.items()}
+        elif self.privacy is not None:
             self.state = ClientState.APPLYING_PRIVACY
             if self.budget_tracker.is_budget_exhausted(self.eps_r,
                                                        self.del_r):
@@ -496,27 +567,39 @@ class FederatedTrainer:
         # 6. upload (ref: _upload_model_update :471-526)
         self.state = ClientState.UPLOADING_UPDATE
         n_samples = int(self._shard["n"][0])
+        secagg_session = None
+        if self.secure_aggregation:
+            secagg_session, upload_weights, n_samples, eps_used = \
+                self._secagg_mask(round_number, upload_weights, ddp_delta,
+                                  n_samples, eps_used, stages)
+        # under secure aggregation, per-client loss/accuracy are withheld
+        # (masked weights would otherwise ship next to a plaintext training
+        # signal: a membership/property-inference channel)
+        wire_loss = 0.0 if self.secure_aggregation else loss
+        wire_metrics = None if self.secure_aggregation else TrainingMetrics(
+            loss=loss, accuracy=acc,
+            epochs_completed=cfg.local_epochs,
+            training_time=train_time,
+            samples_processed=n_samples * cfg.local_epochs,
+            additional_metrics=adaptive_report,
+        )
         update = ModelUpdate(
             client_id=self.client_id,
             round_number=round_number,
             model_weights=upload_weights,
             num_samples=n_samples,
-            training_loss=loss,
+            training_loss=wire_loss,
             privacy_budget_used=min(1.0, eps_used),
             compression_ratio=compression_ratio,
-            training_metrics=TrainingMetrics(
-                loss=loss, accuracy=acc,
-                epochs_completed=cfg.local_epochs,
-                training_time=train_time,
-                samples_processed=n_samples * cfg.local_epochs,
-                additional_metrics=adaptive_report,
-            ),
+            training_metrics=wire_metrics,
         )
         if self.budget_tracker is not None and eps_used > 0.0:
             # charge the ledger BEFORE the payload leaves the process: a
-            # transmitted-but-rejected upload is still a release
+            # transmitted-but-rejected upload is still a release. Under
+            # distributed DP the charge is the Skellam-RDP epsilon at the
+            # minimum survivor count, not the per-round Gaussian eps_r.
             self.budget_tracker.consume_budget(
-                self.eps_r,
+                eps_used if self.distributed_dp else self.eps_r,
                 self.del_r or (self.privacy.delta if self.privacy else 0.0),
                 f"round_{round_number}")
         t_up = time.time()
@@ -524,6 +607,24 @@ class FederatedTrainer:
         stages["upload_s"] = time.time() - t_up
         if not resp["success"]:
             raise RuntimeError(f"update rejected: {resp['message']}")
+
+        if secagg_session is not None:
+            # phase 3: wait for the survivor set, then reveal the
+            # reconstruction shares (self-mask seeds for survivors, DH key
+            # shares for dropped peers). The session enforces the
+            # one-shot/consistency rules.
+            t_rv = time.time()
+            survivors, dropped, nonce = self._secagg_wait(
+                lambda: self.client.get_secagg_reveal(round_number),
+                "survivor-set freeze")
+            items = secagg_session.reveal(survivors, dropped)
+            if not self.client.submit_secagg_reveal(round_number, nonce,
+                                                    items):
+                # non-fatal: the reveal threshold was already met and the
+                # round advanced without this straggler's shares
+                logger.info("%s reveal arrived after round %d completed",
+                            self.client_id, round_number)
+            stages["secagg_reveal_s"] = time.time() - t_rv
 
         self.state = ClientState.ROUND_COMPLETE
         self.rounds_completed += 1
@@ -534,6 +635,85 @@ class FederatedTrainer:
         })
         logger.info("%s completed round %d: loss=%.4f acc=%.3f (%.1fs)",
                     self.client_id, round_number, loss, acc, time.time() - t0)
+
+    def _secagg_mask(self, round_number: int, upload_weights, ddp_delta,
+                     n_samples: int, eps_used: float, stages: dict):
+        """The masked uplink (ref: federated_trainer.py:515-590): roster ->
+        encrypted Shamir share exchange -> double-masked mod-2^32 payload,
+        the distributed-DP integer payload in its place where configured.
+        The coordinator only ever sees the masked payload; a delta-DP
+        release was already made on the device, so masking is
+        post-processing. Every wait happens BEFORE transmission, so raising
+        out of one burns no epsilon. Returns (session, payload, the
+        samples to report, epsilon to charge)."""
+        t_ro = time.time()
+        info = self._secagg_wait(
+            lambda: self.client.get_secagg_roster(round_number),
+            "roster freeze")
+        if self.client_id not in {cid for cid, _ in info["peers"]}:
+            raise RuntimeError(
+                f"{self.client_id} not in the round {round_number} "
+                "secagg roster; skipping upload")
+        stages["secagg_roster_s"] = time.time() - t_ro
+        t_sh = time.time()
+        session = SecAggClientSession(
+            self.client_id, self._secagg_sk, round_number,
+            info["peers"], info["nonce"], info["threshold"],
+            info["frac_bits"],
+        )
+        self.client.submit_secagg_shares(
+            round_number, info["nonce"], session.make_share_uploads())
+        bundles = self._secagg_wait(
+            lambda: self.client.get_secagg_shares(round_number),
+            "peer share exchange")
+        session.receive_shares(bundles)
+        stages["secagg_share_s"] = time.time() - t_sh
+        t_mk = time.time()
+        if self.distributed_dp:
+            # the integer payload: a plan derived from values every party
+            # shares (PrivacyConfig + frozen roster size + model dim), so
+            # client and coordinator decode identically
+            dim = int(sum(v.size for v in ddp_delta.values()))
+            plan = DistributedDPPlan(
+                clip_norm=float(self.privacy.max_grad_norm),
+                bits=self.ddp_bits, dim=dim,
+                expected_clients=len(info["peers"]),
+                noise_multiplier=float(self.privacy.noise_multiplier))
+            rng = np.random.default_rng(self.dp_noise_seed(
+                round_number, prng.Stream.DISTRIBUTED_DP))
+            payload = host_client_integer_payload(ddp_delta, plan, rng)
+            masked = session.mask_integer_payload(payload)
+            # conservative ledger charge: the summed noise could be as
+            # small as the minimum survivor set the protocol accepts
+            delta_r = self.del_r or self.privacy.delta
+            eps_used = distributed_epsilon(plan, 1, delta_r,
+                                           realized=info["threshold"])
+            if self.budget_tracker.is_budget_exhausted(eps_used, delta_r):
+                raise RuntimeError("privacy budget exhausted")
+            # distributed DP decodes an UNWEIGHTED fixed-denominator mean;
+            # a true count would also leak
+            n_samples = 1
+        else:
+            masked = session.mask_payload(upload_weights, n_samples)
+        stages["secagg_mask_s"] = time.time() - t_mk
+        return session, masked, n_samples, eps_used
+
+    def _secagg_wait(self, fn, what: str):
+        """Poll ``fn() -> (ready, payload...)`` until ready within the
+        phase timeout. Returns the payload (unwrapped when single)."""
+        deadline = time.time() + self.secagg_phase_timeout_s
+        while True:
+            out = fn()
+            if out[0]:
+                rest = out[1:]
+                return rest[0] if len(rest) == 1 else rest
+            if time.time() > deadline:
+                raise RuntimeError(
+                    f"secagg {what} not ready within "
+                    f"{self.secagg_phase_timeout_s:.0f}s")
+            if self._stop.wait(0.5):
+                raise RuntimeError(f"stopped while waiting for secagg "
+                                   f"{what}")
 
     # -- introspection -----------------------------------------------------------
     def get_status(self) -> Dict[str, Any]:

@@ -8,8 +8,7 @@ and ClientConnectionManager (:514-634: heartbeat loop + auto-reconnect).
 ``grpc`` and the protobuf messages are imported where they are first
 needed (``connect``, the RPC wrappers, the converter), as the reference
 imports ``grpc``: the module imports, and a client is constructed, on a
-machine without ``grpcio`` or ``protobuf``. The secure-aggregation RPC
-wrappers come with the secure-aggregation slice.
+machine without ``grpcio`` or ``protobuf``.
 """
 
 from __future__ import annotations
@@ -193,6 +192,79 @@ class FederatedLearningClient:
             "supported_models": list(resp.server_info.supported_models),
             "server_version": resp.server_info.server_version,
         }
+
+    def get_secagg_roster(self, round_number: int):
+        """Fetch the round's frozen secure-aggregation roster snapshot.
+
+        Returns (ready, info) where info is a dict with ``peers``
+        ([(client_id, public_key_bytes)] sorted), ``nonce`` (the freeze
+        nonce every mask seed must fold in), ``threshold`` (Shamir t) and
+        ``frac_bits`` (fixed-point precision).
+        """
+        pb = _pb()
+        resp = self._call("GetSecAggRoster", pb.SecAggRosterRequest(
+            client_id=self.client_id, round_number=round_number,
+        ))
+        info = {
+            "peers": [(p.client_id, bytes(p.public_key))
+                      for p in resp.peers],
+            "nonce": bytes(resp.roster_nonce),
+            "threshold": int(resp.threshold),
+            "frac_bits": int(resp.frac_bits),
+            "round_number": int(resp.round_number),
+        }
+        return bool(resp.ready), info
+
+    def submit_secagg_shares(self, round_number: int, roster_nonce: bytes,
+                             bundles) -> bool:
+        """Phase 1: upload encrypted Shamir share bundles
+        ([(to_client_id, ciphertext)])."""
+        pb = _pb()
+        req = pb.SecAggShareUpload(client_id=self.client_id,
+                                   round_number=round_number,
+                                   roster_nonce=roster_nonce)
+        for to_cid, blob in bundles:
+            req.shares.add(from_client_id=self.client_id,
+                           to_client_id=to_cid, ciphertext=blob)
+        resp = self._call("SubmitSecAggShares", req)
+        if not resp.success:
+            raise GRPCClientError(f"share upload rejected: {resp.message}")
+        return True
+
+    def get_secagg_shares(self, round_number: int):
+        """Phase 1 pickup: (ready, [(from_client_id, ciphertext)])."""
+        pb = _pb()
+        resp = self._call("GetSecAggShares", pb.SecAggRosterRequest(
+            client_id=self.client_id, round_number=round_number,
+        ))
+        return (bool(resp.ready),
+                [(s.from_client_id, bytes(s.ciphertext))
+                 for s in resp.shares])
+
+    def get_secagg_reveal(self, round_number: int):
+        """Phase 3 poll: (ready, survivors, dropped, roster_nonce)."""
+        pb = _pb()
+        resp = self._call("GetSecAggReveal", pb.SecAggRevealRequest(
+            client_id=self.client_id, round_number=round_number,
+        ))
+        return (bool(resp.ready), list(resp.survivors),
+                list(resp.dropped), bytes(resp.roster_nonce))
+
+    def submit_secagg_reveal(self, round_number: int, roster_nonce: bytes,
+                             items) -> bool:
+        """Phase 3: reveal reconstruction shares
+        ([(subject_id, is_key_share, share_bytes)]). Returns False (no
+        raise) when the server already advanced past the round — a
+        straggler reveal after aggregation fired is not an error."""
+        pb = _pb()
+        req = pb.SecAggRevealUpload(client_id=self.client_id,
+                                    round_number=round_number,
+                                    roster_nonce=roster_nonce)
+        for subject, is_key, blob in items:
+            req.shares.add(subject_client_id=subject,
+                           is_key_share=is_key, share=blob)
+        resp = self._call("SubmitSecAggReveal", req)
+        return bool(resp.success)
 
     def get_global_model(self, round_number: int = -1,
                          model_type: str = "") -> GlobalModel:

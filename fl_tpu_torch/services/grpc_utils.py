@@ -14,11 +14,9 @@ BOTH:
 
 Stubs and service handlers are built with grpc's generic API
 (`unary_unary` + `method_handlers_generic_handler`) from a single RPC
-table, functionally identical to generated *_pb2_grpc code. The table
-holds the nine RPCs of the round; the secure-aggregation RPCs of
-``fl_tpu.services.grpc_utils`` come with the secure-aggregation slice (a
-call to one gets gRPC's UNIMPLEMENTED). Weight tensors on any device are
-copied to the host at the wire.
+table, functionally identical to generated *_pb2_grpc code: the nine RPCs
+of the round and the five of secure aggregation, the reference package's
+table. Weight tensors on any device are copied to the host at the wire.
 """
 
 from __future__ import annotations
@@ -58,6 +56,14 @@ RPC_TABLE = {
     "GetRoundConfig": (pb.RoundConfigRequest, pb.RoundConfig),
     "HealthCheck": (pb.HealthRequest, pb.HealthResponse),
     "GetMetrics": (pb.MetricsRequest, pb.MetricsResponse),
+    # the service extension beyond the reference's 9 RPCs (additive,
+    # wire-compatible): Bonawitz secure aggregation, i.e. roster
+    # distribution, the encrypted Shamir share ferry, the survivor reveal
+    "GetSecAggRoster": (pb.SecAggRosterRequest, pb.SecAggRoster),
+    "SubmitSecAggShares": (pb.SecAggShareUpload, pb.UpdateResponse),
+    "GetSecAggShares": (pb.SecAggRosterRequest, pb.SecAggShareDownload),
+    "GetSecAggReveal": (pb.SecAggRevealRequest, pb.SecAggRevealInfo),
+    "SubmitSecAggReveal": (pb.SecAggRevealUpload, pb.UpdateResponse),
 }
 
 # channel options matching the reference's tuning
@@ -302,8 +308,8 @@ def make_stub(channel) -> Dict[str, Any]:
 
 
 def make_service_handler(servicer) -> Any:
-    """Build a generic gRPC handler from any object exposing the 9 RPC
-    methods (request, context) -> response."""
+    """Build a generic gRPC handler from any object exposing the RPC
+    methods of :data:`RPC_TABLE` (request, context) -> response."""
     import grpc
 
     handlers = {}

@@ -1,3 +1,4 @@
-"""Utilities: payload validation (port of ``fl_tpu.utils``; the logging,
-monitoring and error-tracking modules come with the command-line
-slice)."""
+"""Utilities (port of ``fl_tpu.utils``): structured logging, payload
+validation, system monitoring, error tracking. Parity targets:
+src/shared/logging_config.py, validation.py, monitoring.py,
+error_tracking.py."""

@@ -25,7 +25,10 @@ reference's, on the CPU over localhost gRPC.
   401,408 elements here), the clients' losses within rtol 1e-5; the
   rounds, the participants and ε spent are equal.
 
-Secure aggregation, distributed DP and ``persistence=`` raise by name.
+Secure aggregation, distributed DP and ``persistence=`` are held to the
+reference in ``tests/test_torch_secagg.py``,
+``tests/test_torch_secure_deployment.py`` and
+``tests/test_torch_coordinator_services.py``.
 """
 
 import math
@@ -42,7 +45,6 @@ import fl_tpu.services.federated_trainer as jft
 import fl_tpu.services.grpc_server as jgs
 from fl_tpu.core import types as jtypes
 from fl_tpu.models import get_model_for_dataset as jax_model_for
-from fl_tpu_torch import services as tservices
 from fl_tpu_torch.core import prng
 from fl_tpu_torch.core import types as ttypes
 from fl_tpu_torch.models import get_model_for_dataset
@@ -240,24 +242,6 @@ def test_noise_is_keyed_by_the_secret_and_gaussian():
     assert abs(float(z.mean())) < 0.01
     assert float(z.std()) == pytest.approx(1.0, abs=0.01)
     assert not torch.allclose(na["w"], nb["w"])
-
-
-def test_secure_aggregation_and_persistence_refused_by_name():
-    for kw in ({"secure_aggregation": True}, {"distributed_dp": True}):
-        with pytest.raises(NotImplementedError,
-                           match="secure-aggregation slice"):
-            _mk(**kw)
-        with pytest.raises(NotImplementedError,
-                           match="secure-aggregation slice"):
-            tgs.FederatedLearningServicer(device="cpu", **kw)
-        sim = tsim.FederatedLearningSimulation(tsim.SimulationConfig(
-            backend="grpc", num_clients=2, **kw), device="cpu")
-        with pytest.raises(NotImplementedError,
-                           match="secure-aggregation slice"):
-            sim.run_simulation()
-    with pytest.raises(NotImplementedError, match="persistence slice"):
-        tgs.FederatedLearningServicer(persistence=object(), device="cpu")
-    assert "secure-aggregation slice" in tservices.SECAGG_NOT_PORTED
 
 
 def test_tls_refusals_equal_the_reference():
