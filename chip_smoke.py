@@ -265,7 +265,18 @@ line each; any failure exits non-zero:
    5% of the plan's σ) and the two command lines' services for one round
    with /health, /status and /metrics/prometheus read over HTTP and the
    shutdown order checked; rounds/s, a client's roster / share / mask /
-   reveal ms against its train stage, the unmask ms, peak memory;
+   reveal ms against its train stage, the unmask ms, peak memory; then
+   Oort client selection (``phase_selection``): ``OortSelector(512,
+   seed=0)`` picking 64 clients a round for the ``"residual"`` bench
+   round, one warm-up and 4 selected rounds one after another (each mask
+   64 ones and 64 participants, K1/K2 10 and K3 2 a round, finite losses
+   at the picks, the selector's state equal to a host selector's fed the
+   same losses; rounds/s and peak memory); then the entry points and
+   the experiment drivers (``phase_entry_experiments``): ``entry()``'s
+   forward against the CPU's within 1e-5, ``dryrun_multichip(2)`` on two
+   gloo ranks sharing the card with K3 on each, and every driver of
+   ``fl_tpu_torch.experiments`` once at a cut size, timed, its closing
+   line and record checked;
 6. learning check: 10 non-IID clients, 3 rounds, test accuracy > 0.5, with
    ``fused_conv_block="residual"`` and with ``True``, and with
    ``"residual"`` under SCAFFOLD (SGD lr 0.05), under FedNova (SGD lr
@@ -6815,6 +6826,217 @@ def phase_secure_deployment(card, counts):
           f"phase {time.perf_counter() - t_phase:.1f}s [{card}]", flush=True)
 
 
+
+# Oort selection on the bench round (phase_selection): the selector's
+# docstring example, 64 of the 512 clients a round
+SELECT_K = 64
+SELECT_ROUNDS = 4           # after one unselected warm-up round
+
+
+def phase_selection(card, counts):
+    """``OortSelector(512, seed=0)`` picking 64 clients a round for the
+    512-client ``"residual"`` bf16 delta-DP round: one warm-up round (all
+    clients, not fed to the selector), then SELECT_ROUNDS rounds, each
+    ``run_round(mask=sel.select_mask(64))`` and ``sel.update(mask,
+    engine.last_client_losses, num_samples=...)``, one after another:
+    round r+1's mask needs round r's losses. Each mask has 64 ones and the
+    round 64 participants; the superstep still trains all 512 clients (the
+    mask weights the mean), so K1/K2 launch 10 times a round and K3
+    twice; the picks' losses are finite; the selector's state equals a
+    second selector's fed the same losses on the host. The launches join
+    ``counts``."""
+    import numpy as np
+    import torch
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.orchestration import OortSelector
+
+    t_phase = time.perf_counter()
+    engine = make_bench_engine("residual")
+    num_samples = engine.data.num_samples.cpu().numpy()
+    engine.run_round(evaluate=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sel = OortSelector(NUM_CLIENTS, seed=0)
+    host = OortSelector(NUM_CLIENTS, seed=0)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    picks, losses = [], []
+    for r in range(SELECT_ROUNDS):
+        mask = sel.select_mask(SELECT_K)
+        res = engine.run_round(mask=mask, evaluate=False)
+        client_losses = engine.last_client_losses
+        sel.update(mask, client_losses, num_samples=num_samples)
+        want = host.select_mask(SELECT_K)
+        host.update(want, np.array(client_losses), num_samples=num_samples)
+        require(mask.sum() == SELECT_K and res.participating_clients
+                == SELECT_K and np.array_equal(mask, want),
+                f"selection round {r}: {int(mask.sum())} picks, "
+                f"{res.participating_clients} participants, masks equal "
+                f"{np.array_equal(mask, want)}")
+        chosen = np.flatnonzero(mask)
+        require(np.isfinite(client_losses[chosen]).all(),
+                f"selection round {r}: non-finite losses at the picks")
+        picks.append(chosen)
+        losses.append(float(res.train_loss))
+    dt = time.perf_counter() - t0
+    got = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = LOCAL_EPOCHS * (SAMPLES_PER_CLIENT // BATCH_SIZE)
+    want = dict.fromkeys(got, 0)
+    want.update(conv_block_fwd=steps * SELECT_ROUNDS,
+                conv_block_bwd=steps * SELECT_ROUNDS,
+                clip_noise=2 * SELECT_ROUNDS)
+    require(got == want, f"selection: launches {got}, expected {want}")
+    state, ref = sel.state(), host.state()
+    require(all(np.array_equal(state[k], ref[k]) for k in ref),
+            "selection: the selector's state differs from the host "
+            "selector fed the same losses")
+    explored = int(state["explored"].sum())
+    repeat = len(set(picks[-1]) & set(np.concatenate(picks[:-1])))
+    for k in ("conv_block_fwd", "conv_block_bwd", "clip_noise"):
+        counts[k] = counts.get(k, 0) + got[k]
+    print(f"selection: OortSelector({NUM_CLIENTS}, seed=0) k={SELECT_K} on "
+          f"the 'residual' bf16 delta-DP round, {SELECT_ROUNDS} selected "
+          f"rounds in {dt:.3f}s -> {SELECT_ROUNDS / dt:.3f} rounds/s (one "
+          f"device->host copy of the losses a round), peak memory "
+          f"{peak:.2f} GiB, losses {[round(v, 4) for v in losses]}, "
+          f"{explored} clients explored, {repeat} of the last round's picks "
+          f"picked before, explore fraction "
+          f"{float(state['explore_fraction']):.4f}; launches "
+          f"{ {k: v for k, v in got.items() if v} } (0 elsewhere); state "
+          f"equal to the host selector's; phase "
+          f"{time.perf_counter() - t_phase:.1f}s [{card}]", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+
+
+# the experiment drivers at a cut size (phase_entry_experiments): argv, and
+# the line the run must print
+EXPERIMENT_CUTS = {
+    "quick_start": ([], "4/5 checks passed"),
+    "complete_system": ([], "12/13 checks passed"),
+    "audit_privacy": (["--clients", "8", "--canaries", "8", "--rounds",
+                       "2"], '"consistent"'),
+    "adversarial_eval": (["--clients", "6", "--samples", "32", "--rounds",
+                          "1", "--attackers", "1"], "wrote "),
+    "inversion_demo": (["--steps", "20", "--restarts", "2"], "wrote "),
+    "heterogeneity_comparison": (["--rounds", "1", "--clients", "6",
+                                  "--samples", "32", "--local-epochs", "2"],
+                                 "wrote "),
+    "dp_ftrl_mnist": (["--clients", "32", "--cohort", "16", "--k", "1",
+                       "--samples", "32", "--local-epochs", "1"],
+                      '"mode": "dp_ftrl"'),
+    "distributed_dp_parity": (["--clients", "16", "--samples", "64",
+                               "--rounds", "1"], "wrote "),
+    "peft_finetune": (["--clients", "4", "--samples", "32", "--rounds", "1",
+                       "--pretrain-rounds", "1"], "wrote "),
+    "dp_sgd_cifar_eps15": (["--clients", "2", "--samples-per-client", "512",
+                            "--rounds", "1", "--accountant", "rdp"],
+                           "FINAL accuracy="),
+    "dp_sgd_mnist_eps1": (["--clients", "4", "--samples-per-client", "512",
+                           "--rounds", "1", "--accountant", "rdp"],
+                          "FINAL accuracy="),
+}
+# the drivers whose path releases through K3 (DP-SGD's noise, the inversion
+# report's DP release)
+EXPERIMENT_K3 = ("inversion_demo", "dp_sgd_cifar_eps15", "dp_sgd_mnist_eps1")
+
+
+def phase_entry_experiments(card, counts):
+    """The entry points and the experiment drivers on the card:
+    ``entry()``'s forward against the same forward on the CPU (f32, TF32
+    off, within 1e-5); ``dryrun_multichip(2)`` (two gloo ranks sharing the
+    card, as the one-card machine has no second one for NCCL) with K3
+    launched on each rank; then every driver of
+    ``fl_tpu_torch.experiments`` once through its ``main`` at a cut size
+    (EXPERIMENT_CUTS), each timed, its closing line and its record's
+    platform (the card) checked. K3's launches join ``counts``."""
+    import contextlib
+    import importlib
+    import io
+    import shutil
+
+    import torch
+
+    from fl_tpu_torch import ops
+    from fl_tpu_torch.core.pytree import tree_map
+    from fl_tpu_torch.entry import dryrun_multichip, entry
+
+    t_phase = time.perf_counter()
+    forward, (variables, x) = entry()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    xs = torch.randn(x.shape, generator=gen, device="cuda")
+    cpu_vars = tree_map(lambda t: t.cpu(), variables)
+    gaps = []
+    for xin in (x, xs):
+        got = forward(variables, xin)
+        want = forward(cpu_vars, xin.cpu())
+        require(tuple(got.shape) == (32, 10)
+                and bool(torch.isfinite(got).all()),
+                f"entry: forward shape {tuple(got.shape)}")
+        gaps.append(float((got.cpu() - want).abs().max()))
+    require(max(gaps) <= 1e-5, f"entry: card vs CPU forward {gaps}")
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(2)
+    dry_s = time.perf_counter() - t0
+    k3 = [r["launches"].get("clip_noise", 0) for r in ranks]
+    require(all(v > 0 and set(r["launches"]) == {"clip_noise"}
+                for v, r in zip(k3, ranks)),
+            f"dryrun_multichip(2): launches by rank "
+            f"{[r['launches'] for r in ranks]}")
+    print(f"entry: SimpleCNN forward on the card vs the CPU, largest gap "
+          f"{max(gaps):.2e} (zeros and N(0, 1) images); dryrun_multichip(2) "
+          f"on 2 gloo ranks sharing the card in {dry_s:.1f}s, loss "
+          f"{ranks[0]['train_loss']:.4f}, K3 by rank {k3} [{card}]",
+          flush=True)
+    k3_total = sum(k3)
+
+    out_dir = tempfile.mkdtemp(prefix="fl_experiments_")
+    times = {}
+    try:
+        for name, (argv, line) in EXPERIMENT_CUTS.items():
+            mod = importlib.import_module(f"fl_tpu_torch.experiments.{name}")
+            out = os.path.join(out_dir, f"{name}.json")
+            has_out = any(a.dest == "out"
+                          for a in mod.build_parser()._actions)
+            args = argv + (["--out", out] if has_out else [])
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf), \
+                    contextlib.redirect_stderr(buf):
+                rc = mod.main(args)
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+            text = buf.getvalue()
+            launched = {k: v for k, v in ops.launch_counts().items() if v}
+            require(line in text, f"experiment {name}: no {line!r} in "
+                                  f"{text[-600:]!r}")
+            require(rc in (0, 1), f"experiment {name}: exit code {rc}")
+            if has_out:
+                with open(out) as f:
+                    record = json.load(f)
+                require(torch.cuda.get_device_name(0) in record["platform"],
+                        f"experiment {name}: record platform "
+                        f"{record['platform']!r}")
+            if name in EXPERIMENT_K3:
+                require(launched.get("clip_noise", 0) > 0,
+                        f"experiment {name}: K3 not launched ({launched})")
+            k3_total += launched.get("clip_noise", 0)
+            last = [ln for ln in text.splitlines() if ln.strip()][-1]
+            print(f"experiment {name} {' '.join(args[:len(argv)])}: rc {rc}"
+                  f", {times[name]:.1f}s, launches {launched}; last line "
+                  f"{last[:160]!r} [{card}]", flush=True)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    counts["clip_noise"] = counts.get("clip_noise", 0) + k3_total
+    print(f"entry + experiments: K3 launches {k3_total}; drivers "
+          f"{sum(times.values()):.1f}s; phase "
+          f"{time.perf_counter() - t_phase:.1f}s [{card}]", flush=True)
+
+
 def kernel_report():
     src_cu = "fl_tpu_torch/csrc/conv_block.cu"
     rows = (
@@ -6939,6 +7161,10 @@ def main() -> int:
     # 5n. the secure deployment: Bonawitz masking with K3 in each masked
     # client, dropout recovery, distributed DP, restart, the command lines
     phase_secure_deployment(card, counts)
+    # 5o. Oort selection on the bench round; the entry points and the
+    # experiment drivers
+    phase_selection(card, counts)
+    phase_entry_experiments(card, counts)
 
     # 6. learning checks
     learning_check("residual")

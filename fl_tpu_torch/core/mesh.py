@@ -197,6 +197,8 @@ def _rank_entry(rank: int, fn: Callable, world_size: int, store: str,
                 ) -> None:
     if torch.device(device).type == "cpu":
         torch.set_num_threads(1)  # ranks share the host's cores
+    elif device == "cuda":
+        device = f"cuda:{rank}"  # one card a rank
     dist.init_process_group(backend=backend, init_method=f"file://{store}",
                             rank=rank, world_size=world_size,
                             timeout=TIMEOUT)

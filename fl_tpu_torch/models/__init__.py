@@ -14,6 +14,7 @@ from fl_tpu_torch.models.factory import (  # noqa: F401
     get_model_for_dataset,
     get_model_info,
     get_model_weights,
+    get_parameter_count,
     init_variables,
     list_available_models,
     model_info,

@@ -57,6 +57,7 @@ import torch.nn.functional as F
 from fl_tpu_torch.core.pytree import tree_map
 from fl_tpu_torch.models.layers import (
     GroupedConv,
+    WeightsAPI,
     batch_norm,
     batch_stats_init,
     check_dtype,
@@ -76,7 +77,7 @@ _FC = ((4 * 4 * 128, 512), (512, 256))
 GN_EPS = 1e-6
 
 
-class CIFAR10CNN(nn.Module):
+class CIFAR10CNN(WeightsAPI, nn.Module):
     """Functional CIFAR10CNN; see the module docstring."""
 
     input_shape = (32, 32, 3)

@@ -25,7 +25,7 @@ from fl_tpu_torch.core.pytree import (
 from fl_tpu_torch.models.cifar10_cnn import CIFAR10CNN
 from fl_tpu_torch.models.mobilenet import LightweightMobileNet
 from fl_tpu_torch.models.resnet import FederatedResNet
-from fl_tpu_torch.models.simple_cnn import SimpleCNN
+from fl_tpu_torch.models.simple_cnn import SimpleCNN, count_params
 from fl_tpu_torch.models.vit import FederatedViT
 
 AVAILABLE_MODELS = {
@@ -242,6 +242,12 @@ def get_model_weights(variables) -> Dict[str, Any]:
     ``fl_tpu.models.base.FLModel.get_model_weights``)."""
     return flatten_dict({k: v for k, v in variables.items()
                          if k in ("params", "batch_stats")})
+
+
+def get_parameter_count(variables) -> int:
+    """The number of trainable parameters in a variables dict (ref:
+    ``FLModel.get_parameter_count``)."""
+    return count_params(variables.get("params", {}))
 
 
 def set_model_weights(variables, weights: Dict[str, Any]) -> Dict[str, Any]:

@@ -267,7 +267,30 @@ class Dense:
         return y.reshape(x.shape[:-1] + (self.features,))
 
 
-class BatchNormCNN(nn.Module):
+class WeightsAPI:
+    """The reference model's weight-dict methods (``FLModel``'s
+    ``get_model_weights``, ``set_model_weights`` and
+    ``get_parameter_count``), each a delegate to the free function of
+    ``models/factory.py``; with them a model conforms to
+    ``core.interfaces.ModelProtocol``."""
+
+    def get_model_weights(self, variables) -> Dict[str, torch.Tensor]:
+        from fl_tpu_torch.models import factory
+
+        return factory.get_model_weights(variables)
+
+    def set_model_weights(self, variables, weights) -> Dict[str, dict]:
+        from fl_tpu_torch.models import factory
+
+        return factory.set_model_weights(variables, weights)
+
+    def get_parameter_count(self, variables) -> int:
+        from fl_tpu_torch.models import factory
+
+        return factory.get_parameter_count(variables)
+
+
+class BatchNormCNN(WeightsAPI, nn.Module):
     """The frame the port's BatchNorm CNNs share: conv3x3 ``conv1`` (no
     bias) → BatchNorm ``bn1`` → relu → the blocks in order → global average
     pooling → a dense head. A subclass sets ``stem`` (conv1's width),

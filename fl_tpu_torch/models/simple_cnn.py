@@ -69,6 +69,7 @@ import torch.nn.functional as F
 from fl_tpu_torch.core.pytree import tree_leaves, tree_map
 from fl_tpu_torch.models.layers import (
     GroupedConv,
+    WeightsAPI,
     lecun_normal,
     nhwc_to_planes,
     planes_to_nhwc,
@@ -125,7 +126,7 @@ _FUSED_TAPS_MESSAGE = (
     "with fused_conv_block=False for dp_sgd ghost mode")
 
 
-class SimpleCNN(nn.Module):
+class SimpleCNN(WeightsAPI, nn.Module):
     """Functional SimpleCNN; see the module docstring."""
 
     input_shape = (28, 28, 1)

@@ -36,6 +36,7 @@ from torch import nn
 
 from fl_tpu_torch.models.layers import (
     Dense,
+    WeightsAPI,
     check_dtype,
     dropout,
     lecun_normal,
@@ -111,7 +112,7 @@ class EncoderBlock:
         return x + self.proj["mlp_out"](params["mlp_out"], h)
 
 
-class FederatedViT(nn.Module):
+class FederatedViT(WeightsAPI, nn.Module):
     """Functional FederatedViT; see the module docstring. Defaults give
     545,930 parameters at 32×32 (574,602 with ``lora_rank=4``)."""
 

@@ -15,3 +15,4 @@ from fl_tpu_torch.orchestration.round_engine import (  # noqa: F401
     RoundEngineConfig,
     RoundResult,
 )
+from fl_tpu_torch.orchestration.selection import OortSelector  # noqa: F401
